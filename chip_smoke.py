@@ -1,0 +1,620 @@
+#!/usr/bin/env python3
+"""Drive the paddle_tpu_torch port on one NVIDIA H100.
+
+    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --phases 0,1,2  # device, build, kernel checks
+
+Phases (any failure raises and exits non-zero; nothing is skipped):
+
+0. device: require CUDA, print the card's name and power limit;
+1. build: compile ``paddle_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
+2. kernels: each hand-written kernel against its plain PyTorch version
+   on the card, at the serving path's widths, timed with CUDA events
+   (median of >= 20 runs after warm-up) beside its plain version, the
+   one PyTorch library call that computes the same function (where one
+   exists) and its bound (bytes over HBM bandwidth or FLOPs over peak,
+   whichever is larger, at the published peak of the part);
+3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
+   answers 3 requests through the continuous-batching scheduler, and
+   ``generate()`` completes 2 prompts; the card's logits at every
+   generated position are held against a teacher-forced full forward of
+   the same weights on the CPU;
+4. serving load, bf16: 64 requests through the scheduler at
+   ``ServingConfig(page_size=16, max_model_len=1024, max_batch=32,
+   max_prefill_tokens=2048)``; every request finishes, no page leaks,
+   kernel launches equal steps x layers; prints throughput and latency;
+5. ``generate()``, bf16: batch 4, 256-token prompts, 64 new tokens.
+
+Each main-path phase (3-5) sets the kernels' launch counts to 0 just
+before it and reads them just after. The line before the last is the
+kernels' JSON summary; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_345m
+from paddle_tpu_torch.ops import kernels as K
+from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.serving import (ContinuousBatchingScheduler, Request,
+                                      ServingConfig, ServingEngine)
+
+# published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
+# fp32 FLOP/s outside the tensor cores, HBM bytes/s
+PEAKS = {
+    "H100 PCIe": {"bf16": 756e12, "fp32": 51e12, "hbm": 2.0e12},
+    "H100": {"bf16": 989e12, "fp32": 67e12, "hbm": 3.35e12},   # SXM
+}
+DEV = torch.device("cuda")   # the card
+
+
+def model_config():
+    """GPT-345M at its published widths and depth, dropout off."""
+    return gpt_345m(hidden_dropout=0.0, attention_dropout=0.0)
+
+
+LAYERS = model_config().num_layers
+SOURCES = {
+    "K-DEC": ("paddle_tpu_torch/csrc/paged_attention.cu",
+              "paddle_tpu/ops/pallas/paged_attention.py:70"),
+    "K-SEG": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+              "paddle_tpu/ops/pallas/flash_attention_packed.py:467"),
+    "K-BSHD": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+               "paddle_tpu/ops/pallas/flash_attention.py:63"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def require(cond, what) -> None:
+    """A check of this run that raises (an ``assert`` vanishes under
+    ``python -O``)."""
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def peaks_for(name: str) -> dict:
+    for key, val in PEAKS.items():
+        if key in name:
+            return val
+    raise RuntimeError(f"no published peaks for {name!r}")
+
+
+def time_ms(fn, iters=30, warmup=5) -> float:
+    """Median CUDA-event time of ``fn`` over ``iters`` runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
+def bound_ms(nbytes: float, flops: float, dtype, peaks) -> tuple:
+    t_bytes = nbytes / peaks["hbm"] * 1e3
+    t_ops = flops / peaks["bf16" if dtype == torch.bfloat16 else "fp32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# -- phase 2: kernels against their plain versions --------------------------
+
+def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed):
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    b, ps, maxp = 32, 16, 64
+    n_pages = 1 + b * maxp
+    lens = rng.randint(1, maxp * ps + 1, size=b)
+    lens[0], lens[1], lens[2] = 0, 1, maxp * ps   # pad row, 1, full
+    pt = np.zeros((b, maxp), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    used = 0
+    for r in range(b):
+        n = -(-int(lens[r]) // ps)
+        pt[r, :n] = perm[used:used + n]
+        used += n
+    dev = DEV
+    q = torch.from_numpy(rng.randn(b, nh, d).astype(np.float32)).to(dev, dtype)
+    kp = torch.from_numpy(rng.randn(n_pages, ps, nh_kv * d).astype(
+        np.float32)).to(dev, dtype)
+    vp = torch.from_numpy(rng.randn(n_pages, ps, nh_kv * d).astype(
+        np.float32)).to(dev, dtype)
+    pt_t = torch.from_numpy(pt).to(dev)
+    sl_t = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    out = pa.paged_decode_attention(q, kp, vp, pt_t, sl_t)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_ref(q.float(), kp.float(), vp.float(), pt_t, sl_t)
+    err = max_err(out, ref)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    ok = err <= tol and bool(torch.isfinite(out).all()) and bool(
+        (out[0] == 0).all())
+    log(f"  K-DEC {str(dtype)[6:]} nh={nh} nh_kv={nh_kv} d={d} B={b} "
+        f"page_size={ps}: max_abs_err {err:.3e} (tol {tol}) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "K-DEC disagrees with its plain version")
+    res = {"max_abs_err": err}
+    if timed:
+        elem = torch.finfo(dtype).bits // 8
+        tok = int(lens.sum())
+        nbytes = (2 * b * nh * d * elem + tok * 2 * nh_kv * d * elem
+                  + int(sum(-(-int(x) // ps) for x in lens)) * 4 + b * 4)
+        flops = 4.0 * d * nh * tok
+        res["ms"] = time_ms(lambda: pa.paged_decode_attention(
+            q, kp, vp, pt_t, sl_t))
+        res["plain_ms"] = time_ms(lambda: pa.paged_attention_ref(
+            q, kp, vp, pt_t, sl_t), iters=20)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
+                                                    peaks)
+        res["library_ms"] = None   # no single PyTorch call pages attention
+        res["shape"] = (f"B={b} nh={nh} nh_kv={nh_kv} d={d} page_size={ps} "
+                        f"tokens={tok} {str(dtype)[6:]}")
+    return res
+
+
+def segments(rng, t, n_seg):
+    """~n_seg segments of mixed length filling ~92% of t, -1 pad tail."""
+    real = int(t * 0.92)
+    cuts = np.sort(rng.choice(np.arange(1, real), n_seg - 1, replace=False))
+    bounds = np.concatenate([[0], cuts, [real]])
+    seg = np.full((1, t), -1, np.int32)
+    for i in range(n_seg):
+        seg[0, bounds[i]:bounds[i + 1]] = i
+    return seg
+
+
+def visible_pairs_seg(seg) -> int:
+    _, counts = np.unique(seg[0], return_counts=True)
+    return int(sum(c * (c + 1) // 2 for c in counts))
+
+
+def check_seg(rng, dtype, t, nh, d, peaks, timed):
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    dev = DEV
+    seg = segments(rng, t, 8)
+    q, k, v = (torch.from_numpy(rng.randn(1, t, nh * d).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    seg_t = torch.from_numpy(seg).to(dev)
+    o, lse = fp.flash_attention_packed_segmented(q, k, v, seg_t, nh)
+    torch.cuda.synchronize()
+    ro, rlse = fp.segment_attention_ref(q.float(), k.float(), v.float(),
+                                        seg_t, nh)
+    err, lerr = max_err(o, ro), max_err(lse, rlse)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    ok = (err <= tol and lerr <= 1e-3 and bool(torch.isfinite(o).all())
+          and bool(torch.isfinite(lse).all()))
+    log(f"  K-SEG {str(dtype)[6:]} T={t} nh={nh} d={d} 8 segments + pad: "
+        f"o max_abs_err {err:.3e} (tol {tol}), lse {lerr:.3e} (tol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "K-SEG disagrees with its plain version")
+    res = {"max_abs_err": max(err, lerr)}
+    if timed:
+        elem = torch.finfo(dtype).bits // 8
+        pairs = visible_pairs_seg(seg)
+        nbytes = 4 * t * nh * d * elem + t * 4 + t * nh * 4
+        flops = 4.0 * d * nh * pairs
+        res["ms"] = time_ms(lambda: fp.flash_attention_packed_segmented(
+            q, k, v, seg_t, nh))
+        res["plain_ms"] = time_ms(lambda: fp.segment_attention_ref(
+            q, k, v, seg_t, nh), iters=20)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
+                                                    peaks)
+        qh, kh, vh = (x.view(1, t, nh, d).transpose(1, 2).contiguous()
+                      for x in (q, k, v))
+        idx = torch.arange(t, device=dev)
+        mask = ((seg_t[0][:, None] == seg_t[0][None, :])
+                & (idx[None, :] <= idx[:, None]))[None, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        res["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask),
+                                    iters=20)
+        res["shape"] = (f"T={t} nh={nh} d={d} 8 segments + pad "
+                        f"(pairs={pairs}) {str(dtype)[6:]}")
+    return res
+
+
+def check_bshd(rng, dtype, b, s, h, d, peaks, timed):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = DEV
+    q, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    o, lse = fa.flash_attention_bshd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ro, rlse = fa.causal_attention_ref(q.float(), k.float(), v.float())
+    err, lerr = max_err(o, ro), max_err(lse, rlse)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    ok = (err <= tol and lerr <= 1e-3 and bool(torch.isfinite(o).all()))
+    log(f"  K-BSHD {str(dtype)[6:]} (B,S,H,D)=({b},{s},{h},{d}) causal: "
+        f"o max_abs_err {err:.3e} (tol {tol}), lse {lerr:.3e} (tol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "K-BSHD disagrees with its plain version")
+    res = {"max_abs_err": max(err, lerr)}
+    if timed:
+        elem = torch.finfo(dtype).bits // 8
+        pairs = b * h * s * (s + 1) // 2
+        nbytes = 4 * b * s * h * d * elem + b * s * h * 4
+        flops = 4.0 * d * pairs
+        res["ms"] = time_ms(lambda: fa.flash_attention_bshd(q, k, v))
+        res["plain_ms"] = time_ms(lambda: fa.causal_attention_ref(q, k, v),
+                                  iters=20)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
+                                                    peaks)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        res["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True),
+                                    iters=20)
+        res["shape"] = f"(B,S,H,D)=({b},{s},{h},{d}) {str(dtype)[6:]}"
+    return res
+
+
+def phase_kernels(peaks) -> dict:
+    rng = np.random.RandomState(0)
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {}
+    log("[2] kernels against their plain versions")
+    out["K-DEC"] = check_dec(rng, bf, 16, 16, 64, peaks, timed=True)
+    for dt, nh, nh_kv, d in [(f32, 16, 16, 64), (bf, 16, 4, 64),
+                             (f32, 16, 4, 64), (bf, 16, 16, 128),
+                             (f32, 8, 8, 128)]:
+        check_dec(rng, dt, nh, nh_kv, d, peaks, timed=False)
+    out["K-SEG"] = check_seg(rng, bf, 2048, 16, 64, peaks, timed=True)
+    for dt, t, d in [(f32, 2048, 64), (bf, 1000, 64), (f32, 1000, 64),
+                     (bf, 1000, 128)]:
+        check_seg(rng, dt, t, 16 if d == 64 else 8, d, peaks, timed=False)
+    out["K-BSHD"] = check_bshd(rng, bf, 4, 256, 16, 64, peaks, timed=True)
+    for dt, s, h, d in [(bf, 512, 16, 64), (f32, 512, 16, 64),
+                        (bf, 300, 16, 64), (f32, 300, 16, 64),
+                        (bf, 300, 8, 128)]:
+        check_bshd(rng, dt, 4, s, h, d, peaks, timed=False)
+    for name, r in out.items():
+        log(f"  {name} at {r['shape']}: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
+# -- phases 3-5: the serving path --------------------------------------------
+
+def build_model(device, dtype):
+    return GPTForCausalLM(model_config(), device=device, dtype=dtype,
+                          generator=torch.Generator().manual_seed(0)).eval()
+
+
+def record_logits(sched, reqs):
+    """Wrap the engine's steps to keep every request's logits rows (the
+    scheduler samples from them and drops them)."""
+    eng = sched.engine
+    rows = {r.rid: [] for r in reqs}
+    prefill, decode = eng.prefill_packed, eng.decode
+
+    def prefill_rec(seqs, page_lists):
+        out = prefill(seqs, page_lists)
+        for i, pages in enumerate(page_lists):
+            req = next(r for r in reqs if r.pages is pages)
+            if not req.generated:
+                rows[req.rid].append(out[i].copy())
+        return out
+
+    def decode_rec(tokens, pt, lens):
+        runners = [r for r in sched.running if r.status == "running"]
+        out = decode(tokens, pt, lens)
+        for i, r in enumerate(runners):
+            rows[r.rid].append(out[i].copy())
+        return out
+
+    eng.prefill_packed, eng.decode = prefill_rec, decode_rec
+    return rows
+
+
+def teacher_forced_check(cpu_model, prompt, generated, card_rows, what):
+    """Card logits at each generated position vs a CPU full forward."""
+    seq = np.concatenate([prompt, np.asarray(generated[:-1], np.int64)])
+    with torch.no_grad():
+        ref = cpu_model(torch.from_numpy(seq.astype(np.int64))[None])[0]
+    ref = ref[len(prompt) - 1:].numpy()
+    card = np.stack(card_rows)
+    require(card.shape == ref.shape, (card.shape, ref.shape))
+    err = float(np.abs(card - ref).max())
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    near_tie = (top2[:, 1] - top2[:, 0]) < 1e-3
+    agree = np.argmax(ref, -1) == np.asarray(generated)
+    bad = int((~agree & ~near_tie).sum())
+    log(f"  {what}: {len(generated)} positions, logits max_abs_err "
+        f"{err:.3e} (tol 2e-3), greedy mismatches {bad}, near-ties "
+        f"{int(near_tie.sum())}")
+    require(err <= 2e-3, f"{what}: card logits disagree with the CPU")
+    require(bad == 0, f"{what}: greedy token disagrees off a near-tie")
+
+
+def phase_accuracy(counts):
+    log("[3] serving accuracy, fp32: card vs teacher-forced CPU forward")
+    model = build_model(DEV, torch.float32)
+    cpu = build_model("cpu", torch.float32)
+    cpu.load_state_dict(model.state_dict())
+    rng = np.random.RandomState(3)
+    vocab = model.cfg.vocab_size
+    K.reset_launch_counts()
+    eng = ServingEngine(model, ServingConfig(
+        page_size=16, max_model_len=1024, max_batch=8,
+        max_prefill_tokens=2048))
+    sched = ContinuousBatchingScheduler(eng)
+    reqs = [Request(rid=i, prompt=rng.randint(0, vocab, rng.randint(
+        100, 301)).astype(np.int32), max_new_tokens=16) for i in range(3)]
+    rows = record_logits(sched, reqs)
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    require(all(r.status == "finished" for r in reqs),
+            [r.status for r in reqs])
+    require(eng.pool.in_use == 0, "leaked pages")
+    for r in reqs:
+        teacher_forced_check(cpu, r.prompt.astype(np.int64), r.generated,
+                             rows[r.rid], f"scheduler rid {r.rid} "
+                             f"(prompt {len(r.prompt)})")
+    # generate(): batch prefill (K-BSHD) + decode, greedy
+    ids = rng.randint(0, vocab, (2, 120)).astype(np.int64)
+    gen_rows = {0: [], 1: []}
+    out = model.generate(ids, max_new_tokens=8)
+    geng = next(iter(model._gen_engines.values()))
+    prefill, decode = geng.prefill_batch, geng.decode
+    geng.prefill_batch = lambda *a: _keep(prefill(*a), gen_rows)
+    geng.decode = lambda *a: _keep(decode(*a), gen_rows)
+    again = model.generate(ids, max_new_tokens=8)
+    geng.prefill_batch, geng.decode = prefill, decode
+    require(torch.equal(out, again), "generate() is not deterministic")
+    for i in range(2):
+        teacher_forced_check(cpu, ids[i], out[i, 120:].tolist(),
+                             gen_rows[i], f"generate row {i}")
+    counts["phase3"] = K.launch_counts()
+    log(f"  launches {counts['phase3']}")
+    del model, cpu, eng, sched, geng
+    torch.cuda.empty_cache()
+
+
+def _keep(logits, rows):
+    for i in rows:
+        rows[i].append(logits[i].copy())
+    return logits
+
+
+def phase_load(model, counts) -> dict:
+    log("[4] serving load, bf16: 64 requests through the scheduler")
+    eng = ServingEngine(model, ServingConfig(
+        page_size=16, max_model_len=1024, max_batch=32,
+        max_prefill_tokens=2048, dtype=torch.bfloat16))
+    log(f"  pool: {eng.kv.num_pages} pages, {eng.kv.pool_bytes() / 1e9:.3f}"
+        f" GB")
+    rng = np.random.RandomState(4)
+    vocab = model.cfg.vocab_size
+    reqs = [Request(rid=i, prompt=rng.randint(0, vocab, rng.randint(
+        64, 769)).astype(np.int32), max_new_tokens=int(rng.randint(32, 129)))
+            for i in range(64)]
+    # warm-up outside the measured run: allocator and library load
+    warm = ContinuousBatchingScheduler(eng)
+    warm.submit(Request(rid=-1, prompt=reqs[0].prompt, max_new_tokens=4))
+    warm.run()
+    sched = ContinuousBatchingScheduler(eng)
+    finite = {"ok": True}
+    decode = eng.decode
+
+    def decode_chk(*a):
+        out = decode(*a)
+        finite["ok"] &= bool(np.isfinite(out).all())
+        return out
+
+    eng.decode = decode_chk
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["phase4"] = K.launch_counts()
+    eng.decode = decode
+    require(all(r.status == "finished" for r in reqs),
+            [r.status for r in reqs])
+    require(all(len(r.generated) == r.max_new_tokens for r in reqs),
+            "a request stopped short of its max_new_tokens")
+    require(eng.pool.in_use == 0, "leaked pages")
+    require(finite["ok"], "non-finite logits")
+    n_dec, n_pf = len(sched.decode_tick_ms), len(sched.prefill_calls)
+    require(counts["phase4"]["K-SEG"] == n_pf * LAYERS, (counts, n_pf))
+    require(counts["phase4"]["K-DEC"] == n_dec * LAYERS, (counts, n_dec))
+    dec_tokens = sum(len(r.generated) - 1 for r in reqs)
+    pf_tokens = sum(t for _, t, _ in sched.prefill_calls)
+    ticks = np.asarray(sched.decode_tick_ms)
+    ttft = np.asarray([(r.t_first_token - r.t_submit) * 1e3 for r in reqs])
+    m = {
+        "requests": len(reqs), "wall_s": wall,
+        "output_tokens": sum(len(r.generated) for r in reqs),
+        "prefill_calls": n_pf, "prefill_tokens": pf_tokens,
+        "decode_ticks": n_dec, "decode_tokens": dec_tokens,
+        "preemptions": sum(r.preemptions for r in reqs),
+        "decode_tokens_per_s": dec_tokens / (ticks.sum() / 1e3),
+        "prefill_tokens_per_s": pf_tokens / (
+            sum(ms for _, _, ms in sched.prefill_calls) / 1e3),
+        "output_tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
+        "decode_tick_ms_p50": float(np.percentile(ticks, 50)),
+        "decode_tick_ms_p90": float(np.percentile(ticks, 90)),
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "launches": counts["phase4"],
+    }
+    log("  " + json.dumps(m))
+    return m
+
+
+def phase_generate(model, counts) -> dict:
+    log("[5] generate(), bf16: batch 4, 256-token prompts, 64 new tokens")
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, model.cfg.vocab_size, (4, 256)).astype(np.int64)
+    model.generate(ids[:, :32], max_new_tokens=4)     # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=64)
+    wall = time.perf_counter() - t0
+    counts["phase5"] = K.launch_counts()
+    require(tuple(out.shape) == (4, 320), tuple(out.shape))
+    require(torch.equal(out[:, :256], torch.from_numpy(ids)),
+            "generate() changed the prompt")
+    require(bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
+            "generate() made a token outside the vocabulary")
+    require(counts["phase5"]["K-BSHD"] == LAYERS, counts)
+    require(counts["phase5"]["K-DEC"] == 63 * LAYERS, counts)
+    m = {"wall_s": wall, "tokens_per_s": 4 * 64 / wall,
+         "launches": counts["phase5"]}
+    log("  " + json.dumps(m))
+    return m
+
+
+def phase_profile(model, ticks=20) -> dict:
+    """Opt-in: torch.profiler over ``ticks`` steady decode ticks of a
+    full batch (32 requests, ~512-token contexts): wall per tick, device
+    busy share, and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log(f"[6] profile: {ticks} decode ticks at batch 32, bf16")
+    eng = ServingEngine(model, ServingConfig(
+        page_size=16, max_model_len=1024, max_batch=32,
+        max_prefill_tokens=2048, dtype=torch.bfloat16))
+    sched = ContinuousBatchingScheduler(eng)
+    rng = np.random.RandomState(6)
+    for i in range(32):
+        sched.submit(Request(rid=i, prompt=rng.randint(
+            0, model.cfg.vocab_size, 512).astype(np.int32),
+            max_new_tokens=ticks + 40))
+    while sched.waiting:            # admit and prefill everyone first
+        sched.step()
+    for _ in range(5):
+        sched.step()                # warm decode ticks
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            sched.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, memcpy, memset): an aten op's
+    # device time repeats its kernels'
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    host = time.perf_counter()
+    logits = np.random.RandomState(0).randn(
+        32, model.cfg.vocab_size).astype(np.float32)
+    for _ in range(20):
+        np.argmax(logits, axis=-1)
+    argmax_ms = (time.perf_counter() - host) * 1e3 / 20
+    m = {"ticks": ticks, "wall_ms_per_tick": wall_ms / ticks,
+         "device_busy_ms_per_tick": busy_ms / ticks,
+         "device_idle_share": 1.0 - busy_ms / wall_ms,
+         "host_argmax_ms": argmax_ms,
+         "top_device_ms_per_tick": {k[:60]: v / ticks for k, v in top}}
+    log("  " + json.dumps(m))
+    return m
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="0,1,2,3,4,5",
+                    help="comma-separated; 6 (profile) is opt-in")
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[0] device: {kind}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}; paddle_tpu_torch from "
+        f"{ptt.__file__}")
+    log(smi)
+    peaks = peaks_for(kind)
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    info = _build.last_build
+    log(f"[1] build: {time.perf_counter() - t0:.2f} s "
+        f"({'built' if info['built'] else 'cached'}: {info['path']})")
+    for line in info["log"].splitlines():
+        if "Used" in line or "spill" in line or line.startswith("=="):
+            log("  " + line.strip())
+
+    kern = phase_kernels(peaks) if 2 in phases else {}
+    counts = {}
+    if 3 in phases:
+        phase_accuracy(counts)
+    e2e = {}
+    if phases & {4, 5, 6}:
+        model = build_model(DEV, torch.bfloat16)
+        if 4 in phases:
+            e2e["serving_load"] = phase_load(model, counts)
+        if 5 in phases:
+            e2e["generate"] = phase_generate(model, counts)
+        if 6 in phases:
+            e2e["profile"] = phase_profile(model)
+    main_path = {name: sum(counts.get(p, {}).get(name, 0)
+                           for p in ("phase4", "phase5"))
+                 for name in K.KERNELS}
+    if {4, 5} <= phases:
+        missing = [n for n, c in main_path.items() if c == 0]
+        require(not missing, f"main path never launched {missing}")
+    summary = []
+    for name in K.KERNELS:
+        r = kern.get(name, {})
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": main_path[name],
+            "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+            "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+            "bound_by": r.get("bound_by"),
+            "library_ms": r.get("library_ms"), "shape": r.get("shape"),
+            "pass": name in kern})
+    log(json.dumps({"e2e": e2e, "launches_by_phase": counts}))
+    log(json.dumps({"kernels": summary}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,47 @@
+"""Attention dispatch (port of ``paddle_tpu.ops.attention_dispatch``).
+
+The rule is the device, and only the device: a CPU tensor takes the
+kernel's plain PyTorch version, a CUDA tensor launches the hand-written
+kernel, which raises on a shape it does not take. There is no fallback
+from a CUDA tensor to a plain version and no shape gate that routes one
+there.
+"""
+from __future__ import annotations
+
+from .kernels.flash_attention import flash_attention_bshd
+from .kernels.flash_attention_packed import flash_attention_packed_segmented
+from .kernels.paged_attention import paged_decode_attention
+
+__all__ = ["paged_attention", "segment_attention_packed",
+           "causal_attention"]
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
+    """One decode step of paged attention (serving): ``q`` (B, nh, d)
+    against the pool pages ``(P, page_size, nh_kv*d)`` through
+    ``page_table`` (B, max_pages) with ``seq_lens`` (B,); a seq_len-0
+    padding row outputs zeros. K-DEC on CUDA."""
+    return paged_decode_attention(q, k_pages, v_pages, page_table,
+                                  seq_lens, scale=scale)
+
+
+def segment_attention_packed(q, k, v, nh, seg_q, seg_k=None, causal=True,
+                             scale=None):
+    """Segment-masked causal self-attention over the packed
+    ``(B, S, NH*D)`` layout (serving's ``prefill_packed``). K-SEG on
+    CUDA. Distinct k-side ids (cross-attention varlen) and non-causal
+    segments are not ported yet and raise."""
+    if seg_k is not None or not causal:
+        raise NotImplementedError(
+            "segment_attention_packed: only causal self-attention "
+            "(seg_k=None) is ported")
+    o, _ = flash_attention_packed_segmented(q, k, v, seg_q, nh,
+                                            scale=scale)
+    return o
+
+
+def causal_attention(q, k, v, scale=None):
+    """``(B, S, H, D)`` causal attention (``prefill_batch`` and the
+    no-cache forward). K-BSHD on CUDA. Ring attention is not ported."""
+    o, _ = flash_attention_bshd(q, k, v, causal=True, scale=scale)
+    return o

@@ -1,0 +1,167 @@
+"""Build the hand-written CUDA kernels on first use and load them.
+
+Every ``paddle_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into an object, all sources at once (one ``nvcc`` process
+each), and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes``. No PyTorch header is included, so a
+build takes seconds, not minutes.
+
+The library lands in ``build/paddle_tpu_torch/`` at the repository root
+(listed in ``.gitignore``), named by a hash of the sources and flags: a
+changed source builds a new library, an unchanged one is reused. A
+failed build raises with ``nvcc``'s stderr; nothing falls back to the
+plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+__all__ = ["load_library", "build_dir", "sources", "last_build"]
+
+_PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
+_CSRC = _PKG / "csrc"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# what the last load did: {"path", "built", "seconds", "log"}
+last_build: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: (name, argtypes). Every pointer and the stream are
+# c_void_p (a bare Python int would be cut to 32 bits).
+_SIGNATURES = {
+    # q, k_pages, v_pages, page_table, seq_lens, out,
+    # batch, nh, nh_kv, head_dim, page_size, max_pages, scale, dtype, stream
+    "paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, seg, o, lse, batch, seqlen, heads, head_dim, scale,
+    # causal, dtype, stream
+    "flash_attention_fwd_seg": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P],
+    # q, k, v, o, lse, batch, seqlen, heads, head_dim, scale, causal,
+    # dtype, stream
+    "flash_attention_fwd_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+}
+
+
+def sources():
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    return _PKG.parent / "build" / "paddle_tpu_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    cand = home / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "paddle_tpu_torch kernels are built from source on first use")
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256()
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    h.update(" ".join(_ARCH + _FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(srcs, out: Path) -> str:
+    nvcc = _nvcc()
+    tmp = out.parent / f".tmp-{os.getpid()}-{out.stem}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        procs = []
+        for s in srcs:
+            obj = tmp / (s.stem + ".o")
+            cmd = [nvcc, *_ARCH, *_FLAGS, "-c", str(s), "-o", str(obj)]
+            procs.append((s, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log, failed = [], []
+        for s, obj, p in procs:
+            so, se = p.communicate()
+            log.append(f"== {s.name} (rc={p.returncode})\n{so}{se}")
+            if p.returncode != 0:
+                failed.append(s.name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {', '.join(failed)}:\n" + "\n".join(log))
+        lib_tmp = tmp / out.name
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(lib_tmp),
+               *[str(obj) for _, obj, _ in procs]]
+        p = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"== link (rc={p.returncode})\n{p.stdout}{p.stderr}")
+        if p.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+        os.replace(lib_tmp, out)   # atomic: a reader never sees half a file
+        text = "\n".join(log)
+        (out.parent / (out.stem + ".log")).write_text(text)
+        return text
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call when no library
+    for the current sources exists."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = sources()
+        if not srcs:
+            raise RuntimeError(f"no CUDA sources under {_CSRC}")
+        out = build_dir() / f"libpaddle_tpu_torch_{_digest(srcs)}.so"
+        t0 = time.perf_counter()
+        built = not out.exists()
+        log = ""
+        if built:
+            out.parent.mkdir(parents=True, exist_ok=True)
+            log = _build(srcs, out)
+        lib = ctypes.CDLL(str(out))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ptt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.ptt_cuda_error_string.restype = ctypes.c_char_p
+        last_build.update(path=str(out), built=built,
+                          seconds=time.perf_counter() - t0, log=log)
+        _lib = lib
+        return lib
+
+
+def dtype_code(dtype) -> int:
+    """The C entries' dtype argument: 0 float32, 1 bfloat16."""
+    import torch
+
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a C entry returned a non-zero ``cudaError_t``."""
+    if rc:
+        msg = load_library().ptt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch ({msg})")

@@ -1,0 +1,374 @@
+"""Continuous-batching scheduler: admit/evict between steps (port of
+``paddle_tpu.serving.scheduler``, FIFO and without tenancy).
+
+The Orca iteration-level scheduling loop over the paged engine: each
+:meth:`step` (1) admits waiting requests while pages and the prefill
+token budget allow, their contexts packed into ONE segmented prefill;
+(2) grows each running request by a page exactly when its length
+crosses a page boundary, **evicting** (preempting) the youngest running
+request when the pool is exhausted — its pages are freed and it
+re-queues at the FRONT of the waiting line to re-prefill
+prompt+generated later (recompute-style preemption: greedy decoding
+reproduces the identical continuation, so eviction only delays output);
+(3) runs one bucketed decode for every running request. Requests leave
+the moment they hit their own ``max_new_tokens``.
+
+Robustness kept from the JAX package: per-request deadlines (expired
+requests are cancelled at the next tick boundary, pages freed), a
+bounded waiting queue (``max_waiting``: :meth:`submit` raises
+:class:`RejectedError`), and the decode anomaly guard (a non-finite
+logits row fails ONLY the offending request).
+
+Not ported yet: speculative decoding, the tracer and metrics registry,
+the SLO plane, tenancy, the HTTP endpoint, drain and fault injection.
+The constructor raises on their arguments. In their place the scheduler
+keeps plain per-step timings (``decode_tick_ms``, ``prefill_calls``) for
+the caller to summarise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from collections import deque
+from typing import Deque, List, Optional
+
+import numpy as np
+
+from .engine import ServingEngine
+from .kv_cache import PagesExhausted
+
+__all__ = ["Request", "RejectedError", "ContinuousBatchingScheduler"]
+
+
+class RejectedError(RuntimeError):
+    """Load shedding: the scheduler refused a request at submit time.
+    ``retry_after_s`` is the backoff hint; the rejected ``Request``
+    carries no runtime state and may be resubmitted as-is."""
+
+    def __init__(self, msg: str, retry_after_s: float = 0.0,
+                 reason: str = "overloaded"):
+        super().__init__(msg)
+        self.retry_after_s = float(retry_after_s)
+        self.reason = reason
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (len,) int32 token ids
+    max_new_tokens: int
+    temperature: float = 0.0           # <=0 or top_k 0: greedy
+    top_k: int = 0
+    deadline_s: Optional[float] = None  # TTL from submit (scheduler clock)
+    # -- runtime state (scheduler-owned) ------------------------------------
+    generated: List[int] = dataclasses.field(default_factory=list)
+    pages: List[int] = dataclasses.field(default_factory=list)
+    context_len: int = 0               # tokens written to the pool
+    status: str = "waiting"   # waiting|running|finished|timeout|error|
+    #                           cancelled|rejected
+    preemptions: int = 0
+    t_submit: Optional[float] = None
+    t_first_token: Optional[float] = None
+    t_done: Optional[float] = None
+    t_deadline: Optional[float] = None  # absolute (t_submit + deadline_s)
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
+
+    @property
+    def last_token(self) -> int:
+        return self.generated[-1]
+
+
+class ContinuousBatchingScheduler:
+    def __init__(self, engine: ServingEngine, clock=time.monotonic,
+                 max_waiting: Optional[int] = None,
+                 anomaly_guard: bool = True, **unported):
+        if unported:
+            raise NotImplementedError(
+                "ContinuousBatchingScheduler: not ported yet: "
+                + ", ".join(sorted(unported)))
+        self.engine = engine
+        self.clock = clock
+        self.max_waiting = max_waiting
+        self.anomaly_guard = anomaly_guard
+        self.waiting: Deque[Request] = deque()
+        self.running: List[Request] = []
+        self.finished: List[Request] = []
+        self._steps = 0
+        self._deadline_live = 0        # live requests carrying a deadline
+        # host wall time of every decode tick (ms), and of every packed
+        # prefill: (requests, tokens, ms) — the engine returns host
+        # logits, so each is a synchronised time
+        self.decode_tick_ms: List[float] = []
+        self.prefill_calls: List[tuple] = []
+
+    # -- intake -------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        cfg = self.engine.cfg
+        if len(req.prompt) + req.max_new_tokens > cfg.max_model_len:
+            raise ValueError(
+                f"request {req.rid}: prompt {len(req.prompt)} + "
+                f"max_new_tokens {req.max_new_tokens} exceeds "
+                f"max_model_len {cfg.max_model_len}")
+        if len(req.prompt) == 0 or req.max_new_tokens < 1:
+            raise ValueError(f"request {req.rid}: empty prompt or "
+                             "max_new_tokens < 1")
+        worst = self.engine.pages_needed(len(req.prompt),
+                                         req.max_new_tokens)
+        if worst > self.engine.pool.capacity:
+            # admitting would livelock: even an idle pool can never hold
+            # it — a misconfiguration, not overload
+            raise ValueError(
+                f"request {req.rid}: needs up to {worst} KV pages over "
+                f"its lifetime but the whole pool holds "
+                f"{self.engine.pool.capacity} — it can never run even "
+                "on an idle engine (raise num_pages or shrink the "
+                "request)")
+        if req.generated or req.pages or req.t_done is not None:
+            raise ValueError(
+                f"request {req.rid} carries runtime state from a "
+                "previous run (generated tokens/pages); submit a fresh "
+                "Request object")
+        if (self.max_waiting is not None
+                and len(self.waiting) >= self.max_waiting):
+            req.status = "rejected"
+            raise RejectedError(
+                f"request {req.rid} rejected (queue_full): "
+                f"{len(self.waiting)} waiting", reason="queue_full")
+        req.status = "waiting"
+        req.t_submit = self.clock()
+        req.t_deadline = (req.t_submit + req.deadline_s
+                          if req.deadline_s is not None else None)
+        if req.t_deadline is not None:
+            self._deadline_live += 1
+        self.waiting.append(req)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a live request by id (queued or running): pages freed
+        exactly once, status ``cancelled``. False when no live request
+        carries ``rid``."""
+        for req in list(self.running) + list(self.waiting):
+            if req.rid == rid:
+                self._finish(req, self.clock(), status="cancelled")
+                return True
+        return False
+
+    # -- the iteration ------------------------------------------------------
+
+    def step(self) -> None:
+        """One serving iteration: deadline expiry, admit+prefill,
+        grow/evict, decode."""
+        if self._deadline_live:
+            self._expire(self.clock())
+        self._admit_and_prefill()
+        if self.running:
+            self._decode_plain()
+        self._steps += 1
+
+    def run(self) -> None:
+        while self.has_work:
+            self.step()
+
+    def _expire(self, now: float) -> None:
+        """Cancel every live request past its deadline — queued or
+        running — through the one ``_finish`` path (status
+        ``timeout``)."""
+        for req in [r for r in list(self.running) + list(self.waiting)
+                    if r.t_deadline is not None and now >= r.t_deadline]:
+            self._finish(req, now, status="timeout")
+
+    # -- phases -------------------------------------------------------------
+
+    def _prefill_tokens(self, req: Request) -> np.ndarray:
+        """The context a (re-)admission must write to the pool: prompt +
+        everything already generated EXCEPT the newest token (whose K/V
+        the next decode step writes)."""
+        if req.generated:
+            return np.concatenate([np.asarray(req.prompt, np.int32),
+                                   np.asarray(req.generated, np.int32)])[:-1]
+        return np.asarray(req.prompt, np.int32)
+
+    def _admit_and_prefill(self) -> None:
+        cfg = self.engine.cfg
+        ps = self.engine.kv.page_size
+        batch: List[Request] = []
+        toks: List[np.ndarray] = []
+        total = 0
+        while self.waiting and len(self.running) + len(batch) < cfg.max_batch:
+            req = self.waiting[0]
+            ctx = self._prefill_tokens(req)
+            if batch and total + len(ctx) > cfg.max_prefill_tokens:
+                break
+            n_pages = -(-len(ctx) // ps)
+            try:
+                pages = self.engine.pool.allocate(n_pages)
+            except PagesExhausted:
+                if (not self.running and not batch
+                        and self.engine.pool.in_use == 0):
+                    raise RuntimeError(
+                        f"request {req.rid} needs {n_pages} pages but "
+                        f"the whole pool holds "
+                        f"{self.engine.pool.available} — pool smaller "
+                        "than max_pages_per_seq, misconfigured engine")
+                # head-of-line request cannot fit NOW: never skip past it
+                # (FIFO fairness); wait for completions/evictions
+                break
+            self.waiting.popleft()
+            req.pages = pages
+            req.context_len = len(ctx)
+            batch.append(req)
+            toks.append(ctx)
+            total += len(ctx)
+        if not batch:
+            return
+        t0 = time.perf_counter()
+        logits = self.engine.prefill_packed(toks, [r.pages for r in batch])
+        self.prefill_calls.append(
+            (len(batch), total, (time.perf_counter() - t0) * 1e3))
+        now = self.clock()
+        for req, row in zip(batch, logits):
+            req.status = "running"
+            self.running.append(req)
+            if not req.generated:       # first admission: the TTFT token
+                tok = int(self.engine.sample(
+                    row[None], req.temperature, req.top_k)[0])
+                req.generated.append(tok)
+                req.t_first_token = now
+            # re-admission after eviction: the newest generated token is
+            # already known; the prefill only rebuilt the pool pages
+            if req.done:
+                self._finish(req, now)
+
+    def _grow_or_evict(self) -> None:
+        """Each running request about to write its token at position
+        ``context_len`` needs pages through ``context_len // ps``;
+        allocate boundary pages, evicting the youngest runner on
+        exhaustion."""
+        ps = self.engine.kv.page_size
+        for req in list(self.running):
+            if req.status != "running":
+                continue
+            need = req.context_len // ps + 1 - len(req.pages)
+            if need <= 0:
+                continue
+            while True:
+                try:
+                    req.pages.extend(self.engine.pool.allocate(need))
+                    break
+                except PagesExhausted:
+                    avail0 = self.engine.pool.available
+                    victim = self._pick_victim(exclude=req)
+                    if victim is not None:
+                        self._evict(victim)
+                    elif self.engine.pool.available <= avail0:
+                        raise RuntimeError(
+                            "page pool exhausted with a single running "
+                            "request — pool smaller than "
+                            "max_pages_per_seq, misconfigured engine")
+                    # else: _pick_victim cancelled past-deadline runners,
+                    # freeing pages — retry the allocation
+
+    def _pick_victim(self, exclude: Request) -> Optional[Request]:
+        """Youngest running request (vLLM recompute policy) — but never
+        one already past its deadline: those are cancelled on the spot
+        (their pages free at once) and the scan goes on."""
+        now = None
+        for req in list(reversed(self.running)):  # youngest first
+            if req is exclude or req.status != "running":
+                continue
+            if req.t_deadline is not None:
+                if now is None:
+                    now = self.clock()
+                if now >= req.t_deadline:
+                    self._finish(req, now, status="timeout")
+                    continue
+            return req
+        return None
+
+    def _evict(self, req: Request) -> None:
+        """Recompute-style preemption: free the pages, requeue at the
+        FRONT so the victim re-prefills (prompt + generated) next."""
+        self.engine.pool.free(req.pages)
+        req.pages = []
+        req.context_len = 0
+        req.status = "waiting"
+        req.preemptions += 1
+        self.running.remove(req)
+        self.waiting.appendleft(req)
+
+    def _decode_plain(self) -> None:
+        self._grow_or_evict()
+        runners = [r for r in self.running if r.status == "running"]
+        if not runners:
+            return
+        maxp = self.engine.max_pages_per_seq
+        pt = np.zeros((len(runners), maxp), np.int32)
+        for i, r in enumerate(runners):
+            pt[i, :len(r.pages)] = r.pages
+        tokens = np.asarray([r.last_token for r in runners], np.int32)
+        lens = np.asarray([r.context_len for r in runners], np.int32)
+        t0 = time.perf_counter()
+        logits = self.engine.decode(tokens, pt, lens)
+        self.decode_tick_ms.append((time.perf_counter() - t0) * 1e3)
+        if self.anomaly_guard and not np.isfinite(float(logits.sum())):
+            # cheap scalar screen; the per-row scan runs only on anomaly
+            runners, logits = self._fail_anomalous(runners, logits)
+            if not runners:
+                return
+        now = self.clock()
+        if all(not r.top_k or r.temperature <= 0 for r in runners):
+            toks = self.engine.sample(logits)
+        else:
+            toks = np.asarray([
+                self.engine.sample(logits[i][None], r.temperature,
+                                   r.top_k)[0]
+                for i, r in enumerate(runners)], np.int32)
+        for i, req in enumerate(runners):
+            req.context_len += 1
+            req.generated.append(int(toks[i]))
+            if req.done:
+                self._finish(req, now)
+
+    def _fail_anomalous(self, runners: List[Request], logits: np.ndarray):
+        """Non-finite logits fail ONLY the offending request(s): status
+        ``error``, pages freed; survivors keep their own logits rows."""
+        row_ok = np.isfinite(logits.reshape(len(runners), -1).sum(axis=-1))
+        now = self.clock()
+        for i in np.flatnonzero(~row_ok):
+            req = runners[int(i)]
+            print(f"[serving] non-finite logits for rid {req.rid} at "
+                  f"tick {self._steps}: failing the request, pages "
+                  "freed; batch-mates unaffected",
+                  file=sys.stderr, flush=True)
+            self._finish(req, now, status="error")
+        keep = np.flatnonzero(row_ok)
+        return [runners[int(i)] for i in keep], logits[keep]
+
+    def _finish(self, req: Request, now: float,
+                status: str = "finished") -> None:
+        """The single exit path for every terminal status: pages freed
+        exactly once, the request leaves whichever structure holds
+        it."""
+        req.status = status
+        req.t_done = now
+        if req in self.running:
+            self.running.remove(req)
+        elif status != "finished":
+            try:
+                self.waiting.remove(req)
+            except ValueError:
+                pass
+        if req.pages:
+            self.engine.pool.free(req.pages)
+            req.pages = []
+        if req.t_deadline is not None:
+            self._deadline_live -= 1
+        self.finished.append(req)
