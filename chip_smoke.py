@@ -23,10 +23,22 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``ServingConfig(page_size=16, max_model_len=1024, max_batch=32,
    max_prefill_tokens=2048)``; every request finishes, no page leaks,
    kernel launches equal steps x layers; prints throughput and latency;
-5. ``generate()``, bf16: batch 4, 256-token prompts, 64 new tokens.
+5. ``generate()``, bf16: batch 4, 256-token prompts, 64 new tokens;
+6. (opt-in) profile of 20 decode ticks;
+7. training accuracy, fp32: GPT-345M (params from the port's
+   ``gpt_init``, generator seed 0) on a 2 x 256 batch; the grads of
+   ``gpt_loss`` on the card against the same grads on the CPU, every
+   leaf within 1e-4 of its largest CPU grad, then 3 trainer steps on
+   each side: losses within 1e-4, grad norms within 1e-4 relative;
+8. training, bf16: ``HybridParallelTrainer`` on a fixed 8 x 1024 batch,
+   remat and the guard on: 1 warm-up step, then 10 timed
+   ``step_presharded`` calls with one synchronisation at the end; step
+   ms, tokens/s, MFU, peak memory; losses finite and falling, and per
+   step 48 K-PACK (forward + remat recompute), 24 K-DQ and 24 K-DKV;
+9. (opt-in) profile of 3 training steps at phase 8's shape.
 
-Each main-path phase (3-5) sets the kernels' launch counts to 0 just
-before it and reads them just after. The line before the last is the
+Each main-path phase (3-5, 7, 8) sets the kernels' launch counts to 0
+just before it and reads them just after. The line before the last is the
 kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -45,8 +57,10 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_345m
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import _build
+from paddle_tpu_torch.parallel import hybrid
 from paddle_tpu_torch.serving import (ContinuousBatchingScheduler, Request,
                                       ServingConfig, ServingEngine)
+from paddle_tpu_torch.utils.tree import flatten
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
 # fp32 FLOP/s outside the tensor cores, HBM bytes/s
@@ -70,6 +84,12 @@ SOURCES = {
               "paddle_tpu/ops/pallas/flash_attention_packed.py:467"),
     "K-BSHD": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
                "paddle_tpu/ops/pallas/flash_attention.py:63"),
+    "K-PACK": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+               "paddle_tpu/ops/pallas/flash_attention_packed.py:49"),
+    "K-DQ": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+             "paddle_tpu/ops/pallas/flash_attention_packed.py:106"),
+    "K-DKV": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+              "paddle_tpu/ops/pallas/flash_attention_packed.py:159"),
 }
 
 
@@ -268,6 +288,105 @@ def check_bshd(rng, dtype, b, s, h, d, peaks, timed):
     return res
 
 
+def train_inputs(rng, dtype, b, s, nh, d, sk):
+    """q, k, v and dO for the training kernels. With ``sk == s`` q, k, v
+    are column slices of one fused ``(B, S, 3*NH*D)`` tensor, the
+    layout ``gpt_block`` hands them over in (row stride 3*NH*D)."""
+    hp = nh * d
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            DEV, dtype)
+
+    if sk == s:
+        qkv = randn(b, s, 3 * hp)
+        q, k, v = qkv[..., :hp], qkv[..., hp:2 * hp], qkv[..., 2 * hp:]
+    else:
+        q, k, v = randn(b, s, hp), randn(b, sk, hp), randn(b, sk, hp)
+    return q, k, v, randn(b, s, hp)
+
+
+def check_train(rng, dtype, b, s, nh, d, peaks, timed, causal=True,
+                sk=None):
+    """K-PACK, K-DQ and K-DKV against their plain versions on the same
+    inputs; the backward pair both take the kernel forward's lse and
+    delta. Tolerance: tol * max(1, max|plain|), tol 1e-4 in fp32 (fp32
+    sums in another order) and 1e-2 in bf16 (outputs rounded to bf16,
+    2**-8 relative)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    sk = sk or s
+    q, k, v, do = train_inputs(rng, dtype, b, s, nh, d, sk)
+    o, lse = fp.packed_fwd(q, k, v, nh, causal=causal)
+    delta = (do.float() * o.float()).reshape(b, s, nh, d).sum(-1)
+    dq = fp.packed_dq(q, k, v, do, lse, delta, nh, causal=causal)
+    dk, dv = fp.packed_dkv(q, k, v, do, lse, delta, nh, causal=causal)
+    torch.cuda.synchronize()
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    ro, rlse = fp.packed_attention_ref(qf, kf, vf, nh, causal=causal)
+    rdq = fp.packed_dq_ref(qf, kf, vf, dof, lse, delta, nh, causal=causal)
+    rdk, rdv = fp.packed_dkv_ref(qf, kf, vf, dof, lse, delta, nh,
+                                 causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    errs = {}
+    for name, pairs in (("K-PACK", ((o, ro), (lse, rlse))),
+                        ("K-DQ", ((dq, rdq),)),
+                        ("K-DKV", ((dk, rdk), (dv, rdv)))):
+        err = max(max_err(x, r) / max(1.0, float(r.abs().max()))
+                  for x, r in pairs)
+        finite = all(bool(torch.isfinite(x).all()) for x, _ in pairs)
+        errs[name] = err
+        ok = err <= tol and finite
+        log(f"  {name} {str(dtype)[6:]} B={b} Sq={s} Sk={sk} nh={nh} d={d} "
+            f"{'causal' if causal else 'full'}: max_abs_err / max(1, "
+            f"max|plain|) {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{name} disagrees with its plain version")
+    out = {n: {"max_abs_err": e} for n, e in errs.items()}
+    if not timed:
+        return out
+    elem = torch.finfo(dtype).bits // 8
+    pairs = b * nh * (s * (s + 1) // 2 if causal else s * sk)
+    act = b * s * nh * d * elem           # one (B, S, NH*D) operand
+    row = b * s * nh * 4                  # one (B, S, NH) fp32 operand
+    work = {"K-PACK": (4 * act + row, 4.0 * d * pairs),
+            "K-DQ": (5 * act + 2 * row, 6.0 * d * pairs),
+            "K-DKV": (6 * act + 2 * row, 8.0 * d * pairs)}
+    runs = {
+        "K-PACK": (lambda: fp.packed_fwd(q, k, v, nh, causal=causal),
+                   lambda: fp.packed_attention_ref(q, k, v, nh,
+                                                   causal=causal)),
+        "K-DQ": (lambda: fp.packed_dq(q, k, v, do, lse, delta, nh,
+                                      causal=causal),
+                 lambda: fp.packed_dq_ref(q, k, v, do, lse, delta, nh,
+                                          causal=causal)),
+        "K-DKV": (lambda: fp.packed_dkv(q, k, v, do, lse, delta, nh,
+                                        causal=causal),
+                  lambda: fp.packed_dkv_ref(q, k, v, do, lse, delta, nh,
+                                            causal=causal)),
+    }
+    qh, kh, vh, doh = (x.reshape(b, x.shape[1], nh, d).transpose(1, 2)
+                       .contiguous() for x in (q, k, v, do))
+    qh, kh, vh = (x.requires_grad_() for x in (qh, kh, vh))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = time_ms(lambda: sdpa(qh, kh, vh, is_causal=causal), iters=20)
+    oh = sdpa(qh, kh, vh, is_causal=causal)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        oh, (qh, kh, vh), doh, retain_graph=True), iters=20)
+    shape = (f"B={b} Sq={s} Sk={sk} nh={nh} d={d} "
+             f"{'causal' if causal else 'full'} (pairs={pairs}) "
+             f"{str(dtype)[6:]}")
+    for name, (kern, plain) in runs.items():
+        r = out[name]
+        r["ms"] = time_ms(kern)
+        r["plain_ms"] = time_ms(plain, iters=10)
+        r["bound_ms"], r["bound_by"] = bound_ms(*work[name], dtype, peaks)
+        # SDPA's backward computes dQ, dK and dV in one call: its time
+        # stands beside both backward kernels
+        r["library_ms"] = lib_fwd if name == "K-PACK" else lib_bwd
+        r["shape"] = shape
+    return out
+
+
 def phase_kernels(peaks) -> dict:
     rng = np.random.RandomState(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -287,6 +406,18 @@ def phase_kernels(peaks) -> dict:
                         (bf, 300, 16, 64), (f32, 300, 16, 64),
                         (bf, 300, 8, 128)]:
         check_bshd(rng, dt, 4, s, h, d, peaks, timed=False)
+    # training: the main path's shape (batch 8 x 1024, GPT-345M heads)
+    out.update(check_train(rng, bf, 8, 1024, 16, 64, peaks, timed=True))
+    for dt, b, s, nh, d, causal, sk in [
+            (f32, 8, 1024, 16, 64, True, None),
+            (bf, 2, 512, 8, 128, True, None),
+            (f32, 2, 512, 8, 128, True, None),
+            (f32, 2, 1000, 16, 64, True, None),
+            (bf, 2, 1000, 16, 64, True, None),
+            (f32, 2, 300, 8, 64, False, 700),
+            (bf, 2, 256, 16, 64, False, None)]:
+        check_train(rng, dt, b, s, nh, d, peaks, timed=False, causal=causal,
+                    sk=sk)
     for name, r in out.items():
         log(f"  {name} at {r['shape']}: {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
@@ -490,6 +621,22 @@ def phase_generate(model, counts) -> dict:
     return m
 
 
+def device_ms_by_kernel(prof) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run: only
+    device-side events (kernels, memcpy, memset), since an aten op's
+    device time repeats its kernels'."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    return by_kernel
+
+
 def phase_profile(model, ticks=20) -> dict:
     """Opt-in: torch.profiler over ``ticks`` steady decode ticks of a
     full batch (32 requests, ~512-token contexts): wall per tick, device
@@ -518,17 +665,7 @@ def phase_profile(model, ticks=20) -> dict:
             sched.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, memcpy, memset): an aten op's
-    # device time repeats its kernels'
-    by_kernel = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    by_kernel = device_ms_by_kernel(prof)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     host = time.perf_counter()
@@ -546,10 +683,171 @@ def phase_profile(model, ticks=20) -> dict:
     return m
 
 
+# -- phases 7-9: the training path --------------------------------------------
+
+def train_batch(rng, b, s, vocab):
+    """Random tokens with labels = the tokens shifted by one."""
+    seq = rng.randint(0, vocab, (b, s + 1))
+    return seq[:, :-1], seq[:, 1:]
+
+
+def _loss_grads(trainer, tokens, labels):
+    """``gpt_loss`` and its grads (on the CPU, by leaf path) at the
+    trainer's params."""
+    loss, grads = trainer.loss_and_grads(
+        trainer.params, *trainer.shard_batch(tokens, labels))
+    return float(loss), {"/".join(path): g.cpu()
+                         for path, g in flatten(grads)}
+
+
+def phase_train_accuracy(counts, batch=2, seq=256) -> dict:
+    log(f"[7] training accuracy, fp32: GPT-345M, card vs CPU, {batch} x "
+        f"{seq}")
+    mcfg = model_config()
+    tcfg = hybrid.TrainerConfig(compute_dtype=torch.float32,
+                                learning_rate=1e-3, warmup_steps=2,
+                                total_steps=10)
+    tokens, labels = train_batch(np.random.RandomState(0), batch, seq,
+                                 mcfg.vocab_size)
+    K.reset_launch_counts()
+    card = hybrid.HybridParallelTrainer(mcfg, tcfg)
+    cpu = hybrid.HybridParallelTrainer(mcfg, tcfg, device="cpu")
+    t0 = time.perf_counter()
+    loss_c, g_card = _loss_grads(card, tokens, labels)
+    loss_h, g_cpu = _loss_grads(cpu, tokens, labels)
+    worst, worst_leaf = 0.0, None
+    for name, want in g_cpu.items():
+        ratio = max_err(g_card[name], want) / float(want.abs().max())
+        if ratio > worst:
+            worst, worst_leaf = ratio, name
+    log(f"  gpt_loss card {loss_c:.6f} cpu {loss_h:.6f}; grads: worst leaf "
+        f"{worst_leaf} max_abs_err / max|cpu grad| {worst:.3e} (tol 1e-4)")
+    require(abs(loss_c - loss_h) <= 1e-4, "gpt_loss: card vs CPU")
+    require(worst <= 1e-4, f"grads of {worst_leaf}: card vs CPU")
+    steps = []
+    for i in range(3):
+        lc, lh = float(card.step(tokens, labels)), float(cpu.step(
+            tokens, labels))
+        nc, nh = float(card.last_grad_norm), float(cpu.last_grad_norm)
+        steps.append({"loss_card": lc, "loss_cpu": lh, "gnorm_card": nc,
+                      "gnorm_cpu": nh})
+        log(f"  step {i + 1}: loss card {lc:.6f} cpu {lh:.6f}; grad norm "
+            f"card {nc:.6f} cpu {nh:.6f}")
+        require(abs(lc - lh) <= 1e-4, f"step {i + 1} loss: card vs CPU")
+        require(abs(nc - nh) <= 1e-4 * abs(nh),
+                f"step {i + 1} grad norm: card vs CPU")
+    torch.cuda.synchronize()
+    counts["phase7"] = K.launch_counts()
+    log(f"  launches {counts['phase7']}; {time.perf_counter() - t0:.1f} s")
+    for name in ("K-PACK", "K-DQ", "K-DKV"):
+        require(counts["phase7"][name] > 0, f"phase 7 never launched {name}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"grad_worst_ratio": worst, "grad_worst_leaf": worst_leaf,
+            "loss_card": loss_c, "loss_cpu": loss_h, "steps": steps}
+
+
+def train_setup(batch=8, seq=1024):
+    mcfg = model_config()
+    tcfg = hybrid.TrainerConfig(learning_rate=3e-4, warmup_steps=2,
+                                total_steps=100)
+    trainer = hybrid.HybridParallelTrainer(mcfg, tcfg)
+    tokens, labels = train_batch(np.random.RandomState(0), batch, seq,
+                                 mcfg.vocab_size)
+    return trainer, trainer.shard_batch(tokens, labels)
+
+
+def phase_train(counts, peaks, iters=10, batch=8, seq=1024) -> dict:
+    log(f"[8] training, bf16: GPT-345M, {batch} x {seq}, remat, guard on")
+    trainer, (t_dev, l_dev) = train_setup(batch, seq)
+    first = trainer.step_presharded(t_dev, l_dev)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [trainer.step_presharded(t_dev, l_dev) for _ in range(iters)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["phase8"] = K.launch_counts()
+    losses = [float(first)] + [float(x) for x in losses]
+    mcfg = trainer.model_cfg
+    step_ms = wall / iters * 1e3
+    tok_s = batch * seq / (wall / iters)
+    n = trainer.num_params()
+    flops_tok = 6 * n + 12 * mcfg.num_layers * mcfg.hidden_size * seq
+    m = {"batch": batch, "seq": seq, "step_ms": step_ms,
+         "tokens_per_s": tok_s, "mfu": tok_s * flops_tok / peaks["bf16"],
+         "flops_per_token": flops_tok, "num_params": n,
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "losses": losses, "anomaly": trainer.anomaly_state(),
+         "launches": counts["phase8"]}
+    log("  " + json.dumps(m))
+    require(all(np.isfinite(losses)), "non-finite training loss")
+    require(losses[-1] < losses[0], "training loss did not fall")
+    want = {"K-PACK": 2 * LAYERS, "K-DQ": LAYERS, "K-DKV": LAYERS}
+    for name, per_step in want.items():
+        require(counts["phase8"][name] == per_step * iters,
+                f"{name}: {counts['phase8'][name]} launches in {iters} "
+                f"steps, expected {per_step} per step")
+    del trainer
+    torch.cuda.empty_cache()
+    return m
+
+
+# device kernel name -> what it is, first match wins
+KERNEL_KINDS = (("flash_fwd_kernel", "K-PACK"), ("flash_dq_kernel", "K-DQ"),
+                ("flash_dkv_kernel", "K-DKV"), ("nvjet", "matmul"),
+                ("gemm", "matmul"), ("reduce_kernel", "reduction"),
+                ("elementwise", "elementwise"), ("Memcpy", "copy"),
+                ("Memset", "copy"), ("copy", "copy"))
+
+
+def kernel_kind(name: str) -> str:
+    return next((kind for key, kind in KERNEL_KINDS if key in name),
+                "other")
+
+
+def phase_train_profile(steps=3) -> dict:
+    """Opt-in: torch.profiler over ``steps`` bf16 training steps at
+    phase 8's shape: wall per step, device busy share, and device time
+    by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log(f"[9] profile: {steps} training steps, bf16, 8 x 1024")
+    trainer, (t_dev, l_dev) = train_setup()
+    for _ in range(2):
+        trainer.step_presharded(t_dev, l_dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.step_presharded(t_dev, l_dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_ms_by_kernel(prof)
+    busy_ms = sum(by_kernel.values())
+    by_kind = {}
+    for name, ms in by_kernel.items():
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms / steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    m = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+         "device_busy_ms_per_step": busy_ms / steps,
+         "device_idle_share": 1.0 - busy_ms / wall_ms,
+         "device_ms_per_step_by_kind": dict(sorted(
+             by_kind.items(), key=lambda kv: -kv[1])),
+         "top_device_ms_per_step": {k[:70]: v / steps for k, v in top}}
+    log("  " + json.dumps(m))
+    del trainer
+    torch.cuda.empty_cache()
+    return m
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5",
-                    help="comma-separated; 6 (profile) is opt-in")
+    ap.add_argument("--phases", default="0,1,2,3,4,5,7,8",
+                    help="comma-separated; 6 and 9 (profiles) are opt-in")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -591,10 +889,20 @@ def main() -> int:
             e2e["generate"] = phase_generate(model, counts)
         if 6 in phases:
             e2e["profile"] = phase_profile(model)
-    main_path = {name: sum(counts.get(p, {}).get(name, 0)
-                           for p in ("phase4", "phase5"))
+        del model
+        torch.cuda.empty_cache()
+    if 7 in phases:
+        e2e["train_accuracy"] = phase_train_accuracy(counts)
+    if 8 in phases:
+        e2e["train"] = phase_train(counts, peaks)
+    if 9 in phases:
+        e2e["train_profile"] = phase_train_profile()
+    # the main path: serving (phases 4, 5) and training (7, 8)
+    main_phases = (4, 5, 7, 8)
+    main_path = {name: sum(counts.get(f"phase{p}", {}).get(name, 0)
+                           for p in main_phases)
                  for name in K.KERNELS}
-    if {4, 5} <= phases:
+    if set(main_phases) <= phases:
         missing = [n for n, c in main_path.items() if c == 0]
         require(not missing, f"main path never launched {missing}")
     summary = []

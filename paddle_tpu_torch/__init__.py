@@ -10,10 +10,10 @@ path is a CUDA kernel written by hand for ``sm_90a`` under
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit ``"cpu"`` they raise.
 
-Ported so far: GPT paged serving (``models.gpt``, ``serving``) and its
-three attention kernels (``ops.kernels``). The Paddle API surface is not
-ported yet.
+Ported so far: GPT paged serving (``models.gpt``, ``serving``), the
+single-device GPT training step (``parallel``), and their six attention
+kernels (``ops.kernels``). The Paddle API surface is not ported yet.
 """
-from . import device, models, ops, serving, utils
+from . import device, models, ops, parallel, serving, utils
 
-__all__ = ["device", "models", "ops", "serving", "utils"]
+__all__ = ["device", "models", "ops", "parallel", "serving", "utils"]

@@ -1,4 +1,4 @@
-// Flash attention forward for Hopper, sm_90a: one templated kernel, two
+// Flash attention forward for Hopper, sm_90a: one templated kernel, three
 // entry points.
 //
 //   K-SEG  `flash_attention_fwd_seg`  replaces the Pallas TPU kernel
@@ -12,8 +12,17 @@
 //          (B, S, H, D). A contiguous (B, S, H, D) tensor has the bytes of
 //          (B, S, H*D), so the same strided kernel reads both and the
 //          TPU's (B*H, S, D) transpose is not needed.
+//   K-PACK `flash_attention_fwd_packed` replaces
+//          paddle_tpu/ops/pallas/flash_attention_packed.py `_fwd_kernel`
+//          (launched by `_fwd_call`): causal or full attention over the
+//          packed (B, S, NH*D) layout, the training forward. q, k and v
+//          may be column slices of the fused qkv projection: each has its
+//          own row stride (3*NH*D there), so no copy is made. Full
+//          attention takes Sq != Sk (ring attention's off-diagonal
+//          blocks); causal needs Sq == Sk.
 //
-// Both write `o` (q's dtype) and a natural-log `lse` (B, S, H) fp32:
+// All write a dense `o` (B, Sq, H*D) in q's dtype and a natural-log `lse`
+// (B, Sq, H) fp32:
 // lse = (m + log2 l) / log2 e; a row with l == 0 writes zeros.
 //
 // What bounds it on the H100: at serving's prefill shapes (T = 2048,
@@ -72,12 +81,14 @@ template <int D> constexpr size_t smem_bytes() {
          sizeof(int) * (BQ + BK);
 }
 
+// q, k, v rows are `qs`, `ks`, `vs` elements apart and a batch is its
+// rows back to back; o is dense. SEG needs Sq == Sk.
 template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ seg,
-                 T* __restrict__ o, float* __restrict__ lse, int S, int H,
-                 float scale2, int causal) {
+                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
+                 int H, int qs, int ks, int vs, float scale2, int causal) {
   constexpr int QP = q_pitch<D>();
   constexpr int KP = k_pitch<D>();
   constexpr int PP = p_pitch();
@@ -93,25 +104,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid >> 4;       // 16 row groups of 4 rows
   const int tx = tid & 15;       // 16 column lanes
-  const int nqb = (S + BQ - 1) / BQ;
+  const int nqb = (Sq + BQ - 1) / BQ;
   const int qb = nqb - 1 - (int)blockIdx.x;   // heavy causal blocks first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = qb * BQ;
-  const size_t rs = (size_t)H * D;            // row stride, elements
-  const size_t base = (size_t)b * S * rs + (size_t)h * D;
-  const T* qp = q + base;
-  const T* kp = k + base;
-  const T* vp = v + base;
-  T* op = o + base;
+  const size_t os = (size_t)H * D;            // o's row stride, elements
+  const T* qp = q + (size_t)b * Sq * qs + (size_t)h * D;
+  const T* kp = k + (size_t)b * Sk * ks + (size_t)h * D;
+  const T* vp = v + (size_t)b * Sk * vs + (size_t)h * D;
+  T* op = o + (size_t)b * Sq * os + (size_t)h * D;
 
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     const int row = q0 + r;
-    Qs[r * QP + c] = row < S ? to_f(qp[(size_t)row * rs + c]) * scale2 : 0.f;
+    Qs[r * QP + c] =
+        row < Sq ? to_f(qp[(size_t)row * qs + c]) * scale2 : 0.f;
   }
   if (SEG && tid < BQ)
-    segq[tid] = (q0 + tid < S) ? seg[(size_t)b * S + q0 + tid] : INT_MIN;
+    segq[tid] = (q0 + tid < Sq) ? seg[(size_t)b * Sq + q0 + tid] : INT_MIN;
   __syncthreads();
 
   float m_i[4], l_i[4], acc[4][DC];
@@ -123,13 +134,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  const int kend = causal ? min(S, q0 + BQ) : S;
+  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
   const int nkb = (kend + BK - 1) / BK;
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * BK;
     if (SEG) {
       if (tid < BK)
-        segk[tid] = (k0 + tid < S) ? seg[(size_t)b * S + k0 + tid] : INT_MIN;
+        segk[tid] = (k0 + tid < Sk) ? seg[(size_t)b * Sk + k0 + tid] : INT_MIN;
       __syncthreads();
       int any = 0;
 #pragma unroll
@@ -139,7 +150,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < 4; ++c) {
           const int kc = tx + 16 * c;
           const int row = q0 + r, key = k0 + kc;
-          any |= (row < S && key < S && (!causal || key <= row) &&
+          any |= (row < Sq && key < Sk && (!causal || key <= row) &&
                   segq[r] == segk[kc]);
         }
       }
@@ -149,9 +160,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, c = idx % D;
       const int key = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (key < S) {
-        kv = to_f(kp[(size_t)key * rs + c]);
-        vv = to_f(vp[(size_t)key * rs + c]);
+      if (key < Sk) {
+        kv = to_f(kp[(size_t)key * ks + c]);
+        vv = to_f(vp[(size_t)key * vs + c]);
       }
       Ks[r * KP + c] = kv;
       Vs[r * D + c] = vv;
@@ -186,7 +197,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int kc = tx + 16 * c;
         const int key = k0 + kc;
-        ok[c] = row < S && key < S && (!causal || key <= row) &&
+        ok[c] = row < Sq && key < Sk && (!causal || key <= row) &&
                 (!SEG || segq[r] == segk[kc]);
         s[i][c] = ok[c] ? s[i][c] : kNegInf;
         mx = fmaxf(mx, s[i][c]);
@@ -233,13 +244,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l += __shfl_xor_sync(0xffffffffu, l, off);
     const int row = q0 + ty * 4 + i;
     const float l_safe = l == 0.f ? 1.f : l;
-    if (row < S) {
-      T* orow = op + (size_t)row * rs;
+    if (row < Sq) {
+      T* orow = op + (size_t)row * os;
 #pragma unroll
       for (int c = 0; c < DC; ++c)
         orow[tx + 16 * c] = from_f<T>(acc[i][c] / l_safe);
       if (tx == 0)
-        lse[((size_t)b * S + row) * H + h] =
+        lse[((size_t)b * Sq + row) * H + h] =
             (m_i[i] + log2f(l_safe)) / kLog2e;
     }
   }
@@ -247,31 +258,35 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, bool SEG>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* seg, void* o, void* lse, int batch, int S,
-                   int H, float scale, int causal, cudaStream_t stream) {
+                   const void* seg, void* o, void* lse, int batch, int Sq,
+                   int Sk, int H, int qs, int ks, int vs, float scale,
+                   int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, SEG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, batch);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, batch);
   flash_fwd_kernel<T, D, SEG><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seg),
-      static_cast<T*>(o), static_cast<float*>(lse), S, H, scale * kLog2e,
-      causal);
+      static_cast<T*>(o), static_cast<float*>(lse), Sq, Sk, H, qs, ks, vs,
+      scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <bool SEG>
 int dispatch(const void* q, const void* k, const void* v, const void* seg,
-             void* o, void* lse, int batch, int S, int H, int D, float scale,
-             int causal, int dtype, void* stream) {
-  if (batch <= 0 || S <= 0 || H <= 0) return 0;
+             void* o, void* lse, int batch, int Sq, int Sk, int H, int D,
+             int qs, int ks, int vs, float scale, int causal, int dtype,
+             void* stream) {
+  if (batch <= 0 || Sq <= 0 || H <= 0) return 0;
+  if (Sk <= 0 || (causal && Sq != Sk) || (SEG && Sq != Sk))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_LAUNCH(T, DD)                                                    \
-  return (int)launch<T, DD, SEG>(q, k, v, seg, o, lse, batch, S, H, scale,  \
-                                 causal, s)
+#define PTT_LAUNCH(T, DD)                                                  \
+  return (int)launch<T, DD, SEG>(q, k, v, seg, o, lse, batch, Sq, Sk, H,  \
+                                 qs, ks, vs, scale, causal, s)
   if (dtype == 0 && D == 64) PTT_LAUNCH(float, 64);
   if (dtype == 0 && D == 128) PTT_LAUNCH(float, 128);
   if (dtype == 1 && D == 64) PTT_LAUNCH(__nv_bfloat16, 64);
@@ -289,8 +304,9 @@ extern "C" int flash_attention_fwd_seg(const void* q, const void* k,
                                        int seqlen, int heads, int head_dim,
                                        float scale, int causal, int dtype,
                                        void* stream) {
-  return dispatch<true>(q, k, v, seg, o, lse, batch, seqlen, heads, head_dim,
-                        scale, causal, dtype, stream);
+  const int rs = heads * head_dim;
+  return dispatch<true>(q, k, v, seg, o, lse, batch, seqlen, seqlen, heads,
+                        head_dim, rs, rs, rs, scale, causal, dtype, stream);
 }
 
 extern "C" int flash_attention_fwd_bshd(const void* q, const void* k,
@@ -298,6 +314,22 @@ extern "C" int flash_attention_fwd_bshd(const void* q, const void* k,
                                         int batch, int seqlen, int heads,
                                         int head_dim, float scale, int causal,
                                         int dtype, void* stream) {
-  return dispatch<false>(q, k, v, nullptr, o, lse, batch, seqlen, heads,
-                         head_dim, scale, causal, dtype, stream);
+  const int rs = heads * head_dim;
+  return dispatch<false>(q, k, v, nullptr, o, lse, batch, seqlen, seqlen,
+                         heads, head_dim, rs, rs, rs, scale, causal, dtype,
+                         stream);
+}
+
+// q_rs, k_rs, v_rs: row strides in elements (NH*D when contiguous, 3*NH*D
+// for column slices of a fused qkv).
+extern "C" int flash_attention_fwd_packed(const void* q, const void* k,
+                                          const void* v, void* o, void* lse,
+                                          int batch, int sq, int sk,
+                                          int heads, int head_dim, int q_rs,
+                                          int k_rs, int v_rs, float scale,
+                                          int causal, int dtype,
+                                          void* stream) {
+  return dispatch<false>(q, k, v, nullptr, o, lse, batch, sq, sk, heads,
+                         head_dim, q_rs, k_rs, v_rs, scale, causal, dtype,
+                         stream);
 }

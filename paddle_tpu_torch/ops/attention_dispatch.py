@@ -8,12 +8,15 @@ there.
 """
 from __future__ import annotations
 
+import torch
+
 from .kernels.flash_attention import flash_attention_bshd
-from .kernels.flash_attention_packed import flash_attention_packed_segmented
+from .kernels.flash_attention_packed import (flash_attention_packed,
+                                             flash_attention_packed_segmented)
 from .kernels.paged_attention import paged_decode_attention
 
 __all__ = ["paged_attention", "segment_attention_packed",
-           "causal_attention"]
+           "causal_attention", "causal_attention_packed"]
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
@@ -45,3 +48,28 @@ def causal_attention(q, k, v, scale=None):
     no-cache forward). K-BSHD on CUDA. Ring attention is not ported."""
     o, _ = flash_attention_bshd(q, k, v, causal=True, scale=scale)
     return o
+
+
+def causal_attention_packed(q, k, v, nh, scale=None, ring=None,
+                            segment_ids=None):
+    """Differentiable causal attention over the packed ``(B, S, NH*D)``
+    layout, the training path (``transformer_core.gpt_block``): K-PACK
+    forward, K-DQ and K-DKV backward on CUDA. q, k, v may be column
+    slices of the fused qkv projection. Ring attention is not ported, and
+    ``segment_ids`` run only without a gradient (K-SEG, forward only):
+    the segmented backward kernels B5 and B6 are not ported yet."""
+    if ring is not None:
+        raise NotImplementedError(
+            "causal_attention_packed: ring attention (sep > 1) is not "
+            "ported; it comes with the multi-device slice")
+    if segment_ids is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "causal_attention_packed: segment_ids with a gradient need "
+                "the segmented backward kernels (B5, B6), which come with "
+                "the packed-sequence trainer")
+        return segment_attention_packed(
+            q.contiguous(), k.contiguous(), v.contiguous(), nh, segment_ids,
+            scale=scale)
+    return flash_attention_packed(q, k, v, nh, causal=True, scale=scale)

@@ -1,5 +1,6 @@
-"""The hand-written Hopper kernels, one module each: the wrapper, its
-plain PyTorch version (``*_ref``), a launch counter and a source note.
+"""The hand-written Hopper kernels: each module holds its wrappers, their
+plain PyTorch versions (``*_ref``), a launch count per kernel
+(``LAUNCHES[name]``) and a source note.
 
 ==========  ===============================  ==================================
 kernel      module                           replaces (paddle_tpu/ops/pallas/)
@@ -8,6 +9,12 @@ K-DEC       ``paged_attention``              ``paged_attention._decode_kernel``
 K-SEG       ``flash_attention_packed``       ``flash_attention_packed.
                                              _fwd_kernel_seg``
 K-BSHD      ``flash_attention``              ``flash_attention._fwd_kernel``
+K-PACK      ``flash_attention_packed``       ``flash_attention_packed.
+                                             _fwd_kernel``
+K-DQ        ``flash_attention_packed``       ``flash_attention_packed.
+                                             _dq_kernel``
+K-DKV       ``flash_attention_packed``       ``flash_attention_packed.
+                                             _dkv_kernel``
 ==========  ===============================  ==================================
 """
 from . import flash_attention, flash_attention_packed, paged_attention
@@ -15,18 +22,21 @@ from . import flash_attention, flash_attention_packed, paged_attention
 __all__ = ["paged_attention", "flash_attention_packed", "flash_attention",
            "KERNELS", "reset_launch_counts", "launch_counts"]
 
-# name -> module, in the order the serving path meets them
+# name -> module, serving's kernels first, then training's
 KERNELS = {
     "K-DEC": paged_attention,
     "K-SEG": flash_attention_packed,
     "K-BSHD": flash_attention,
+    "K-PACK": flash_attention_packed,
+    "K-DQ": flash_attention_packed,
+    "K-DKV": flash_attention_packed,
 }
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.LAUNCHES = 0
+    for name, mod in KERNELS.items():
+        mod.LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+    return {name: mod.LAUNCHES[name] for name, mod in KERNELS.items()}

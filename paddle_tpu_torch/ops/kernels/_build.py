@@ -51,6 +51,14 @@ _SIGNATURES = {
     # q, k, v, o, lse, batch, seqlen, heads, head_dim, scale, causal,
     # dtype, stream
     "flash_attention_fwd_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    # q, k, v, o, lse, batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
+    # scale, causal, dtype, stream
+    "flash_attention_fwd_packed": [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, delta, dq, batch, sq, sk, heads, head_dim, q_rs,
+    # k_rs, v_rs, do_rs, scale, causal, dtype, stream
+    "flash_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, delta, dk, dv, then as dq
+    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
 }
 
 

@@ -29,7 +29,7 @@ from . import _build
 __all__ = ["flash_attention_bshd", "causal_attention_ref"]
 
 # kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
+LAUNCHES = {"K-BSHD": 0}
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
@@ -61,7 +61,6 @@ def flash_attention_bshd(q, k, v, causal=True, scale=None):
 
 
 def _launch(q, k, v, causal, scale):
-    global LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bshd: no kernel for device "
                          f"{q.device}")
@@ -91,5 +90,5 @@ def _launch(q, k, v, causal, scale):
             lse.data_ptr(), b, s, h, d, float(scale), int(bool(causal)),
             _build.dtype_code(q.dtype), stream)
     _build.check(rc, "flash_attention_fwd_bshd")
-    LAUNCHES += 1
+    LAUNCHES["K-BSHD"] += 1
     return o, lse

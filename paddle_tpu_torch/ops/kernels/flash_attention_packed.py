@@ -1,28 +1,46 @@
-"""K-SEG: segmented causal flash forward over the packed layout.
+"""Flash attention over the packed ``(B, S, NH*D)`` layout: four kernels.
 
-Replaces the Pallas TPU kernel
-``paddle_tpu/ops/pallas/flash_attention_packed.py`` ``_fwd_kernel_seg``
-(launched by ``_fwd_call_seg``), forward only: serving's
-``prefill_packed`` packs every admitted request into one ``(1, T, NH*D)``
-row with segment ids, and position i attends j only where
-``seg[i] == seg[j]`` and ``j <= i``. Pad id -1 attends only to pad. The
-CUDA source, shared with K-BSHD, is
-``paddle_tpu_torch/csrc/flash_attention_fwd.cu``.
+Each replaces a Pallas TPU kernel of
+``paddle_tpu/ops/pallas/flash_attention_packed.py``:
 
-Returns ``o`` ``(B, S, NH*D)`` in q's dtype and a natural-log ``lse``
-``(B, S, NH)`` fp32 (the backward kernels of a later training slice need
-it).
+=======  ==============================  =====================================
+kernel   wrapper                         replaces (launched by)
+=======  ==============================  =====================================
+K-SEG    ``flash_attention_packed_       ``_fwd_kernel_seg`` (``_fwd_call_seg``)
+         segmented``
+K-PACK   ``packed_fwd``                  ``_fwd_kernel`` (``_fwd_call``)
+K-DQ     ``packed_dq``                   ``_dq_kernel`` (``_dq_call``)
+K-DKV    ``packed_dkv``                  ``_dkv_kernel`` (``_dkv_call``)
+=======  ==============================  =====================================
 
-What bounds it on the H100: the ~4*d FLOPs of every (query, key) pair
-that shares a segment, not bytes. This first kernel runs them on the
-CUDA cores in fp32 from shared-memory tiles (64x64, each thread a 4x4
-block of scores); it never visits causal tiles above the diagonal and
-skips, before loading K/V, every tile in which no pair shares a segment,
-so a packed batch costs about the sum of its requests' own triangles.
-Tensor cores (wgmma) are later work.
+K-SEG is serving's ``prefill_packed``: every admitted request packed into
+one ``(1, T, NH*D)`` row with segment ids; position i attends j only where
+``seg[i] == seg[j]`` and ``j <= i``, and pad id -1 attends only to pad.
+K-PACK, K-DQ and K-DKV are the training path, tied together by
+``FlashAttentionPacked`` (``flash_attention_packed``), whose backward
+computes ``delta = sum_d(dO * O)`` per head in fp32 and then launches K-DQ
+and K-DKV. The forward sources are ``paddle_tpu_torch/csrc/
+flash_attention_fwd.cu`` (K-SEG, K-PACK, shared with K-BSHD), the
+backward ``paddle_tpu_torch/csrc/flash_attention_bwd.cu``.
 
-``flash_attention_packed_segmented`` takes the plain version for CPU
-tensors only; a CUDA tensor launches the kernel or raises.
+Layouts are the JAX package's: q, k, v, o and the gradients are
+``(B, S, NH*D)``; ``lse`` (the forward's natural-log row normaliser) and
+``delta`` are ``(B, Sq, NH)`` fp32. Causal attention is top-left with
+``Sq == Sk``; full attention takes ``Sq != Sk`` (ring attention's
+off-diagonal blocks). q, k and v may be column slices of the fused qkv
+projection: the kernels take a row stride per operand, so those slices
+are read in place; only a tensor whose last dim is not contiguous, or
+whose batches are not its rows back to back, is copied first.
+
+What bounds them on the H100: the ~4*d (forward), ~6*d (dQ) and ~8*d
+(dK/dV) FLOPs of every visible (query, key) pair, not bytes. These first
+kernels run them on the CUDA cores in fp32 from 64x64 shared-memory tiles
+(each thread a 4x4 block of scores), never visit causal tiles above the
+diagonal, and mask ragged S in the kernel. Tensor cores (wgmma) are later
+work.
+
+Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -30,10 +48,14 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_packed_segmented", "segment_attention_ref"]
+__all__ = ["flash_attention_packed_segmented", "segment_attention_ref",
+           "packed_attention_ref", "packed_dq_ref", "packed_dkv_ref",
+           "packed_fwd", "packed_dq", "packed_dkv", "FlashAttentionPacked",
+           "flash_attention_packed"]
 
-# kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
+# kernel launches since the last reset (each wrapper adds one to its
+# kernel's count per launch)
+LAUNCHES = {"K-SEG": 0, "K-PACK": 0, "K-DQ": 0, "K-DKV": 0}
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
@@ -73,7 +95,6 @@ def flash_attention_packed_segmented(q, k, v, segment_ids, nh,
 
 
 def _launch(q, k, v, segment_ids, nh, scale):
-    global LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_packed_segmented: no kernel for "
                          f"device {q.device}")
@@ -112,5 +133,234 @@ def _launch(q, k, v, segment_ids, nh, scale):
             o.data_ptr(), lse.data_ptr(), b, s, nh, d, float(scale), 1,
             _build.dtype_code(q.dtype), stream)
     _build.check(rc, "flash_attention_fwd_seg")
-    LAUNCHES += 1
+    LAUNCHES["K-SEG"] += 1
     return o, lse
+
+
+# -- training: K-PACK, K-DQ, K-DKV -------------------------------------------
+
+def _unpack(x, nh):
+    b, s, hp = x.shape
+    return x.reshape(b, s, nh, hp // nh)
+
+
+def _scores(q, k, nh, causal, scale):
+    """fp32 ``scale * q.k`` as ``(B, NH, Sq, Sk)`` and the visibility
+    mask (top-left causal or all-true)."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", _unpack(q, nh).float() * scale,
+                          _unpack(k, nh).float())
+    sq, sk = q.shape[1], k.shape[1]
+    if causal:
+        idx_q = torch.arange(sq, device=q.device)[:, None]
+        idx_k = torch.arange(sk, device=q.device)[None, :]
+        ok = idx_k <= idx_q
+    else:
+        ok = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    return logits.masked_fill(~ok, _NEG_INF), ok
+
+
+def _scale_of(q, nh, scale):
+    return scale if scale is not None else 1.0 / ((q.shape[-1] // nh) ** 0.5)
+
+
+def packed_attention_ref(q, k, v, nh, causal=True, scale=None):
+    """Plain PyTorch K-PACK (mirrors ``_fwd_call``): one dense fp32
+    softmax. Returns ``o`` ``(B, Sq, NH*D)`` in q's dtype and ``lse``
+    ``(B, Sq, NH)`` fp32."""
+    scale = _scale_of(q, nh, scale)
+    logits, _ = _scores(q, k, nh, causal, scale)
+    lse = torch.logsumexp(logits, dim=-1)                  # (B, NH, Sq)
+    p = torch.exp(logits - lse[..., None])
+    o = torch.einsum("bhqk,bkhd->bqhd", p, _unpack(v, nh).float())
+    return (o.reshape(q.shape).to(q.dtype),
+            lse.transpose(1, 2).contiguous())
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale):
+    logits, ok = _scores(q, k, nh, causal, scale)
+    p = torch.exp(logits - lse.float().transpose(1, 2)[..., None])
+    p = p.masked_fill(~ok, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", _unpack(do, nh).float(),
+                      _unpack(v, nh).float())
+    ds = p * (dp - delta.float().transpose(1, 2)[..., None])
+    return p, ds
+
+
+def packed_dq_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None):
+    """Plain PyTorch K-DQ (mirrors ``_dq_call``): ``dq = scale * ds.k``
+    with ``ds = p * (do.v - delta)``, ``p = exp(scale * q.k - lse)``.
+    ``lse``, ``delta``: ``(B, Sq, NH)``. Returns dq in q's dtype."""
+    scale = _scale_of(q, nh, scale)
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _unpack(k, nh).float()) * scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def packed_dkv_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None):
+    """Plain PyTorch K-DKV (mirrors ``_dkv_call``, with lse and delta
+    untransposed ``(B, Sq, NH)``): ``dk = scale * ds^T.q``,
+    ``dv = p^T.do``. Returns ``(dk, dv)`` in q's dtype."""
+    scale = _scale_of(q, nh, scale)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, _unpack(q, nh).float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, _unpack(do, nh).float())
+    return (dk.reshape(k.shape).to(q.dtype),
+            dv.reshape(v.shape).to(q.dtype))
+
+
+def packed_fwd(q, k, v, nh, causal=True, scale=None):
+    """Packed flash forward: the plain version for CPU tensors, K-PACK
+    for CUDA tensors. Returns ``(o, lse)``."""
+    if q.device.type == "cpu":
+        return packed_attention_ref(q, k, v, nh, causal=causal, scale=scale)
+    return _launch_fwd(q, k, v, nh, causal, scale)
+
+
+def packed_dq(q, k, v, do, lse, delta, nh, causal=True, scale=None):
+    """dQ from the forward's lse and ``delta = sum_d(do * o)``: the plain
+    version for CPU tensors, K-DQ for CUDA tensors."""
+    if q.device.type == "cpu":
+        return packed_dq_ref(q, k, v, do, lse, delta, nh, causal=causal,
+                             scale=scale)
+    return _launch_bwd("K-DQ", q, k, v, do, lse, delta, nh, causal, scale)
+
+
+def packed_dkv(q, k, v, do, lse, delta, nh, causal=True, scale=None):
+    """dK, dV from the forward's lse and delta: the plain version for
+    CPU tensors, K-DKV for CUDA tensors. Returns ``(dk, dv)``."""
+    if q.device.type == "cpu":
+        return packed_dkv_ref(q, k, v, do, lse, delta, nh, causal=causal,
+                              scale=scale)
+    return _launch_bwd("K-DKV", q, k, v, do, lse, delta, nh, causal, scale)
+
+
+def _rows(t, what):
+    """``(tensor, row stride)`` in the layout the kernels read: unit
+    stride along the last dim, a batch's rows back to back. Column
+    slices of a fused qkv pass as they are; anything else is copied."""
+    b, s, w = t.shape
+    rs = t.stride(1) if s > 1 else (t.stride(0) if b > 1 else w)
+    if t.stride(2) != 1 or rs < w or (b > 1 and t.stride(0) != s * rs):
+        t, rs = t.contiguous(), w
+    if rs >= 2 ** 31:
+        raise ValueError(f"{what}: row stride {rs} exceeds int32")
+    return t, rs
+
+
+def _check(what, q, k, v, nh, causal, extra=()):
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {q.device}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"{what}: q (B, Sq, NH*D) and k, v (B, Sk, NH*D) "
+                         "expected")
+    b, sq, hp = q.shape
+    if k.shape[0] != b or k.shape[2] != hp:
+        raise ValueError(f"{what}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree")
+    if causal and k.shape[1] != sq:
+        raise ValueError(f"{what}: causal attention needs Sq == Sk "
+                         f"({sq} vs {k.shape[1]})")
+    if hp % nh:
+        raise ValueError(f"{what}: width {hp} is not {nh} whole heads")
+    d = hp // nh
+    if d not in (64, 128):
+        raise ValueError(f"{what}: head_dim {d} not in (64, 128), the "
+                         "kernels' instantiations")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{what}: q, k, v dtypes differ")
+    if any(t.device != q.device for t in (k, v, *extra)):
+        raise ValueError(f"{what}: tensors on different devices")
+    return d
+
+
+def _launch_fwd(q, k, v, nh, causal, scale):
+    what = "packed_fwd"
+    d = _check(what, q, k, v, nh, causal)
+    b, sq, hp = q.shape
+    sk = k.shape[1]
+    (q, q_rs), (k, k_rs), (v, v_rs) = (_rows(t, what) for t in (q, k, v))
+    scale = _scale_of(q, nh, scale)
+    o = torch.empty((b, sq, hp), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, sq, nh), dtype=torch.float32, device=q.device)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_attention_fwd_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, sq, sk, nh, d, q_rs, k_rs, v_rs, float(scale),
+            int(bool(causal)), _build.dtype_code(q.dtype), stream)
+    _build.check(rc, "flash_attention_fwd_packed")
+    LAUNCHES["K-PACK"] += 1
+    return o, lse
+
+
+def _launch_bwd(name, q, k, v, do, lse, delta, nh, causal, scale):
+    what, entry = {"K-DQ": ("packed_dq", "flash_attention_bwd_dq"),
+                   "K-DKV": ("packed_dkv", "flash_attention_bwd_dkv")}[name]
+    d = _check(what, q, k, v, nh, causal, extra=(do, lse, delta))
+    b, sq, hp = q.shape
+    sk = k.shape[1]
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{what}: do must match q's shape and dtype")
+    for t, tn in ((lse, "lse"), (delta, "delta")):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, sq, nh)
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {tn} must be contiguous "
+                             f"(B, Sq, NH) = {(b, sq, nh)} float32")
+    (q, q_rs), (k, k_rs), (v, v_rs), (do, do_rs) = (
+        _rows(t, what) for t in (q, k, v, do))
+    scale = _scale_of(q, nh, scale)
+    code = _build.dtype_code(q.dtype)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr())
+        dims = (b, sq, sk, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale),
+                int(bool(causal)), code, stream)
+        if name == "K-DQ":
+            outs = (torch.empty((b, sq, hp), dtype=q.dtype, device=q.device),)
+        else:
+            outs = tuple(torch.empty((b, sk, hp), dtype=q.dtype,
+                                     device=q.device) for _ in range(2))
+        rc = getattr(lib, entry)(*ptrs, *(t.data_ptr() for t in outs), *dims)
+    _build.check(rc, entry)
+    LAUNCHES[name] += 1
+    return outs[0] if name == "K-DQ" else outs
+
+
+class FlashAttentionPacked(torch.autograd.Function):
+    """Packed flash attention with its backward (mirrors the JAX
+    package's ``_flash_packed`` custom_vjp): the forward runs K-PACK and
+    saves ``(q, k, v, o, lse)``; the backward computes ``delta`` per head
+    in fp32 and runs K-DQ and K-DKV. On CPU tensors each step is its
+    plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, nh, causal, scale):
+        o, lse = packed_fwd(q, k, v, nh, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attn = (nh, causal, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        nh, causal, scale = ctx.attn
+        delta = (do.float() * o.float()).reshape(
+            *o.shape[:2], nh, -1).sum(-1)
+        dq = packed_dq(q, k, v, do, lse, delta, nh, causal=causal,
+                       scale=scale)
+        dk, dv = packed_dkv(q, k, v, do, lse, delta, nh, causal=causal,
+                            scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_packed(q, k, v, nh, causal=True, scale=None):
+    """Differentiable flash attention over ``(B, S, NH*D)`` (the JAX
+    package's ``flash_attention_packed``, any S): returns ``o``."""
+    if q.shape[-1] % nh:
+        raise ValueError(f"hidden {q.shape[-1]} not divisible by num_heads "
+                         f"{nh}")
+    scale = _scale_of(q, nh, scale)
+    return FlashAttentionPacked.apply(q, k, v, nh, causal, scale)

@@ -30,7 +30,7 @@ from . import _build
 __all__ = ["paged_decode_attention", "paged_attention_ref"]
 
 # kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = 0
+LAUNCHES = {"K-DEC": 0}
 _NEG_INF = -1e30
 
 
@@ -70,7 +70,6 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens,
 
 
 def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
-    global LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
@@ -115,5 +114,5 @@ def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
             b, nh, nh_kv, d, page_size, page_table.shape[1], float(scale),
             _build.dtype_code(q.dtype), stream)
     _build.check(rc, "paged_attention_decode")
-    LAUNCHES += 1
+    LAUNCHES["K-DEC"] += 1
     return out

@@ -1,5 +1,10 @@
 """Carry weights from the JAX package's GPT to the port's.
 
+``from_gpt_params`` maps the JAX trainer's stacked-parameter pytree
+(``paddle_tpu.parallel.transformer_core.gpt_init``, as numpy) onto the
+port's ``paddle_tpu_torch.parallel.transformer_core`` dict: the same
+names, shapes and ``(in, out)`` layout, leaf for leaf.
+
 ``from_paddle_tpu_state`` maps ``paddle_tpu``'s
 ``GPTForCausalLM.state_dict()`` (as numpy arrays) onto
 ``paddle_tpu_torch``'s ``GPTForCausalLM.state_dict()``. The module names
@@ -21,7 +26,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["from_paddle_tpu_state", "expected_leaves"]
+from .tree import flatten, unflatten
+
+__all__ = ["from_paddle_tpu_state", "expected_leaves", "from_gpt_params",
+           "expected_gpt_params"]
 
 # leaves stored (in, out) by Paddle's Linear and transposed here
 _LINEAR = re.compile(
@@ -78,3 +86,46 @@ def from_paddle_tpu_state(state: Dict[str, np.ndarray], cfg
                              f"expected {shape}")
         out[name] = torch.from_numpy(np.array(arr, order="C"))  # own copy
     return out
+
+
+def expected_gpt_params(cfg) -> Dict[str, object]:
+    """``{name: shape}`` of the stacked GPT training params for ``cfg``,
+    nested as the pytree (``blocks`` holds the ``(L, ...)`` leaves)."""
+    h, f, v = cfg.hidden_size, cfg.ffn_size, cfg.vocab_size
+    L = cfg.num_layers
+    return {
+        "wte": (v, h),
+        "wpe": (cfg.max_position_embeddings, h),
+        "blocks": {
+            "ln1_g": (L, h), "ln1_b": (L, h),
+            "qkv_w": (L, h, 3 * h), "qkv_b": (L, 3 * h),
+            "out_w": (L, h, h), "out_b": (L, h),
+            "ln2_g": (L, h), "ln2_b": (L, h),
+            "fc_in_w": (L, h, f), "fc_in_b": (L, f),
+            "fc_out_w": (L, f, h), "fc_out_b": (L, h),
+        },
+        "lnf_g": (h,),
+        "lnf_b": (h,),
+    }
+
+
+def from_gpt_params(params, cfg) -> Dict[str, object]:
+    """The JAX trainer's params pytree (numpy leaves, e.g.
+    ``jax.device_get(trainer.params)``) -> the port's nested dict of CPU
+    tensors. An unknown or a missing leaf raises ``KeyError``, a wrong
+    shape ``ValueError``."""
+    want = dict(flatten(expected_gpt_params(cfg)))
+    got = dict(flatten(params))
+    unknown = sorted("/".join(p) for p in set(got) - set(want))
+    missing = sorted("/".join(p) for p in set(want) - set(got))
+    if unknown or missing:
+        raise KeyError(f"from_gpt_params: unknown leaves {unknown}, "
+                       f"missing leaves {missing}")
+    out = []
+    for path, shape in want.items():
+        arr = np.array(got[path], order="C")                # own copy
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"from_gpt_params: {'/'.join(path)} has shape "
+                             f"{tuple(arr.shape)}, expected {shape}")
+        out.append((path, torch.from_numpy(arr)))
+    return unflatten(out)

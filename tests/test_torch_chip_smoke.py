@@ -56,3 +56,55 @@ def test_segment_pairs_count_the_visible_mask():
     s = seg[0]
     mask = (s[:, None] == s[None, :]) & np.tril(np.ones((300, 300), bool))
     assert cs.visible_pairs_seg(seg) == int(mask.sum())
+
+
+@pytest.fixture
+def tiny_training(on_cpu, monkeypatch):
+    """Phases 7 and 8 at a tiny GPT on the CPU: the trainers' default
+    device is the CPU, and each plain attention version counts itself
+    as its kernel would, so the launch accounting is exercised."""
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    cfg = gpt_tiny()
+    monkeypatch.setattr(cs, "model_config", lambda: cfg)
+    monkeypatch.setattr(cs, "LAYERS", cfg.num_layers)
+    monkeypatch.setattr(cs.hybrid, "resolve_device",
+                        lambda device=None: torch.device(device or "cpu"))
+    for fn in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    for name, ref in (("K-PACK", "packed_attention_ref"),
+                      ("K-DQ", "packed_dq_ref"), ("K-DKV", "packed_dkv_ref")):
+        orig = getattr(fp, ref)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            fp.LAUNCHES[_name] += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(fp, ref, counted)
+    return on_cpu
+
+
+def test_training_phases_rehearse_on_cpu(tiny_training):
+    counts = {}
+    acc = cs.phase_train_accuracy(counts, batch=2, seq=32)
+    assert acc["grad_worst_ratio"] == 0.0 and len(acc["steps"]) == 3
+    m = cs.phase_train(counts, tiny_training, iters=3, batch=2, seq=64)
+    assert m["losses"][-1] < m["losses"][0]
+    # remat recomputes each layer's forward: two K-PACK per layer per step
+    assert counts["phase8"]["K-PACK"] == 3 * 2 * 2
+    assert counts["phase8"]["K-DQ"] == counts["phase8"]["K-DKV"] == 3 * 2
+    # grads + 3 steps x 2 layers, on each side (both sides are the CPU)
+    assert counts["phase7"]["K-DQ"] == 2 * 4 * 2
+
+
+def test_profile_kinds_name_the_training_kernels():
+    assert cs.kernel_kind("void (anonymous namespace)::flash_dkv_kernel"
+                          "<__nv_bfloat16, 64>(...)") == "K-DKV"
+    assert cs.kernel_kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT") == \
+        "matmul"
+    assert cs.kernel_kind("void at::native::reduce_kernel<512, 1>") == \
+        "reduction"
+    assert cs.kernel_kind("Memcpy DtoH (Device -> Pinned)") == "copy"
+    assert cs.kernel_kind("something_else") == "other"
