@@ -11,9 +11,11 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit ``"cpu"`` they raise.
 
 Ported so far: GPT paged serving (``models.gpt``, ``serving``), the
-single-device GPT training step (``parallel``), and their six attention
-kernels (``ops.kernels``). The Paddle API surface is not ported yet.
+single-device GPT training step (``parallel``) with packed sequences
+(``io.packing``), training through the nn API (``GPTForCausalLM`` with
+``GPTPretrainingCriterion``), and their ten attention kernels
+(``ops.kernels``). The rest of the Paddle API surface is not ported yet.
 """
-from . import device, models, ops, parallel, serving, utils
+from . import device, io, models, ops, parallel, serving, utils
 
-__all__ = ["device", "models", "ops", "parallel", "serving", "utils"]
+__all__ = ["device", "io", "models", "ops", "parallel", "serving", "utils"]

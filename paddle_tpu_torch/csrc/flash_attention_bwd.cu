@@ -1,5 +1,6 @@
 // Flash attention backward for Hopper, sm_90a, over the packed (B, S, NH*D)
-// layout: two kernels, one entry point each.
+// layout: two templated kernels (dQ and dK/dV), each with a segment-id
+// variant (SEG), behind four entry points.
 //
 //   K-DQ  `flash_attention_bwd_dq`  replaces the Pallas TPU kernel
 //         paddle_tpu/ops/pallas/flash_attention_packed.py `_dq_kernel`
@@ -10,6 +11,21 @@
 //         lse and delta transposed to (B, NH, S) for its (bk, bq) tiles; a
 //         block here reads its 64 rows of lse and delta straight from
 //         (B, Sq, NH), so no transpose is made.
+//   K-BDQ, K-BDKV: the same two entries replace
+//         paddle_tpu/ops/pallas/flash_attention.py `_dq_kernel` and
+//         `_dkv_kernel` (launched by `_flash_bwd_call`): a (B, S, H, D)
+//         tensor whose last two dims are dense is (B, S, H*D) with a row
+//         stride, so the TPU's (B*H, S, D) transpose is not needed.
+//   K-SDQ `flash_attention_bwd_dq_seg` and K-SDKV
+//         `flash_attention_bwd_dkv_seg` replace `_dq_kernel_seg` and
+//         `_dkv_kernel_seg` (launched by `_dq_call_seg`, `_dkv_call_seg`):
+//         causal self-attention where a pair is visible only when its
+//         query and key carry the same (B, S) int32 segment id (pad -1
+//         attends only to pad). Each block holds its own rows' ids and the
+//         current tile's in shared memory, and a tile in which no (row,
+//         key) pair shares a segment is skipped before its operands are
+//         loaded, so the causal tiles of a packed row that lie between
+//         documents cost an id load and a vote, not a tile of math.
 //
 // Per visible (query, key) pair, in natural units:
 //   s = scale * q.k,  p = exp(s - lse),  dp = dO.v,  ds = p * (dp - delta),
@@ -20,7 +36,8 @@
 // back, and dQ, dK, dV are written dense (B, S, NH*D) in q's dtype.
 //
 // What bounds them on the H100: ~6*d (dQ) and ~8*d (dK/dV) FLOPs per
-// visible pair against inputs read once: operations, not bytes. These
+// visible pair against inputs read once: operations, not bytes (with
+// segment ids the visible pairs shrink, and the bound can be bytes). These
 // first kernels run the math on the CUDA cores in fp32 from shared-memory
 // tiles (no wgmma yet), so they sit far from the tensor-core bound. What
 // the design does:
@@ -43,6 +60,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -68,16 +86,55 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 template <int D> __host__ __device__ constexpr int pitch() { return D + 1; }
 __host__ __device__ constexpr int t_pitch() { return BK + 1; }
 
-// Q, dO, K, V tiles + one (64 x 64) score tile + lse2 and delta rows
+// Q, dO, K, V tiles + one (64 x 64) score tile + lse2 and delta rows +
+// the rows' and the tile's segment ids
 template <int D> constexpr size_t dq_smem_bytes() {
   return sizeof(float) * (4 * (size_t)BQ * pitch<D>() +
-                          (size_t)BQ * t_pitch() + 2 * BQ);
+                          (size_t)BQ * t_pitch() + 2 * BQ) +
+         sizeof(int) * (BQ + BK);
 }
 
-// K, V, Q, dO tiles + P^T and dS^T tiles + lse2 and delta rows
+// K, V, Q, dO tiles + P^T and dS^T tiles + lse2 and delta rows + segment
+// ids
 template <int D> constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * (size_t)BK * pitch<D>() +
-                          2 * (size_t)BK * t_pitch() + 2 * BQ);
+                          2 * (size_t)BK * t_pitch() + 2 * BQ) +
+         sizeof(int) * (BQ + BK);
+}
+
+// Whether any (query, key) pair of the 64 x 64 tile at (q0, k0) is
+// visible; every thread tests its 4 x 4 share (rows ty*4+i, columns
+// tx+16c of `rows` x `cols`) and the block votes. `segr` and `segc` hold
+// the tile's row and column ids; with `keys_by_row` the rows are keys.
+__device__ __forceinline__ bool tile_visible(const int* segr,
+                                             const int* segc, int r0,
+                                             int c0, int Sq, int Sk,
+                                             int causal, bool keys_by_row) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  int any = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty * 4 + i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cc = tx + 16 * c;
+      const int row = keys_by_row ? c0 + cc : r0 + r;   // query
+      const int key = keys_by_row ? r0 + r : c0 + cc;
+      any |= (row < Sq && key < Sk && (!causal || key <= row) &&
+              segr[r] == segc[cc]);
+    }
+  }
+  return __syncthreads_or(any) != 0;
+}
+
+// The (B, S) segment ids of rows r0 .. r0+63 of batch b; rows at or past
+// `n` read INT_MIN, which no real or pad id equals.
+__device__ __forceinline__ void load_seg(int* dst, const int* seg, int b,
+                                         int r0, int n) {
+  if (threadIdx.x < 64) {
+    const int row = r0 + threadIdx.x;
+    dst[threadIdx.x] = row < n ? seg[(size_t)b * n + row] : INT_MIN;
+  }
 }
 
 // Loads a 64-row tile of a (rows, *) matrix with row stride `rs` into
@@ -93,14 +150,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
   }
 }
 
-template <typename T, int D>
+// SEG: a pair is visible only within one segment id (needs Sq == Sk).
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int Sq,
-                int Sk, int H, int qs, int ks, int vs, int dos, float scale,
-                int causal) {
+                const float* __restrict__ delta, const int* __restrict__ seg,
+                T* __restrict__ dq, int Sq, int Sk, int H, int qs, int ks,
+                int vs, int dos, float scale, int causal) {
   constexpr int P = pitch<D>();
   constexpr int TP = t_pitch();
   constexpr int DC = D / 16;     // output columns per thread
@@ -112,6 +170,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dSs = Vs + BK * P;      // (query, key)
   float* lse2 = dSs + BQ * TP;   // lse * log2(e)
   float* dlt = lse2 + BQ;
+  int* segq = reinterpret_cast<int*>(dlt + BQ);
+  int* segk = segq + BQ;
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;       // 16 row groups of 4 rows
@@ -137,6 +197,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse2[tid] = row < Sq ? lse[at] * kLog2e : 0.f;
     dlt[tid] = row < Sq ? delta[at] : 0.f;
   }
+  if (SEG) load_seg(segq, seg, b, q0, Sq);
 
   float acc[4][DC];
 #pragma unroll
@@ -148,6 +209,13 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nkb = (kend + BK - 1) / BK;
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * BK;
+    if (SEG) {
+      load_seg(segk, seg, b, k0, Sk);
+      __syncthreads();
+      // no pair shares a segment: skip (the vote is also the barrier
+      // before the next tile overwrites segk)
+      if (!tile_visible(segq, segk, q0, k0, Sq, Sk, causal, false)) continue;
+    }
     load_tile<T, D>(Ks, kp, k0, Sk, ks, 1.f);
     load_tile<T, D>(Vs, vp, k0, Sk, vs, 1.f);
     __syncthreads();
@@ -187,7 +255,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int kc = tx + 16 * c;
         const int key = k0 + kc;
-        const bool ok = row < Sq && key < Sk && (!causal || key <= row);
+        const bool ok = row < Sq && key < Sk && (!causal || key <= row) &&
+                        (!SEG || segq[r] == segk[kc]);
         const float p = ok ? exp2f(s[i][c] - lse2[r]) : 0.f;
         dSs[r * TP + kc] = p * (dp[i][c] - dlt[r]);
       }
@@ -206,7 +275,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(ds[i], kk[c], acc[i][c]);
     }
-    __syncthreads();     // the next tile overwrites K, V and dS
+    __syncthreads();     // the next tile overwrites K, V, dS and segk
   }
 
 #pragma unroll
@@ -221,14 +290,15 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int Sq, int Sk, int H, int qs, int ks,
-                 int vs, int dos, float scale, int causal) {
+                 const float* __restrict__ delta, const int* __restrict__ seg,
+                 T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk,
+                 int H, int qs, int ks, int vs, int dos, float scale,
+                 int causal) {
   constexpr int P = pitch<D>();
   constexpr int TP = t_pitch();
   constexpr int DC = D / 16;
@@ -241,6 +311,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* dSt = Pt + BK * TP;     // (key, query)
   float* lse2 = dSt + BK * TP;
   float* dlt = lse2 + BQ;
+  int* segk = reinterpret_cast<int*>(dlt + BQ);
+  int* segq = segk + BK;
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;       // 16 key groups of 4 keys
@@ -260,6 +332,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(Ks, kp, k0, Sk, ks, scale2);
   load_tile<T, D>(Vs, vp, k0, Sk, vs, 1.f);
+  if (SEG) load_seg(segk, seg, b, k0, Sk);
 
   float adk[4][DC], adv[4][DC];
 #pragma unroll
@@ -271,6 +344,11 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qstart = causal ? k0 / BQ : 0;
   for (int qb = qstart; qb < nqb; ++qb) {
     const int q0 = qb * BQ;
+    if (SEG) {
+      load_seg(segq, seg, b, q0, Sq);
+      __syncthreads();
+      if (!tile_visible(segk, segq, k0, q0, Sq, Sk, causal, true)) continue;
+    }
     load_tile<T, D>(Qs, qp, q0, Sq, qs, 1.f);
     load_tile<T, D>(dOs, dop, q0, Sq, dos, 1.f);
     if (tid < BQ) {
@@ -316,7 +394,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int qc = tx + 16 * c;
         const int row = q0 + qc;
-        const bool ok = row < Sq && key < Sk && (!causal || key <= row);
+        const bool ok = row < Sq && key < Sk && (!causal || key <= row) &&
+                        (!SEG || segk[kr] == segq[qc]);
         const float p = ok ? exp2f(st[i][c] - lse2[qc]) : 0.f;
         Pt[kr * TP + qc] = p;
         dSt[kr * TP + qc] = p * (dpt[i][c] - dlt[qc]);
@@ -345,7 +424,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           adk[i][c] = fmaf(ds[i], qq[c], adk[i][c]);
         }
     }
-    __syncthreads();     // the next tile overwrites Q, dO, P^T and dS^T
+    __syncthreads();     // the next tile overwrites Q, dO, P^T, dS^T, segq
   }
 
 #pragma unroll
@@ -363,49 +442,66 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int batch, int Sq, int Sk, int H, int qs,
-                      int ks, int vs, int dos, float scale, int causal,
-                      cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, batch);
-  flash_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Sq, Sk, H, qs, ks, vs, dos, scale, causal);
+// One launch of either kernel: dk == nullptr launches dQ into `dq_or_dk`,
+// otherwise dK/dV into `dq_or_dk` and `dv`.
+template <typename T, int D, bool SEG>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   const void* seg, void* dq_or_dk, void* dv, int batch,
+                   int Sq, int Sk, int H, int qs, int ks, int vs, int dos,
+                   float scale, int causal, cudaStream_t stream) {
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* dop = static_cast<const T*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(delta);
+  const int* sp = static_cast<const int*>(seg);
+  if (dv == nullptr) {
+    const size_t smem = dq_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_dq_kernel<T, D, SEG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sq + BQ - 1) / BQ, H, batch);
+    flash_dq_kernel<T, D, SEG><<<grid, NT, smem, stream>>>(
+        qp, kp, vp, dop, lp, dp, sp, static_cast<T*>(dq_or_dk), Sq, Sk, H,
+        qs, ks, vs, dos, scale, causal);
+  } else {
+    const size_t smem = dkv_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_dkv_kernel<T, D, SEG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((Sk + BK - 1) / BK, H, batch);
+    flash_dkv_kernel<T, D, SEG><<<grid, NT, smem, stream>>>(
+        qp, kp, vp, dop, lp, dp, sp, static_cast<T*>(dq_or_dk),
+        static_cast<T*>(dv), Sq, Sk, H, qs, ks, vs, dos, scale, causal);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int batch, int Sq, int Sk, int H,
-                       int qs, int ks, int vs, int dos, float scale,
-                       int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + BK - 1) / BK, H, batch);
-  flash_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, qs, ks, vs, dos,
-      scale, causal);
-  return cudaGetLastError();
-}
-
-bool bad_shape(int batch, int Sq, int Sk, int H, int causal) {
-  return batch < 0 || Sq < 0 || Sk < 0 || H < 0 || (causal && Sq != Sk);
+template <bool SEG>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* seg,
+             void* dq_or_dk, void* dv, int batch, int Sq, int Sk, int H,
+             int D, int qs, int ks, int vs, int dos, float scale, int causal,
+             int dtype, void* stream) {
+  if (batch < 0 || Sq < 0 || Sk < 0 || H < 0 || (causal && Sq != Sk) ||
+      (SEG && Sq != Sk))
+    return (int)cudaErrorInvalidValue;
+  if (batch == 0 || H == 0 || (dv == nullptr ? Sq : Sk) == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PTT_LAUNCH(T, DD)                                                 \
+  return (int)launch<T, DD, SEG>(q, k, v, dout, lse, delta, seg, dq_or_dk, \
+                                 dv, batch, Sq, Sk, H, qs, ks, vs, dos,    \
+                                 scale, causal, s)
+  if (dtype == 0 && D == 64) PTT_LAUNCH(float, 64);
+  if (dtype == 0 && D == 128) PTT_LAUNCH(float, 128);
+  if (dtype == 1 && D == 64) PTT_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) PTT_LAUNCH(__nv_bfloat16, 128);
+#undef PTT_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -421,19 +517,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int k_rs, int v_rs, int do_rs,
                                       float scale, int causal, int dtype,
                                       void* stream) {
-  if (bad_shape(batch, sq, sk, heads, causal)) return (int)cudaErrorInvalidValue;
-  if (batch == 0 || sq == 0 || heads == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_LAUNCH(T, DD)                                                   \
-  return (int)launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, batch, sq, sk, \
-                               heads, q_rs, k_rs, v_rs, do_rs, scale, causal, \
-                               s)
-  if (dtype == 0 && head_dim == 64) PTT_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) PTT_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) PTT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) PTT_LAUNCH(__nv_bfloat16, 128);
-#undef PTT_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, dq, nullptr,
+                         batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
+                         do_rs, scale, causal, dtype, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -444,17 +530,37 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int q_rs, int k_rs, int v_rs,
                                        int do_rs, float scale, int causal,
                                        int dtype, void* stream) {
-  if (bad_shape(batch, sq, sk, heads, causal)) return (int)cudaErrorInvalidValue;
-  if (batch == 0 || sk == 0 || heads == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_LAUNCH(T, DD)                                                    \
-  return (int)launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, batch, sq, \
-                                sk, heads, q_rs, k_rs, v_rs, do_rs, scale,    \
-                                causal, s)
-  if (dtype == 0 && head_dim == 64) PTT_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) PTT_LAUNCH(float, 128);
-  if (dtype == 1 && head_dim == 64) PTT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) PTT_LAUNCH(__nv_bfloat16, 128);
-#undef PTT_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  if (dv == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, batch,
+                         sq, sk, heads, head_dim, q_rs, k_rs, v_rs, do_rs,
+                         scale, causal, dtype, stream);
+}
+
+// Causal self-attention within segments: seg is (B, S) int32.
+extern "C" int flash_attention_bwd_dq_seg(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* delta,
+                                          const void* seg, void* dq,
+                                          int batch, int seqlen, int heads,
+                                          int head_dim, int q_rs, int k_rs,
+                                          int v_rs, int do_rs, float scale,
+                                          int dtype, void* stream) {
+  return dispatch<true>(q, k, v, dout, lse, delta, seg, dq, nullptr, batch,
+                        seqlen, seqlen, heads, head_dim, q_rs, k_rs, v_rs,
+                        do_rs, scale, 1, dtype, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv_seg(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse,
+                                           const void* delta, const void* seg,
+                                           void* dk, void* dv, int batch,
+                                           int seqlen, int heads,
+                                           int head_dim, int q_rs, int k_rs,
+                                           int v_rs, int do_rs, float scale,
+                                           int dtype, void* stream) {
+  if (dv == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(q, k, v, dout, lse, delta, seg, dk, dv, batch,
+                        seqlen, seqlen, heads, head_dim, q_rs, k_rs, v_rs,
+                        do_rs, scale, 1, dtype, stream);
 }

@@ -1,17 +1,14 @@
-// Flash attention forward for Hopper, sm_90a: one templated kernel, three
+// Flash attention forward for Hopper, sm_90a: one templated kernel, two
 // entry points.
 //
-//   K-SEG  `flash_attention_fwd_seg`  replaces the Pallas TPU kernel
+//   K-SEG  `flash_attention_fwd_packed_seg` replaces the Pallas TPU kernel
 //          paddle_tpu/ops/pallas/flash_attention_packed.py `_fwd_kernel_seg`
 //          (launched by `_fwd_call_seg`): causal attention over the packed
 //          (B, S, NH*D) layout with a per-token segment-equality mask (pad
-//          id -1 attends only to pad). Serving's `prefill_packed`.
-//   K-BSHD `flash_attention_fwd_bshd` replaces
-//          paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
-//          (launched by `_flash_call`): causal or full attention over
-//          (B, S, H, D). A contiguous (B, S, H, D) tensor has the bytes of
-//          (B, S, H*D), so the same strided kernel reads both and the
-//          TPU's (B*H, S, D) transpose is not needed.
+//          id -1 attends only to pad), serving's `prefill_packed` and the
+//          packed-sequence trainer's forward. It takes a row stride per
+//          operand, so the trainer's q, k, v are read in place as column
+//          slices of the fused qkv projection.
 //   K-PACK `flash_attention_fwd_packed` replaces
 //          paddle_tpu/ops/pallas/flash_attention_packed.py `_fwd_kernel`
 //          (launched by `_fwd_call`): causal or full attention over the
@@ -20,6 +17,13 @@
 //          own row stride (3*NH*D there), so no copy is made. Full
 //          attention takes Sq != Sk (ring attention's off-diagonal
 //          blocks); causal needs Sq == Sk.
+//   K-BSHD replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
+//          (launched by `_flash_call`): causal attention over (B, S, H, D),
+//          serving's `prefill_batch` and the nn-API training forward. A
+//          (B, S, H, D) tensor whose last two dims are dense is
+//          (B, S, H*D) with a row stride, so K-BSHD is the K-PACK entry
+//          (on dense tensors, or on the `unbind` views of the fused qkv),
+//          and the TPU's (B*H, S, D) transpose is not needed.
 //
 // All write a dense `o` (B, Sq, H*D) in q's dtype and a natural-log `lse`
 // (B, Sq, H) fp32:
@@ -298,28 +302,6 @@ int dispatch(const void* q, const void* k, const void* v, const void* seg,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-extern "C" int flash_attention_fwd_seg(const void* q, const void* k,
-                                       const void* v, const void* seg,
-                                       void* o, void* lse, int batch,
-                                       int seqlen, int heads, int head_dim,
-                                       float scale, int causal, int dtype,
-                                       void* stream) {
-  const int rs = heads * head_dim;
-  return dispatch<true>(q, k, v, seg, o, lse, batch, seqlen, seqlen, heads,
-                        head_dim, rs, rs, rs, scale, causal, dtype, stream);
-}
-
-extern "C" int flash_attention_fwd_bshd(const void* q, const void* k,
-                                        const void* v, void* o, void* lse,
-                                        int batch, int seqlen, int heads,
-                                        int head_dim, float scale, int causal,
-                                        int dtype, void* stream) {
-  const int rs = heads * head_dim;
-  return dispatch<false>(q, k, v, nullptr, o, lse, batch, seqlen, seqlen,
-                         heads, head_dim, rs, rs, rs, scale, causal, dtype,
-                         stream);
-}
-
 // q_rs, k_rs, v_rs: row strides in elements (NH*D when contiguous, 3*NH*D
 // for column slices of a fused qkv).
 extern "C" int flash_attention_fwd_packed(const void* q, const void* k,
@@ -332,4 +314,16 @@ extern "C" int flash_attention_fwd_packed(const void* q, const void* k,
   return dispatch<false>(q, k, v, nullptr, o, lse, batch, sq, sk, heads,
                          head_dim, q_rs, k_rs, v_rs, scale, causal, dtype,
                          stream);
+}
+
+// The K-SEG entry with a row stride per operand; causal self-attention.
+extern "C" int flash_attention_fwd_packed_seg(const void* q, const void* k,
+                                              const void* v, const void* seg,
+                                              void* o, void* lse, int batch,
+                                              int seqlen, int heads,
+                                              int head_dim, int q_rs,
+                                              int k_rs, int v_rs, float scale,
+                                              int dtype, void* stream) {
+  return dispatch<true>(q, k, v, seg, o, lse, batch, seqlen, seqlen, heads,
+                        head_dim, q_rs, k_rs, v_rs, scale, 1, dtype, stream);
 }

@@ -4,10 +4,11 @@ from .gpt import (
     GPTConfig,
     GPTForCausalLM,
     GPTModel,
+    GPTPretrainingCriterion,
     gpt_1p3b,
     gpt_345m,
     gpt_tiny,
 )
 
-__all__ = ["gpt", "GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
-           "gpt_345m", "gpt_1p3b"]
+__all__ = ["gpt", "GPTConfig", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt_345m", "gpt_1p3b"]

@@ -9,9 +9,11 @@ weights are stored ``(out, in)`` as PyTorch does, where Paddle stores
 
 The paged-KV serving path (``serving.kv_cache.PagedForwardState``)
 threads through ``GPTModel.forward(caches=...)``; the full forward with
-no cache runs ``ops.attention_dispatch.causal_attention``. Attention
-dropout is not ported: a model in training mode with
-``attention_dropout > 0`` raises.
+no cache runs ``ops.attention_dispatch.causal_attention``, which is
+differentiable (K-BSHD forward, K-BDQ and K-BDKV backward on CUDA), so
+the nn API trains: ``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` ->
+``loss.backward()``. Attention dropout is not ported: a model in training
+mode with ``attention_dropout > 0`` raises.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from ..ops.attention_dispatch import causal_attention
 
 __all__ = ["GPTConfig", "gpt_tiny", "gpt_345m", "gpt_1p3b", "GPTAttention",
            "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
-           "GPTForCausalLM"]
+           "GPTForCausalLM", "GPTPretrainingCriterion"]
 
 
 @dataclasses.dataclass
@@ -96,8 +98,8 @@ class GPTAttention(nn.Module):
                 raise NotImplementedError(
                     "attention dropout is not ported: call eval() or set "
                     "attention_dropout=0")
-            out = causal_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous())
+            # the unbind views go to the kernels with their row stride
+            out = causal_attention(q, k, v)
         out = out.reshape(b, s, cfg.hidden_size)
         return self.resid_dropout(self.out_proj(out))
 
@@ -293,3 +295,21 @@ class GPTForCausalLM(nn.Module):
                 max_model_len=key[1], max_batch=key[0],
                 max_prefill_tokens=max(64, key[0] * key[1])))
         return engines[key]
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token cross entropy over ``(B, S, V)`` logits (the JAX
+    package's ``GPTPretrainingCriterion`` around ``ParallelCrossEntropy``,
+    one device): per-token ``-log_softmax(logits)[label]``, then the mean,
+    or with ``loss_mask`` ``sum(per * mask) / max(sum(mask), 1)``."""
+
+    def __init__(self, cfg: Optional[GPTConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels, loss_mask=None):
+        logp = F.log_softmax(logits, dim=-1)
+        per = -logp.gather(-1, labels.long()[..., None])[..., 0]
+        if loss_mask is not None:
+            m = loss_mask.to(per.dtype)
+            return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+        return per.mean()

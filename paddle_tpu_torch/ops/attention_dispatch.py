@@ -8,10 +8,9 @@ there.
 """
 from __future__ import annotations
 
-import torch
-
-from .kernels.flash_attention import flash_attention_bshd
+from .kernels.flash_attention import attention_bshd
 from .kernels.flash_attention_packed import (flash_attention_packed,
+                                             flash_attention_packed_seg,
                                              flash_attention_packed_segmented)
 from .kernels.paged_attention import paged_decode_attention
 
@@ -44,32 +43,26 @@ def segment_attention_packed(q, k, v, nh, seg_q, seg_k=None, causal=True,
 
 
 def causal_attention(q, k, v, scale=None):
-    """``(B, S, H, D)`` causal attention (``prefill_batch`` and the
-    no-cache forward). K-BSHD on CUDA. Ring attention is not ported."""
-    o, _ = flash_attention_bshd(q, k, v, causal=True, scale=scale)
-    return o
+    """Differentiable ``(B, S, H, D)`` causal attention (``prefill_batch``
+    and the no-cache forward): K-BSHD forward, K-BDQ and K-BDKV backward
+    on CUDA. q, k, v may be the ``unbind`` views of the fused qkv. Ring
+    attention is not ported."""
+    return attention_bshd(q, k, v, causal=True, scale=scale)
 
 
 def causal_attention_packed(q, k, v, nh, scale=None, ring=None,
                             segment_ids=None):
     """Differentiable causal attention over the packed ``(B, S, NH*D)``
     layout, the training path (``transformer_core.gpt_block``): K-PACK
-    forward, K-DQ and K-DKV backward on CUDA. q, k, v may be column
-    slices of the fused qkv projection. Ring attention is not ported, and
-    ``segment_ids`` run only without a gradient (K-SEG, forward only):
-    the segmented backward kernels B5 and B6 are not ported yet."""
+    forward, K-DQ and K-DKV backward on CUDA; with ``segment_ids``
+    ``(B, S)`` (the packed-sequence trainer) K-SEG forward, K-SDQ and
+    K-SDKV backward. q, k, v may be column slices of the fused qkv
+    projection. Ring attention is not ported."""
     if ring is not None:
         raise NotImplementedError(
             "causal_attention_packed: ring attention (sep > 1) is not "
             "ported; it comes with the multi-device slice")
     if segment_ids is not None:
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                "causal_attention_packed: segment_ids with a gradient need "
-                "the segmented backward kernels (B5, B6), which come with "
-                "the packed-sequence trainer")
-        return segment_attention_packed(
-            q.contiguous(), k.contiguous(), v.contiguous(), nh, segment_ids,
-            scale=scale)
+        return flash_attention_packed_seg(q, k, v, segment_ids, nh,
+                                          scale=scale)
     return flash_attention_packed(q, k, v, nh, causal=True, scale=scale)

@@ -15,6 +15,12 @@ K-DQ        ``flash_attention_packed``       ``flash_attention_packed.
                                              _dq_kernel``
 K-DKV       ``flash_attention_packed``       ``flash_attention_packed.
                                              _dkv_kernel``
+K-SDQ       ``flash_attention_packed``       ``flash_attention_packed.
+                                             _dq_kernel_seg``
+K-SDKV      ``flash_attention_packed``       ``flash_attention_packed.
+                                             _dkv_kernel_seg``
+K-BDQ       ``flash_attention``              ``flash_attention._dq_kernel``
+K-BDKV      ``flash_attention``              ``flash_attention._dkv_kernel``
 ==========  ===============================  ==================================
 """
 from . import flash_attention, flash_attention_packed, paged_attention
@@ -30,6 +36,10 @@ KERNELS = {
     "K-PACK": flash_attention_packed,
     "K-DQ": flash_attention_packed,
     "K-DKV": flash_attention_packed,
+    "K-SDQ": flash_attention_packed,
+    "K-SDKV": flash_attention_packed,
+    "K-BDQ": flash_attention,
+    "K-BDKV": flash_attention,
 }
 
 

@@ -45,12 +45,6 @@ _SIGNATURES = {
     # q, k_pages, v_pages, page_table, seq_lens, out,
     # batch, nh, nh_kv, head_dim, page_size, max_pages, scale, dtype, stream
     "paged_attention_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-    # q, k, v, seg, o, lse, batch, seqlen, heads, head_dim, scale,
-    # causal, dtype, stream
-    "flash_attention_fwd_seg": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P],
-    # q, k, v, o, lse, batch, seqlen, heads, head_dim, scale, causal,
-    # dtype, stream
-    "flash_attention_fwd_bshd": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
     # q, k, v, o, lse, batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
     # scale, causal, dtype, stream
     "flash_attention_fwd_packed": [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P],
@@ -59,6 +53,14 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, then as dq
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
+    # q, k, v, seg, o, lse, batch, seqlen, heads, head_dim, q_rs, k_rs,
+    # v_rs, scale, dtype, stream (causal)
+    "flash_attention_fwd_packed_seg": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, do, lse, delta, seg, dq, batch, seqlen, heads, head_dim,
+    # q_rs, k_rs, v_rs, do_rs, scale, dtype, stream (causal)
+    "flash_attention_bwd_dq_seg": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, do, lse, delta, seg, dk, dv, then as dq_seg
+    "flash_attention_bwd_dkv_seg": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
 }
 
 

@@ -1,35 +1,56 @@
-"""K-BSHD: flash attention forward over the ``(B, S, H, D)`` layout.
+"""Flash attention over the ``(B, S, H, D)`` layout: three kernels.
 
-Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas/flash_attention.py``
-``_fwd_kernel`` (launched by ``_flash_call``), forward only: serving's
-``prefill_batch`` (``generate()``) and the model's no-cache forward. A
-contiguous ``(B, S, H, D)`` tensor has the bytes of ``(B, S, H*D)``, so
-the kernel shares K-SEG's strided source
-(``paddle_tpu_torch/csrc/flash_attention_fwd.cu``, entry
-``flash_attention_fwd_bshd``) and the TPU's ``(B*H, S, D)`` transpose is
-gone.
+Each replaces a Pallas TPU kernel of
+``paddle_tpu/ops/pallas/flash_attention.py``:
 
-Returns ``o`` ``(B, S, H, D)`` in q's dtype and a natural-log ``lse``
-``(B, S, H)`` fp32. The causal mask is top-left with ``Sq == Sk``.
+=======  ==========================  ========================================
+kernel   wrapper                     replaces (launched by)
+=======  ==========================  ========================================
+K-BSHD   ``bshd_fwd``                ``_fwd_kernel`` (``_flash_call``)
+         (``flash_attention_bshd``)
+K-BDQ    ``bshd_dq``                 ``_dq_kernel`` (``_flash_bwd_call``)
+K-BDKV   ``bshd_dkv``                ``_dkv_kernel`` (``_flash_bwd_call``)
+=======  ==========================  ========================================
 
-What bounds it on the H100: ~4*d FLOPs per visible (query, key) pair,
-operations rather than bytes; the kernel runs them on the CUDA cores in
-fp32 from 64x64 shared-memory tiles and never visits tiles above the
-diagonal (see K-SEG's note). Tensor cores (wgmma) are later work.
+The three together are ``FlashAttentionBSHD`` (``attention_bshd``), the
+attention of the model's no-cache forward: serving's ``prefill_batch``
+(``generate()``, no gradient: K-BSHD alone) and the nn-API training path
+(``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` -> ``backward()``).
+A ``(B, S, H, D)`` tensor whose last two dims are dense has the bytes of
+``(B, S, H*D)`` with a row stride, so the kernels are the packed
+layout's: K-BSHD launches K-PACK's strided entry
+(``flash_attention_fwd_packed`` of ``paddle_tpu_torch/csrc/
+flash_attention_fwd.cu``), K-BDQ and K-BDKV launch K-DQ's and K-DKV's
+(``csrc/flash_attention_bwd.cu``). The TPU's ``(B*H, S, D)`` transpose
+is gone, and q, k, v may be the views that ``unbind`` makes of the fused
+qkv projection: they are read in place.
 
-``flash_attention_bshd`` takes the plain version for CPU tensors only; a
-CUDA tensor launches the kernel or raises.
+Layouts: q, k, v, o and the gradients ``(B, S, H, D)``; ``lse`` (the
+forward's natural-log row normaliser) and ``delta`` ``(B, S, H)`` fp32.
+The kernels' causal mask is top-left with ``Sq == Sk``.
+
+What bounds them on the H100: ~4*d (forward), ~6*d (dQ) and ~8*d (dK/dV)
+FLOPs per visible (query, key) pair, operations rather than bytes; the
+kernels run them on the CUDA cores in fp32 from 64x64 shared-memory tiles
+and never visit tiles above the diagonal (see K-PACK's note). Tensor
+cores (wgmma) are later work.
+
+Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import flash_attention_packed as fp
 
-__all__ = ["flash_attention_bshd", "causal_attention_ref"]
+__all__ = ["flash_attention_bshd", "causal_attention_ref", "bshd_dq_ref",
+           "bshd_dkv_ref", "bshd_fwd", "bshd_dq", "bshd_dkv",
+           "FlashAttentionBSHD", "attention_bshd"]
 
-# kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = {"K-BSHD": 0}
+# kernel launches since the last reset (each wrapper adds one to its
+# kernel's count per launch)
+LAUNCHES = {"K-BSHD": 0, "K-BDQ": 0, "K-BDKV": 0}
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
@@ -52,43 +73,107 @@ def causal_attention_ref(q, k, v, causal=True, scale=None):
     return o, lse.transpose(1, 2).contiguous()
 
 
-def flash_attention_bshd(q, k, v, causal=True, scale=None):
-    """Attention over ``(B, S, H, D)``: the plain version for CPU
-    tensors, the K-BSHD kernel for CUDA tensors. Returns ``(o, lse)``."""
+def _flat(*ts):
+    """``(B, S, H, D)`` -> ``(B, S, H*D)``: a view when the last two dims
+    are dense (a row-strided slice stays one), else a copy."""
+    return tuple(t.flatten(2) for t in ts)
+
+
+def bshd_dq_ref(q, k, v, do, lse, delta, causal=True, scale=None):
+    """Plain PyTorch K-BDQ (mirrors ``_dq_kernel`` of ``_flash_bwd_call``
+    over ``(B, S, H, D)``): ``dq = scale * ds.k``, ``ds = p * (do.v -
+    delta)``, ``p = exp(scale * q.k - lse)``; ``lse``, ``delta``
+    ``(B, S, H)``. Returns dq in q's dtype."""
+    h = q.shape[2]
+    return fp.packed_dq_ref(*_flat(q, k, v, do), lse, delta, h,
+                            causal=causal, scale=scale).view(q.shape)
+
+
+def bshd_dkv_ref(q, k, v, do, lse, delta, causal=True, scale=None):
+    """Plain PyTorch K-BDKV (mirrors ``_dkv_kernel``): ``dk = scale *
+    ds^T.q``, ``dv = p^T.do``. Returns ``(dk, dv)`` in q's dtype."""
+    h = q.shape[2]
+    dk, dv = fp.packed_dkv_ref(*_flat(q, k, v, do), lse, delta, h,
+                               causal=causal, scale=scale)
+    return dk.view(k.shape), dv.view(v.shape)
+
+
+def _same_shape(what, q, k, v):
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"{what}: q, k, v must share one (B, S, H, D) "
+                         "shape (the causal mask is top-left, Sq == Sk)")
+
+
+def bshd_fwd(q, k, v, causal=True, scale=None):
+    """Attention over ``(B, S, H, D)`` whose q, k, v may be row-strided
+    views (the fused qkv's ``unbind``): the plain version for CPU
+    tensors, K-BSHD for CUDA tensors. Returns ``(o, lse)``."""
     if q.device.type == "cpu":
         return causal_attention_ref(q, k, v, causal=causal, scale=scale)
-    return _launch(q, k, v, causal, scale)
-
-
-def _launch(q, k, v, causal, scale):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bshd: no kernel for device "
-                         f"{q.device}")
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError("flash_attention_bshd: q, k, v must share one "
-                         "(B, S, H, D) shape (the causal mask is top-left, "
-                         "Sq == Sk)")
-    b, s, h, d = q.shape
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention_bshd: head_dim {d} not in "
-                         "(64, 128), the kernel's instantiations")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("flash_attention_bshd: q, k, v dtypes differ")
-    if any(t.device != q.device for t in (k, v)):
-        raise ValueError("flash_attention_bshd: tensors on different "
-                         "devices")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention_bshd: tensors must be contiguous")
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    o = torch.empty_like(q)
-    lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_fwd_bshd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, s, h, d, float(scale), int(bool(causal)),
-            _build.dtype_code(q.dtype), stream)
-    _build.check(rc, "flash_attention_fwd_bshd")
+    _same_shape("bshd_fwd", q, k, v)
+    o, lse = fp._launch_fwd("bshd_fwd", *_flat(q, k, v), q.shape[2],
+                            causal, scale)
     LAUNCHES["K-BSHD"] += 1
-    return o, lse
+    return o.view(q.shape), lse
+
+
+# the JAX package's name for the forward
+flash_attention_bshd = bshd_fwd
+
+
+def bshd_dq(q, k, v, do, lse, delta, causal=True, scale=None):
+    """dQ over ``(B, S, H, D)`` from the forward's lse and delta: the
+    plain version for CPU tensors, K-BDQ for CUDA tensors."""
+    if q.device.type == "cpu":
+        return bshd_dq_ref(q, k, v, do, lse, delta, causal=causal,
+                           scale=scale)
+    _same_shape("bshd_dq", q, k, v)
+    dq = fp._launch_bwd("bshd_dq", "dq", *_flat(q, k, v, do), lse, delta,
+                        q.shape[2], causal, scale)
+    LAUNCHES["K-BDQ"] += 1
+    return dq.view(q.shape)
+
+
+def bshd_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
+    """dK, dV over ``(B, S, H, D)``: the plain version for CPU tensors,
+    K-BDKV for CUDA tensors. Returns ``(dk, dv)``."""
+    if q.device.type == "cpu":
+        return bshd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
+                            scale=scale)
+    _same_shape("bshd_dkv", q, k, v)
+    dk, dv = fp._launch_bwd("bshd_dkv", "dkv", *_flat(q, k, v, do), lse,
+                            delta, q.shape[2], causal, scale)
+    LAUNCHES["K-BDKV"] += 1
+    return dk.view(k.shape), dv.view(v.shape)
+
+
+class FlashAttentionBSHD(torch.autograd.Function):
+    """Flash attention over ``(B, S, H, D)`` with its backward (mirrors
+    the JAX package's ``_flash_attention`` custom_vjp): the forward runs
+    K-BSHD and saves ``(q, k, v, o, lse)``; the backward computes
+    ``delta = sum_d(do * o)`` in fp32 and runs K-BDQ and K-BDKV. On CPU
+    tensors each step is its plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = bshd_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.attn = (causal, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale = ctx.attn
+        delta = (do.float() * o.float()).sum(-1)            # (B, S, H)
+        dq = bshd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
+        dk, dv = bshd_dkv(q, k, v, do, lse, delta, causal=causal,
+                          scale=scale)
+        return dq, dk, dv, None, None
+
+
+def attention_bshd(q, k, v, causal=True, scale=None):
+    """Differentiable flash attention over ``(B, S, H, D)`` (the JAX
+    package's ``flash_attention_bshd``, any S): returns ``o``."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    return FlashAttentionBSHD.apply(q, k, v, causal, scale)

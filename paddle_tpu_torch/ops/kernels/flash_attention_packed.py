@@ -1,4 +1,4 @@
-"""Flash attention over the packed ``(B, S, NH*D)`` layout: four kernels.
+"""Flash attention over the packed ``(B, S, NH*D)`` layout: six kernels.
 
 Each replaces a Pallas TPU kernel of
 ``paddle_tpu/ops/pallas/flash_attention_packed.py``:
@@ -6,22 +6,31 @@ Each replaces a Pallas TPU kernel of
 =======  ==============================  =====================================
 kernel   wrapper                         replaces (launched by)
 =======  ==============================  =====================================
-K-SEG    ``flash_attention_packed_       ``_fwd_kernel_seg`` (``_fwd_call_seg``)
-         segmented``
+K-SEG    ``seg_fwd`` (``flash_attention_  ``_fwd_kernel_seg`` (``_fwd_call_seg``)
+         packed_segmented``)
 K-PACK   ``packed_fwd``                  ``_fwd_kernel`` (``_fwd_call``)
 K-DQ     ``packed_dq``                   ``_dq_kernel`` (``_dq_call``)
 K-DKV    ``packed_dkv``                  ``_dkv_kernel`` (``_dkv_call``)
+K-SDQ    ``seg_dq``                      ``_dq_kernel_seg`` (``_dq_call_seg``)
+K-SDKV   ``seg_dkv``                     ``_dkv_kernel_seg``
+                                         (``_dkv_call_seg``)
 =======  ==============================  =====================================
 
-K-SEG is serving's ``prefill_packed``: every admitted request packed into
-one ``(1, T, NH*D)`` row with segment ids; position i attends j only where
-``seg[i] == seg[j]`` and ``j <= i``, and pad id -1 attends only to pad.
-K-PACK, K-DQ and K-DKV are the training path, tied together by
-``FlashAttentionPacked`` (``flash_attention_packed``), whose backward
-computes ``delta = sum_d(dO * O)`` per head in fp32 and then launches K-DQ
-and K-DKV. The forward sources are ``paddle_tpu_torch/csrc/
+Segment ids: position i attends j only where ``seg[i] == seg[j]`` and
+``j <= i``, and pad id -1 attends only to pad. K-SEG is serving's
+``prefill_packed`` (every admitted request packed into one
+``(1, T, NH*D)`` row) and the packed-sequence trainer's forward, which
+hands q, k, v over as column slices of the fused qkv. K-PACK, K-DQ and
+K-DKV are the
+training path, tied together by ``FlashAttentionPacked``
+(``flash_attention_packed``); K-SEG, K-SDQ and K-SDKV are the packed-
+sequence trainer's, tied together by ``FlashAttentionPackedSeg``
+(``flash_attention_packed_seg``). Each backward computes
+``delta = sum_d(dO * O)`` per head in fp32 and then launches its dQ and
+dK/dV kernels. The forward sources are ``paddle_tpu_torch/csrc/
 flash_attention_fwd.cu`` (K-SEG, K-PACK, shared with K-BSHD), the
-backward ``paddle_tpu_torch/csrc/flash_attention_bwd.cu``.
+backward ``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` (shared with
+K-BDQ and K-BDKV).
 
 Layouts are the JAX package's: q, k, v, o and the gradients are
 ``(B, S, NH*D)``; ``lse`` (the forward's natural-log row normaliser) and
@@ -36,8 +45,8 @@ What bounds them on the H100: the ~4*d (forward), ~6*d (dQ) and ~8*d
 (dK/dV) FLOPs of every visible (query, key) pair, not bytes. These first
 kernels run them on the CUDA cores in fp32 from 64x64 shared-memory tiles
 (each thread a 4x4 block of scores), never visit causal tiles above the
-diagonal, and mask ragged S in the kernel. Tensor cores (wgmma) are later
-work.
+diagonal, skip tiles where no pair shares a segment, and mask ragged S in
+the kernel. Tensor cores (wgmma) are later work.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.
@@ -50,12 +59,15 @@ from . import _build
 
 __all__ = ["flash_attention_packed_segmented", "segment_attention_ref",
            "packed_attention_ref", "packed_dq_ref", "packed_dkv_ref",
-           "packed_fwd", "packed_dq", "packed_dkv", "FlashAttentionPacked",
-           "flash_attention_packed"]
+           "segment_dq_ref", "segment_dkv_ref", "packed_fwd", "packed_dq",
+           "packed_dkv", "seg_fwd", "seg_dq", "seg_dkv",
+           "FlashAttentionPacked", "flash_attention_packed",
+           "FlashAttentionPackedSeg", "flash_attention_packed_seg"]
 
 # kernel launches since the last reset (each wrapper adds one to its
 # kernel's count per launch)
-LAUNCHES = {"K-SEG": 0, "K-PACK": 0, "K-DQ": 0, "K-DKV": 0}
+LAUNCHES = {"K-SEG": 0, "K-PACK": 0, "K-DQ": 0, "K-DKV": 0, "K-SDQ": 0,
+            "K-SDKV": 0}
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
@@ -84,69 +96,17 @@ def segment_attention_ref(q, k, v, segment_ids, nh, scale=None):
     return o.reshape(b, s, hp), lse.transpose(1, 2).contiguous()
 
 
-def flash_attention_packed_segmented(q, k, v, segment_ids, nh,
-                                     scale=None):
-    """Segment-masked causal self-attention over ``(B, S, NH*D)``: the
-    plain version for CPU tensors, the K-SEG kernel for CUDA tensors.
-    Returns ``(o, lse)``."""
-    if q.device.type == "cpu":
-        return segment_attention_ref(q, k, v, segment_ids, nh, scale=scale)
-    return _launch(q, k, v, segment_ids, nh, scale)
-
-
-def _launch(q, k, v, segment_ids, nh, scale):
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_packed_segmented: no kernel for "
-                         f"device {q.device}")
-    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError("flash_attention_packed_segmented: q, k, v must "
-                         "share one (B, S, NH*D) shape")
-    b, s, hp = q.shape
-    if hp % nh:
-        raise ValueError(f"flash_attention_packed_segmented: width {hp} "
-                         f"is not {nh} whole heads")
-    d = hp // nh
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention_packed_segmented: head_dim {d} "
-                         "not in (64, 128), the kernel's instantiations")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("flash_attention_packed_segmented: q, k, v dtypes "
-                        "differ")
-    if segment_ids.dtype != torch.int32 or tuple(segment_ids.shape) != (b, s):
-        raise ValueError("flash_attention_packed_segmented: segment_ids "
-                         "(B, S) int32 expected")
-    ts = (q, k, v, segment_ids)
-    if any(t.device != q.device for t in ts):
-        raise ValueError("flash_attention_packed_segmented: tensors on "
-                         "different devices")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("flash_attention_packed_segmented: tensors must "
-                         "be contiguous")
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    o = torch.empty_like(q)
-    lse = torch.empty((b, s, nh), dtype=torch.float32, device=q.device)
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_fwd_seg(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, s, nh, d, float(scale), 1,
-            _build.dtype_code(q.dtype), stream)
-    _build.check(rc, "flash_attention_fwd_seg")
-    LAUNCHES["K-SEG"] += 1
-    return o, lse
-
-
-# -- training: K-PACK, K-DQ, K-DKV -------------------------------------------
+# -- training: K-PACK, K-DQ, K-DKV and K-SEG, K-SDQ, K-SDKV ------------------
 
 def _unpack(x, nh):
     b, s, hp = x.shape
     return x.reshape(b, s, nh, hp // nh)
 
 
-def _scores(q, k, nh, causal, scale):
+def _scores(q, k, nh, causal, scale, seg=None):
     """fp32 ``scale * q.k`` as ``(B, NH, Sq, Sk)`` and the visibility
-    mask (top-left causal or all-true)."""
+    mask: top-left causal or all-true, and with ``seg`` ``(B, S)`` only
+    pairs of one segment id."""
     logits = torch.einsum("bqhd,bkhd->bhqk", _unpack(q, nh).float() * scale,
                           _unpack(k, nh).float())
     sq, sk = q.shape[1], k.shape[1]
@@ -156,6 +116,9 @@ def _scores(q, k, nh, causal, scale):
         ok = idx_k <= idx_q
     else:
         ok = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if seg is not None:
+        seg = seg.long()
+        ok = (ok[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
     return logits.masked_fill(~ok, _NEG_INF), ok
 
 
@@ -176,36 +139,57 @@ def packed_attention_ref(q, k, v, nh, causal=True, scale=None):
             lse.transpose(1, 2).contiguous())
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale):
-    logits, ok = _scores(q, k, nh, causal, scale)
+def _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg):
+    logits, ok = _scores(q, k, nh, causal, scale, seg)
     p = torch.exp(logits - lse.float().transpose(1, 2)[..., None])
-    p = p.masked_fill(~ok, 0.0)
+    p = p.masked_fill(~ok, 0.0)       # exactly 0 on masked entries
     dp = torch.einsum("bqhd,bkhd->bhqk", _unpack(do, nh).float(),
                       _unpack(v, nh).float())
     ds = p * (dp - delta.float().transpose(1, 2)[..., None])
     return p, ds
 
 
+def _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, seg):
+    scale = _scale_of(q, nh, scale)
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _unpack(k, nh).float()) * scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, seg):
+    scale = _scale_of(q, nh, scale)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, _unpack(q, nh).float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, _unpack(do, nh).float())
+    return (dk.reshape(k.shape).to(q.dtype),
+            dv.reshape(v.shape).to(q.dtype))
+
+
 def packed_dq_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None):
     """Plain PyTorch K-DQ (mirrors ``_dq_call``): ``dq = scale * ds.k``
     with ``ds = p * (do.v - delta)``, ``p = exp(scale * q.k - lse)``.
     ``lse``, ``delta``: ``(B, Sq, NH)``. Returns dq in q's dtype."""
-    scale = _scale_of(q, nh, scale)
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _unpack(k, nh).float()) * scale
-    return dq.reshape(q.shape).to(q.dtype)
+    return _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, None)
 
 
 def packed_dkv_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None):
     """Plain PyTorch K-DKV (mirrors ``_dkv_call``, with lse and delta
     untransposed ``(B, Sq, NH)``): ``dk = scale * ds^T.q``,
     ``dv = p^T.do``. Returns ``(dk, dv)`` in q's dtype."""
-    scale = _scale_of(q, nh, scale)
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, _unpack(q, nh).float()) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, _unpack(do, nh).float())
-    return (dk.reshape(k.shape).to(q.dtype),
-            dv.reshape(v.shape).to(q.dtype))
+    return _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, None)
+
+
+def segment_dq_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
+    """Plain PyTorch K-SDQ (mirrors ``_dq_call_seg`` for causal
+    self-attention): ``packed_dq_ref`` where a pair is visible only
+    within one segment id, with p exactly 0 on every masked entry."""
+    return _dq_ref(q, k, v, do, lse, delta, nh, True, scale, segment_ids)
+
+
+def segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
+    """Plain PyTorch K-SDKV (mirrors ``_dkv_call_seg``, with lse and
+    delta untransposed ``(B, S, NH)``). Returns ``(dk, dv)``."""
+    return _dkv_ref(q, k, v, do, lse, delta, nh, True, scale, segment_ids)
 
 
 def packed_fwd(q, k, v, nh, causal=True, scale=None):
@@ -213,7 +197,9 @@ def packed_fwd(q, k, v, nh, causal=True, scale=None):
     for CUDA tensors. Returns ``(o, lse)``."""
     if q.device.type == "cpu":
         return packed_attention_ref(q, k, v, nh, causal=causal, scale=scale)
-    return _launch_fwd(q, k, v, nh, causal, scale)
+    out = _launch_fwd("packed_fwd", q, k, v, nh, causal, scale)
+    LAUNCHES["K-PACK"] += 1
+    return out
 
 
 def packed_dq(q, k, v, do, lse, delta, nh, causal=True, scale=None):
@@ -222,7 +208,10 @@ def packed_dq(q, k, v, do, lse, delta, nh, causal=True, scale=None):
     if q.device.type == "cpu":
         return packed_dq_ref(q, k, v, do, lse, delta, nh, causal=causal,
                              scale=scale)
-    return _launch_bwd("K-DQ", q, k, v, do, lse, delta, nh, causal, scale)
+    dq = _launch_bwd("packed_dq", "dq", q, k, v, do, lse, delta, nh, causal,
+                     scale)
+    LAUNCHES["K-DQ"] += 1
+    return dq
 
 
 def packed_dkv(q, k, v, do, lse, delta, nh, causal=True, scale=None):
@@ -231,7 +220,49 @@ def packed_dkv(q, k, v, do, lse, delta, nh, causal=True, scale=None):
     if q.device.type == "cpu":
         return packed_dkv_ref(q, k, v, do, lse, delta, nh, causal=causal,
                               scale=scale)
-    return _launch_bwd("K-DKV", q, k, v, do, lse, delta, nh, causal, scale)
+    dkv = _launch_bwd("packed_dkv", "dkv", q, k, v, do, lse, delta, nh,
+                      causal, scale)
+    LAUNCHES["K-DKV"] += 1
+    return dkv
+
+
+def seg_fwd(q, k, v, segment_ids, nh, scale=None):
+    """Segment-masked causal forward over ``(B, S, NH*D)`` whose q, k, v
+    may be column slices of the fused qkv: the plain version for CPU
+    tensors, K-SEG for CUDA tensors. Returns ``(o, lse)``."""
+    if q.device.type == "cpu":
+        return segment_attention_ref(q, k, v, segment_ids, nh, scale=scale)
+    out = _launch_fwd("seg_fwd", q, k, v, nh, True, scale, segment_ids)
+    LAUNCHES["K-SEG"] += 1
+    return out
+
+
+# the JAX package's name for the forward
+flash_attention_packed_segmented = seg_fwd
+
+
+def seg_dq(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
+    """Segmented dQ: the plain version for CPU tensors, K-SDQ for CUDA
+    tensors."""
+    if q.device.type == "cpu":
+        return segment_dq_ref(q, k, v, do, lse, delta, segment_ids, nh,
+                              scale=scale)
+    dq = _launch_bwd("seg_dq", "dq", q, k, v, do, lse, delta, nh, True,
+                     scale, segment_ids)
+    LAUNCHES["K-SDQ"] += 1
+    return dq
+
+
+def seg_dkv(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
+    """Segmented dK, dV: the plain version for CPU tensors, K-SDKV for
+    CUDA tensors. Returns ``(dk, dv)``."""
+    if q.device.type == "cpu":
+        return segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh,
+                               scale=scale)
+    dkv = _launch_bwd("seg_dkv", "dkv", q, k, v, do, lse, delta, nh, True,
+                      scale, segment_ids)
+    LAUNCHES["K-SDKV"] += 1
+    return dkv
 
 
 def _rows(t, what):
@@ -247,7 +278,7 @@ def _rows(t, what):
     return t, rs
 
 
-def _check(what, q, k, v, nh, causal, extra=()):
+def _check(what, q, k, v, nh, causal, extra=(), seg=None):
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -268,14 +299,21 @@ def _check(what, q, k, v, nh, causal, extra=()):
                          "kernels' instantiations")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{what}: q, k, v dtypes differ")
+    if seg is not None:
+        if (seg.dtype != torch.int32 or tuple(seg.shape) != (b, sq)
+                or not seg.is_contiguous()):
+            raise ValueError(f"{what}: segment_ids must be contiguous "
+                             f"(B, S) = {(b, sq)} int32")
+        extra = (*extra, seg)
     if any(t.device != q.device for t in (k, v, *extra)):
         raise ValueError(f"{what}: tensors on different devices")
     return d
 
 
-def _launch_fwd(q, k, v, nh, causal, scale):
-    what = "packed_fwd"
-    d = _check(what, q, k, v, nh, causal)
+def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None):
+    """One forward launch (K-PACK, or K-SEG with ``seg``); the caller
+    counts it. Returns ``(o, lse)``."""
+    d = _check(what, q, k, v, nh, causal, seg=seg)
     b, sq, hp = q.shape
     sk = k.shape[1]
     (q, q_rs), (k, k_rs), (v, v_rs) = (_rows(t, what) for t in (q, k, v))
@@ -283,21 +321,31 @@ def _launch_fwd(q, k, v, nh, causal, scale):
     o = torch.empty((b, sq, hp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, nh), dtype=torch.float32, device=q.device)
     lib = _build.load_library()
+    code = _build.dtype_code(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_fwd_packed(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, sq, sk, nh, d, q_rs, k_rs, v_rs, float(scale),
-            int(bool(causal)), _build.dtype_code(q.dtype), stream)
-    _build.check(rc, "flash_attention_fwd_packed")
-    LAUNCHES["K-PACK"] += 1
+        if seg is None:
+            entry = "flash_attention_fwd_packed"
+            rc = lib.flash_attention_fwd_packed(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), b, sq, sk, nh, d, q_rs, k_rs, v_rs,
+                float(scale), int(bool(causal)), code, stream)
+        else:
+            entry = "flash_attention_fwd_packed_seg"
+            rc = lib.flash_attention_fwd_packed_seg(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), b, sq, nh, d, q_rs, k_rs, v_rs,
+                float(scale), code, stream)
+    _build.check(rc, entry)
     return o, lse
 
 
-def _launch_bwd(name, q, k, v, do, lse, delta, nh, causal, scale):
-    what, entry = {"K-DQ": ("packed_dq", "flash_attention_bwd_dq"),
-                   "K-DKV": ("packed_dkv", "flash_attention_bwd_dkv")}[name]
-    d = _check(what, q, k, v, nh, causal, extra=(do, lse, delta))
+def _launch_bwd(what, kind, q, k, v, do, lse, delta, nh, causal, scale,
+                seg=None):
+    """One backward launch; the caller counts it. ``kind`` ``"dq"``
+    launches a dQ kernel and returns dq, ``"dkv"`` a dK/dV kernel and
+    returns ``(dk, dv)``; ``seg`` selects the segmented entries."""
+    d = _check(what, q, k, v, nh, causal, extra=(do, lse, delta), seg=seg)
     b, sq, hp = q.shape
     sk = k.shape[1]
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -310,23 +358,34 @@ def _launch_bwd(name, q, k, v, do, lse, delta, nh, causal, scale):
     (q, q_rs), (k, k_rs), (v, v_rs), (do, do_rs) = (
         _rows(t, what) for t in (q, k, v, do))
     scale = _scale_of(q, nh, scale)
-    code = _build.dtype_code(q.dtype)
+    want_dq = kind == "dq"
+    if want_dq:
+        outs = (torch.empty((b, sq, hp), dtype=q.dtype, device=q.device),)
+    else:
+        outs = tuple(torch.empty((b, sk, hp), dtype=q.dtype,
+                                 device=q.device) for _ in range(2))
+    entry = "flash_attention_bwd_" + kind
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr()]
+    if seg is None:
+        dims = (b, sq, sk, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale),
+                int(bool(causal)))
+    else:
+        entry += "_seg"
+        ptrs.append(seg.data_ptr())
+        dims = (b, sq, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale))
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr())
-        dims = (b, sq, sk, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale),
-                int(bool(causal)), code, stream)
-        if name == "K-DQ":
-            outs = (torch.empty((b, sq, hp), dtype=q.dtype, device=q.device),)
-        else:
-            outs = tuple(torch.empty((b, sk, hp), dtype=q.dtype,
-                                     device=q.device) for _ in range(2))
-        rc = getattr(lib, entry)(*ptrs, *(t.data_ptr() for t in outs), *dims)
+        rc = getattr(lib, entry)(*ptrs, *(t.data_ptr() for t in outs),
+                                 *dims, _build.dtype_code(q.dtype), stream)
     _build.check(rc, entry)
-    LAUNCHES[name] += 1
-    return outs[0] if name == "K-DQ" else outs
+    return outs[0] if want_dq else outs
+
+
+def _delta(do, o, nh):
+    """``sum_d(do * o)`` per head in fp32, ``(B, S, NH)``."""
+    return (do.float() * o.float()).reshape(*o.shape[:2], nh, -1).sum(-1)
 
 
 class FlashAttentionPacked(torch.autograd.Function):
@@ -347,8 +406,7 @@ class FlashAttentionPacked(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         nh, causal, scale = ctx.attn
-        delta = (do.float() * o.float()).reshape(
-            *o.shape[:2], nh, -1).sum(-1)
+        delta = _delta(do, o, nh)
         dq = packed_dq(q, k, v, do, lse, delta, nh, causal=causal,
                        scale=scale)
         dk, dv = packed_dkv(q, k, v, do, lse, delta, nh, causal=causal,
@@ -364,3 +422,45 @@ def flash_attention_packed(q, k, v, nh, causal=True, scale=None):
                          f"{nh}")
     scale = _scale_of(q, nh, scale)
     return FlashAttentionPacked.apply(q, k, v, nh, causal, scale)
+
+
+class FlashAttentionPackedSeg(torch.autograd.Function):
+    """Segment-masked causal flash attention with its backward (mirrors
+    the JAX package's ``_flash_packed_seg`` custom_vjp for self-attention):
+    the forward runs K-SEG and saves ``(q, k, v, seg, o, lse)``; the
+    backward computes ``delta`` per head in fp32 and runs K-SDQ and
+    K-SDKV. The ids take no gradient. On CPU tensors each step is its
+    plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, nh, scale):
+        o, lse = seg_fwd(q, k, v, segment_ids, nh, scale=scale)
+        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
+        ctx.attn = (nh, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg, o, lse = ctx.saved_tensors
+        nh, scale = ctx.attn
+        delta = _delta(do, o, nh)
+        dq = seg_dq(q, k, v, do, lse, delta, seg, nh, scale=scale)
+        dk, dv = seg_dkv(q, k, v, do, lse, delta, seg, nh, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_packed_seg(q, k, v, segment_ids, nh, scale=None):
+    """Differentiable segment-masked causal self-attention over
+    ``(B, S, NH*D)`` (the JAX package's
+    ``flash_attention_packed_segmented`` with ``segment_ids_k=None``,
+    causal): returns ``o``. q, k, v may be column slices of the fused
+    qkv; ``segment_ids`` ``(B, S)`` is taken as int32."""
+    if q.shape[-1] % nh:
+        raise ValueError(f"hidden {q.shape[-1]} not divisible by num_heads "
+                         f"{nh}")
+    if tuple(segment_ids.shape) != tuple(q.shape[:2]):
+        raise ValueError(f"segment_ids shape {tuple(segment_ids.shape)} != "
+                         f"batch/seq {tuple(q.shape[:2])}")
+    seg = segment_ids.to(torch.int32).contiguous()
+    scale = _scale_of(q, nh, scale)
+    return FlashAttentionPackedSeg.apply(q, k, v, seg, nh, scale)

@@ -2,9 +2,11 @@
 
 ``HybridParallelTrainer.step`` runs one training step: value and grad of
 ``transformer_core.gpt_loss`` (the packed flash kernels K-PACK, K-DQ and
-K-DKV on CUDA), AdamW with global-norm clipping, and the in-step anomaly
-guard, which commits the new params and optimizer state only where the
-loss and the grad norm are finite (``where(finite, new, old)``). The
+K-DKV on CUDA; with ``packed_sequences=True`` the segmented K-SEG, K-SDQ
+and K-SDKV over rows packed by ``io.packing``), AdamW with global-norm
+clipping, and the in-step anomaly guard, which commits the new params
+and optimizer state only where the loss and the grad norm are finite
+(``where(finite, new, old)``). The
 guard's counters stay on the device; the host reads one step's skip flag
 after the next step has been enqueued (lag 1), through a pinned copy and
 a CUDA event, so the guard adds no other synchronisation.
@@ -12,12 +14,11 @@ a CUDA event, so the guard adds no other synchronisation.
 Only the single-device branch of the JAX trainer is ported. These raise
 ``NotImplementedError``, naming the slice that brings them: any mesh axis
 (``dp``, ``mp``, ``pp``, ``sharding``, ``sep``) above 1 (multi-device),
-``loss_scaling``, ``packed_sequences`` (the packed-sequence trainer),
-checkpoints and preemption, and telemetry, the memory plan and the HTTP
-endpoint. ``TrainerConfig`` keeps every field and default of the JAX
-package's; ``telemetry`` and ``compile_ledger`` are accepted and record
-nothing in this slice (PyTorch runs eagerly, there is no compile to
-ledger).
+``loss_scaling``, checkpoints and preemption, and telemetry, the memory
+plan and the HTTP endpoint. ``TrainerConfig`` keeps every field and
+default of the JAX package's; ``telemetry`` and ``compile_ledger`` are
+accepted and record nothing in this slice (PyTorch runs eagerly, there
+is no compile to ledger).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..io.packing import positions_from_segment_ids
 from ..utils import fault_injection as fi
 from ..utils.tree import flatten, tree_map, unflatten
 from . import transformer_core as core
@@ -207,6 +209,16 @@ class HybridParallelTrainer:
             raise ValueError(
                 "loss_scaling=True requires anomaly_guard=True: the guard "
                 "branch IS the scaler")
+        if cfg.packed_sequences and cfg.pp > 1:
+            raise ValueError(
+                "packed_sequences is not supported with pipeline "
+                "parallelism (pp > 1): the schedules compute per-stage "
+                "losses outside the segment-aware loss")
+        if cfg.packed_sequences and cfg.sep > 1:
+            raise ValueError(
+                "packed_sequences cannot combine with sequence parallelism "
+                "(sep > 1): the ring shards the sequence while the packed "
+                "mask is per-token; run packed batches with sep=1")
         axes = {a: getattr(cfg, a) for a in ("dp", "mp", "pp", "sharding",
                                               "sep")}
         if any(n != 1 for n in axes.values()) or cfg.vpp != 1:
@@ -214,8 +226,6 @@ class HybridParallelTrainer:
                         "the multi-device slice")
         if cfg.loss_scaling:
             _not_ported("loss_scaling", "a later training slice")
-        if cfg.packed_sequences:
-            _not_ported("packed_sequences", "the packed-sequence trainer")
         if cfg.consistency_check_every:
             _not_ported("the cross-rank consistency check",
                         "the multi-device slice")
@@ -225,24 +235,28 @@ class HybridParallelTrainer:
         core._remat_wrap(None, cfg.remat)   # an unported policy raises now
 
     # -- the step -----------------------------------------------------------
-    def loss_and_grads(self, params, tokens, labels, poison=1.0):
+    def loss_and_grads(self, params, tokens, labels, poison=1.0, extras=()):
         """``(loss * poison, grads)`` of ``gpt_loss`` at ``params``: the
-        loss detached, the grads a tree like ``params``."""
+        loss detached, the grads a tree like ``params``. ``extras`` is
+        ``(segment_ids, positions)`` in packed mode, else empty."""
         paths, leaves = zip(*((path, p.detach().requires_grad_(True))
                               for path, p in flatten(params)))
+        seg, pos = extras if extras else (None, None)
         raw = core.gpt_loss(self.model_cfg, unflatten(zip(paths, leaves)),
                             tokens, labels,
                             compute_dtype=self.cfg.compute_dtype,
-                            remat=self.cfg.remat) * poison
+                            remat=self.cfg.remat, segment_ids=seg,
+                            positions=pos) * poison
         grads = torch.autograd.grad(raw, leaves)
         return raw.detach(), unflatten(zip(paths, grads))
 
-    def _step_fn(self, tokens, labels, poison):
+    def _step_fn(self, tokens, labels, extras, poison):
         """value-and-grad, AdamW, and the guard's select; returns
         ``(params, opt, guard, loss, grad_norm, skipped)``, all on the
         device."""
         cfg, params, opt, guard = self.cfg, self.params, self.opt, self.guard
-        loss, grads = self.loss_and_grads(params, tokens, labels, poison)
+        loss, grads = self.loss_and_grads(params, tokens, labels, poison,
+                                          extras)
         new_p, new_opt, gnorm = adamw_update(cfg, params, grads, opt)
         if not cfg.anomaly_guard:
             return (new_p, new_opt, guard, loss, gnorm,
@@ -275,30 +289,62 @@ class HybridParallelTrainer:
 
         return put(tokens), put(labels)
 
+    def _packed_extras(self, segment_ids, positions):
+        """Validate the packed-mode extras and put them on the device as
+        int32: ``()`` in plain mode, ``(segment_ids, positions)`` in
+        packed mode, with positions derived from the ids when missing.
+        Raises where the call disagrees with ``cfg.packed_sequences``
+        (silently ignoring ids would train across documents)."""
+        if not self.cfg.packed_sequences:
+            self._no_packed_extras("step()", segment_ids, positions)
+            return ()
+        if segment_ids is None:
+            raise ValueError(
+                "packed_sequences=True: step() needs segment_ids (and "
+                "positions) -- produce batches with io.packing")
+        seg = np.asarray(segment_ids, np.int32)
+        if positions is None:
+            positions = positions_from_segment_ids(seg)
+
+        def put(x):
+            return torch.as_tensor(np.asarray(x, np.int32)).to(self.device)
+
+        return put(seg), put(positions)
+
     def step(self, tokens, labels, segment_ids=None, positions=None):
-        self._no_packed_extras("step()", segment_ids, positions)
+        extras = self._packed_extras(segment_ids, positions)
         t, l = self.shard_batch(tokens, labels)
-        return self._dispatch_step(t, l)
+        return self._dispatch_step(t, l, extras)
 
     def step_presharded(self, tokens_dev, labels_dev, segment_ids_dev=None,
                         positions_dev=None):
         """One train step over batches already on the device (the tight
-        loop of a benchmark); returns the loss as a device tensor."""
-        self._no_packed_extras("step_presharded()", segment_ids_dev,
-                               positions_dev)
-        return self._dispatch_step(tokens_dev, labels_dev)
+        loop of a benchmark); returns the loss as a device tensor. Packed
+        mode takes the device-resident segment ids and positions too."""
+        if self.cfg.packed_sequences:
+            if segment_ids_dev is None or positions_dev is None:
+                raise ValueError(
+                    "packed_sequences=True: step_presharded() needs "
+                    "device-resident segment_ids and positions")
+            extras = (segment_ids_dev, positions_dev)
+        else:
+            self._no_packed_extras("step_presharded()", segment_ids_dev,
+                                   positions_dev)
+            extras = ()
+        return self._dispatch_step(tokens_dev, labels_dev, extras)
 
     def _no_packed_extras(self, what, segment_ids, positions):
         if segment_ids is not None or positions is not None:
             raise ValueError(
                 f"{what} got segment_ids/positions but "
                 "TrainerConfig.packed_sequences is False -- the ids would "
-                "be silently ignored")
+                "be silently ignored; build the trainer with "
+                "packed_sequences=True")
 
-    def _dispatch_step(self, t, l):
+    def _dispatch_step(self, t, l, extras=()):
         self.global_step += 1
         (self.params, self.opt, self.guard, loss, gnorm, skipped) = (
-            self._step_fn(t, l, self._poison_for(self.global_step)))
+            self._step_fn(t, l, extras, self._poison_for(self.global_step)))
         self.last_grad_norm = gnorm
         if self.cfg.anomaly_guard:
             prev = self._pending_guard

@@ -15,10 +15,15 @@ forward launches twice per layer per step). Attention is
 ``ops.attention_dispatch.causal_attention_packed`` over q, k, v taken as
 column slices of the fused qkv projection.
 
+``segment_ids``/``positions`` ``(B, S)`` switch on the packed-sequence
+path (rows packed by ``io.packing``): cross-document attention is masked
+in every block (K-SEG, K-SDQ, K-SDKV), positions reset per document, and
+the loss averages over real within-document labels only
+(``packed_loss_mask``).
+
 Not ported yet, and raising ``NotImplementedError``: the ``"dots"`` and
-``"names:..."`` remat policies, ``segment_ids``/``positions`` (the
-packed-sequence trainer), ring attention and the vocab-parallel embedding
-(the multi-device slice).
+``"names:..."`` remat policies, ring attention and the vocab-parallel
+embedding (the multi-device slice).
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ from ..ops.attention_dispatch import causal_attention_packed
 
 __all__ = ["gpt_init", "gpt_block", "embed_lookup", "gpt_embed",
            "gpt_trunk", "gpt_logits", "softmax_xent", "gpt_forward",
-           "chunked_xent_on", "chunked_xent", "gpt_loss"]
+           "chunked_xent_on", "chunked_xent", "packed_loss_mask",
+           "gpt_loss"]
 
 Params = Dict[str, Any]
 
@@ -94,7 +100,8 @@ def gpt_block(cfg, p: Params, x, compute_dtype=torch.bfloat16, ring=None,
     """One pre-norm decoder block over ``x`` ``(B, S, H)``; ``p`` holds
     one layer's leaves (no layer dim). q, k, v stay packed
     ``(B, S, NH*D)``: heads are column slices of the fused qkv
-    projection, so no head transpose is ever made."""
+    projection, so no head transpose is ever made. ``seg`` ``(B, S)``
+    int32 masks attention across segments."""
     eps = cfg.layer_norm_epsilon
     hp = cfg.num_heads * cfg.head_dim
 
@@ -126,17 +133,17 @@ def embed_lookup(cfg, wte, tokens, mesh=None, compute_dtype=torch.bfloat16):
 def gpt_embed(cfg, params: Params, tokens, compute_dtype=torch.bfloat16,
               mesh=None, ring=None, positions=None):
     """Tokens ``(B, S)`` -> ``(B, S, H)``: the token embedding plus the
-    learned positional embedding at positions ``0..S-1``."""
-    if positions is not None:
-        raise NotImplementedError(
-            "gpt_embed: per-segment positions come with the packed-sequence "
-            "trainer")
+    learned positional embedding at positions ``0..S-1``, or at
+    ``positions`` ``(B, S)`` (the packed path resets them at each
+    document start)."""
     if ring is not None:
         raise NotImplementedError(
             "gpt_embed: the zigzag ring layout comes with the multi-device "
             "slice")
-    s = tokens.shape[-1]
     x = embed_lookup(cfg, params["wte"], tokens, mesh, compute_dtype)
+    if positions is not None:
+        return x + params["wpe"][positions.long()].to(compute_dtype)
+    s = tokens.shape[-1]
     return x + params["wpe"][:s][None].to(compute_dtype)
 
 
@@ -184,18 +191,19 @@ def gpt_trunk(cfg, params: Params, tokens, compute_dtype=torch.bfloat16,
               remat=True, ring=None, mesh=None, segment_ids=None,
               positions=None):
     """Tokens -> final hidden states ``(B, S, H)``, before the vocab
-    projection; ``remat`` selects the recompute policy per layer."""
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "gpt_trunk: segment_ids come with the packed-sequence trainer")
+    projection; ``remat`` selects the recompute policy per layer.
+    ``segment_ids``/``positions`` ``(B, S)`` switch on the packed path:
+    every layer (and its recompute) closes over the same int32 ids."""
     x = gpt_embed(cfg, params, tokens, compute_dtype, mesh=mesh, ring=ring,
                   positions=positions)
+    seg = (segment_ids.to(torch.int32).contiguous()
+           if segment_ids is not None else None)
     # one unbind per leaf: its backward stacks the layers' grads at once
     per_layer = {k: v.unbind(0) for k, v in params["blocks"].items()}
 
     def body(carry, *leaves):
         blk = dict(zip(per_layer, leaves))
-        return gpt_block(cfg, blk, carry, compute_dtype, ring=ring)
+        return gpt_block(cfg, blk, carry, compute_dtype, ring=ring, seg=seg)
 
     run = _remat_wrap(body, remat)
     for i in range(cfg.num_layers):
@@ -210,29 +218,44 @@ def chunked_xent_on(hidden, proj_w, labels, compute_dtype=torch.bfloat16,
     ``chunk`` of tokens makes its fp32 logits, reduces them, and is
     recomputed in the backward pass. A ragged last chunk is simply
     shorter; the mean divides by the token count, as the JAX package's
-    padded version does."""
-    if token_mask is not None:
-        raise NotImplementedError(
-            "chunked_xent_on: token_mask comes with the packed-sequence "
-            "trainer")
+    padded version does. ``token_mask`` (labels' shape, 0/1) drops tokens
+    from both the sum and the denominator, which is then
+    ``max(sum(mask), 1)``."""
     h = hidden.shape[-1]
     t = hidden.reshape(-1, h)
     lab = labels.reshape(-1).long()
     n = t.shape[0]
+    m = token_mask.reshape(-1).float() if token_mask is not None else None
     w = proj_w.to(compute_dtype)
 
-    def body(h_c, l_c):
+    def body(h_c, l_c, m_c):
         logits = (h_c.to(compute_dtype) @ w).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, l_c[:, None])[:, 0]
-        return (lse - gold).sum()
+        nll = lse - gold
+        return (nll if m_c is None else nll * m_c).sum()
 
     total = None
     for i in range(0, n, chunk):
         part = checkpoint(body, t[i:i + chunk], lab[i:i + chunk],
+                          None if m is None else m[i:i + chunk],
                           use_reentrant=False, preserve_rng_state=False)
         total = part if total is None else total + part
-    return total / n
+    if m is None:
+        return total / n
+    return total / torch.clamp(m.sum(), min=1.0)
+
+
+def packed_loss_mask(segment_ids):
+    """``(B, S)`` segment ids -> ``(B, S)`` float 0/1 label-validity mask
+    for next-token training on packed rows: label i (token i+1) counts
+    only where position i is a real token (``seg >= 0``) and position
+    i+1 exists in the same segment, so boundary and pad slots add
+    nothing to the loss or, through it, to any gradient."""
+    seg = segment_ids.to(torch.int32)
+    nxt = torch.cat([seg[..., 1:], torch.full_like(seg[..., :1], -2)],
+                    dim=-1)
+    return ((seg >= 0) & (seg == nxt)).float()
 
 
 def chunked_xent(cfg, params: Params, hidden, labels,
@@ -249,8 +272,13 @@ def chunked_xent(cfg, params: Params, hidden, labels,
 def gpt_loss(cfg, params: Params, tokens, labels,
              compute_dtype=torch.bfloat16, remat=True, ring=None, mesh=None,
              segment_ids=None, positions=None):
-    """Mean next-token cross entropy over the whole batch."""
+    """Mean next-token cross entropy over the whole batch. With
+    ``segment_ids``/``positions`` (the packed path) cross-segment
+    attention is masked, positions reset per segment, and the mean runs
+    over real within-segment labels only."""
     hidden = gpt_trunk(cfg, params, tokens, compute_dtype, remat, ring=ring,
                        mesh=mesh, segment_ids=segment_ids,
                        positions=positions)
-    return chunked_xent(cfg, params, hidden, labels, compute_dtype)
+    mask = packed_loss_mask(segment_ids) if segment_ids is not None else None
+    return chunked_xent(cfg, params, hidden, labels, compute_dtype,
+                        token_mask=mask)

@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s own logic on the CPU: it refuses to run without a
-card, and its kernel checks (comparison, bound, JSON keys) work at tiny
-shapes with the plain versions standing in for the kernels."""
+card, its kernel checks (comparison, bound, JSON keys) work at tiny
+shapes with the plain versions standing in for the kernels, and its
+training phases (7, 8, 10-12) run end to end at a tiny GPT."""
 import numpy as np
 import pytest
 import torch
@@ -49,6 +50,25 @@ def test_kernel_checks_report_every_key(on_cpu, check, args):
                                                        "operations")
 
 
+@pytest.mark.parametrize("check,args,names", [
+    ("check_train", (torch.float32, 2, 70, 2, 64), ("K-PACK", "K-DQ",
+                                                    "K-DKV")),
+    ("check_seg_train", (torch.float32, 2, 192, 2, 64), ("K-SEG", "K-SDQ",
+                                                         "K-SDKV")),
+    ("check_bshd_train", (torch.float32, 2, 70, 2, 64), ("K-BSHD", "K-BDQ",
+                                                         "K-BDKV")),
+])
+def test_training_kernel_checks_report_every_key(on_cpu, check, args, names):
+    rng = np.random.RandomState(0)
+    res = getattr(cs, check)(rng, *args, on_cpu, timed=True)
+    assert set(res) == set(names)
+    for r in res.values():
+        assert _KEYS <= set(r)
+        assert r["max_abs_err"] == 0.0   # plain version against itself
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes",
+                                                       "operations")
+
+
 def test_segment_pairs_count_the_visible_mask():
     rng = np.random.RandomState(1)
     seg = cs.segments(rng, 300, 8)
@@ -56,6 +76,12 @@ def test_segment_pairs_count_the_visible_mask():
     s = seg[0]
     mask = (s[:, None] == s[None, :]) & np.tril(np.ones((300, 300), bool))
     assert cs.visible_pairs_seg(seg) == int(mask.sum())
+    (_, _, rows, _), eff = cs.packed_rows(0, 3, 256, 32, 300, 1000)
+    want = sum(int(((r[:, None] == r[None, :])
+                    & np.tril(np.ones((256, 256), bool))).sum())
+               for r in rows)
+    assert cs.visible_pairs_seg(rows) == want
+    assert 0 < eff < 1 and rows.shape == (3, 256)
 
 
 @pytest.fixture
@@ -64,9 +90,10 @@ def tiny_training(on_cpu, monkeypatch):
     device is the CPU, and each plain attention version counts itself
     as its kernel would, so the launch accounting is exercised."""
     from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
-    cfg = gpt_tiny()
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0)
     monkeypatch.setattr(cs, "model_config", lambda: cfg)
     monkeypatch.setattr(cs, "LAYERS", cfg.num_layers)
     monkeypatch.setattr(cs.hybrid, "resolve_device",
@@ -74,15 +101,21 @@ def tiny_training(on_cpu, monkeypatch):
     for fn in ("reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-    for name, ref in (("K-PACK", "packed_attention_ref"),
-                      ("K-DQ", "packed_dq_ref"), ("K-DKV", "packed_dkv_ref")):
-        orig = getattr(fp, ref)
+    for mod, name, ref in (
+            (fp, "K-PACK", "packed_attention_ref"),
+            (fp, "K-DQ", "packed_dq_ref"), (fp, "K-DKV", "packed_dkv_ref"),
+            (fp, "K-SEG", "segment_attention_ref"),
+            (fp, "K-SDQ", "segment_dq_ref"),
+            (fp, "K-SDKV", "segment_dkv_ref"),
+            (fa, "K-BSHD", "causal_attention_ref"),
+            (fa, "K-BDQ", "bshd_dq_ref"), (fa, "K-BDKV", "bshd_dkv_ref")):
+        orig = getattr(mod, ref)
 
-        def counted(*a, _orig=orig, _name=name, **kw):
-            fp.LAUNCHES[_name] += 1
+        def counted(*a, _orig=orig, _name=name, _mod=mod, **kw):
+            _mod.LAUNCHES[_name] += 1
             return _orig(*a, **kw)
 
-        monkeypatch.setattr(fp, ref, counted)
+        monkeypatch.setattr(mod, ref, counted)
     return on_cpu
 
 
@@ -99,9 +132,41 @@ def test_training_phases_rehearse_on_cpu(tiny_training):
     assert counts["phase7"]["K-DQ"] == 2 * 4 * 2
 
 
+def test_packed_training_phases_rehearse_on_cpu(tiny_training):
+    counts = {}
+    acc = cs.phase_packed_accuracy(counts, batch=2, seq=64,
+                                   doc_lengths=(5, 25), seed=3)
+    assert acc["grad_worst_ratio"] == 0.0 and len(acc["steps"]) == 3
+    assert counts["phase10"]["K-SDQ"] == 2 * 4 * 2
+    assert counts["phase10"]["K-PACK"] == counts["phase10"]["K-DQ"] == 0
+    m = cs.phase_train(counts, tiny_training, iters=3, batch=2, seq=64,
+                       packed=True, doc_lengths=(8, 40))
+    assert 0 < m["packing_efficiency"] <= 1
+    assert m["real_tokens_per_s"] <= m["tokens_per_s"]
+    # remat recomputes each layer's forward: two K-SEG per layer per step
+    assert counts["phase11"]["K-SEG"] == 3 * 2 * 2
+    assert counts["phase11"]["K-SDQ"] == counts["phase11"]["K-SDKV"] == 6
+    assert counts["phase11"]["K-PACK"] == 0
+
+
+def test_nn_api_training_phase_rehearses_on_cpu(tiny_training):
+    counts = {}
+    m = cs.phase_nn_train(counts, tiny_training, steps=2, acc_shape=(2, 32),
+                          shape=(2, 64))
+    assert m["grad_worst_ratio"] == 0.0 and len(m["losses"]) == 3
+    for name in ("K-BSHD", "K-BDQ", "K-BDKV"):
+        assert counts["phase12"][name] == 2 * 2
+
+
 def test_profile_kinds_name_the_training_kernels():
     assert cs.kernel_kind("void (anonymous namespace)::flash_dkv_kernel"
                           "<__nv_bfloat16, 64>(...)") == "K-DKV"
+    assert cs.kernel_kind("void (anonymous namespace)::flash_dkv_kernel"
+                          "<__nv_bfloat16, 64, true>(...)") == "K-SDKV"
+    assert cs.kernel_kind("void (anonymous namespace)::flash_dq_kernel"
+                          "<float, 128, false>(...)") == "K-DQ"
+    assert cs.kernel_kind("void (anonymous namespace)::flash_fwd_kernel"
+                          "<__nv_bfloat16, 64, true>(...)") == "K-SEG"
     assert cs.kernel_kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT") == \
         "matmul"
     assert cs.kernel_kind("void at::native::reduce_kernel<512, 1>") == \

@@ -35,6 +35,7 @@ _MUST_IMPORT = {
     "paddle_tpu_torch.utils.fault_injection",
     "paddle_tpu_torch.utils.convert",
     "paddle_tpu_torch.ops.kernels.flash_attention_packed",
+    "paddle_tpu_torch.io.packing",
 }
 
 

@@ -131,12 +131,15 @@ def test_dispatch_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ring"):
         disp.causal_attention_packed(x, x, x, NH, ring=("mesh", "sep"))
     seg = torch.zeros(1, 64, dtype=torch.int32)
-    xg = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="B5"):
-        disp.causal_attention_packed(xg, x, x, NH, segment_ids=seg)
-    # without a gradient, segment ids take the serving kernel's path
-    o = disp.causal_attention_packed(x, x, x, NH, segment_ids=seg)
+    # segment ids with a gradient now run the segmented backward (K-SDQ,
+    # K-SDKV; their plain versions on the CPU): grads reach q, k and v
+    xs = [torch.randn(1, 64, NH * D, generator=torch.Generator()
+                      .manual_seed(i)).requires_grad_() for i in range(3)]
+    o = disp.causal_attention_packed(*xs, NH, segment_ids=seg)
+    grads = torch.autograd.grad(o.sum(), xs)
     assert o.shape == x.shape
+    assert all(g.shape == x.shape and bool(torch.isfinite(g).all())
+               and float(g.abs().max()) > 0 for g in grads)
 
 
 def test_training_wrappers_never_fall_back_off_the_cpu():

@@ -274,7 +274,7 @@ def test_from_gpt_params_rejects_unknown_missing_and_misshapen(jax_params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"dp": 2}, {"sep": 2}, {"loss_scaling": True}, {"packed_sequences": True},
+    {"dp": 2}, {"sep": 2}, {"loss_scaling": True},
     {"remat": "dots"}, {"remat": "names:attn_out_kernel,attn_lse"},
     {"http_port": 0}, {"consistency_check_every": 4}])
 def test_trainer_rejects_what_is_not_ported(kw):
