@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases 0,1,2  # device, build, kernel checks
-    python3 chip_smoke.py --phases 0,1,10,11,12   # the new training paths
+    python3 chip_smoke.py --phases 0,1,2,14,15,16 # speculative and int8
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -52,11 +52,29 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     grad flows only through K-BSHD's backward); then bf16
     ``torch.optim.AdamW`` steps at 4 x 1024: losses finite, and per step
     24 K-BSHD, 24 K-BDQ and 24 K-BDKV;
-13. (opt-in) profile of 3 packed training steps at phase 11's shape.
+13. (opt-in) profile of 3 packed training steps at phase 11's shape;
+14. speculative and int8 serving accuracy, fp32: (a) 3 repetitious
+    requests (prompts of 100-300 tokens, 16 new tokens) through the
+    scheduler with ``SpecDecodeConfig(k=4)``, the card's logits at every
+    committed position held against a teacher-forced CPU forward; (b)
+    int8 KV pools: the card's engine and the port's engine on the CPU
+    fed the same tokens (packed prefill, decode steps, one verify),
+    logits within 1e-2, and the int8-vs-fp32-pool gap printed;
+15. speculative serving load, bf16: phase 4's configuration with k=4 on
+    64 repetitious requests (prompts of 64-768 tokens), then the same
+    trace with speculation off; every request finishes, no page leaks,
+    K-MQ launches = verify ticks x layers, K-DEC = plain ticks x layers;
+    prints acceptance, tokens per verify tick, tick times and the
+    decode tokens/s of both runs;
+16. int8 KV serving load, bf16 weights: phase 4's trace on int8 pools,
+    then phase 15's with k=4 (K-DEC8 and K-MQ8 per tick, as 15); prints
+    the pool bytes against phase 4's bf16 pool;
+17. (opt-in) profile of 20 verify ticks (phase 6 with k=4 on repetitious
+    prompts).
 
-Each main-path phase (3-5, 7, 8, 10-12) sets the kernels' launch counts
-to 0 just before it and reads them just after. The line before the last
-is the kernels' JSON summary; the last line is
+Each main-path phase (3-5, 7, 8, 10-12, 14-16) sets the kernels' launch
+counts to 0 just before it and reads them just after. The line before the
+last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -77,8 +95,10 @@ from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.parallel import hybrid
-from paddle_tpu_torch.serving import (ContinuousBatchingScheduler, Request,
-                                      ServingConfig, ServingEngine)
+from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                      NgramDrafter, Request, ServingConfig,
+                                      ServingEngine, SpecDecodeConfig,
+                                      repetitious_trace)
 from paddle_tpu_torch.utils.tree import flatten
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
@@ -99,6 +119,12 @@ LAYERS = model_config().num_layers
 SOURCES = {
     "K-DEC": ("paddle_tpu_torch/csrc/paged_attention.cu",
               "paddle_tpu/ops/pallas/paged_attention.py:70"),
+    "K-DEC8": ("paddle_tpu_torch/csrc/paged_attention.cu",
+               "paddle_tpu/ops/pallas/paged_attention.py:70"),
+    "K-MQ": ("paddle_tpu_torch/csrc/paged_attention.cu",
+             "paddle_tpu/ops/pallas/paged_attention.py:309"),
+    "K-MQ8": ("paddle_tpu_torch/csrc/paged_attention.cu",
+              "paddle_tpu/ops/pallas/paged_attention.py:309"),
     "K-SEG": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
               "paddle_tpu/ops/pallas/flash_attention_packed.py:467"),
     "K-BSHD": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -167,9 +193,15 @@ def max_err(a, b) -> float:
 
 # -- phase 2: kernels against their plain versions --------------------------
 
-def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed):
+def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
+              int8=False):
+    """K-DEC (``qlen`` None: one query row) or K-MQ (a verify window of
+    ``qlen`` rows) against its plain version at serving's decode shape;
+    ``int8``: int8 pools with per-page scales (K-DEC8, K-MQ8) read by a
+    ``dtype`` query."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
+    name = ("K-DEC" if qlen is None else "K-MQ") + ("8" if int8 else "")
     b, ps, maxp = 32, 16, 64
     n_pages = 1 + b * maxp
     lens = rng.randint(1, maxp * ps + 1, size=b)
@@ -182,40 +214,59 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed):
         pt[r, :n] = perm[used:used + n]
         used += n
     dev = DEV
-    q = torch.from_numpy(rng.randn(b, nh, d).astype(np.float32)).to(dev, dtype)
-    kp = torch.from_numpy(rng.randn(n_pages, ps, nh_kv * d).astype(
-        np.float32)).to(dev, dtype)
-    vp = torch.from_numpy(rng.randn(n_pages, ps, nh_kv * d).astype(
-        np.float32)).to(dev, dtype)
+    rows = 1 if qlen is None else qlen
+    qshape = (b, nh, d) if qlen is None else (b, qlen, nh, d)
+    q = torch.from_numpy(rng.randn(*qshape).astype(np.float32)).to(dev, dtype)
+    if int8:
+        kp, vp = (torch.from_numpy(rng.randint(
+            -127, 128, (n_pages, ps, nh_kv * d)).astype(np.int8)).to(dev)
+            for _ in range(2))
+        # dequantized values within ~[-3.8, 3.8], as N(0, 1) K/V would be
+        sc = torch.from_numpy(rng.uniform(0.01, 0.03, (n_pages, 2, nh_kv))
+                              .astype(np.float32)).to(dev)
+    else:
+        kp, vp = (torch.from_numpy(rng.randn(n_pages, ps, nh_kv * d).astype(
+            np.float32)).to(dev, dtype) for _ in range(2))
+        sc = None
     pt_t = torch.from_numpy(pt).to(dev)
     sl_t = torch.from_numpy(lens.astype(np.int32)).to(dev)
-    out = pa.paged_decode_attention(q, kp, vp, pt_t, sl_t)
+    kern, plain = ((pa.paged_decode_attention, pa.paged_attention_ref)
+                   if qlen is None else (pa.paged_multiquery_attention,
+                                         pa.paged_multiquery_attention_ref))
+    out = kern(q, kp, vp, pt_t, sl_t, scales=sc)
     torch.cuda.synchronize()
-    ref = pa.paged_attention_ref(q.float(), kp.float(), vp.float(), pt_t, sl_t)
+    pool = (lambda x: x) if int8 else (lambda x: x.float())
+    ref = plain(q.float(), pool(kp), pool(vp), pt_t, sl_t, scales=sc)
     err = max_err(out, ref)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     ok = err <= tol and bool(torch.isfinite(out).all()) and bool(
         (out[0] == 0).all())
-    log(f"  K-DEC {str(dtype)[6:]} nh={nh} nh_kv={nh_kv} d={d} B={b} "
+    what = (f"{str(dtype)[6:]}" + (" q, int8 pools" if int8 else "")
+            + ("" if qlen is None else f" qlen={qlen}"))
+    log(f"  {name} {what} nh={nh} nh_kv={nh_kv} d={d} B={b} "
         f"page_size={ps}: max_abs_err {err:.3e} (tol {tol}) "
         f"{'ok' if ok else 'FAIL'}")
-    require(ok, "K-DEC disagrees with its plain version")
+    require(ok, f"{name} disagrees with its plain version")
     res = {"max_abs_err": err}
     if timed:
         elem = torch.finfo(dtype).bits // 8
+        kv_elem = 1 if int8 else elem
         tok = int(lens.sum())
-        nbytes = (2 * b * nh * d * elem + tok * 2 * nh_kv * d * elem
-                  + int(sum(-(-int(x) // ps) for x in lens)) * 4 + b * 4)
-        flops = 4.0 * d * nh * tok
-        res["ms"] = time_ms(lambda: pa.paged_decode_attention(
-            q, kp, vp, pt_t, sl_t))
-        res["plain_ms"] = time_ms(lambda: pa.paged_attention_ref(
-            q, kp, vp, pt_t, sl_t), iters=20)
+        pages = int(sum(-(-int(x) // ps) for x in lens))
+        # key positions each window row sees, summed over rows
+        pairs = int(sum(max(0, min(int(x), int(x) - rows + r + 1))
+                        for x in lens for r in range(rows)))
+        nbytes = (2 * b * rows * nh * d * elem + tok * 2 * nh_kv * d * kv_elem
+                  + pages * 4 + b * 4 + (pages * 2 * nh_kv * 4 if int8 else 0))
+        flops = 4.0 * d * nh * pairs
+        res["ms"] = time_ms(lambda: kern(q, kp, vp, pt_t, sl_t, scales=sc))
+        res["plain_ms"] = time_ms(lambda: plain(q, kp, vp, pt_t, sl_t,
+                                                scales=sc), iters=20)
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
                                                     peaks)
         res["library_ms"] = None   # no single PyTorch call pages attention
         res["shape"] = (f"B={b} nh={nh} nh_kv={nh_kv} d={d} page_size={ps} "
-                        f"tokens={tok} {str(dtype)[6:]}")
+                        f"tokens={tok} {what}")
     return res
 
 
@@ -576,6 +627,25 @@ def phase_kernels(peaks) -> dict:
                              (f32, 16, 4, 64), (bf, 16, 16, 128),
                              (f32, 8, 8, 128)]:
         check_dec(rng, dt, nh, nh_kv, d, peaks, timed=False)
+    # the verify window (K-MQ at k=4) and the int8 pools (K-DEC8, K-MQ8)
+    # at K-DEC's timed shape, its lengths drawn from the same seed, then
+    # fp32, GQA, qlen 1 and 8, head_dim 128 from a seed of their own, so
+    # the later checks draw the shapes they drew before these existed
+    for name, kw in (("K-MQ", dict(qlen=5)), ("K-DEC8", dict(int8=True)),
+                     ("K-MQ8", dict(qlen=5, int8=True))):
+        out[name] = check_dec(np.random.RandomState(0), bf, 16, 16, 64, peaks,
+                              timed=True, **kw)
+    rng_mq = np.random.RandomState(1)
+    for dt, nh, nh_kv, d, qlen, i8 in [
+            (f32, 16, 16, 64, 5, False), (bf, 16, 4, 64, 5, False),
+            (f32, 16, 4, 64, 5, False), (bf, 16, 16, 64, 1, False),
+            (f32, 16, 16, 64, 8, False), (bf, 8, 8, 128, 8, False),
+            (f32, 16, 16, 64, None, True), (bf, 16, 4, 64, None, True),
+            (f32, 8, 2, 128, None, True), (f32, 16, 16, 64, 5, True),
+            (bf, 16, 4, 64, 8, True), (bf, 16, 16, 64, 1, True),
+            (bf, 8, 8, 128, 3, True)]:
+        check_dec(rng_mq, dt, nh, nh_kv, d, peaks, timed=False, qlen=qlen,
+                  int8=i8)
     out["K-SEG"] = check_seg(rng, bf, 2048, 16, 64, peaks, timed=True)
     for dt, t, d in [(f32, 2048, 64), (bf, 1000, 64), (f32, 1000, 64),
                      (bf, 1000, 128)]:
@@ -629,6 +699,14 @@ def phase_kernels(peaks) -> dict:
 
 # -- phases 3-5: the serving path --------------------------------------------
 
+# phase 4's serving configuration, and phase 15's repetitious trace: prompts
+# of 64-768 tokens (a 16-64 token phrase tiled 4-12 times), as phase 4's
+LOAD_CFG = dict(page_size=16, max_model_len=1024, max_batch=32,
+                max_prefill_tokens=2048)
+SPEC_TRACE = dict(phrase_lens=(16, 64), repeats=(4, 12),
+                  out_tokens=(32, 128))
+
+
 def build_model(device, dtype):
     return GPTForCausalLM(model_config(), device=device, dtype=dtype,
                           generator=torch.Generator().manual_seed(0)).eval()
@@ -636,28 +714,44 @@ def build_model(device, dtype):
 
 def record_logits(sched, reqs):
     """Wrap the engine's steps to keep every request's logits rows (the
-    scheduler samples from them and drops them)."""
+    scheduler samples from them and drops them): per request, each call's
+    ``(tokens generated before it, rows)``; read them back with
+    :func:`committed_rows`."""
     eng = sched.engine
-    rows = {r.rid: [] for r in reqs}
-    prefill, decode = eng.prefill_packed, eng.decode
+    calls = {r.rid: [] for r in reqs}
+    prefill = eng.prefill_packed
 
     def prefill_rec(seqs, page_lists):
         out = prefill(seqs, page_lists)
         for i, pages in enumerate(page_lists):
             req = next(r for r in reqs if r.pages is pages)
             if not req.generated:
-                rows[req.rid].append(out[i].copy())
+                calls[req.rid].append((0, out[i][None].copy()))
         return out
 
-    def decode_rec(tokens, pt, lens):
-        runners = [r for r in sched.running if r.status == "running"]
-        out = decode(tokens, pt, lens)
-        for i, r in enumerate(runners):
-            rows[r.rid].append(out[i].copy())
-        return out
+    def step_rec(step):          # decode (n, vocab) or verify (n, w, vocab)
+        def rec(tokens, pt, lens):
+            runners = [r for r in sched.running if r.status == "running"]
+            out = step(tokens, pt, lens)
+            for i, r in enumerate(runners):
+                calls[r.rid].append((len(r.generated), out[i].reshape(
+                    -1, out.shape[-1]).copy()))
+            return out
+        return rec
 
-    eng.prefill_packed, eng.decode = prefill_rec, decode_rec
-    return rows
+    eng.prefill_packed = prefill_rec
+    eng.decode, eng.verify = step_rec(eng.decode), step_rec(eng.verify)
+    return calls
+
+
+def committed_rows(req, calls):
+    """The logits row behind each of ``req``'s generated tokens: a call
+    made at ``g`` generated tokens gave the rows of the tokens committed
+    before the next call (one for a prefill or a decode, the accepted
+    prefix plus the bonus token of a verify window)."""
+    marks = [g for g, _ in calls] + [len(req.generated)]
+    return [row for (g, out), nxt in zip(calls, marks[1:])
+            for row in out[:nxt - g]]
 
 
 def teacher_forced_check(cpu_model, prompt, generated, card_rows, what):
@@ -703,8 +797,9 @@ def phase_accuracy(counts):
     require(eng.pool.in_use == 0, "leaked pages")
     for r in reqs:
         teacher_forced_check(cpu, r.prompt.astype(np.int64), r.generated,
-                             rows[r.rid], f"scheduler rid {r.rid} "
-                             f"(prompt {len(r.prompt)})")
+                             committed_rows(r, rows[r.rid]),
+                             f"scheduler rid {r.rid} (prompt "
+                             f"{len(r.prompt)})")
     # generate(): batch prefill (K-BSHD) + decode, greedy
     ids = rng.randint(0, vocab, (2, 120)).astype(np.int64)
     gen_rows = {0: [], 1: []}
@@ -731,32 +826,32 @@ def _keep(logits, rows):
     return logits
 
 
-def phase_load(model, counts) -> dict:
-    log("[4] serving load, bf16: 64 requests through the scheduler")
-    eng = ServingEngine(model, ServingConfig(
-        page_size=16, max_model_len=1024, max_batch=32,
-        max_prefill_tokens=2048, dtype=torch.bfloat16))
-    log(f"  pool: {eng.kv.num_pages} pages, {eng.kv.pool_bytes() / 1e9:.3f}"
-        f" GB")
-    rng = np.random.RandomState(4)
-    vocab = model.cfg.vocab_size
-    reqs = [Request(rid=i, prompt=rng.randint(0, vocab, rng.randint(
-        64, 769)).astype(np.int32), max_new_tokens=int(rng.randint(32, 129)))
-            for i in range(64)]
-    # warm-up outside the measured run: allocator and library load
-    warm = ContinuousBatchingScheduler(eng)
-    warm.submit(Request(rid=-1, prompt=reqs[0].prompt, max_new_tokens=4))
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def serve_load(model, cfg, reqs, spec, what) -> tuple:
+    """Serve ``reqs`` through a fresh scheduler (``spec``: its speculative
+    config) over a warmed-up engine of ``cfg``; every request must finish
+    with finite logits, no page may leak, and each kernel must launch
+    once per layer per tick of its kind. Returns the metrics and the
+    scheduler."""
+    eng = ServingEngine(model, cfg)
+    warm = ContinuousBatchingScheduler(eng, spec_decode=spec)
+    warm.submit(Request(rid=-1, prompt=reqs[0].prompt, max_new_tokens=8))
     warm.run()
-    sched = ContinuousBatchingScheduler(eng)
+    sched = ContinuousBatchingScheduler(eng, spec_decode=spec)
     finite = {"ok": True}
-    decode = eng.decode
+    steps = eng.decode, eng.verify
 
-    def decode_chk(*a):
-        out = decode(*a)
-        finite["ok"] &= bool(np.isfinite(out).all())
-        return out
+    def checked(step):
+        def run(*a):
+            out = step(*a)
+            finite["ok"] &= bool(np.isfinite(out).all())
+            return out
+        return run
 
-    eng.decode = decode_chk
+    eng.decode, eng.verify = (checked(f) for f in steps)
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -765,38 +860,67 @@ def phase_load(model, counts) -> dict:
     sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts["phase4"] = K.launch_counts()
-    eng.decode = decode
+    launches = K.launch_counts()
+    eng.decode, eng.verify = steps
     require(all(r.status == "finished" for r in reqs),
             [r.status for r in reqs])
     require(all(len(r.generated) == r.max_new_tokens for r in reqs),
             "a request stopped short of its max_new_tokens")
     require(eng.pool.in_use == 0, "leaked pages")
     require(finite["ok"], "non-finite logits")
-    n_dec, n_pf = len(sched.decode_tick_ms), len(sched.prefill_calls)
-    require(counts["phase4"]["K-SEG"] == n_pf * LAYERS, (counts, n_pf))
-    require(counts["phase4"]["K-DEC"] == n_dec * LAYERS, (counts, n_dec))
+    n_dec, n_ver = len(sched.decode_tick_ms), len(sched.verify_ticks)
+    n_pf = len(sched.prefill_calls)
+    dec, mq = (("K-DEC8", "K-MQ8") if cfg.kv_dtype == "int8"
+               else ("K-DEC", "K-MQ"))
+    require(launches[dec] == n_dec * LAYERS, (launches, n_dec))
+    require(launches[mq] == n_ver * LAYERS, (launches, n_ver))
+    require(launches["K-SEG"] == n_pf * LAYERS, (launches, n_pf))
+    vms = [v[0] for v in sched.verify_ticks]
+    proposed = sum(v[2] for v in sched.verify_ticks)
     dec_tokens = sum(len(r.generated) - 1 for r in reqs)
     pf_tokens = sum(t for _, t, _ in sched.prefill_calls)
-    ticks = np.asarray(sched.decode_tick_ms)
-    ttft = np.asarray([(r.t_first_token - r.t_submit) * 1e3 for r in reqs])
+    ttft = [(r.t_first_token - r.t_submit) * 1e3 for r in reqs]
     m = {
         "requests": len(reqs), "wall_s": wall,
-        "output_tokens": sum(len(r.generated) for r in reqs),
-        "prefill_calls": n_pf, "prefill_tokens": pf_tokens,
-        "decode_ticks": n_dec, "decode_tokens": dec_tokens,
+        "pool_bytes": eng.kv.pool_bytes(),
+        "prefill_calls": n_pf, "decode_ticks": n_dec, "verify_ticks": n_ver,
+        "decode_tokens": dec_tokens,
         "preemptions": sum(r.preemptions for r in reqs),
-        "decode_tokens_per_s": dec_tokens / (ticks.sum() / 1e3),
+        "prefill_tokens": pf_tokens,
+        "decode_tokens_per_s": dec_tokens / (
+            (sum(sched.decode_tick_ms) + sum(vms)) / 1e3),
         "prefill_tokens_per_s": pf_tokens / (
             sum(ms for _, _, ms in sched.prefill_calls) / 1e3),
         "output_tokens_per_s": sum(len(r.generated) for r in reqs) / wall,
-        "decode_tick_ms_p50": float(np.percentile(ticks, 50)),
-        "decode_tick_ms_p90": float(np.percentile(ticks, 90)),
-        "ttft_ms_p50": float(np.percentile(ttft, 50)),
-        "launches": counts["phase4"],
+        "decode_tick_ms_p50": pct(sched.decode_tick_ms, 50),
+        "decode_tick_ms_p90": pct(sched.decode_tick_ms, 90),
+        "verify_tick_ms_p50": pct(vms, 50), "verify_tick_ms_p90": pct(vms, 90),
+        "acceptance_rate": (sum(v[3] for v in sched.verify_ticks) / proposed
+                            if proposed else None),
+        "tokens_per_verify_tick": (sum(v[1] for v in sched.verify_ticks)
+                                   / n_ver if n_ver else None),
+        "ttft_ms_p50": pct(ttft, 50), "launches": launches,
     }
-    log("  " + json.dumps(m))
+    log(f"  {what}: " + json.dumps(m))
+    return m, sched
+
+
+def phase_load(model, counts) -> dict:
+    log("[4] serving load, bf16: 64 requests through the scheduler")
+    m, _ = serve_load(model, ServingConfig(**LOAD_CFG, dtype=torch.bfloat16),
+                      load_trace(model.cfg.vocab_size), None, "plain")
+    counts["phase4"] = m["launches"]
     return m
+
+
+def load_trace(vocab, n=64, prompt=(64, 768), new_tokens=(32, 128)):
+    """Phase 4's requests (numpy seed 4): prompts and new tokens uniform
+    in the inclusive ranges."""
+    rng = np.random.RandomState(4)
+    return [Request(rid=i, prompt=rng.randint(0, vocab, rng.randint(
+        prompt[0], prompt[1] + 1)).astype(np.int32),
+        max_new_tokens=int(rng.randint(new_tokens[0], new_tokens[1] + 1)))
+        for i in range(n)]
 
 
 def phase_generate(model, counts) -> dict:
@@ -839,27 +963,33 @@ def device_ms_by_kernel(prof) -> dict:
     return by_kernel
 
 
-def phase_profile(model, ticks=20) -> dict:
-    """Opt-in: torch.profiler over ``ticks`` steady decode ticks of a
-    full batch (32 requests, ~512-token contexts): wall per tick, device
-    busy share, and device time by kernel."""
+def phase_profile(model, ticks=20, spec=None) -> dict:
+    """Opt-in: torch.profiler over ``ticks`` steady serving ticks of a
+    full batch (32 requests, 512-token contexts): decode ticks (phase 6),
+    or with ``spec`` verify ticks on repetitious prompts (phase 17). Wall
+    per tick, device busy share, and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    log(f"[6] profile: {ticks} decode ticks at batch 32, bf16")
-    eng = ServingEngine(model, ServingConfig(
-        page_size=16, max_model_len=1024, max_batch=32,
-        max_prefill_tokens=2048, dtype=torch.bfloat16))
-    sched = ContinuousBatchingScheduler(eng)
+    kind = "decode" if spec is None else f"verify (k={spec.k})"
+    log(f"[{6 if spec is None else 17}] profile: {ticks} {kind} ticks at "
+        "batch 32, bf16")
+    eng = ServingEngine(model, ServingConfig(**LOAD_CFG,
+                                             dtype=torch.bfloat16))
+    sched = ContinuousBatchingScheduler(eng, spec_decode=spec)
     rng = np.random.RandomState(6)
+    vocab = model.cfg.vocab_size
     for i in range(32):
-        sched.submit(Request(rid=i, prompt=rng.randint(
-            0, model.cfg.vocab_size, 512).astype(np.int32),
-            max_new_tokens=ticks + 40))
+        prompt = (rng.randint(0, vocab, 512) if spec is None
+                  else np.tile(rng.randint(0, vocab, 32), 16))
+        sched.submit(Request(rid=i, prompt=prompt.astype(np.int32),
+                             max_new_tokens=(ticks + 40) * (
+                                 1 if spec is None else spec.k + 1)))
     while sched.waiting:            # admit and prefill everyone first
         sched.step()
     for _ in range(5):
-        sched.step()                # warm decode ticks
+        sched.step()                # warm ticks
     torch.cuda.synchronize()
+    n_ver = len(sched.verify_ticks)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -872,16 +1002,183 @@ def phase_profile(model, ticks=20) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     host = time.perf_counter()
     logits = np.random.RandomState(0).randn(
-        32, model.cfg.vocab_size).astype(np.float32)
+        32 * (1 if spec is None else spec.k + 1),
+        model.cfg.vocab_size).astype(np.float32)
     for _ in range(20):
         np.argmax(logits, axis=-1)
     argmax_ms = (time.perf_counter() - host) * 1e3 / 20
-    m = {"ticks": ticks, "wall_ms_per_tick": wall_ms / ticks,
+    m = {"ticks": ticks, "verify_ticks": len(sched.verify_ticks) - n_ver,
+         "wall_ms_per_tick": wall_ms / ticks,
          "device_busy_ms_per_tick": busy_ms / ticks,
          "device_idle_share": 1.0 - busy_ms / wall_ms,
          "host_argmax_ms": argmax_ms,
          "top_device_ms_per_tick": {k[:60]: v / ticks for k, v in top}}
     log("  " + json.dumps(m))
+    return m
+
+
+# -- phases 14-17: speculative decoding and int8 KV pools --------------------
+
+def phase_spec_accuracy(counts, serving=None, n_req=3,
+                        trace=(20, 50, 5, 6, 16), decode_steps=6) -> dict:
+    """(a) speculative decoding on fp32 pools against a teacher-forced CPU
+    forward at every committed position; (b) int8 pools, the card's
+    engine against the port's engine on the CPU fed the same tokens."""
+    log("[14] speculative and int8 serving accuracy, fp32")
+    serving = serving or dict(page_size=16, max_model_len=1024,
+                              max_batch=8, max_prefill_tokens=2048)
+    model = build_model(DEV, torch.float32)
+    cpu = build_model("cpu", torch.float32)
+    cpu.load_state_dict(model.state_dict())
+    vocab = model.cfg.vocab_size
+    plo, phi, rlo, rhi, new = trace     # prompts of plo*rlo..phi*rhi tokens
+    K.reset_launch_counts()
+    eng = ServingEngine(model, ServingConfig(**serving))
+    sched = ContinuousBatchingScheduler(eng,
+                                        spec_decode=SpecDecodeConfig(k=4))
+    reqs = repetitious_trace(n_req, seed=14, vocab_size=vocab,
+                             phrase_lens=(plo, phi), repeats=(rlo, rhi),
+                             out_tokens=(new, new))
+    calls = record_logits(sched, reqs)
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    require(all(r.status == "finished" for r in reqs),
+            [r.status for r in reqs])
+    require(eng.pool.in_use == 0, "leaked pages")
+    accepted = sum(r.spec_accepted for r in reqs)
+    require(sched.verify_ticks and accepted > 0,
+            "speculation never engaged: the check is vacuous")
+    for r in reqs:
+        teacher_forced_check(cpu, r.prompt.astype(np.int64), r.generated,
+                             committed_rows(r, calls[r.rid]),
+                             f"spec rid {r.rid} (prompt {len(r.prompt)})")
+    counts["phase14"] = K.launch_counts()
+    require(counts["phase14"]["K-MQ"] == len(sched.verify_ticks) * LAYERS,
+            counts["phase14"])
+    m = {"verify_ticks": len(sched.verify_ticks), "accepted": accepted,
+         "proposed": sum(r.spec_proposed for r in reqs)}
+
+    # (b) int8 pools: card and CPU engines get the same tokens (the
+    # card's choices) through a packed prefill, decode steps and a verify
+    rng = np.random.RandomState(14)
+    seqs = [rng.randint(0, vocab, rng.randint(plo * rlo, phi * rhi + 1))
+            .astype(np.int32) for _ in range(n_req)]
+    engs = {"card": ServingEngine(model, ServingConfig(**serving,
+                                                       kv_dtype="int8")),
+            "cpu": ServingEngine(cpu, ServingConfig(**serving,
+                                                    kv_dtype="int8")),
+            "fp32": ServingEngine(model, ServingConfig(**serving))}
+    w = 5
+    ps = serving["page_size"]
+    pages = {k: [e.pool.allocate(-(-(len(x) + decode_steps + w) // ps))
+                 for x in seqs] for k, e in engs.items()}
+    require(pages["card"] == pages["cpu"] == pages["fp32"], pages)
+    pt = np.zeros((n_req, engs["card"].max_pages_per_seq), np.int32)
+    for i, pg in enumerate(pages["card"]):
+        pt[i, :len(pg)] = pg
+    card = dict.fromkeys(K.KERNELS, 0)    # the card engine's launches
+
+    def step(name, *args):
+        out = {}
+        for k, e in engs.items():
+            before = K.launch_counts()
+            out[k] = getattr(e, name)(*args)
+            if k == "card":
+                for n, c in K.launch_counts().items():
+                    card[n] += c - before[n]
+        return out
+
+    outs = [step("prefill_packed", seqs, pages["card"])]
+    lens = np.asarray([len(x) for x in seqs], np.int32)
+    ctx = [list(x) for x in seqs]
+    for _ in range(decode_steps):
+        tok = np.argmax(outs[-1]["card"], -1).astype(np.int32)
+        for i in range(n_req):
+            ctx[i].append(int(tok[i]))
+        outs.append(step("decode", tok, pt, lens))
+        lens = lens + 1
+    tok = np.argmax(outs[-1]["card"], -1).astype(np.int32)
+    win = np.zeros((n_req, w), np.int32)
+    drafter = NgramDrafter(k=w - 1)
+    for i in range(n_req):
+        d = drafter.propose(ctx[i] + [int(tok[i])], w - 1)
+        win[i, 0], win[i, 1:1 + len(d)] = tok[i], d
+    outs.append(step("verify", win, pt, lens))
+    counts["phase14_int8"] = card
+    err = max(float(np.abs(o["card"] - o["cpu"]).max()) for o in outs)
+    gap = max(float(np.abs(o["card"] - o["fp32"]).max()) for o in outs)
+    finite = all(np.isfinite(o["card"]).all() for o in outs)
+    log(f"  int8 pools, {n_req} requests: prefill, {decode_steps} decode "
+        f"steps and a verify of {w}: card vs CPU logits max_abs_err "
+        f"{err:.3e} (tol 1e-2); int8 vs fp32 pools on the card {gap:.3e}")
+    require(finite and err <= 1e-2, "int8 card logits disagree with the CPU")
+    require(counts["phase14_int8"]["K-DEC8"] == decode_steps * LAYERS
+            and counts["phase14_int8"]["K-MQ8"] == LAYERS,
+            counts["phase14_int8"])
+    m.update(int8_card_vs_cpu=err, int8_vs_fp32_gap=gap)
+    log("  " + json.dumps(m))
+    del model, cpu, eng, sched, engs
+    torch.cuda.empty_cache()
+    return m
+
+
+def phase_spec_load(model, counts, n_req=64, serving=None,
+                    trace=None) -> dict:
+    """Phase 4's configuration with ``SpecDecodeConfig(k=4)`` on 64
+    repetitious requests, then the same trace with speculation off."""
+    log(f"[15] speculative serving load, bf16: {n_req} repetitious "
+        "requests, k=4, then speculation off")
+    cfg = ServingConfig(**(serving or LOAD_CFG), dtype=torch.bfloat16)
+    trace = trace or SPEC_TRACE
+
+    def reqs():
+        return repetitious_trace(n_req, seed=15,
+                                 vocab_size=model.cfg.vocab_size, **trace)
+
+    spec, s_sched = serve_load(model, cfg, reqs(), SpecDecodeConfig(k=4),
+                               "speculative")
+    counts["phase15"] = spec["launches"]
+    plain, p_sched = serve_load(model, cfg, reqs(), None, "plain")
+    counts["phase15_plain"] = plain["launches"]
+    got = {r.rid: r.generated for r in s_sched.finished}
+    same = sum(got[r.rid] == r.generated for r in p_sched.finished)
+    m = {"spec": spec, "plain": plain, "identical_streams": same,
+         "decode_tokens_per_s_ratio": (spec["decode_tokens_per_s"]
+                                       / plain["decode_tokens_per_s"])}
+    log(f"  acceptance {spec['acceptance_rate']}, tokens per verify tick "
+        f"{spec['tokens_per_verify_tick']}, decode tokens/s "
+        f"{spec['decode_tokens_per_s']:.1f} vs "
+        f"{plain['decode_tokens_per_s']:.1f} plain "
+        f"(x{m['decode_tokens_per_s_ratio']:.3f}), {same} of {n_req} "
+        "streams byte-identical (bf16: reported, not required)")
+    return m
+
+
+def phase_int8_load(model, counts, n_req=64, serving=None, trace=None,
+                    prompt=(64, 768), new_tokens=(32, 128)) -> dict:
+    """Phase 4's trace on int8 pools, then phase 15's trace with k=4 on
+    int8 pools; bf16 weights."""
+    log(f"[16] int8 KV serving load, bf16 weights: phase 4's {n_req} "
+        "requests, then phase 15's with k=4")
+    serving = serving or LOAD_CFG
+    cfg = ServingConfig(**serving, dtype=torch.bfloat16, kv_dtype="int8")
+    plain, _ = serve_load(model, cfg, load_trace(
+        model.cfg.vocab_size, n_req, prompt, new_tokens), None, "int8 plain")
+    counts["phase16"] = plain["launches"]
+    spec, _ = serve_load(model, cfg, repetitious_trace(
+        n_req, seed=15, vocab_size=model.cfg.vocab_size,
+        **(trace or SPEC_TRACE)), SpecDecodeConfig(k=4), "int8 speculative")
+    counts["phase16_spec"] = spec["launches"]
+    mc = model.cfg
+    bf16_bytes = (2 * mc.num_layers * (cfg.max_batch * -(-cfg.max_model_len
+                  // cfg.page_size) + 1) * cfg.page_size * mc.hidden_size * 2)
+    m = {"plain": plain, "spec": spec, "bf16_pool_bytes": bf16_bytes,
+         "pool_bytes_ratio": plain["pool_bytes"] / bf16_bytes}
+    log(f"  pool {plain['pool_bytes']} bytes (scales included) against "
+        f"bf16's {bf16_bytes} (x{m['pool_bytes_ratio']:.4f}); tick p50 "
+        f"{plain['decode_tick_ms_p50']} ms, TTFT p50 {plain['ttft_ms_p50']} "
+        f"ms, acceptance {spec['acceptance_rate']}")
     return m
 
 
@@ -1212,8 +1509,9 @@ def phase_train_profile(steps=3, packed=False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,7,8,10,11,12",
-                    help="comma-separated; 6, 9 and 13 (profiles) are "
+    ap.add_argument("--phases",
+                    default="0,1,2,3,4,5,7,8,10,11,12,14,15,16",
+                    help="comma-separated; 6, 9, 13 and 17 (profiles) are "
                     "opt-in")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1258,6 +1556,19 @@ def main() -> int:
             e2e["profile"] = phase_profile(model)
         del model
         torch.cuda.empty_cache()
+    if 14 in phases:
+        e2e["spec_accuracy"] = phase_spec_accuracy(counts)
+    if phases & {15, 16, 17}:
+        model = build_model(DEV, torch.bfloat16)
+        if 15 in phases:
+            e2e["spec_load"] = phase_spec_load(model, counts)
+        if 16 in phases:
+            e2e["int8_load"] = phase_int8_load(model, counts)
+        if 17 in phases:
+            e2e["spec_profile"] = phase_profile(
+                model, spec=SpecDecodeConfig(k=4))
+        del model
+        torch.cuda.empty_cache()
     if 7 in phases:
         e2e["train_accuracy"] = phase_train_accuracy(counts)
     if 8 in phases:
@@ -1273,10 +1584,11 @@ def main() -> int:
     if 13 in phases:
         e2e["packed_profile"] = phase_train_profile(packed=True)
     # the main path: serving (phases 4, 5), training (7, 8), packed
-    # training (10, 11) and nn-API training (12)
-    main_phases = (4, 5, 7, 8, 10, 11, 12)
-    main_path = {name: sum(counts.get(f"phase{p}", {}).get(name, 0)
-                           for p in main_phases)
+    # training (10, 11), nn-API training (12), speculative (15) and int8
+    # (16) serving, each phase's runs counted
+    main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16)
+    main_path = {name: sum(c.get(name, 0) for key, c in counts.items()
+                           if int(key[5:].split("_")[0]) in main_phases)
                  for name in K.KERNELS}
     if set(main_phases) <= phases:
         missing = [n for n, c in main_path.items() if c == 0]

@@ -12,19 +12,36 @@ from .kernels.flash_attention import attention_bshd
 from .kernels.flash_attention_packed import (flash_attention_packed,
                                              flash_attention_packed_seg,
                                              flash_attention_packed_segmented)
-from .kernels.paged_attention import paged_decode_attention
+from .kernels import paged_attention as _paged
 
-__all__ = ["paged_attention", "segment_attention_packed",
-           "causal_attention", "causal_attention_packed"]
+__all__ = ["paged_attention", "paged_multiquery_attention",
+           "segment_attention_packed", "causal_attention",
+           "causal_attention_packed"]
 
 
-def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None):
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None,
+                    scales=None):
     """One decode step of paged attention (serving): ``q`` (B, nh, d)
     against the pool pages ``(P, page_size, nh_kv*d)`` through
     ``page_table`` (B, max_pages) with ``seq_lens`` (B,); a seq_len-0
-    padding row outputs zeros. K-DEC on CUDA."""
-    return paged_decode_attention(q, k_pages, v_pages, page_table,
-                                  seq_lens, scale=scale)
+    padding row outputs zeros. ``scales`` (P, 2, nh_kv) fp32 marks int8
+    pools. K-DEC (K-DEC8) on CUDA. Unlike the JAX dispatch there is no
+    tiling gate: the kernels take any page size."""
+    return _paged.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                         seq_lens, scale=scale,
+                                         scales=scales)
+
+
+def paged_multiquery_attention(q, k_pages, v_pages, page_table, seq_lens,
+                               scale=None, scales=None):
+    """Speculative-decoding verify attention: ``q`` (B, qlen, nh, d), the
+    window's K/V already written at positions ``seq_lens - qlen ..
+    seq_lens - 1``, causal within the window, over the same pools as
+    :func:`paged_attention` (``scales`` for int8). K-MQ (K-MQ8) on
+    CUDA."""
+    return _paged.paged_multiquery_attention(q, k_pages, v_pages,
+                                             page_table, seq_lens,
+                                             scale=scale, scales=scales)
 
 
 def segment_attention_packed(q, k, v, nh, seg_q, seg_k=None, causal=True,

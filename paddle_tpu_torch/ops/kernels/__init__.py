@@ -6,6 +6,11 @@ plain PyTorch versions (``*_ref``), a launch count per kernel
 kernel      module                           replaces (paddle_tpu/ops/pallas/)
 ==========  ===============================  ==================================
 K-DEC       ``paged_attention``              ``paged_attention._decode_kernel``
+K-DEC8      ``paged_attention``              ``paged_attention._decode_kernel``
+                                             (``quantized=True``)
+K-MQ        ``paged_attention``              ``paged_attention._mq_kernel``
+K-MQ8       ``paged_attention``              ``paged_attention._mq_kernel``
+                                             (``quantized=True``)
 K-SEG       ``flash_attention_packed``       ``flash_attention_packed.
                                              _fwd_kernel_seg``
 K-BSHD      ``flash_attention``              ``flash_attention._fwd_kernel``
@@ -31,6 +36,9 @@ __all__ = ["paged_attention", "flash_attention_packed", "flash_attention",
 # name -> module, serving's kernels first, then training's
 KERNELS = {
     "K-DEC": paged_attention,
+    "K-DEC8": paged_attention,
+    "K-MQ": paged_attention,
+    "K-MQ8": paged_attention,
     "K-SEG": flash_attention_packed,
     "K-BSHD": flash_attention,
     "K-PACK": flash_attention_packed,

@@ -1,25 +1,44 @@
-"""K-DEC: paged decode attention, the serving decode step's kernel.
+"""Paged attention, the serving decode and verify steps' kernels.
 
-Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas/paged_attention.py``
-``_decode_kernel`` (launched by ``_paged_call``; fp32 and bf16 pools, the
-int8 variant is not ported yet). The CUDA source is
-``paddle_tpu_torch/csrc/paged_attention.cu``.
+==========  ==========================================================
+kernel      replaces (``paddle_tpu/ops/pallas/paged_attention.py``)
+==========  ==========================================================
+K-DEC       ``_decode_kernel`` (``_paged_call``), fp32 and bf16 pools
+K-DEC8      ``_decode_kernel`` with ``quantized=True``: int8 pools and
+            their ``(P, 2, nh_kv)`` fp32 scales
+K-MQ        ``_mq_kernel`` (``paged_multiquery_attention``): the
+            speculative-decoding verify window, fp32 and bf16 pools
+K-MQ8       ``_mq_kernel`` with ``quantized=True``
+==========  ==========================================================
+
+The CUDA source is ``paddle_tpu_torch/csrc/paged_attention.cu``: one
+kernel template, instantiated for one query row (decode) and for windows
+of up to :data:`MAX_QLEN` rows (verify), over pools in the query's dtype
+or in int8.
 
 Layouts (the serving engine's contract, as in the JAX package):
-``q`` ``(B, nh, d)``; ``k_pages``/``v_pages`` ``(P, page_size, nh_kv*d)``;
-``page_table`` ``(B, max_pages)`` int32; ``seq_lens`` ``(B,)`` int32,
-0 marking a padding row whose output is zeros.
+``q`` ``(B, nh, d)`` (decode) or ``(B, qlen, nh, d)`` (verify);
+``k_pages``/``v_pages`` ``(P, page_size, nh_kv*d)``; ``page_table``
+``(B, max_pages)`` int32; ``seq_lens`` ``(B,)`` int32 tokens of context
+including the new token(s), 0 marking a padding row whose output is
+zeros; ``scales`` ``(P, 2, nh_kv)`` fp32 for int8 pools (``[:, 0]`` K,
+``[:, 1]`` V, symmetric absmax per page and kv head). Window row ``i``
+sees key positions ``< seq_len - qlen + i + 1``. The output has q's
+shape and dtype.
 
-What bounds it on the H100: the K/V bytes of the tokens each request
-really holds (``sum_b seq_len_b * 2 * nh_kv * d * elem``); the arithmetic
-is a few hundred FLOPs per KV row. The kernel reads exactly those rows:
-one CTA per (request, head) loops only over the request's own tokens,
-four in flight per warp, each K/V row one coalesced warp load, with an
-fp32 online softmax merged across warps at the end. The TPU kernel had
-to fetch and mask every page of the table.
+What bounds them on the H100: the K/V bytes of the tokens each request
+really holds (``sum_b seq_len_b * 2 * nh_kv * d * elem``, elem 1 for
+int8); the arithmetic is ``4 * qlen * d`` FLOPs per KV row and head. The
+kernels read exactly those rows, each once for all window rows: one CTA
+per (request, head) loops only over the request's own tokens, four in
+flight per warp, each K/V row one coalesced warp load, every warp
+keeping ``qlen`` fp32 online-softmax states merged across warps at the
+end. The int8 dequant is fused into the dot products with the page's
+scales, as on the TPU; no fp32 copy of the cache is made. The TPU
+kernels had to fetch and mask every page of the table.
 
-``paged_decode_attention`` takes the plain version for CPU tensors only;
-a CUDA tensor launches the kernel or raises.
+The wrappers take the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -27,92 +46,199 @@ import torch
 
 from . import _build
 
-__all__ = ["paged_decode_attention", "paged_attention_ref"]
+__all__ = ["paged_decode_attention", "paged_multiquery_attention",
+           "paged_attention_ref", "paged_multiquery_attention_ref",
+           "MAX_QLEN"]
 
 # kernel launches since the last reset (the wrapper adds one per launch)
-LAUNCHES = {"K-DEC": 0}
+LAUNCHES = {"K-DEC": 0, "K-DEC8": 0, "K-MQ": 0, "K-MQ8": 0}
+MAX_QLEN = 8        # the widest window K-MQ takes (kMaxQlen in the source)
 _NEG_INF = -1e30
 
 
-def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
-                        scale=None):
-    """Plain PyTorch version (mirrors ``paged_attention_xla``): gather
-    each request's pages dense and run one masked fp32 softmax; a
-    ``seq_len`` 0 row outputs zeros."""
-    b, nh, d = q.shape
+def _gather_dequant(fn, k_pages, v_pages, page_table, scales, d):
+    """Each request's pages dense ``(B, max_pages*page_size, nh_kv*d)``,
+    dequantized with the per-(page, kv head) scales when the pools are
+    int8 (mirrors the JAX package's ``_gather_dequant``)."""
+    b, max_pages = page_table.shape
     _, page_size, hp_kv = k_pages.shape
-    nh_kv = hp_kv // d
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    max_pages = page_table.shape[1]
     pt = page_table.long()
-    k = k_pages[pt].reshape(b, max_pages * page_size, nh_kv, d)
-    v = v_pages[pt].reshape(b, max_pages * page_size, nh_kv, d)
-    if nh_kv != nh:  # GQA: expand kv heads to query heads
-        k = k.repeat_interleave(nh // nh_kv, dim=2)
-        v = v.repeat_interleave(nh // nh_kv, dim=2)
+    k, v = k_pages[pt], v_pages[pt]          # (B, max_pages, ps, hp_kv)
+    if scales is not None:
+        nh_kv = hp_kv // d
+        _check_scales(fn, scales, k_pages, nh_kv)
+        s = scales[pt]                       # (B, max_pages, 2, nh_kv)
+
+        def deq(x, sc):
+            x = x.view(b, max_pages, page_size, nh_kv, -1).float()
+            return x * sc[:, :, None, :, None]
+
+        k, v = deq(k, s[:, :, 0]), deq(v, s[:, :, 1])
+    rows = max_pages * page_size
+    return k.reshape(b, rows, hp_kv), v.reshape(b, rows, hp_kv)
+
+
+def paged_multiquery_attention_ref(q, k_pages, v_pages, page_table,
+                                   seq_lens, scale=None, scales=None):
+    """Plain PyTorch version (mirrors ``paged_multiquery_attention_xla``):
+    gather each request's pages dense, dequantize int8 pools with their
+    scales, and run one window-causal masked fp32 softmax; a ``seq_len``
+    0 row outputs zeros. qlen 1 delegates to :func:`paged_attention_ref`,
+    so an empty draft is bit-identical to the decode step."""
+    b, qlen, nh, d = q.shape
+    if qlen == 1:
+        return paged_attention_ref(q[:, 0], k_pages, v_pages, page_table,
+                                   seq_lens, scale=scale,
+                                   scales=scales)[:, None]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    k, v = _gather_dequant("paged_multiquery_attention_ref", k_pages,
+                           v_pages, page_table, scales, d)
+    rows = k.shape[1]
+    k = k.view(b, rows, -1, d)
+    v = v.view(b, rows, -1, d)
+    if k.shape[2] != nh:  # GQA: expand kv heads to query heads
+        k = k.repeat_interleave(nh // k.shape[2], dim=2)
+        v = v.repeat_interleave(nh // v.shape[2], dim=2)
+    qf = (q * scale).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    pos = torch.arange(rows, device=q.device)
+    bound = (seq_lens.long()[:, None] - qlen
+             + torch.arange(qlen, device=q.device)[None, :] + 1)
+    ok = (pos[None, None, :] < bound[:, :, None])[:, None]  # (B,1,qlen,S)
+    p = torch.softmax(logits.masked_fill(~ok, _NEG_INF), dim=-1)
+    p = p.masked_fill(~ok, 0.0)  # all-masked rows -> zeros
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+    return o.to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
+                        scale=None, scales=None):
+    """Plain PyTorch version (mirrors ``paged_attention_xla``): gather
+    each request's pages dense, dequantize int8 pools with their scales,
+    and run one masked fp32 softmax; a ``seq_len`` 0 row outputs
+    zeros."""
+    b, nh, d = q.shape
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    k, v = _gather_dequant("paged_attention_ref", k_pages, v_pages,
+                           page_table, scales, d)
+    rows = k.shape[1]
+    k = k.view(b, rows, -1, d)
+    v = v.view(b, rows, -1, d)
+    if k.shape[2] != nh:  # GQA: expand kv heads to query heads
+        k = k.repeat_interleave(nh // k.shape[2], dim=2)
+        v = v.repeat_interleave(nh // v.shape[2], dim=2)
     qf = (q * scale).float()
     logits = torch.einsum("bhd,bkhd->bhk", qf, k.float())
-    pos = torch.arange(max_pages * page_size, device=q.device)
+    pos = torch.arange(rows, device=q.device)
     ok = (pos[None, :] < seq_lens.long()[:, None])[:, None, :]
     p = torch.softmax(logits.masked_fill(~ok, _NEG_INF), dim=-1)
     p = p.masked_fill(~ok, 0.0)  # rows with seq_len 0 -> zeros
-    return torch.einsum("bhk,bkhd->bhd", p.to(v.dtype), v)
+    return torch.einsum("bhk,bkhd->bhd", p.to(v.dtype), v).to(q.dtype)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens,
-                           scale=None):
-    """One decode step of paged attention: the plain version for CPU
-    tensors, the K-DEC kernel for CUDA tensors."""
+                           scale=None, scales=None):
+    """One decode step of paged attention, ``q`` ``(B, nh, d)``: the
+    plain version for CPU tensors, K-DEC (K-DEC8 with int8 pools and
+    ``scales``) for CUDA tensors."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table,
-                                   seq_lens, scale=scale)
-    return _launch(q, k_pages, v_pages, page_table, seq_lens, scale)
+                                   seq_lens, scale=scale, scales=scales)
+    if q.dim() != 3:
+        raise ValueError("paged_decode_attention: q (B, nh, d) expected")
+    out = _launch("paged_attention_decode", q[:, None], k_pages, v_pages,
+                  page_table, seq_lens, scale, scales)
+    LAUNCHES["K-DEC8" if scales is not None else "K-DEC"] += 1
+    return out[:, 0]
 
 
-def _launch(q, k_pages, v_pages, page_table, seq_lens, scale):
+def paged_multiquery_attention(q, k_pages, v_pages, page_table, seq_lens,
+                               scale=None, scales=None):
+    """The speculative verify window, ``q`` ``(B, qlen, nh, d)`` with
+    ``1 <= qlen <= MAX_QLEN``, causal within the window: the plain
+    version for CPU tensors, K-MQ (K-MQ8 with int8 pools and ``scales``)
+    for CUDA tensors."""
+    if q.device.type == "cpu":
+        return paged_multiquery_attention_ref(
+            q, k_pages, v_pages, page_table, seq_lens, scale=scale,
+            scales=scales)
+    if q.dim() != 4 or not 1 <= q.shape[1] <= MAX_QLEN:
+        raise ValueError(f"paged_multiquery_attention: q (B, qlen, nh, d) "
+                         f"with 1 <= qlen <= {MAX_QLEN} expected, got "
+                         f"{tuple(q.shape)}")
+    out = _launch("paged_attention_multiquery", q, k_pages, v_pages,
+                  page_table, seq_lens, scale, scales)
+    LAUNCHES["K-MQ8" if scales is not None else "K-MQ"] += 1
+    return out
+
+
+def _check_scales(fn, scales, k_pages, nh_kv):
+    """As the JAX package's ``_check_scales``: int8 pools and a
+    ``(P, 2, nh_kv)`` fp32 scale pool."""
+    if k_pages.dtype != torch.int8:
+        raise ValueError(f"{fn}: scales given but pools are "
+                         f"{k_pages.dtype}, not int8")
+    if tuple(scales.shape) != (k_pages.shape[0], 2, nh_kv):
+        raise ValueError(f"{fn}: scales shape {tuple(scales.shape)} != "
+                         f"{(k_pages.shape[0], 2, nh_kv)} (per-page K/V "
+                         "scales per kv head)")
+    if scales.dtype != torch.float32:
+        raise TypeError(f"{fn}: scales must be float32, got {scales.dtype}")
+
+
+def _launch(entry, q, k_pages, v_pages, page_table, seq_lens, scale,
+            scales):
+    """Check ``q`` ``(B, qlen, nh, d)`` and the pools, then launch
+    ``entry`` on the current stream. Returns the output, q's shape."""
+    fn = ("paged_decode_attention" if entry == "paged_attention_decode"
+          else "paged_multiquery_attention")
     if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for device "
-                         f"{q.device}")
-    if q.dim() != 3 or k_pages.dim() != 3:
-        raise ValueError("paged_decode_attention: q (B, nh, d) and pools "
-                         "(P, page_size, nh_kv*d) expected")
-    b, nh, d = q.shape
+        raise ValueError(f"{fn}: no kernel for device {q.device}")
+    if k_pages.dim() != 3:
+        raise ValueError(f"{fn}: pools (P, page_size, nh_kv*d) expected")
+    b, qlen, nh, d = q.shape
     _, page_size, hp_kv = k_pages.shape
     if d not in (64, 128):
-        raise ValueError(f"paged_decode_attention: head_dim {d} not in "
-                         "(64, 128), the kernel's instantiations")
+        raise ValueError(f"{fn}: head_dim {d} not in (64, 128), the "
+                         "kernel's instantiations")
     if v_pages.shape != k_pages.shape or hp_kv % d:
-        raise ValueError(f"paged_decode_attention: pools {k_pages.shape}/"
-                         f"{v_pages.shape} do not hold whole heads of {d}")
+        raise ValueError(f"{fn}: pools {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} do not hold whole heads "
+                         f"of {d}")
     nh_kv = hp_kv // d
     if nh % nh_kv:
-        raise ValueError(f"paged_decode_attention: {nh} query heads not "
-                         f"divisible by {nh_kv} kv heads")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
-        raise TypeError(f"paged_decode_attention: q {q.dtype} and pools "
-                        f"{k_pages.dtype}/{v_pages.dtype} differ")
+        raise ValueError(f"{fn}: {nh} query heads not divisible by "
+                         f"{nh_kv} kv heads")
+    if scales is not None:
+        _check_scales(fn, scales, k_pages, nh_kv)
+        if v_pages.dtype != torch.int8:
+            raise TypeError(f"{fn}: k pools int8, v pools {v_pages.dtype}")
+    elif not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"{fn}: q {q.dtype} and pools {k_pages.dtype}/"
+                        f"{v_pages.dtype} differ")
     if (page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32
             or page_table.dim() != 2 or page_table.shape[0] != b
             or tuple(seq_lens.shape) != (b,)):
-        raise ValueError("paged_decode_attention: page_table (B, max_pages)"
-                         " and seq_lens (B,) int32 expected")
-    ts = (q, k_pages, v_pages, page_table, seq_lens)
+        raise ValueError(f"{fn}: page_table (B, max_pages) and seq_lens "
+                         "(B,) int32 expected")
+    ts = [q, k_pages, v_pages, page_table, seq_lens]
+    if scales is not None:
+        ts.append(scales)
     if any(t.device != q.device for t in ts):
-        raise ValueError("paged_decode_attention: tensors on different "
-                         "devices")
+        raise ValueError(f"{fn}: tensors on different devices")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("paged_decode_attention: tensors must be "
-                         "contiguous")
+        raise ValueError(f"{fn}: tensors must be contiguous")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     lib = _build.load_library()
+    mq = () if entry == "paged_attention_decode" else (qlen,)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.paged_attention_decode(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            None if scales is None else scales.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            b, nh, nh_kv, d, page_size, page_table.shape[1], float(scale),
-            _build.dtype_code(q.dtype), stream)
-    _build.check(rc, "paged_attention_decode")
-    LAUNCHES["K-DEC"] += 1
+            b, *mq, nh, nh_kv, d, page_size, page_table.shape[1],
+            float(scale), _build.dtype_code(q.dtype), stream)
+    _build.check(rc, entry)
     return out

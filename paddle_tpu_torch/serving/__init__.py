@@ -9,11 +9,14 @@ from .kv_cache import (
     PagePool,
     PagesExhausted,
 )
+from .loadgen import repetitious_trace
 from .scheduler import ContinuousBatchingScheduler, RejectedError, Request
+from .spec_decode import Drafter, NgramDrafter, SpecDecodeConfig
 
 __all__ = [
     "bucket_for", "bucket_count", "ServingConfig", "ServingEngine",
     "PagePool", "PagesExhausted", "PagedKVCache", "PagedForwardState",
     "PagedLayerView", "ContinuousBatchingScheduler", "Request",
-    "RejectedError",
+    "RejectedError", "SpecDecodeConfig", "Drafter", "NgramDrafter",
+    "repetitious_trace",
 ]

@@ -1,13 +1,17 @@
 """Serving engine: the paged-decode model runner (port of
 ``paddle_tpu.serving.engine``).
 
-Three step kinds, every shape bucketed (``bucketing.bucket_for``) exactly
+Four step kinds, every shape bucketed (``bucketing.bucket_for``) exactly
 as in the JAX package, so the port pads the same rows and its kernels
 see a closed set of launch shapes:
 
 - ``decode``   — ``(B_bucket, 1)`` tokens, one per running request, the
   paged decode kernel (K-DEC) over the pool; write slots come from the
   page table and the context lengths;
+- ``verify``   — ``(B_bucket, k+1)`` tokens, the speculative-decoding
+  window (last committed token + k drafted), the paged multi-query
+  kernel (K-MQ), causal within the window, returning the whole window's
+  logits so the scheduler can accept the longest matching prefix;
 - ``prefill_packed`` — all newly admitted requests packed into ONE
   ``(1, T_bucket)`` row with segment ids, through the segmented flash
   kernel (K-SEG), while each token's K/V is scattered into its
@@ -15,10 +19,14 @@ see a closed set of launch shapes:
 - ``prefill_batch`` — one request per row with trailing pad, plain
   causal attention (K-BSHD): what ``generate()`` uses.
 
+With ``ServingConfig(kv_dtype="int8")`` the pools are int8 with per-page
+scales: every step names the pages it writes (``touched``) and how many
+tokens each held before (``touched_valid``), built on the host with the
+slots, and the kernels become K-DEC8 and K-MQ8.
+
 PyTorch runs eagerly: the model's parameters are read live on every
-step, and the pools are updated in place. Not ported yet: the
-speculative ``verify`` step, int8 pools, and the compile ledger (which
-has no counterpart without ``jit``).
+step, and the pools are updated in place. Not ported: the compile
+ledger, which has no counterpart without ``jit``.
 """
 from __future__ import annotations
 
@@ -44,6 +52,7 @@ class ServingConfig:
     min_batch_bucket: int = 1
     min_prefill_bucket: int = 32
     dtype: Optional[torch.dtype] = None  # KV pool dtype (default: model's)
+    kv_dtype: str = "fp32"            # "int8": quantized pools + scales
     seed: int = 0                     # sampling rng
 
 
@@ -74,6 +83,7 @@ class ServingEngine:
                 f"max_prefill_tokens {self.cfg.max_prefill_tokens} < "
                 f"max_model_len {self.cfg.max_model_len}: a maximal "
                 "context could never prefill")
+        self.max_positions = mc.max_position_embeddings
         self.max_pages_per_seq = -(-self.cfg.max_model_len
                                    // self.cfg.page_size)
         num_pages = self.cfg.num_pages
@@ -86,7 +96,8 @@ class ServingEngine:
             page_size=self.cfg.page_size, num_kv_heads=self.num_kv_heads,
             head_dim=self.head_dim,
             dtype=self.cfg.dtype or next(model.parameters()).dtype,
-            device=self.device)
+            device=self.device, kv_dtype=self.cfg.kv_dtype)
+        self._int8 = self.cfg.kv_dtype == "int8"
         self._rng = np.random.RandomState(self.cfg.seed)
 
     # -- page management (delegated to the scheduler-facing pool) ----------
@@ -136,14 +147,74 @@ class ServingEngine:
         cl[:n] = context_lens
         # padding rows (cl 0, page 0) write and read slot 0 of the
         # reserved garbage page; their logits are discarded
-        slots = (pt[np.arange(b), cl // ps].astype(np.int64) * ps + cl % ps)
-        tok_t, pos_t, pt_t, sl_t, slot_t = self._to_device(
-            tok, cl[:, None].astype(np.int64), pt, cl + 1, slots)
+        page = pt[np.arange(b), cl // ps].astype(np.int64)
+        slots = page * ps + cl % ps
+        # int8: each row touches the page its write lands in, holding
+        # cl % ps valid tokens (padding rows touch garbage page 0)
+        touched = (page, cl % ps) if self._int8 else ()
+        tok_t, pos_t, pt_t, sl_t, slot_t, *tch = self._to_device(
+            tok, cl[:, None].astype(np.int64), pt, cl + 1, slots, *touched)
         state = self.kv.make_state(
             "decode", slot_t, self.num_heads, page_table=pt_t,
-            seq_lens=sl_t)
+            seq_lens=sl_t, **_touched_kw(tch))
         logits = _paged_forward(self.model, tok_t, pos_t, state, None)
         return logits[:n]
+
+    @torch.no_grad()
+    def verify(self, tokens: np.ndarray, page_tables: np.ndarray,
+               context_lens: np.ndarray) -> np.ndarray:
+        """One speculative verify step for ``n`` running requests:
+        ``tokens`` (n, w), each row ``[last committed token, draft_1 ..
+        draft_{w-1}]`` (short drafts zero-padded on the right; the caller
+        ignores their logits rows), ``page_tables`` (n,
+        max_pages_per_seq), ``context_lens`` (n,) tokens already in the
+        pool. Writes all ``w`` tokens' K/V at positions
+        ``context_lens[i] .. context_lens[i] + w - 1`` and returns the
+        full window's logits ``(n, w, vocab)`` float32: row ``j`` is the
+        next-token distribution after the window's first ``j + 1``
+        tokens, so ``w == 1`` is a decode step."""
+        n, w = tokens.shape
+        if n == 0:
+            return np.zeros((0, w, self.vocab_size), np.float32)
+        b = bucket_for(n, minimum=self.cfg.min_batch_bucket,
+                       maximum=self.cfg.max_batch)
+        ps = self.kv.page_size
+        maxp = self.max_pages_per_seq
+        tok = np.zeros((b, w), np.int64)
+        tok[:n] = tokens
+        pt = np.zeros((b, maxp), np.int32)
+        pt[:n, :page_tables.shape[1]] = page_tables
+        cl = np.zeros((b,), np.int32)
+        cl[:n] = context_lens
+        pos = cl[:, None].astype(np.int64) + np.arange(w)[None, :]  # (b, w)
+        # window rows past a request's own (truncated) draft still fill
+        # the fixed window: past the page table's reach they would alias
+        # a real page, so they go to the drop page instead
+        lp = np.minimum(pos // ps, maxp - 1)
+        slots = pt[np.arange(b)[:, None], lp].astype(np.int64) * ps + pos % ps
+        slots = np.where(pos < maxp * ps, slots, self.kv.num_pages * ps)
+        touched = ()
+        if self._int8:
+            # the window spans at most n_touch consecutive logical pages
+            # from cl // ps; pages past the table's reach drop
+            n_touch = (w + ps - 2) // ps + 1
+            lpt = cl[:, None] // ps + np.arange(n_touch)[None, :]
+            phys = pt[np.arange(b)[:, None], np.minimum(lpt, maxp - 1)]
+            touched = (np.where(lpt < maxp, phys,
+                                self.kv.num_pages).reshape(-1),
+                       np.clip(cl[:, None] - lpt * ps, 0, ps).reshape(-1))
+        # the model sees positions clamped to its table, as the JAX
+        # package's gather clamps: only rows that are never committed
+        # reach past it
+        tok_t, pos_t, pt_t, sl_t, slot_t, *tch = self._to_device(
+            tok, np.minimum(pos, self.max_positions - 1), pt, cl + w,
+            slots.reshape(-1), *touched)
+        state = self.kv.make_state(
+            "verify", slot_t, self.num_heads, page_table=pt_t,
+            seq_lens=sl_t, **_touched_kw(tch))
+        gather = torch.arange(b * w, device=self.device)  # every row
+        logits = _paged_forward(self.model, tok_t, pos_t, state, gather)
+        return logits.reshape(b, w, -1)[:n]
 
     @torch.no_grad()
     def prefill_packed(self, seqs: Sequence[np.ndarray],
@@ -164,6 +235,10 @@ class ServingEngine:
         seg = np.full((1, tb), -1, np.int32)
         slots = np.full((tb,), oob, np.int64)
         gather = np.zeros((nb,), np.int64)
+        # int8: every page a prefill writes is touched with NOTHING valid
+        # before it (a fresh or recycled allocation); sentinels drop
+        touched = np.full((tb // ps + nb,), self.kv.num_pages, np.int64)
+        tn = 0
         off = 0
         for i, (s, pages) in enumerate(zip(seqs, page_lists)):
             L = len(s)
@@ -173,10 +248,13 @@ class ServingEngine:
             pg = np.asarray(pages, np.int64)
             t = np.arange(L)
             slots[off:off + L] = pg[t // ps] * ps + t % ps
+            npg = -(-L // ps)
+            touched[tn:tn + npg] = pg[:npg]
+            tn += npg
             gather[i] = off + L - 1
             off += L
         return self._prefill("prefill_packed", tok, pos, slots, seg,
-                             gather)[:len(seqs)]
+                             gather, touched)[:len(seqs)]
 
     @torch.no_grad()
     def prefill_batch(self, seqs: Sequence[np.ndarray],
@@ -196,23 +274,30 @@ class ServingEngine:
         pos = np.tile(np.arange(sb, dtype=np.int64)[None], (nb, 1))
         slots = np.full((nb, sb), oob, np.int64)
         gather = np.zeros((nb,), np.int64)
+        npg_max = -(-sb // ps)
+        touched = np.full((nb * npg_max,), self.kv.num_pages, np.int64)
         for i, (s, pages) in enumerate(zip(seqs, page_lists)):
             L = len(s)
             tok[i, :L] = s
             pg = np.asarray(pages, np.int64)
             t = np.arange(L)
             slots[i, :L] = pg[t // ps] * ps + t % ps
+            npg = -(-L // ps)
+            touched[i * npg_max:i * npg_max + npg] = pg[:npg]
             gather[i] = i * sb + L - 1
         return self._prefill("prefill_batch", tok, pos, slots.reshape(-1),
-                             None, gather)[:n]
+                             None, gather, touched)[:n]
 
-    def _prefill(self, mode, tok, pos, slots, seg, gather):
+    def _prefill(self, mode, tok, pos, slots, seg, gather, touched):
         arrays = [tok, pos, slots, gather] + ([] if seg is None else [seg])
+        if self._int8:
+            arrays += [touched, np.zeros_like(touched)]
         dev = self._to_device(*arrays)
         tok_t, pos_t, slot_t, gather_t = dev[:4]
         state = self.kv.make_state(
             mode, slot_t, self.num_heads,
-            segment_ids=None if seg is None else dev[4])
+            segment_ids=None if seg is None else dev[4],
+            **_touched_kw(dev[4 + (seg is not None):]))
         return _paged_forward(self.model, tok_t, pos_t, state, gather_t)
 
     # -- sampling -----------------------------------------------------------
@@ -233,6 +318,14 @@ class ServingEngine:
             p /= p.sum()
             out[i] = idx[self._rng.choice(top_k, p=p)]
         return out
+
+
+def _touched_kw(arrays) -> dict:
+    """The int8 write path's ``touched_pages`` / ``touched_valid`` from
+    the step's device arrays (none outside int8 mode)."""
+    if not arrays:
+        return {}
+    return {"touched_pages": arrays[0], "touched_valid": arrays[1]}
 
 
 def _paged_forward(model, tokens, positions, state, gather_idx):

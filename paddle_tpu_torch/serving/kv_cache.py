@@ -14,17 +14,31 @@ paged decode kernel (K-DEC) reads.
 Page 0 is **reserved as the garbage page**: bucketed batches carry
 padding rows whose writes and page-table slots must point at a real
 page, and the allocator never hands page 0 out. Out-of-range *slots*
-(padding tokens of a prefill) are dropped: each pool's storage carries
-one extra row past the last page, and every slot at or past
-``num_pages * page_size`` lands there, so the scatter never syncs the
-host to filter them.
+(padding tokens of a prefill, verify rows past the table's reach) are
+dropped: each pool's storage carries one extra **drop page** past the
+last page, and every slot at or past ``num_pages * page_size`` lands
+there, so the scatter never syncs the host to filter them.
 
 Unlike the JAX package, whose pools flow functionally through jitted
 steps, the port updates the pools **in place** (``index_copy_``): no
 copy of the cache is ever made.
 
-Not ported yet: int8 pools (``_requant_pages``), ``copy_pages`` and
-``plan_kv_pool``.
+**int8 mode** (``kv_dtype="int8"``): K/V pools store int8, with a THIRD
+per-layer pool of per-page, per-kv-head fp32 quantization scales::
+
+    s_pools[layer]: (num_pages, 2, num_kv_heads)   # [0]=K, [1]=V
+
+Quantization is symmetric absmax (``scale = absmax / 127``, values in
+``[-127, 127]``), recomputed on every write (:func:`_requant_pages`):
+the step's *touched* pages are gathered, dequantized with their old
+scales, slots past each page's valid-before-write count zeroed (a stale
+tenant of a recycled page, or a rejected draft, must never feed the
+absmax), the new values merged in, and each page requantized under its
+fresh scale. Touched entries equal to ``num_pages`` (sentinels) write
+back into the drop page, as out-of-range slots do. The paged kernels
+(K-DEC8, K-MQ8) fuse the dequant into their dot products.
+
+Not ported yet: ``copy_pages`` and ``plan_kv_pool``.
 """
 from __future__ import annotations
 
@@ -200,6 +214,12 @@ class PagePool:
         return freed
 
 
+# floor for recomputed absmax scales: an all-zero page (fresh
+# allocation) still carries a finite, positive scale, so dequant
+# arithmetic stays NaN-free everywhere (masked or not)
+_SCALE_EPS = 1e-8
+
+
 @dataclasses.dataclass
 class PagedForwardState:
     """The per-forward paged view threaded through
@@ -207,14 +227,16 @@ class PagedForwardState:
     :meth:`view`; the pools are updated in place.
 
     ``mode``: ``"decode"`` (one token per request, the paged kernel),
-    ``"prefill_batch"`` (one request per row, trailing pad, plain causal
-    attention) or ``"prefill_packed"`` (many requests packed into one
-    row, segment-masked attention).
+    ``"verify"`` (a speculative window of S = k + 1 tokens per request,
+    the multi-query paged kernel, causal within the window, ``seq_lens``
+    INCLUDING the window), ``"prefill_batch"`` (one request per row,
+    trailing pad, plain causal attention) or ``"prefill_packed"`` (many
+    requests packed into one row, segment-masked attention).
     """
 
     k_pools: list                      # per layer (P, page_size, nh_kv*d)
     v_pools: list
-    k_stores: list                     # per layer (P*page_size + 1, nh_kv*d)
+    k_stores: list                     # per layer (P + 1, page_size, hp)
     v_stores: list
     mode: str
     slot_mapping: torch.Tensor         # (T,) int64 flat slots; OOB drops
@@ -224,6 +246,13 @@ class PagedForwardState:
     page_table: Optional[torch.Tensor] = None  # (B, max_pages) [decode]
     seq_lens: Optional[torch.Tensor] = None    # (B,) int32 incl. new token
     segment_ids: Optional[torch.Tensor] = None  # (B, S) [prefill_packed]
+    # -- int8 mode (kv_dtype="int8") --------------------------------------
+    kv_dtype: str = "fp32"
+    s_pools: Optional[list] = None     # per layer (P, 2, nh_kv) fp32
+    s_stores: Optional[list] = None    # per layer (P + 1, 2, nh_kv)
+    touched_pages: Optional[torch.Tensor] = None  # (M,) int64 pages
+    touched_valid: Optional[torch.Tensor] = None  # (M,) valid pre-write
+    requant_plan: Optional[tuple] = None  # _requant_plan, made at layer 0
 
     def view(self, layer: int) -> "PagedLayerView":
         return PagedLayerView(self, layer)
@@ -240,25 +269,47 @@ class PagedLayerView:
 
     def update(self, k, v):
         """Write ``k``/``v`` ``(B, S, nh_kv, d)`` into this layer's pools
-        at ``slot_mapping``; padding slots (>= pool size) are dropped."""
-        st = self.state
-        _scatter_pages(st.k_stores[self.layer], k, st.slot_mapping)
-        _scatter_pages(st.v_stores[self.layer], v, st.slot_mapping)
+        at ``slot_mapping``; padding slots (>= pool size) are dropped.
+        int8 mode requantizes every touched page (module docstring)."""
+        st, i = self.state, self.layer
+        if st.kv_dtype == "int8":
+            if st.requant_plan is None:    # once per step, for all layers
+                st.requant_plan = _requant_plan(
+                    st.slot_mapping, st.touched_pages, st.touched_valid,
+                    *st.k_pools[i].shape[:2])
+            _requant_pages(st.k_stores[i], st.v_stores[i], st.s_stores[i],
+                           k, v, st.requant_plan)
+            return
+        _scatter_pages(st.k_stores[i], k, st.slot_mapping)
+        _scatter_pages(st.v_stores[i], v, st.slot_mapping)
 
     def attend(self, q, k, v, scale=None):
         """Mode-appropriate attention. ``q`` ``(B, S, nh, d)``; ``k``/
         ``v`` the CURRENT call's keys/values ``(B, S, nh_kv, d)`` (fresh
-        prefills attend only themselves; decode reads the pools).
-        Returns ``(B, S, nh, d)`` in q's dtype."""
+        prefills attend only themselves; decode and verify read the
+        pools). Returns ``(B, S, nh, d)`` in q's dtype."""
         st = self.state
         b, s, nh, d = q.shape
-        kp = st.k_pools[self.layer]
-        if st.mode == "decode":
-            o = disp.paged_attention(
-                q[:, 0].to(kp.dtype).contiguous(), kp,
-                st.v_pools[self.layer], st.page_table, st.seq_lens,
-                scale=scale)
-            return o[:, None].to(q.dtype)
+        kp, vp = st.k_pools[self.layer], st.v_pools[self.layer]
+        if st.mode in ("decode", "verify"):
+            scales = None
+            if st.kv_dtype == "int8":
+                # the query keeps its dtype: the kernels read int8 pools
+                # with a fp32 or bf16 query
+                scales, qk = st.s_pools[self.layer], q
+            else:
+                qk = q.to(kp.dtype)
+            if st.mode == "decode":
+                o = disp.paged_attention(
+                    qk[:, 0].contiguous(), kp, vp, st.page_table,
+                    st.seq_lens, scale=scale, scales=scales)[:, None]
+            else:
+                # the speculative window: S = k + 1 rows whose K/V
+                # update() just wrote, causal within the window
+                o = disp.paged_multiquery_attention(
+                    qk.contiguous(), kp, vp, st.page_table, st.seq_lens,
+                    scale=scale, scales=scales)
+            return o.to(q.dtype)
         rep = st.num_heads // st.num_kv_heads
         if rep > 1:  # GQA: expand kv heads for the dense/packed paths
             k = k.repeat_interleave(rep, dim=2)
@@ -280,60 +331,141 @@ class PagedLayerView:
 
 
 def _scatter_pages(store, vals, slots):
-    """``store`` (P*ps + 1, hp): a layer's pool storage plus the drop row;
-    ``vals`` (B, S, nh_kv, d); ``slots`` (B*S,) int64 flat token slots
-    into the ``P*ps`` stream. Slots at or past ``P*ps`` land in the drop
-    row (dropped). In place."""
-    n, hp = store.shape
-    idx = slots.clamp(max=n - 1)
-    store.index_copy_(0, idx, vals.reshape(-1, hp).to(store.dtype))
+    """``store`` (P + 1, ps, hp): a layer's pool storage plus the drop
+    page; ``vals`` (B, S, nh_kv, d); ``slots`` (B*S,) int64 flat token
+    slots into the ``P*ps`` stream. Slots at or past ``P*ps`` land in
+    the drop page (dropped). In place."""
+    hp = store.shape[-1]
+    flat = store.view(-1, hp)
+    idx = slots.clamp(max=flat.shape[0] - 1)
+    flat.index_copy_(0, idx, vals.reshape(-1, hp).to(store.dtype))
     return store
+
+
+def _requant_plan(slots, touched, touched_valid, num_pages, page_size):
+    """The int8 write's index work, the same for every layer of a step:
+    ``(tp, tslot, keep)``. ``touched`` (M,) physical page ids, every page
+    any of ``slots`` lands in (sentinels ``== num_pages`` write back into
+    the drop page; padding rows may repeat garbage page 0, whose content
+    is never read unmasked, so duplicate writebacks are harmless);
+    ``touched_valid`` (M,) tokens already valid in each page BEFORE this
+    step's writes. ``tp`` (M,) the pages to gather and write back,
+    ``tslot`` (T,) each slot's row among the ``M * page_size`` gathered
+    rows, or row ``M * page_size`` (dropped) for a slot outside the
+    touched set or past the pool (the JAX package's ``inv`` row ``m``),
+    ``keep`` (M, page_size) the valid-before-write rows."""
+    p, ps = num_pages, page_size
+    m = touched.shape[0]
+    dev = touched.device
+    tp = touched.long().clamp(0, p)     # sentinel -> the drop page
+    # inverse page map: physical page -> gathered row, else row m
+    inv = torch.full((p + 1,), m, dtype=torch.long, device=dev)
+    inv[tp] = torch.arange(m, device=dev)
+    sl = slots.long()
+    tslot = (inv[(sl // ps).clamp(0, p)] * ps + sl % ps).clamp(max=m * ps)
+    keep = (torch.arange(ps, device=dev)[None, :]
+            < touched_valid.long()[:, None])
+    return tp, tslot, keep
+
+
+def _requant_pages(k_store, v_store, s_store, k, v, plan):
+    """The int8 write path (module docstring), in place, K and V together.
+    ``k_store``/``v_store`` (P + 1, ps, hp) int8 and ``s_store``
+    (P + 1, 2, nh_kv) fp32, each ending in the drop page; ``k``/``v``
+    (B, S, nh_kv, d) the new values; ``plan`` from
+    :func:`_requant_plan`."""
+    tp, tslot, keep = plan
+    m, ps = keep.shape
+    hp = k_store.shape[-1]
+    nh_kv = s_store.shape[-1]
+    shape = (m, ps, 2, nh_kv, hp // nh_kv)
+    # gather, dequantize with the old scales, zero the stale rows
+    g = torch.stack([k_store[tp], v_store[tp]], dim=2).view(shape).float()
+    g = g * s_store[tp][:, None, :, :, None]
+    g.masked_fill_(~keep[:, :, None, None, None], 0.0)
+    # merge the new values (row m * ps takes the dropped slots)
+    flat = torch.cat([g.view(m * ps, 2 * hp), g.new_zeros(1, 2 * hp)])
+    new = torch.stack([k.reshape(-1, hp), v.reshape(-1, hp)], dim=1)
+    flat.index_copy_(0, tslot, new.view(-1, 2 * hp).float())
+    x = flat[:m * ps].view(shape)
+    # symmetric absmax per (page, K/V, kv head), round half to even
+    sc = (x.abs().amax(dim=(1, 4)) / 127.0).clamp_min(_SCALE_EPS)
+    q = torch.round(x / sc[:, None, :, :, None]).clamp_(-127.0, 127.0)
+    q = q.to(torch.int8).view(m, ps, 2, hp)
+    k_store.index_copy_(0, tp, q[:, :, 0])
+    v_store.index_copy_(0, tp, q[:, :, 1])
+    s_store.index_copy_(0, tp, sc)
 
 
 class PagedKVCache:
     """The pool pair per layer plus its allocator, sized once at engine
-    construction on ``device``. ``dtype`` float32 (default) or bfloat16;
-    int8 pools are not ported yet."""
+    construction on ``device``. ``kv_dtype="fp32"``: unquantized pools in
+    ``dtype`` (float32, the default, or bfloat16); ``kv_dtype="int8"``:
+    int8 pools plus the per-page scale pools (``dtype`` is ignored)."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
-                 num_kv_heads: int, head_dim: int, dtype=None, device=None):
-        dtype = dtype or torch.float32
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"KV pools are float32 or bfloat16, got {dtype}")
+                 num_kv_heads: int, head_dim: int, dtype=None, device=None,
+                 kv_dtype: str = "fp32"):
+        if kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp32' or 'int8', "
+                             f"got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
+        if kv_dtype == "int8":
+            dtype = torch.int8
+        else:
+            dtype = dtype or torch.float32
+            if dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError(f"KV pools are float32 or bfloat16, got "
+                                f"{dtype}")
         self.num_layers = int(num_layers)
         self.page_size = int(page_size)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
         self.dtype = dtype
         self.pool = PagePool(num_pages, page_size)
+
+        def stores(shape, dt):   # the pools plus the drop page, and views
+            st = [torch.zeros((num_pages + 1, *shape), dtype=dt,
+                              device=device) for _ in range(num_layers)]
+            return st, [s[:num_pages] for s in st]
+
         hp = num_kv_heads * head_dim
-        rows = num_pages * page_size
-
-        def store():
-            return torch.zeros((rows + 1, hp), dtype=dtype, device=device)
-
-        self.k_stores = [store() for _ in range(num_layers)]
-        self.v_stores = [store() for _ in range(num_layers)]
-        shape = (num_pages, page_size, hp)
-        self.k_pools = [s[:rows].view(shape) for s in self.k_stores]
-        self.v_pools = [s[:rows].view(shape) for s in self.v_stores]
+        self.k_stores, self.k_pools = stores((page_size, hp), dtype)
+        self.v_stores, self.v_pools = stores((page_size, hp), dtype)
+        self.s_stores = self.s_pools = None
+        if kv_dtype == "int8":
+            self.s_stores, self.s_pools = stores((2, num_kv_heads),
+                                                 torch.float32)
 
     @property
     def num_pages(self) -> int:
         return self.pool.num_pages
 
     def pool_bytes(self) -> int:
+        """Bytes of the K/V pools and, in int8 mode, their scales (the
+        drop pages not counted, as the JAX package has none)."""
         return int(2 * self.num_layers * self.num_pages * self.page_size
                    * self.num_kv_heads * self.head_dim
-                   * torch.finfo(self.dtype).bits // 8)
+                   * self.k_pools[0].element_size()
+                   ) + self.scale_pool_bytes()
+
+    def scale_pool_bytes(self) -> int:
+        """Bytes of the per-page scale pools (0 outside int8 mode)."""
+        if self.s_pools is None:
+            return 0
+        return int(self.num_layers * self.num_pages * 2
+                   * self.num_kv_heads * 4)
 
     def make_state(self, mode: str, slot_mapping, num_heads: int,
-                   page_table=None, seq_lens=None,
-                   segment_ids=None) -> PagedForwardState:
+                   page_table=None, seq_lens=None, segment_ids=None,
+                   touched_pages=None,
+                   touched_valid=None) -> PagedForwardState:
         return PagedForwardState(
             k_pools=self.k_pools, v_pools=self.v_pools,
             k_stores=self.k_stores, v_stores=self.v_stores, mode=mode,
             slot_mapping=slot_mapping, num_heads=num_heads,
             num_kv_heads=self.num_kv_heads, head_dim=self.head_dim,
             page_table=page_table, seq_lens=seq_lens,
-            segment_ids=segment_ids)
+            segment_ids=segment_ids, kv_dtype=self.kv_dtype,
+            s_pools=self.s_pools, s_stores=self.s_stores,
+            touched_pages=touched_pages, touched_valid=touched_valid)

@@ -13,17 +13,25 @@ reproduces the identical continuation, so eviction only delays output);
 (3) runs one bucketed decode for every running request. Requests leave
 the moment they hit their own ``max_new_tokens``.
 
+With ``spec_decode=SpecDecodeConfig(...)`` (or an explicit ``drafter``)
+the decode phase becomes the draft->verify->accept loop of **speculative
+decoding**: a host-side drafter proposes up to ``k`` continuation tokens
+per runner, ONE bucketed verify step scores the whole ``(B, k+1)``
+window (K-MQ), and greedy exact-match acceptance commits the longest
+matching prefix plus a bonus token: output-identical to plain decoding,
+up to ``k+1`` tokens per tick.
+
 Robustness kept from the JAX package: per-request deadlines (expired
 requests are cancelled at the next tick boundary, pages freed), a
 bounded waiting queue (``max_waiting``: :meth:`submit` raises
 :class:`RejectedError`), and the decode anomaly guard (a non-finite
 logits row fails ONLY the offending request).
 
-Not ported yet: speculative decoding, the tracer and metrics registry,
-the SLO plane, tenancy, the HTTP endpoint, drain and fault injection.
-The constructor raises on their arguments. In their place the scheduler
-keeps plain per-step timings (``decode_tick_ms``, ``prefill_calls``) for
-the caller to summarise.
+Not ported yet: the tracer and metrics registry, the SLO plane,
+tenancy, the HTTP endpoint, drain and fault injection. The constructor
+raises on their arguments. In their place the scheduler keeps plain
+per-step host records (``decode_tick_ms``, ``verify_ticks``,
+``prefill_calls``) for the caller to summarise.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import numpy as np
 
 from .engine import ServingEngine
 from .kv_cache import PagesExhausted
+from .spec_decode import Drafter, NgramDrafter, SpecDecodeConfig
 
 __all__ = ["Request", "RejectedError", "ContinuousBatchingScheduler"]
 
@@ -60,6 +69,7 @@ class Request:
     max_new_tokens: int
     temperature: float = 0.0           # <=0 or top_k 0: greedy
     top_k: int = 0
+    arrival_s: float = 0.0             # offset into the trace (loadgen)
     deadline_s: Optional[float] = None  # TTL from submit (scheduler clock)
     # -- runtime state (scheduler-owned) ------------------------------------
     generated: List[int] = dataclasses.field(default_factory=list)
@@ -68,6 +78,8 @@ class Request:
     status: str = "waiting"   # waiting|running|finished|timeout|error|
     #                           cancelled|rejected
     preemptions: int = 0
+    spec_proposed: int = 0             # drafted tokens sent to verify
+    spec_accepted: int = 0             # drafted tokens accepted
     t_submit: Optional[float] = None
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
@@ -85,12 +97,24 @@ class Request:
 class ContinuousBatchingScheduler:
     def __init__(self, engine: ServingEngine, clock=time.monotonic,
                  max_waiting: Optional[int] = None,
-                 anomaly_guard: bool = True, **unported):
+                 anomaly_guard: bool = True,
+                 spec_decode: Optional[SpecDecodeConfig] = None,
+                 drafter: Optional[Drafter] = None, **unported):
         if unported:
             raise NotImplementedError(
                 "ContinuousBatchingScheduler: not ported yet: "
                 + ", ".join(sorted(unported)))
         self.engine = engine
+        # speculative decoding: either knob turns it on; the default
+        # drafter is the zero-model n-gram prompt-lookup one
+        if drafter is not None and spec_decode is None:
+            spec_decode = getattr(drafter, "cfg", None) or SpecDecodeConfig()
+        self.spec = spec_decode
+        if self.spec is not None and drafter is None:
+            drafter = NgramDrafter(k=self.spec.k,
+                                   max_ngram=self.spec.max_ngram,
+                                   min_ngram=self.spec.min_ngram)
+        self.drafter = drafter
         self.clock = clock
         self.max_waiting = max_waiting
         self.anomaly_guard = anomaly_guard
@@ -99,10 +123,12 @@ class ContinuousBatchingScheduler:
         self.finished: List[Request] = []
         self._steps = 0
         self._deadline_live = 0        # live requests carrying a deadline
-        # host wall time of every decode tick (ms), and of every packed
-        # prefill: (requests, tokens, ms) — the engine returns host
+        # host wall time of every plain decode tick (ms), of every verify
+        # tick (ms, committed, proposed, accepted) and of every packed
+        # prefill (requests, tokens, ms) — the engine returns host
         # logits, so each is a synchronised time
         self.decode_tick_ms: List[float] = []
+        self.verify_ticks: List[tuple] = []
         self.prefill_calls: List[tuple] = []
 
     # -- intake -------------------------------------------------------------
@@ -170,7 +196,10 @@ class ContinuousBatchingScheduler:
             self._expire(self.clock())
         self._admit_and_prefill()
         if self.running:
-            self._decode_plain()
+            if self.spec is not None:
+                self._decode_spec()
+            else:
+                self._decode_plain()
         self._steps += 1
 
     def run(self) -> None:
@@ -247,16 +276,21 @@ class ContinuousBatchingScheduler:
             if req.done:
                 self._finish(req, now)
 
-    def _grow_or_evict(self) -> None:
-        """Each running request about to write its token at position
-        ``context_len`` needs pages through ``context_len // ps``;
-        allocate boundary pages, evicting the youngest runner on
-        exhaustion."""
+    def _grow_or_evict(self, extra=None) -> None:
+        """Each running request about to write tokens at positions
+        ``context_len .. context_len + extra(req)`` needs pages through
+        ``(context_len + extra(req)) // ps``; allocate boundary pages,
+        evicting the youngest runner on exhaustion. ``extra`` (the
+        speculative draft length; ``None``: the plain one-token write)
+        keeps provisioning exact for up-to-(k+1)-token ticks; a rejected
+        draft's pages stay the request's own future pages, freed on its
+        one ``_finish`` exit, so rejection never leaks pages."""
         ps = self.engine.kv.page_size
         for req in list(self.running):
             if req.status != "running":
                 continue
-            need = req.context_len // ps + 1 - len(req.pages)
+            top = req.context_len + (extra(req) if extra else 0)
+            need = top // ps + 1 - len(req.pages)
             if need <= 0:
                 continue
             while True:
@@ -337,9 +371,99 @@ class ContinuousBatchingScheduler:
             if req.done:
                 self._finish(req, now)
 
+    def _decode_spec(self) -> None:
+        """The draft->verify->accept tick: propose up to ``k`` tokens per
+        runner (truncated to the request's remaining budget minus one,
+        the bonus token, and to zero past its deadline), provision pages
+        for the whole window through the same grow/evict logic, run ONE
+        bucketed verify at the fixed ``(B, k+1)`` window, and commit the
+        longest draft prefix matching the verify argmax plus its bonus
+        token. The committed tokens are the verify step's own greedy
+        choices, so greedy output equals the plain engine's; an empty
+        draft everywhere takes the plain one-token decode tick."""
+        k = self.spec.k
+        # propose BEFORE page growth so provisioning covers the window
+        # actually drafted; an eviction below orphans its draft
+        now = self.clock()
+        drafts: dict = {}
+        for req in self.running:
+            if req.status != "running":
+                continue
+            budget = min(k, req.max_new_tokens - len(req.generated) - 1)
+            if req.t_deadline is not None and now >= req.t_deadline:
+                budget = 0   # never draft past the deadline
+            if budget <= 0 or (req.top_k and req.temperature > 0):
+                # non-greedy requests ride the window as a plain decode:
+                # exact-match acceptance is a greedy-only identity
+                drafts[req.rid] = []
+                continue
+            ctx = req.prompt.tolist() + req.generated
+            d = self.drafter.propose(ctx, budget)
+            drafts[req.rid] = [int(t) for t in d[:budget]]
+        if not any(drafts.values()):
+            # nothing drafted anywhere: a verify window would spend (k+1)x
+            # the decode work to commit one token per lane
+            return self._decode_plain()
+        self._grow_or_evict(extra=lambda r: len(drafts.get(r.rid, ())))
+        runners = [r for r in self.running if r.status == "running"]
+        if not runners:
+            return
+        w = k + 1   # fixed window
+        tokens = np.zeros((len(runners), w), np.int32)
+        maxp = self.engine.max_pages_per_seq
+        pt = np.zeros((len(runners), maxp), np.int32)
+        for i, r in enumerate(runners):
+            tokens[i, 0] = r.last_token
+            d = drafts.get(r.rid, ())
+            if d:
+                tokens[i, 1:1 + len(d)] = d
+            pt[i, :len(r.pages)] = r.pages
+        lens = np.asarray([r.context_len for r in runners], np.int32)
+        t0 = time.perf_counter()
+        logits = self.engine.verify(tokens, pt, lens)  # (n, w, vocab)
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        if self.anomaly_guard and not np.isfinite(float(logits.sum())):
+            runners, logits = self._fail_anomalous(runners, logits)
+        if not runners:
+            self.verify_ticks.append((dur_ms, 0, 0, 0))
+            return
+        now = self.clock()
+        greedy = np.argmax(logits, axis=-1).astype(np.int32)  # (n, w)
+        commits = []
+        committed = proposed = accepted = 0
+        for i, req in enumerate(runners):
+            d = drafts.get(req.rid, [])
+            if req.top_k and req.temperature > 0:
+                toks = [int(self.engine.sample(
+                    logits[i, 0][None], req.temperature, req.top_k)[0])]
+                m = 0
+            else:
+                g = greedy[i]
+                m = 0
+                while m < len(d) and d[m] == int(g[m]):
+                    m += 1
+                # longest matching prefix + the bonus token: row m's
+                # argmax is the model's next token AFTER the accepted
+                # prefix, what a plain decode there would emit
+                toks = d[:m] + [int(g[m])]
+            commits.append((req, len(d), m, toks))
+            proposed += len(d)
+            accepted += m
+            committed += len(toks)
+        self.verify_ticks.append((dur_ms, committed, proposed, accepted))
+        for req, n_d, m, toks in commits:
+            req.spec_proposed += n_d
+            req.spec_accepted += m
+            req.context_len += len(toks)
+            req.generated.extend(toks)
+            if req.done:
+                self._finish(req, now)
+
     def _fail_anomalous(self, runners: List[Request], logits: np.ndarray):
         """Non-finite logits fail ONLY the offending request(s): status
-        ``error``, pages freed; survivors keep their own logits rows."""
+        ``error``, pages freed; survivors keep their own logits rows.
+        Handles both the decode ``(n, vocab)`` and the verify
+        ``(n, w, vocab)`` layouts."""
         row_ok = np.isfinite(logits.reshape(len(runners), -1).sum(axis=-1))
         now = self.clock()
         for i in np.flatnonzero(~row_ok):

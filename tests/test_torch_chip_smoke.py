@@ -1,7 +1,8 @@
 """``chip_smoke.py``'s own logic on the CPU: it refuses to run without a
 card, its kernel checks (comparison, bound, JSON keys) work at tiny
 shapes with the plain versions standing in for the kernels, and its
-training phases (7, 8, 10-12) run end to end at a tiny GPT."""
+training phases (7, 8, 10-12) and speculative and int8 serving phases
+(14-16) run end to end at a tiny GPT."""
 import numpy as np
 import pytest
 import torch
@@ -36,14 +37,17 @@ def test_peaks_pick_the_part_from_its_name():
         cs.peaks_for("NVIDIA A100-SXM4-80GB")
 
 
-@pytest.mark.parametrize("check,args", [
-    ("check_dec", (torch.float32, 4, 2, 64)),
-    ("check_seg", (torch.float32, 200, 2, 64)),
-    ("check_bshd", (torch.float32, 2, 70, 2, 64)),
+@pytest.mark.parametrize("check,args,kw", [
+    ("check_dec", (torch.float32, 4, 2, 64), {}),
+    ("check_dec", (torch.float32, 4, 2, 64), {"qlen": 5}),
+    ("check_dec", (torch.float32, 4, 2, 64), {"int8": True}),
+    ("check_dec", (torch.float32, 4, 4, 64), {"qlen": 5, "int8": True}),
+    ("check_seg", (torch.float32, 200, 2, 64), {}),
+    ("check_bshd", (torch.float32, 2, 70, 2, 64), {}),
 ])
-def test_kernel_checks_report_every_key(on_cpu, check, args):
+def test_kernel_checks_report_every_key(on_cpu, check, args, kw):
     rng = np.random.RandomState(0)
-    res = getattr(cs, check)(rng, *args, on_cpu, timed=True)
+    res = getattr(cs, check)(rng, *args, on_cpu, timed=True, **kw)
     assert _KEYS <= set(res)
     assert res["max_abs_err"] == 0.0     # plain version against itself
     assert res["bound_ms"] > 0 and res["bound_by"] in ("bytes",
@@ -173,3 +177,61 @@ def test_profile_kinds_name_the_training_kernels():
         "reduction"
     assert cs.kernel_kind("Memcpy DtoH (Device -> Pinned)") == "copy"
     assert cs.kernel_kind("something_else") == "other"
+
+
+@pytest.fixture
+def tiny_serving(tiny_training, monkeypatch):
+    """Phases 14-16 at a tiny GPT on the CPU: the paged wrappers count
+    themselves as their kernels would, on top of ``tiny_training``."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    for fn, names in (("paged_decode_attention", ("K-DEC", "K-DEC8")),
+                      ("paged_multiquery_attention", ("K-MQ", "K-MQ8"))):
+        orig = getattr(pa, fn)
+
+        def counted(*a, _orig=orig, _names=names, **kw):
+            pa.LAUNCHES[_names[kw.get("scales") is not None]] += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(pa, fn, counted)
+    return tiny_training
+
+
+_TINY_SERVING = dict(page_size=8, max_model_len=128, max_batch=4,
+                     max_prefill_tokens=256)
+
+
+def test_spec_and_int8_accuracy_phase_rehearses_on_cpu(tiny_serving):
+    counts = {}
+    m = cs.phase_spec_accuracy(counts, serving=_TINY_SERVING,
+                               trace=(4, 8, 3, 4, 8), decode_steps=3)
+    assert m["verify_ticks"] > 0 and m["accepted"] > 0
+    assert counts["phase14"]["K-MQ"] == m["verify_ticks"] * 2
+    assert m["int8_card_vs_cpu"] == 0.0 and m["int8_vs_fp32_gap"] > 0
+    assert counts["phase14_int8"]["K-DEC8"] == 3 * 2
+    assert counts["phase14_int8"]["K-MQ8"] == 2
+
+
+def test_spec_and_int8_load_phases_rehearse_on_cpu(tiny_serving):
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(cs.model_config(), device="cpu",
+                           dtype=torch.bfloat16).eval()
+    counts = {}
+    trace = dict(phrase_lens=(4, 8), repeats=(3, 4), out_tokens=(8, 16))
+    m = cs.phase_spec_load(model, counts, n_req=8, serving=_TINY_SERVING,
+                           trace=trace)
+    spec, plain = m["spec"], m["plain"]
+    assert spec["verify_ticks"] > 0 and plain["verify_ticks"] == 0
+    assert 0 < spec["acceptance_rate"] <= 1
+    assert counts["phase15"]["K-MQ"] == spec["verify_ticks"] * 2
+    assert counts["phase15_plain"]["K-DEC"] == plain["decode_ticks"] * 2
+    assert 0 <= m["identical_streams"] <= 8
+    m = cs.phase_int8_load(model, counts, n_req=8, serving=_TINY_SERVING,
+                           trace=trace, prompt=(8, 24), new_tokens=(4, 12))
+    assert counts["phase16"]["K-DEC8"] == m["plain"]["decode_ticks"] * 2
+    assert counts["phase16"]["K-DEC"] == counts["phase16"]["K-MQ8"] == 0
+    assert counts["phase16_spec"]["K-MQ8"] == m["spec"]["verify_ticks"] * 2
+    # int8 codes are half of bf16's bytes, plus 8 bytes of scales per page
+    # and kv head against bf16's 2 * page_size * d * 2 = 1024 (d = 32)
+    assert m["pool_bytes_ratio"] == pytest.approx(0.5 + 8 / 1024)

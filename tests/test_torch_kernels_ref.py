@@ -151,6 +151,17 @@ def test_wrappers_never_fall_back_off_the_cpu():
     sl = torch.empty(2, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="no kernel"):
         pa.paged_decode_attention(q, pool, pool, pt, sl)
+    # K-MQ, and the int8 entries K-DEC8 and K-MQ8
+    pool8 = torch.empty(3, 8, 256, dtype=torch.int8, device=meta)
+    scales = torch.empty(3, 2, 4, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        pa.paged_multiquery_attention(q[:, None].expand(2, 5, 4, 64), pool,
+                                      pool, pt, sl)
+    with pytest.raises(ValueError, match="no kernel"):
+        pa.paged_decode_attention(q, pool8, pool8, pt, sl, scales=scales)
+    with pytest.raises(ValueError, match="no kernel"):
+        pa.paged_multiquery_attention(q[:, None], pool8, pool8, pt, sl,
+                                      scales=scales)
     x = torch.empty(1, 64, 256, device=meta)
     seg = torch.empty(1, 64, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="no kernel"):

@@ -154,8 +154,8 @@ def test_scatter_drops_oob_slots_in_place():
 def test_scheduler_intake_validation(models):
     _, tm = models
     eng = ServingEngine(tm, ServingConfig(**_CFG, num_pages=6))
-    with pytest.raises(NotImplementedError, match="spec_decode"):
-        ContinuousBatchingScheduler(eng, spec_decode=object())
+    with pytest.raises(NotImplementedError, match="slo"):
+        ContinuousBatchingScheduler(eng, slo=object())
     s = ContinuousBatchingScheduler(eng, max_waiting=1)
     p = np.arange(10, dtype=np.int32)
     with pytest.raises(ValueError, match="max_model_len"):
