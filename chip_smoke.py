@@ -13,8 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    on the card, at the widths of the paths that launch it, timed with
    CUDA events (median of >= 20 runs after warm-up) beside its plain
    version, the one PyTorch library call that computes the same function
-   (where one exists) and its bound (bytes over HBM bandwidth or FLOPs
-   over peak, whichever is larger, at the published peak of the part);
+   (where one exists), its device time under the profiler (which leaves
+   out the card's waits on the host) and its bound (bytes over HBM
+   bandwidth or FLOPs over peak, whichever is larger, at the published
+   peak of the part);
 3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
    answers 3 requests through the continuous-batching scheduler, and
    ``generate()`` completes 2 prompts; the card's logits at every
@@ -70,7 +72,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     then phase 15's with k=4 (K-DEC8 and K-MQ8 per tick, as 15); prints
     the pool bytes against phase 4's bf16 pool;
 17. (opt-in) profile of 20 verify ticks (phase 6 with k=4 on repetitious
-    prompts).
+    prompts);
+18. (opt-in) profile of 3 nn-API training steps at phase 12's shape.
 
 Each main-path phase (3-5, 7, 8, 10-12, 14-16) sets the kernels' launch
 counts to 0 just before it and reads them just after. The line before the
@@ -81,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -181,6 +185,23 @@ def time_ms(fn, iters=30, warmup=5) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
 
 
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Device time of one ``fn`` call under torch.profiler: the kernels
+    it launched, summed, per call. Beside ``time_ms``'s CUDA-event time,
+    which also counts the gaps where the card waits on the host, it
+    shows whether a call is bound by its kernel or by its host work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_ms_by_kernel(prof).values()) / iters
+
+
 def bound_ms(nbytes: float, flops: float, dtype, peaks) -> tuple:
     t_bytes = nbytes / peaks["hbm"] * 1e3
     t_ops = flops / peaks["bf16" if dtype == torch.bfloat16 else "fp32"] * 1e3
@@ -260,6 +281,8 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
                   + pages * 4 + b * 4 + (pages * 2 * nh_kv * 4 if int8 else 0))
         flops = 4.0 * d * nh * pairs
         res["ms"] = time_ms(lambda: kern(q, kp, vp, pt_t, sl_t, scales=sc))
+        res["device_ms"] = device_ms(lambda: kern(q, kp, vp, pt_t, sl_t,
+                                                  scales=sc))
         res["plain_ms"] = time_ms(lambda: plain(q, kp, vp, pt_t, sl_t,
                                                 scales=sc), iters=20)
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
@@ -310,12 +333,15 @@ def packed_rows(seed, b, s, lo, hi, vocab):
             packing_efficiency(rows))
 
 
-def check_seg(rng, dtype, t, nh, d, peaks, timed):
+def check_seg(rng, dtype, t, nh, d, peaks, timed, seg=None,
+              what="8 segments + pad"):
+    """K-SEG against its plain version on one row of ~8 sorted segments
+    and a pad tail drawn from ``rng``, or on the given ``(B, t)`` ids."""
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
     dev = DEV
-    seg = segments(rng, t, 8)
-    q, k, v = (torch.from_numpy(rng.randn(1, t, nh * d).astype(
+    seg = segments(rng, t, 8) if seg is None else seg
+    q, k, v = (torch.from_numpy(rng.randn(len(seg), t, nh * d).astype(
         np.float32)).to(dev, dtype) for _ in range(3))
     seg_t = torch.from_numpy(seg).to(dev)
     o, lse = fp.flash_attention_packed_segmented(q, k, v, seg_t, nh)
@@ -326,7 +352,7 @@ def check_seg(rng, dtype, t, nh, d, peaks, timed):
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     ok = (err <= tol and lerr <= 1e-3 and bool(torch.isfinite(o).all())
           and bool(torch.isfinite(lse).all()))
-    log(f"  K-SEG {str(dtype)[6:]} T={t} nh={nh} d={d} 8 segments + pad: "
+    log(f"  K-SEG {str(dtype)[6:]} B={len(seg)} T={t} nh={nh} d={d} {what}: "
         f"o max_abs_err {err:.3e} (tol {tol}), lse {lerr:.3e} (tol 1e-3) "
         f"{'ok' if ok else 'FAIL'}")
     require(ok, "K-SEG disagrees with its plain version")
@@ -338,6 +364,8 @@ def check_seg(rng, dtype, t, nh, d, peaks, timed):
         flops = 4.0 * d * nh * pairs
         res["ms"] = time_ms(lambda: fp.flash_attention_packed_segmented(
             q, k, v, seg_t, nh))
+        res["device_ms"] = device_ms(
+            lambda: fp.flash_attention_packed_segmented(q, k, v, seg_t, nh))
         res["plain_ms"] = time_ms(lambda: fp.segment_attention_ref(
             q, k, v, seg_t, nh), iters=20)
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
@@ -378,6 +406,7 @@ def check_bshd(rng, dtype, b, s, h, d, peaks, timed):
         nbytes = 4 * b * s * h * d * elem + b * s * h * 4
         flops = 4.0 * d * pairs
         res["ms"] = time_ms(lambda: fa.bshd_fwd(q, k, v))
+        res["device_ms"] = device_ms(lambda: fa.bshd_fwd(q, k, v))
         res["plain_ms"] = time_ms(lambda: fa.causal_attention_ref(q, k, v),
                                   iters=20)
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
@@ -388,6 +417,75 @@ def check_bshd(rng, dtype, b, s, h, d, peaks, timed):
                                     iters=20)
         res["shape"] = f"(B,S,H,D)=({b},{s},{h},{d}) {str(dtype)[6:]}"
     return res
+
+
+def seg_edges(rng, t):
+    """Three rows of segment ids of length ``t`` (>= 600) for K-SEG's edge
+    checks: (0) sorted segments that start mid-tile, three single-token
+    segments and an all-pad tail from 0.6 t (whole pad k-tiles); (1) runs
+    whose ids are out of order, one id recurring after others, ids that
+    share their low 10 bits (1023 and -1, 7 and 1031) and the int32
+    extremes; (2) each token's id drawn from row 1's ids, no runs."""
+    ids = np.array([5, 2, 9, 2, 1023, -1, 7, 1031, 2 ** 31 - 1, -2 ** 31, 0],
+                   np.int64)
+    rows = np.full((3, t), -1, np.int64)
+    cuts = [0, 1, 2, 3, 50, 127, 128, 129, 200, 250, 333, 517, int(0.6 * t)]
+    for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+        rows[0, lo:hi] = i
+    lens = rng.multinomial(t - len(ids), np.ones(len(ids)) / len(ids)) + 1
+    rows[1] = np.repeat(ids, lens)
+    rows[2] = rng.choice(ids, t)
+    return rows.astype(np.int32)
+
+
+def check_pack(rng, dtype, b, s, nh, d, causal=True, sk=None):
+    """K-PACK's forward alone against its plain version (tolerance as
+    ``hold``): causal self-attention on column slices of one fused qkv,
+    or, with ``sk``, full attention of q ``(B, s)`` over k, v ``(B, sk)``."""
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    sk = sk or s
+    q, k, v, _ = train_inputs(rng, dtype, b, s, nh, d, sk)
+    o, lse = fp.packed_fwd(q, k, v, nh, causal=causal)
+    torch.cuda.synchronize()
+    ro, rlse = fp.packed_attention_ref(q.float(), k.float(), v.float(), nh,
+                                       causal=causal)
+    return hold((("K-PACK", ((o, ro), (lse, rlse))),), dtype,
+                f"B={b} Sq={s} Sk={sk} nh={nh} d={d} "
+                f"{'causal' if causal else 'full'}")["K-PACK"]
+
+
+def check_fwd_edges(dtype=torch.bfloat16, heads=None) -> dict:
+    """The forward kernels (K-PACK, K-BSHD, K-SEG) at the edges of the
+    Hopper body's tiles (128-row q-blocks, 128-key K/V tiles): S of 1, 17,
+    127, 129 and 1000; full attention with Sq != Sk; the segment rows of
+    ``seg_edges``; each at d 64 (16 heads) and some at d 128 (8 heads).
+    Untimed, from a seed of their own so the timed rows keep their
+    inputs; ``heads`` sets every head count (the CPU rehearsal). Returns
+    each kernel's worst error."""
+    rng = np.random.RandomState(2)
+    worst = dict.fromkeys(("K-PACK", "K-BSHD", "K-SEG"), 0.0)
+
+    def keep(name, res):
+        worst[name] = max(worst[name], res["max_abs_err"])
+
+    def nh(d):                       # GPT-345M's width, 1024
+        return heads or 1024 // d
+
+    for s, d in [(1, 64), (17, 64), (127, 64), (129, 64), (1000, 64),
+                 (1, 128), (129, 128)]:
+        keep("K-PACK", check_pack(rng, dtype, 2, s, nh(d), d))
+        keep("K-BSHD", check_bshd(rng, dtype, 2, s, nh(d), d, None,
+                                  timed=False))
+    for s, sk, d in [(300, 700, 64), (128, 1024, 64), (300, 700, 128)]:
+        keep("K-PACK", check_pack(rng, dtype, 2, s, nh(d), d, causal=False,
+                                  sk=sk))
+    for d in (64, 128):
+        keep("K-SEG", check_seg(rng, dtype, 1000, nh(d), d, None,
+                                timed=False, seg=seg_edges(rng, 1000),
+                                what="mid-tile, single-token, unsorted, "
+                                "colliding and extreme ids, pad tail"))
+    return worst
 
 
 def train_inputs(rng, dtype, b, s, nh, d, sk):
@@ -434,6 +532,7 @@ def time_rows(out, runs, work, lib_ms, dtype, peaks, shape):
     for name, (kern, plain) in runs.items():
         r = out[name]
         r["ms"] = time_ms(kern)
+        r["device_ms"] = device_ms(kern)
         r["plain_ms"] = time_ms(plain, iters=10)
         r["bound_ms"], r["bound_by"] = bound_ms(*work[name], dtype, peaks)
         r["library_ms"] = lib_ms[name]
@@ -679,6 +778,8 @@ def phase_kernels(peaks) -> dict:
     for dt, b, s, h, d in [(f32, 4, 1024, 16, 64), (bf, 8, 1024, 16, 64),
                            (bf, 4, 300, 8, 128), (f32, 4, 300, 8, 128)]:
         check_bshd_train(rng, dt, b, s, h, d, peaks, timed=False)
+    for name, err in check_fwd_edges().items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     # K-SEG's row is serving's prefill_packed (phase 4, most launches);
     # phase 11's shape stands beside it, as serving's does beside K-BSHD's
     for name, other in (("K-SEG", packed_train.pop("K-SEG")),
@@ -686,12 +787,14 @@ def phase_kernels(peaks) -> dict:
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        other["max_abs_err"])
         out[name]["also"] = {k: other[k] for k in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
     out.update(packed_train)
     for name, row in out.items():
         for r in (row, row.get("also")):
             if r:
-                log(f"  {name} at {r['shape']}: {r['ms']:.4f} ms, plain "
+                log(f"  {name} at {r['shape']}: {r['ms']:.4f} ms "
+                    f"({r['device_ms']:.4f} on the device), plain "
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
@@ -953,7 +1056,11 @@ def device_ms_by_kernel(prof) -> dict:
     device time repeats its kernels'."""
     by_kernel = {}
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # a user annotation (torch.optim's "Optimizer.step#...") spans the
+        # kernels it launched on the device timeline: counting it would
+        # count them twice
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -1362,6 +1469,26 @@ def phase_train(counts, peaks, iters=10, batch=8, seq=1024, packed=False,
     return m
 
 
+def nn_setup(rng, shape):
+    """Phase 12's bf16 nn-API training at ``shape``: the model, its
+    ``torch.optim.AdamW`` and one step on a fixed batch drawn from
+    ``rng`` (the step returns the detached loss, unsynchronised)."""
+    crit = GPTPretrainingCriterion()
+    model = build_model(DEV, torch.bfloat16).train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+    ids, labels = (torch.from_numpy(x).to(DEV) for x in train_batch(
+        rng, *shape, model_config().vocab_size))
+
+    def step():
+        loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return model, opt, step
+
+
 def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
                    shape=(4, 1024)) -> dict:
     """The nn API: ``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` ->
@@ -1410,18 +1537,7 @@ def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
     del card, cpu
     torch.cuda.empty_cache()
 
-    model = build_model(DEV, torch.bfloat16).train()
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
-    ids, labels = (torch.from_numpy(x).to(DEV) for x in train_batch(
-        rng, *shape, vocab))
-
-    def step():
-        loss = crit(model(ids), labels)
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        return loss.detach()
-
+    model, opt, step = nn_setup(rng, shape)
     first = step()                                         # warm-up
     torch.cuda.synchronize()
     K.reset_launch_counts()
@@ -1464,28 +1580,44 @@ KERNEL_KINDS = ((("flash_fwd_kernel", "true>"), "K-SEG"),
                 (("Memset",), "copy"), (("copy",), "copy"))
 
 
+def kernel_entry(line: str) -> str:
+    """A ptxas "Compiling entry function" line as the kernel's name and
+    its template arguments when they are all ints and bools
+    (``flash_fwd_kernel_sm90<64, true>``), else as its mangled name."""
+    mangled = line.split("'")[1] if "'" in line else line
+    m = re.search(r"I((?:L[ib]-?\d+E)+)E", mangled)
+    # the name is the length-prefixed identifier that ends where the
+    # template arguments begin
+    name = m and next((mangled[i:m.start()] for i in range(m.start())
+                       for k in (1, 2, 3) if i >= k
+                       and mangled[i - k:i].isdigit()
+                       and i + int(mangled[i - k:i]) == m.start()), None)
+    if not name:
+        return "entry " + mangled[:100]
+    args = [{"b0": "false", "b1": "true"}.get(a, a[1:])
+            for a in re.findall(r"L([ib]-?\d+)E", m.group(1))]
+    return f"entry {name}<{', '.join(args)}>"
+
+
 def kernel_kind(name: str) -> str:
     return next((kind for keys, kind in KERNEL_KINDS
                  if all(k in name for k in keys)), "other")
 
 
-def phase_train_profile(steps=3, packed=False) -> dict:
-    """Opt-in: torch.profiler over ``steps`` bf16 training steps at
-    phase 8's (or, packed, phase 11's) shape: wall per step, device busy
-    share, and device time by kernel."""
+def profile_steps(step, steps) -> dict:
+    """torch.profiler over ``steps`` calls of ``step`` after two warm-up
+    calls: wall per step, device busy share, and device time by kernel
+    and by kind."""
     from torch.profiler import ProfilerActivity, profile
 
-    log(f"[{13 if packed else 9}] profile: {steps} "
-        f"{'packed ' if packed else ''}training steps, bf16, 8 x 1024")
-    trainer, dev_batch, _ = train_setup(packed=packed)
     for _ in range(2):
-        trainer.step_presharded(*dev_batch)
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.step_presharded(*dev_batch)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = device_ms_by_kernel(prof)
@@ -1502,7 +1634,30 @@ def phase_train_profile(steps=3, packed=False) -> dict:
              by_kind.items(), key=lambda kv: -kv[1])),
          "top_device_ms_per_step": {k[:70]: v / steps for k, v in top}}
     log("  " + json.dumps(m))
+    return m
+
+
+def phase_train_profile(steps=3, packed=False) -> dict:
+    """Opt-in: torch.profiler over ``steps`` bf16 training steps at
+    phase 8's (or, packed, phase 11's) shape: wall per step, device busy
+    share, and device time by kernel."""
+    log(f"[{13 if packed else 9}] profile: {steps} "
+        f"{'packed ' if packed else ''}training steps, bf16, 8 x 1024")
+    trainer, dev_batch, _ = train_setup(packed=packed)
+    m = profile_steps(lambda: trainer.step_presharded(*dev_batch), steps)
     del trainer
+    torch.cuda.empty_cache()
+    return m
+
+
+def phase_nn_profile(steps=3, shape=(4, 1024)) -> dict:
+    """Opt-in: torch.profiler over ``steps`` of phase 12's bf16 nn-API
+    steps (``GPTForCausalLM``, criterion, ``torch.optim.AdamW``)."""
+    log(f"[18] profile: {steps} nn-API training steps, bf16, "
+        f"{shape[0]} x {shape[1]}")
+    model, opt, step = nn_setup(np.random.RandomState(12), shape)
+    m = profile_steps(step, steps)
+    del model, opt
     torch.cuda.empty_cache()
     return m
 
@@ -1511,8 +1666,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16",
-                    help="comma-separated; 6, 9, 13 and 17 (profiles) are "
-                    "opt-in")
+                    help="comma-separated; 6, 9, 13, 17 and 18 (profiles) "
+                    "are opt-in")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1538,7 +1693,9 @@ def main() -> int:
     log(f"[1] build: {time.perf_counter() - t0:.2f} s "
         f"({'built' if info['built'] else 'cached'}: {info['path']})")
     for line in info["log"].splitlines():
-        if "Used" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            log("  " + kernel_entry(line))
+        elif "Used" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
 
     kern = phase_kernels(peaks) if 2 in phases else {}
@@ -1583,6 +1740,8 @@ def main() -> int:
         e2e["nn_train"] = phase_nn_train(counts, peaks)
     if 13 in phases:
         e2e["packed_profile"] = phase_train_profile(packed=True)
+    if 18 in phases:
+        e2e["nn_profile"] = phase_nn_profile()
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
     # (16) serving, each phase's runs counted
@@ -1600,6 +1759,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": main_path[name],
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+            "device_ms": r.get("device_ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),

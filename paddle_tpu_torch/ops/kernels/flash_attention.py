@@ -30,10 +30,11 @@ forward's natural-log row normaliser) and ``delta`` ``(B, S, H)`` fp32.
 The kernels' causal mask is top-left with ``Sq == Sk``.
 
 What bounds them on the H100: ~4*d (forward), ~6*d (dQ) and ~8*d (dK/dV)
-FLOPs per visible (query, key) pair, operations rather than bytes; the
-kernels run them on the CUDA cores in fp32 from 64x64 shared-memory tiles
-and never visit tiles above the diagonal (see K-PACK's note). Tensor
-cores (wgmma) are later work.
+FLOPs per visible (query, key) pair, operations rather than bytes. In
+bf16 the forward runs both products on the tensor cores (wgmma, K/V
+tiles brought in by TMA); in fp32, and in the backward, the kernels run
+them on the CUDA cores from 64x64 shared-memory tiles. No kernel visits
+tiles above the diagonal (see K-PACK's note).
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.

@@ -42,11 +42,15 @@ are read in place; only a tensor whose last dim is not contiguous, or
 whose batches are not its rows back to back, is copied first.
 
 What bounds them on the H100: the ~4*d (forward), ~6*d (dQ) and ~8*d
-(dK/dV) FLOPs of every visible (query, key) pair, not bytes. These first
-kernels run them on the CUDA cores in fp32 from 64x64 shared-memory tiles
-(each thread a 4x4 block of scores), never visit causal tiles above the
-diagonal, skip tiles where no pair shares a segment, and mask ragged S in
-the kernel. Tensor cores (wgmma) are later work.
+(dK/dV) FLOPs of every visible (query, key) pair, not bytes. The bf16
+forward (K-PACK, K-SEG) runs both products on the tensor cores: wgmma
+with P kept in registers, K/V tiles brought in by TMA through a 2-stage
+ring, 128-row q-blocks; its operands need a 16-byte-aligned base and row
+stride, and ``_rows`` copies any that lack them. The fp32 forward and
+the backward run on the CUDA cores in fp32 from 64x64 shared-memory
+tiles (each thread a 4x4 block of scores). All of them never visit
+causal tiles above the diagonal, skip tiles where no pair shares a
+segment, and mask ragged S in the kernel.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.
@@ -267,12 +271,16 @@ def seg_dkv(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
 
 def _rows(t, what):
     """``(tensor, row stride)`` in the layout the kernels read: unit
-    stride along the last dim, a batch's rows back to back. Column
-    slices of a fused qkv pass as they are; anything else is copied."""
+    stride along the last dim, a batch's rows back to back, and a base
+    address and row stride that are multiples of 16 bytes (the bf16
+    forward's TMA copies take nothing else). Column slices of a fused qkv
+    and the ``unbind`` views of ``(B, S, 3, H, D)`` pass as they are;
+    anything else is copied into a fresh dense tensor."""
     b, s, w = t.shape
     rs = t.stride(1) if s > 1 else (t.stride(0) if b > 1 else w)
-    if t.stride(2) != 1 or rs < w or (b > 1 and t.stride(0) != s * rs):
-        t, rs = t.contiguous(), w
+    if (t.stride(2) != 1 or rs < w or (b > 1 and t.stride(0) != s * rs)
+            or t.data_ptr() % 16 or rs * t.element_size() % 16):
+        t, rs = t.clone(memory_format=torch.contiguous_format), w
     if rs >= 2 ** 31:
         raise ValueError(f"{what}: row stride {rs} exceeds int32")
     return t, rs

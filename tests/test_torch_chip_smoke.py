@@ -9,14 +9,16 @@ import torch
 
 import chip_smoke as cs
 
-_KEYS = {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-         "library_ms", "shape"}
+_KEYS = {"max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+         "bound_by", "library_ms", "shape"}
 
 
 @pytest.fixture
 def on_cpu(monkeypatch):
     monkeypatch.setattr(cs, "DEV", torch.device("cpu"))
     monkeypatch.setattr(cs, "time_ms", lambda fn, iters=30, warmup=5:
+                        (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", lambda fn, iters=20, warmup=3:
                         (fn(), 0.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     return cs.peaks_for("NVIDIA H100 80GB HBM3")
@@ -86,6 +88,60 @@ def test_segment_pairs_count_the_visible_mask():
                for r in rows)
     assert cs.visible_pairs_seg(rows) == want
     assert 0 < eff < 1 and rows.shape == (3, 256)
+
+
+def test_forward_edge_checks_rehearse_on_cpu(on_cpu):
+    """Phase 2's bf16 edge checks of the forward kernels, run here in fp32
+    at 2 heads through the plain versions: every case runs and reports."""
+    res = cs.check_fwd_edges(torch.float32, heads=2)
+    assert res == {"K-PACK": 0.0, "K-BSHD": 0.0, "K-SEG": 0.0}
+
+
+def test_segment_edge_rows_hold_the_cases_they_name():
+    t = 1000
+    rows = cs.seg_edges(np.random.RandomState(2), t)
+    assert rows.shape == (3, t) and rows.dtype == np.int32
+    first = rows[0]
+    starts = np.flatnonzero(np.diff(first)) + 1
+    assert {1, 2, 3} <= set(starts)              # single-token segments
+    assert any(p % 128 for p in starts)          # starts inside a tile
+    assert (first[int(0.6 * t):] == -1).all()    # the pad tail ...
+    assert (first[640:768] == -1).all()          # ... holds whole tiles
+    runs = rows[1][np.r_[0, np.flatnonzero(np.diff(rows[1])) + 1]]
+    assert (np.diff(runs) < 0).any()             # out of order
+    assert (runs == 2).sum() == 2                # an id that comes back
+    for a, b in ((1023, -1), (7, 1031)):         # same low 10 bits
+        assert a in runs and b in runs and a % 1024 == b % 1024
+    assert {2 ** 31 - 1, -2 ** 31} <= set(runs.tolist())
+    assert set(rows[2].tolist()) <= set(runs.tolist())
+    assert len(np.flatnonzero(np.diff(rows[2]))) > t // 2   # no long runs
+
+
+def test_build_log_names_each_kernel():
+    line = ("ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0"
+            "acc9_22_flash_attention_fwd_cu_552e7eaf4sm9021flash_fwd_kernel_"
+            "sm90ILi128ELb1EEEv14CUtensorMap_stS2_S2_PKiP13__nv_bfloat16Pfii"
+            "ifi' for 'sm_90a'")
+    assert cs.kernel_entry(line) == "entry flash_fwd_kernel_sm90<128, true>"
+    fp32 = line.replace("4sm9021flash_fwd_kernel_sm90ILi128ELb1E",
+                        "16flash_fwd_kernelILi64ELb0E")
+    assert cs.kernel_entry(fp32) == "entry flash_fwd_kernel<64, false>"
+    typed = "'_ZN12_GLOBAL__N_112paged_kernelI13__nv_bfloat16Li64EEvv'"
+    assert cs.kernel_entry(typed).startswith("entry _ZN12")
+
+
+def test_profile_skips_user_annotations():
+    """A user annotation spans the kernels it launched on the device
+    timeline; only the kernels count."""
+    from types import SimpleNamespace as NS
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [NS(key="gemm", device_type=cuda, self_device_time_total=3e3),
+              NS(key="Optimizer.step#AdamW.step", device_type=cuda,
+                 self_device_time_total=5e3, is_user_annotation=True),
+              NS(key="aten::mm", device_type=cpu, self_device_time_total=0)]
+    prof = NS(key_averages=lambda: events)
+    assert cs.device_ms_by_kernel(prof) == {"gemm": 3.0}
 
 
 @pytest.fixture
@@ -162,6 +218,13 @@ def test_nn_api_training_phase_rehearses_on_cpu(tiny_training):
         assert counts["phase12"][name] == 2 * 2
 
 
+def test_nn_api_profile_phase_rehearses_on_cpu(tiny_training):
+    m = cs.phase_nn_profile(steps=1, shape=(2, 32))
+    assert m["steps"] == 1 and m["wall_ms_per_step"] > 0
+    assert {"device_busy_ms_per_step", "device_idle_share",
+            "device_ms_per_step_by_kind"} <= set(m)
+
+
 def test_profile_kinds_name_the_training_kernels():
     assert cs.kernel_kind("void (anonymous namespace)::flash_dkv_kernel"
                           "<__nv_bfloat16, 64>(...)") == "K-DKV"
@@ -171,6 +234,13 @@ def test_profile_kinds_name_the_training_kernels():
                           "<float, 128, false>(...)") == "K-DQ"
     assert cs.kernel_kind("void (anonymous namespace)::flash_fwd_kernel"
                           "<__nv_bfloat16, 64, true>(...)") == "K-SEG"
+    # the bf16 forward's Hopper body
+    assert cs.kernel_kind("void (anonymous namespace)::sm90::flash_fwd_"
+                          "kernel_sm90<64, true>(CUtensorMap_st, ...)") == \
+        "K-SEG"
+    assert cs.kernel_kind("void (anonymous namespace)::sm90::flash_fwd_"
+                          "kernel_sm90<128, false>(CUtensorMap_st, ...)") == \
+        "K-PACK"
     assert cs.kernel_kind("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT") == \
         "matmul"
     assert cs.kernel_kind("void at::native::reduce_kernel<512, 1>") == \

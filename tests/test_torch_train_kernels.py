@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from paddle_tpu.ops.pallas.flash_attention_packed import (
-    _dkv_call, _dq_call, _fwd_call)
+    _dkv_call, _dq_call, _fwd_call, _fwd_call_seg)
 from paddle_tpu.ops.pallas.flash_attention_packed import (
     flash_attention_packed as jax_flash_packed)
 from paddle_tpu_torch.ops import attention_dispatch as disp
 from paddle_tpu_torch.ops import kernels as K
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
 B, NH, D, BLOCK = 2, 2, 64, 128
@@ -164,3 +165,104 @@ def test_row_layout_keeps_slices_and_copies_the_rest():
     assert t.is_contiguous() and rs == 8
     one = torch.zeros(3, 1, 8)
     assert fp._rows(one, "t")[1] == 8
+
+
+def _seg_row(kind, s, rng):
+    """Segment ids of one row of length ``s`` (256) at the edges of the
+    card's 128-key tiles: segments starting mid-tile, single-token ones
+    and a pad tail; unsorted runs with a recurring id, ids sharing their
+    low 10 bits (1023 and -1, 7 and 1031) and the int32 extremes; or each
+    token's id drawn from those ids."""
+    ids = np.array([5, 2, 9, 2, 1023, -1, 7, 1031, 2 ** 31 - 1, -2 ** 31],
+                   np.int64)
+    if kind == "mid-tile":
+        row = np.full(s, -1, np.int64)
+        cuts = [0, 1, 2, 3, 50, 127, 128, 129, 200]
+        for i, (lo, hi) in enumerate(zip(cuts[:-1], cuts[1:])):
+            row[lo:hi] = i
+    elif kind == "unsorted":
+        lens = rng.multinomial(s - len(ids), np.ones(len(ids)) / len(ids))
+        row = np.repeat(ids, lens + 1)
+    else:
+        row = rng.choice(ids, s)
+    return row.astype(np.int32)[None]
+
+
+@pytest.mark.parametrize("kind", ["mid-tile", "unsorted", "per-token"])
+def test_segment_ref_matches_pallas_on_arbitrary_ids(kind):
+    """K-SEG's plain version, which the card's kernel is held to, against
+    the Pallas segmented forward in interpret mode on ids that are not
+    sorted runs (fp32, atol 1e-5)."""
+    rng = np.random.RandomState(21)
+    s, nh, d = 256, 2, 64
+    q, k, v = (rng.randn(1, s, nh * d).astype(np.float32) for _ in range(3))
+    seg = _seg_row(kind, s, rng)
+    want_o, want_lse = _fwd_call_seg(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(seg),
+        jnp.asarray(seg), nh, 1.0 / d ** 0.5, True, BLOCK, BLOCK, True)
+    o, lse = fp.seg_fwd(_t(q), _t(k), _t(v), _t(seg), nh)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_layout_keeps_fused_qkv_and_unbind_views_in_place(dtype):
+    """The layouts the main path hands over are read where they lie: the
+    fused qkv's column slices and the ``unbind`` views of
+    ``(B, S, 3, H, D)``, row stride 3*H*D."""
+    h, d = 4, 64
+    qkv = torch.zeros(2, 5, 3 * h * d, dtype=dtype)
+    for i in range(3):
+        part = qkv[..., i * h * d:(i + 1) * h * d]
+        t, rs = fp._rows(part, "t")
+        assert t.data_ptr() == part.data_ptr() and rs == 3 * h * d
+    views = fa._flat(*torch.zeros(2, 5, 3, h, d, dtype=dtype).unbind(2))
+    for view in views:
+        t, rs = fp._rows(view, "t")
+        assert t.data_ptr() == view.data_ptr() and rs == 3 * h * d
+    one_row = qkv[:, :1, :h * d]     # S = 1: rows step by the batch stride
+    t, rs = fp._rows(one_row, "t")
+    assert t.data_ptr() == one_row.data_ptr() and rs == 5 * 3 * h * d
+
+
+@pytest.mark.parametrize("what", ["base", "stride", "slice offset"])
+def test_row_layout_copies_what_tma_cannot_read(what):
+    """A base address or row stride that is not a multiple of 16 bytes
+    (the Hopper forward's TMA copies need both) is copied into a fresh
+    dense tensor with the same values."""
+    n = 2 * 5 * 64
+    if what == "base":                # 2 bytes past an aligned allocation
+        t = torch.arange(n + 1, dtype=torch.bfloat16)[1:].view(2, 5, 64)
+    elif what == "stride":            # rows 68 elements = 136 bytes apart
+        t = torch.arange(2 * 5 * 68, dtype=torch.bfloat16).view(
+            2, 5, 68)[..., :64]
+    else:                             # a column slice 8 bytes in
+        t = torch.arange(2 * 5 * 192, dtype=torch.float32).view(
+            2, 5, 192)[..., 2:66]
+    assert t.data_ptr() % 16 or t.stride(1) * t.element_size() % 16
+    out, rs = fp._rows(t, "t")
+    assert out.data_ptr() != t.data_ptr() and out.is_contiguous()
+    assert out.data_ptr() % 16 == 0 and rs == 64 and torch.equal(out, t)
+
+
+def test_forward_wrappers_take_the_plain_version_only_on_the_cpu(
+        monkeypatch):
+    """A tensor that is not on the CPU never reaches a plain version: it
+    goes to the launch path, which raises where there is no kernel."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version was called off the CPU")
+
+    for mod, ref in ((fp, "packed_attention_ref"),
+                     (fp, "segment_attention_ref"),
+                     (fa, "causal_attention_ref")):
+        monkeypatch.setattr(mod, ref, refuse)
+    meta = torch.device("meta")
+    x = torch.empty(1, 64, NH * D, dtype=torch.bfloat16, device=meta)
+    seg = torch.empty(1, 64, dtype=torch.int32, device=meta)
+    y = torch.empty(1, 64, NH, D, dtype=torch.bfloat16, device=meta)
+    for call in (lambda: fp.packed_fwd(x, x, x, NH),
+                 lambda: fp.packed_fwd(x, x, x, NH, causal=False),
+                 lambda: fp.seg_fwd(x, x, x, seg, NH),
+                 lambda: fa.bshd_fwd(y, y, y)):
+        with pytest.raises(ValueError, match="no kernel"):
+            call()
