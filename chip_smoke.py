@@ -16,7 +16,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (where one exists), its device time under the profiler (which leaves
    out the card's waits on the host) and its bound (bytes over HBM
    bandwidth or FLOPs over peak, whichever is larger, at the published
-   peak of the part);
+   peak of the part); then, untimed, the forward and backward kernels
+   in bf16 at the edges of their tiles (``check_fwd_edges``,
+   ``check_bwd_edges``);
 3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
    answers 3 requests through the continuous-batching scheduler, and
    ``generate()`` completes 2 prompts; the card's logits at every
@@ -488,6 +490,76 @@ def check_fwd_edges(dtype=torch.bfloat16, heads=None) -> dict:
     return worst
 
 
+# check_bwd_edges' cases: causal (S, d), full (B, Sq, Sk, d), the segment
+# rows of ``seg_edges`` at each d, and (B, S, H, D) on ``unbind`` views
+BWD_EDGES = {
+    "causal": [(1, 64), (17, 64), (63, 64), (65, 64), (127, 64), (129, 64),
+               (1000, 64), (1, 128), (129, 128)],
+    "full": [(2, 300, 700, 64), (2, 128, 1024, 64), (2, 300, 700, 128)],
+    "seg": [64, 128],
+    "bshd": [(2, 129, 16, 64), (2, 129, 8, 128)],
+}
+BWD_NAMES = ("K-DQ", "K-DKV", "K-SDQ", "K-SDKV", "K-BDQ", "K-BDKV")
+
+
+def check_bwd_edges(dtype=torch.bfloat16, heads=None) -> dict:
+    """The backward kernels (K-DQ, K-DKV, K-SDQ, K-SDKV, K-BDQ, K-BDKV)
+    at the edges of the Hopper bodies' tiles (dQ: 128-row q-blocks over
+    64-key tiles; dK/dV: 64-key blocks over 64-query tiles), the cases of
+    ``BWD_EDGES``: ragged S in both loops, full attention with Sq != Sk
+    (every key block walks every q-tile), a last tile past the end of a
+    batch (B = 2), the segment rows of ``seg_edges``, the ``unbind``
+    views of (B, S, 3, H, D) (row stride 3*H*D), and operands whose base
+    is not 16-byte aligned (``_rows`` copies them). Untimed, tolerance as
+    ``hold``, from a seed of their own so the timed rows keep their
+    inputs; ``heads`` sets every head count (the CPU rehearsal). Returns
+    each kernel's worst error."""
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    rng = np.random.RandomState(3)
+    worst = dict.fromkeys(BWD_NAMES, 0.0)
+
+    def keep(res):
+        for name, r in res.items():
+            if name in worst:
+                worst[name] = max(worst[name], r["max_abs_err"])
+
+    def nh(d):                       # GPT-345M's width, 1024
+        return heads or 1024 // d
+
+    for s, d in BWD_EDGES["causal"]:
+        keep(check_train(rng, dtype, 2, s, nh(d), d, None, timed=False))
+    for b, s, sk, d in BWD_EDGES["full"]:
+        keep(check_train(rng, dtype, b, s, nh(d), d, None, timed=False,
+                         causal=False, sk=sk))
+    for d in BWD_EDGES["seg"]:
+        keep(check_seg_train(rng, dtype, 3, 1000, nh(d), d, None,
+                             timed=False, seg=seg_edges(rng, 1000),
+                             what="mid-tile, single-token, unsorted, "
+                             "colliding and extreme ids, pad tail"))
+    for b, s, h, d in BWD_EDGES["bshd"]:
+        keep(check_bshd_train(rng, dtype, b, s, heads or h, d, None,
+                              timed=False))
+    # operands 2 bytes past an aligned base: the wrappers copy them
+    b, s, d = 2, 129, 64
+    hp = nh(d) * d
+    q, k, v, do = (torch.empty(b * s * hp + 1, dtype=dtype, device=DEV)[1:]
+                   .view(b, s, hp).copy_(torch.from_numpy(rng.randn(
+                       b, s, hp).astype(np.float32))) for _ in range(4))
+    o, lse = fp.packed_fwd(q, k, v, nh(d))
+    delta = (do.float() * o.float()).reshape(b, s, nh(d), d).sum(-1)
+    dq = fp.packed_dq(q, k, v, do, lse, delta, nh(d))
+    dk, dv = fp.packed_dkv(q, k, v, do, lse, delta, nh(d))
+    torch.cuda.synchronize()
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    rdq = fp.packed_dq_ref(qf, kf, vf, dof, lse, delta, nh(d))
+    rdk, rdv = fp.packed_dkv_ref(qf, kf, vf, dof, lse, delta, nh(d))
+    keep(hold((("K-DQ", ((dq, rdq),)), ("K-DKV", ((dk, rdk), (dv, rdv)))),
+              dtype, f"B={b} S={s} nh={nh(d)} d={d} causal, unaligned "
+              "bases"))
+    return worst
+
+
 def train_inputs(rng, dtype, b, s, nh, d, sk):
     """q, k, v and dO for the training kernels. With ``sk == s`` q, k, v
     are column slices of one fused ``(B, S, 3*NH*D)`` tensor, the
@@ -610,16 +682,23 @@ def check_train(rng, dtype, b, s, nh, d, peaks, timed, causal=True,
                      shape)
 
 
-def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed):
+def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed, seg=None,
+                    what=None):
     """K-SEG, K-SDQ and K-SDKV against their plain
     versions on ``b`` rows packed from documents of 32..1024 tokens
-    (numpy seed 0; pad tails), q, k, v column slices of one fused qkv;
+    (numpy seed 0; pad tails), or on the given ``(b, s)`` ids (untimed),
+    q, k, v column slices of one fused qkv;
     the backward pair takes the kernel forward's lse and delta. Bounds
     count only the visible (same segment, causal) pairs; the library
     time is SDPA's backward with the equivalent boolean mask."""
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
-    (_, _, seg, _), eff = packed_rows(0, b, s, 32, 1024, 50304)
+    if seg is None:
+        (_, _, seg, _), eff = packed_rows(0, b, s, 32, 1024, 50304)
+        pairs = visible_pairs_seg(seg)
+        what = f"packed ({eff:.3f} real, pairs={pairs * nh})"
+    else:
+        require(not timed, "timed rows are packed rows")
     seg_t = torch.from_numpy(seg).to(DEV)
     q, k, v, do = train_inputs(rng, dtype, b, s, nh, d, s)
     o, lse = fp.seg_fwd(q, k, v, seg_t, nh)
@@ -631,9 +710,7 @@ def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed):
     ro, rlse = fp.segment_attention_ref(qf, kf, vf, seg_t, nh)
     rdq = fp.segment_dq_ref(qf, kf, vf, dof, lse, delta, seg_t, nh)
     rdk, rdv = fp.segment_dkv_ref(qf, kf, vf, dof, lse, delta, seg_t, nh)
-    pairs = visible_pairs_seg(seg)
-    label = (f"B={b} S={s} nh={nh} d={d} packed ({eff:.3f} real, "
-             f"pairs={pairs * nh})")
+    label = f"B={b} S={s} nh={nh} d={d} {what}"
     out = hold((("K-SEG", ((o, ro), (lse, rlse))),
                 ("K-SDQ", ((dq, rdq),)), ("K-SDKV", ((dk, rdk), (dv, rdv)))),
                dtype, label)
@@ -790,6 +867,8 @@ def phase_kernels(peaks) -> dict:
             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}
     out.update(packed_train)
+    for name, err in check_bwd_edges().items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     for name, row in out.items():
         for r in (row, row.get("also")):
             if r:
@@ -1567,8 +1646,9 @@ def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
 
 # device kernel name -> what it is, first match wins; a key of several
 # parts matches when every part is in the name. The SEG instantiations
-# end in "true>"; K-BSHD, K-BDQ and K-BDKV launch the K-PACK, K-DQ and
-# K-DKV instantiations.
+# end in "true>" (fp32 `flash_dq_kernel<64, true>`, bf16
+# `flash_dq_kernel_sm90<64, true>`); K-BSHD, K-BDQ and K-BDKV launch the
+# K-PACK, K-DQ and K-DKV instantiations.
 KERNEL_KINDS = ((("flash_fwd_kernel", "true>"), "K-SEG"),
                 (("flash_dq_kernel", "true>"), "K-SDQ"),
                 (("flash_dkv_kernel", "true>"), "K-SDKV"),
@@ -1600,6 +1680,9 @@ def kernel_entry(line: str) -> str:
 
 
 def kernel_kind(name: str) -> str:
+    """What a device kernel is, from its demangled or mangled name."""
+    if name.startswith("_Z"):
+        name = kernel_entry(name)
     return next((kind for keys, kind in KERNEL_KINDS
                  if all(k in name for k in keys)), "other")
 

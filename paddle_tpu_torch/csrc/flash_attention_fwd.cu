@@ -80,6 +80,8 @@
 //     any int32 ids;
 //   * a wait on an mbarrier that never completes traps after ~2^26 polls
 //     (seconds), so a fault shows as a launch failure, not a hung card.
+// The TMA, mbarrier, descriptor, wgmma and tensor-map helpers live in
+// sm90.cuh, shared with the backward kernels (flash_attention_bwd.cu).
 // Tried and measured on the card (see PERF.md), not kept: 3 or 4 ring
 // stages; overlapping a warpgroup's softmax with its own previous P.V
 // (needs ~190 registers at d = 128, and ptxas held the consumers to the
@@ -98,11 +100,9 @@
 // with no shared segment skipped by a block vote. The dtype picks the body;
 // a bf16 call never reaches it.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -328,8 +328,6 @@ constexpr int BQ = 128;             // query rows per CTA
 constexpr int STAGES = 2;           // K/V ring depth
 constexpr int NCONS = 256;          // two consumer warpgroups, 64 rows each
 constexpr int NT = NCONS + 32;      // and one producer warp
-constexpr int ROWB = 128;           // bytes of one swizzled 64-column row
-constexpr int BLOOM = 32;           // words of the q-block's id set
 
 // keys per K/V tile: the score fragment is 64 x BK per warpgroup
 // (64 x 128 at d = 64; 64 x 64 at d = 128, whose output fragment is twice
@@ -354,236 +352,6 @@ template <int D> struct Smem {
   static constexpr int bytes = bloom_off + 4 * BLOOM + 1024;  // + alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// arrive and add `bytes` to the transaction count the phase waits for
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait for the completion of the phase of parity `parity`; trap after
-// ~2^26 polls (a second or more) rather than hang the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// one box of a 3-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// byte offset (K-major: unused, 16; MN-major: the next 64-column atom) and
-// stride byte offset (the next group of 8 rows: 1024), all >> 4.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// an accumulator is read only after its wgmma group completed: tie every
-// register to this point so the compiler cannot move a read above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (64 x 128, fp32) (+)= A (64 x 16, smem) . B (16 x 128, smem), both
-// operands K-major (no transpose); scale_d 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, fp32) += A (64 x 16, bf16 in registers) . B (16 x 64,
-// smem, MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, fp32) += A (64 x 16, bf16 in registers) . B (16 x 128,
-// smem, MN-major: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (16 x 64, smem), both
-// operands K-major (no transpose); scale_d 0 overwrites D.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 64)
-    wgmma_ss_n64(d, da, db, scale_d);
-  else
-    wgmma_ss_n128(d, da, db, scale_d);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n128(d, a, db);
-}
-
-// S = Q . K^T for one warpgroup's 64 rows and one K tile, started and
-// committed (scale_d 0 on the first step overwrites S); D/16 steps of 16
-// columns (two 64-column halves at d = 128)
-template <int D>
-__device__ __forceinline__ void mma_qk(float (&s)[bk<D>() / 2],
-                                       uint32_t q_base, uint32_t k_base) {
-  constexpr int BK = bk<D>();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk & 3) * 32;
-    wgmma_ss<BK>(s, desc(q_base + (kk >> 2) * BQ * ROWB + off, 16, 1024),
-                 desc(k_base + (kk >> 2) * BK * ROWB + off, 16, 1024),
-                 kk > 0);
-  }
-  wgmma_commit();
-}
-
-// O += P . V, P the register A operand (one 16-key chunk per step), V
-// MN-major (its rows are keys); started and committed
-template <int D>
-__device__ __forceinline__ void mma_pv(float (&acc)[D / 2],
-                                       const uint32_t (&pa)[bk<D>() / 16][4],
-                                       uint32_t v_base) {
-  constexpr int BK = bk<D>();
-#pragma unroll
-  for (int c = 0; c < BK / 16; ++c)
-    wgmma_rs<D>(acc, pa[c], desc(v_base + c * 16 * ROWB, BK * ROWB, 1024));
-  wgmma_commit();
-}
-
 template <int D, bool SEG>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
@@ -599,7 +367,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   constexpr int NS = BK / 2;         // score accumulator floats per thread
   constexpr uint32_t KV_BYTES = 2u * BK * D * 2;   // one K and one V tile
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* smem = align1024(smem_raw);
   const uint32_t base = smem_u32(smem);
   const uint32_t q_full = base + L::bar_off;
   auto full = [&](int s) { return q_full + 8 * (1 + s); };
@@ -638,33 +406,14 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       for (int hf = 0; hf < D / 64; ++hf)
         tma_load(base + hf * BQ * ROWB, &tq, q_full, h * D + 64 * hf, q0, b);
     }
-    if (SEG) {
-#pragma unroll
-      for (int i = 0; i < BQ / 32; ++i) {
-        const int row = q0 + lane + 32 * i;
-        if (row < Sq) {
-          const int id = seg[(size_t)b * Sq + row];
-          atomicOr(&bloom[(id >> 5) & (BLOOM - 1)], 1u << (id & 31));
-        }
-      }
-      __syncwarp();
-    }
+    if (SEG) fill_set<BQ>(bloom, seg, b, q0, Sq, lane);
     int stage = 0;
     uint32_t phase = 0;
     for (int kb = 0; kb < nkb; ++kb) {
       const int k0 = kb * BK;
       int ids[BK / 32];
-      if (SEG) {
-        bool hit = false;
-#pragma unroll
-        for (int i = 0; i < BK / 32; ++i) {
-          const int key = k0 + lane + 32 * i;
-          ids[i] = key < Sk ? seg[(size_t)b * Sk + key] : INT_MIN;
-          hit |= key < Sk && ((bloom[(ids[i] >> 5) & (BLOOM - 1)] >>
-                               (ids[i] & 31)) & 1u);
-        }
-        if (!__any_sync(0xffffffffu, hit)) continue;  // no shared segment
-      }
+      if (SEG && !tile_hits<BK>(ids, bloom, seg, b, k0, Sk, lane))
+        continue;                      // no key shares a segment
       mbar_wait(empty(stage), phase ^ 1);
       if (SEG) {
 #pragma unroll
@@ -723,7 +472,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       // S = Q . K^T, fp32
       float s[NS];
       wgmma_fence();
-      mma_qk<D>(s, q_base, base + L::k_off + stage * L::kv_tile);
+      gemm_ss<D, BK, BQ, BK>(s, q_base, base + L::k_off + stage * L::kv_tile);
+      wgmma_commit();
       wgmma_wait0();
       fence_regs(s);
 
@@ -784,15 +534,12 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
       // P as bf16 A fragments: chunk c of 16 keys is s[8c .. 8c + 7]
       uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int c = 0; c < BK / 16; ++c)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[c][r] = pack_bf16(s[8 * c + 2 * r], s[8 * c + 2 * r + 1]);
+      to_a_frags<BK>(s, pa);
 
       // O += P . V
       wgmma_fence();
-      mma_pv<D>(acc, pa, base + L::v_off + stage * L::kv_tile);
+      gemm_rs<D, BK>(acc, pa, base + L::v_off + stage * L::kv_tile);
+      wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
       mbar_arrive(empty(stage));
@@ -823,55 +570,6 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D map over one bf16 operand: {width columns, S rows `rs` elements
-// apart, batch}, box {64, rows, 1}, 128-byte swizzle, out-of-bounds rows
-// read as zeros. TMA needs a 16-byte-aligned base and 16-byte strides.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int width, int S,
-                     int batch, int rs, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 || ((size_t)rs * 2) % 16)
-    return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)S,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)rs * 2,
-                                 (cuuint64_t)rs * 2 * (cuuint64_t)S};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D, bool SEG>

@@ -7,8 +7,9 @@ interface, loaded with ``ctypes``. No PyTorch header is included, so a
 build takes seconds, not minutes.
 
 The library lands in ``build/paddle_tpu_torch/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the sources and flags: a
-changed source builds a new library, an unchanged one is reused. A
+(listed in ``.gitignore``), named by a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags: a changed source or header
+builds a new library, an unchanged one is reused. A
 failed build raises with ``nvcc``'s stderr; nothing falls back to the
 plain PyTorch versions.
 """
@@ -24,7 +25,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["load_library", "build_dir", "sources", "last_build"]
+__all__ = ["load_library", "build_dir", "sources", "headers", "digest",
+           "last_build"]
 
 _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 _CSRC = _PKG / "csrc"
@@ -71,6 +73,11 @@ def sources():
     return sorted(_CSRC.glob("*.cu"))
 
 
+def headers():
+    """The headers the sources include; they are hashed, not compiled."""
+    return sorted(_CSRC.glob("*.cuh"))
+
+
 def build_dir() -> Path:
     return _PKG.parent / "build" / "paddle_tpu_torch"
 
@@ -88,9 +95,11 @@ def _nvcc() -> str:
         "paddle_tpu_torch kernels are built from source on first use")
 
 
-def _digest(srcs) -> str:
+def digest() -> str:
+    """The library's name tag: a hash of every source and header under
+    ``csrc/`` and of the compiler flags."""
     h = hashlib.sha256()
-    for s in srcs:
+    for s in sources() + headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     h.update(" ".join(_ARCH + _FLAGS).encode())
@@ -143,7 +152,7 @@ def load_library() -> ctypes.CDLL:
         srcs = sources()
         if not srcs:
             raise RuntimeError(f"no CUDA sources under {_CSRC}")
-        out = build_dir() / f"libpaddle_tpu_torch_{_digest(srcs)}.so"
+        out = build_dir() / f"libpaddle_tpu_torch_{digest()}.so"
         t0 = time.perf_counter()
         built = not out.exists()
         log = ""

@@ -31,8 +31,8 @@ The kernels' causal mask is top-left with ``Sq == Sk``.
 
 What bounds them on the H100: ~4*d (forward), ~6*d (dQ) and ~8*d (dK/dV)
 FLOPs per visible (query, key) pair, operations rather than bytes. In
-bf16 the forward runs both products on the tensor cores (wgmma, K/V
-tiles brought in by TMA); in fp32, and in the backward, the kernels run
+bf16 the forward and both backward kernels run every product on the
+tensor cores (wgmma, tiles brought in by TMA); in fp32 the kernels run
 them on the CUDA cores from 64x64 shared-memory tiles. No kernel visits
 tiles above the diagonal (see K-PACK's note).
 

@@ -42,15 +42,17 @@ are read in place; only a tensor whose last dim is not contiguous, or
 whose batches are not its rows back to back, is copied first.
 
 What bounds them on the H100: the ~4*d (forward), ~6*d (dQ) and ~8*d
-(dK/dV) FLOPs of every visible (query, key) pair, not bytes. The bf16
-forward (K-PACK, K-SEG) runs both products on the tensor cores: wgmma
-with P kept in registers, K/V tiles brought in by TMA through a 2-stage
-ring, 128-row q-blocks; its operands need a 16-byte-aligned base and row
-stride, and ``_rows`` copies any that lack them. The fp32 forward and
-the backward run on the CUDA cores in fp32 from 64x64 shared-memory
-tiles (each thread a 4x4 block of scores). All of them never visit
-causal tiles above the diagonal, skip tiles where no pair shares a
-segment, and mask ragged S in the kernel.
+(dK/dV) FLOPs of every visible (query, key) pair, not bytes. In bf16
+every product runs on the tensor cores as wgmma, with tiles brought in
+by TMA through a 2-stage ring: the forward (K-PACK, K-SEG) over 128-row
+q-blocks with P kept in registers; dQ (K-DQ, K-SDQ) over 64-row
+q-blocks with dS in registers; dK/dV (K-DKV, K-SDKV) over 64-key blocks
+in the transposed space, P^T and dS^T in registers. Their operands need
+a 16-byte-aligned base and row stride, and ``_rows`` copies any that
+lack them. In fp32 the kernels run on the CUDA cores from 64x64
+shared-memory tiles (each thread a 4x4 block of scores). All of them
+never visit causal tiles above the diagonal, skip tiles where no pair
+shares a segment, and mask ragged S in the kernel.
 
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.
@@ -273,7 +275,7 @@ def _rows(t, what):
     """``(tensor, row stride)`` in the layout the kernels read: unit
     stride along the last dim, a batch's rows back to back, and a base
     address and row stride that are multiples of 16 bytes (the bf16
-    forward's TMA copies take nothing else). Column slices of a fused qkv
+    kernels' TMA copies take nothing else). Column slices of a fused qkv
     and the ``unbind`` views of ``(B, S, 3, H, D)`` pass as they are;
     anything else is copied into a fresh dense tensor."""
     b, s, w = t.shape

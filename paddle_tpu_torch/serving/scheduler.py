@@ -23,9 +23,13 @@ up to ``k+1`` tokens per tick.
 
 Robustness kept from the JAX package: per-request deadlines (expired
 requests are cancelled at the next tick boundary, pages freed), a
-bounded waiting queue (``max_waiting``: :meth:`submit` raises
-:class:`RejectedError`), and the decode anomaly guard (a non-finite
-logits row fails ONLY the offending request).
+bounded waiting queue (``max_waiting``), deadline admission control
+(``admission_control``: a request whose estimated queue wait plus
+service time, from a rolling average of the decode and verify ticks'
+wall time, exceeds its deadline is shed at submit) -- both make
+:meth:`submit` raise :class:`RejectedError` with a ``retry_after_s``
+hint -- and the decode anomaly guard (a non-finite logits row fails
+ONLY the offending request).
 
 Not ported yet: the tracer and metrics registry, the SLO plane,
 tenancy, the HTTP endpoint, drain and fault injection. The constructor
@@ -97,6 +101,7 @@ class Request:
 class ContinuousBatchingScheduler:
     def __init__(self, engine: ServingEngine, clock=time.monotonic,
                  max_waiting: Optional[int] = None,
+                 admission_control: bool = True,
                  anomaly_guard: bool = True,
                  spec_decode: Optional[SpecDecodeConfig] = None,
                  drafter: Optional[Drafter] = None, **unported):
@@ -117,7 +122,13 @@ class ContinuousBatchingScheduler:
         self.drafter = drafter
         self.clock = clock
         self.max_waiting = max_waiting
+        self.admission_control = admission_control
         self.anomaly_guard = anomaly_guard
+        # rolling decode- and verify-tick seconds (EMA of perf-counter
+        # wall time), the admission controller's one input. It is held
+        # against deadlines on ``clock``, so admission control assumes
+        # clock ~ wall time (tests with virtual clocks set it directly).
+        self._tick_s_ema = 0.0
         self.waiting: Deque[Request] = deque()
         self.running: List[Request] = []
         self.finished: List[Request] = []
@@ -159,12 +170,7 @@ class ContinuousBatchingScheduler:
                 f"request {req.rid} carries runtime state from a "
                 "previous run (generated tokens/pages); submit a fresh "
                 "Request object")
-        if (self.max_waiting is not None
-                and len(self.waiting) >= self.max_waiting):
-            req.status = "rejected"
-            raise RejectedError(
-                f"request {req.rid} rejected (queue_full): "
-                f"{len(self.waiting)} waiting", reason="queue_full")
+        self._admission_check(req)
         req.status = "waiting"
         req.t_submit = self.clock()
         req.t_deadline = (req.t_submit + req.deadline_s
@@ -172,6 +178,41 @@ class ContinuousBatchingScheduler:
         if req.t_deadline is not None:
             self._deadline_live += 1
         self.waiting.append(req)
+
+    def _admission_check(self, req: Request) -> None:
+        """Every submit-time shedding decision, in the JAX scheduler's
+        order (raises :class:`RejectedError` through ``_reject``): the
+        bounded queue, then deadline admission control."""
+        if (self.max_waiting is not None
+                and len(self.waiting) >= self.max_waiting):
+            self._reject(req, "queue_full",
+                         self._tick_s_ema * len(self.waiting))
+        if (self.admission_control and req.deadline_s is not None
+                and self._tick_s_ema > 0.0):
+            # every queued request costs about one tick of head-of-line
+            # delay, and the request itself one tick per new token: if
+            # that already exceeds the deadline, admitting it is doomed
+            # work that steals ticks from requests that can still make it
+            wait_s = self._tick_s_ema * len(self.waiting)
+            est_s = wait_s + self._tick_s_ema * req.max_new_tokens
+            if est_s > req.deadline_s:
+                self._reject(req, "deadline_unmeetable", wait_s)
+
+    def _reject(self, req: Request, reason: str,
+                retry_after_s: float) -> None:
+        """Shed ``req`` at submit, the hint floored at one tick (and at
+        1 ms while no tick has been timed)."""
+        retry = max(float(retry_after_s), self._tick_s_ema, 1e-3)
+        req.status = "rejected"
+        raise RejectedError(
+            f"request {req.rid} rejected ({reason}): retry after "
+            f"~{retry:.3f}s", retry_after_s=retry, reason=reason)
+
+    def _observe_tick(self, seconds: float) -> None:
+        """Fold one decode or verify tick's wall time into the EMA (the
+        first tick sets it)."""
+        self._tick_s_ema = (seconds if not self._tick_s_ema
+                            else 0.9 * self._tick_s_ema + 0.1 * seconds)
 
     @property
     def has_work(self) -> bool:
@@ -351,7 +392,9 @@ class ContinuousBatchingScheduler:
         lens = np.asarray([r.context_len for r in runners], np.int32)
         t0 = time.perf_counter()
         logits = self.engine.decode(tokens, pt, lens)
-        self.decode_tick_ms.append((time.perf_counter() - t0) * 1e3)
+        dur_s = time.perf_counter() - t0
+        self.decode_tick_ms.append(dur_s * 1e3)
+        self._observe_tick(dur_s)
         if self.anomaly_guard and not np.isfinite(float(logits.sum())):
             # cheap scalar screen; the per-row scan runs only on anomaly
             runners, logits = self._fail_anomalous(runners, logits)
@@ -422,6 +465,7 @@ class ContinuousBatchingScheduler:
         t0 = time.perf_counter()
         logits = self.engine.verify(tokens, pt, lens)  # (n, w, vocab)
         dur_ms = (time.perf_counter() - t0) * 1e3
+        self._observe_tick(dur_ms / 1e3)
         if self.anomaly_guard and not np.isfinite(float(logits.sum())):
             runners, logits = self._fail_anomalous(runners, logits)
         if not runners:

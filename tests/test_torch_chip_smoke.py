@@ -97,6 +97,30 @@ def test_forward_edge_checks_rehearse_on_cpu(on_cpu):
     assert res == {"K-PACK": 0.0, "K-BSHD": 0.0, "K-SEG": 0.0}
 
 
+def test_backward_edge_checks_rehearse_on_cpu(on_cpu):
+    """Phase 2's bf16 edge checks of the backward kernels, run here in
+    fp32 at 2 heads through the plain versions: every case runs, and each
+    of the six kernels reports its worst error."""
+    res = cs.check_bwd_edges(torch.float32, heads=2)
+    assert res == dict.fromkeys(("K-DQ", "K-DKV", "K-SDQ", "K-SDKV",
+                                 "K-BDQ", "K-BDKV"), 0.0)
+
+
+def test_backward_edge_cases_hold_the_shapes_named():
+    """The backward edge cases cross every tile boundary of the Hopper
+    bodies (128-row dQ blocks, 64-key and 64-query tiles) at both head
+    dims, full attention with Sq != Sk, and batches of 2 whose last tile
+    runs past the end of the first batch."""
+    e = cs.BWD_EDGES
+    assert [s for s, d in e["causal"] if d == 64] == [1, 17, 63, 65, 127,
+                                                      129, 1000]
+    assert [s for s, d in e["causal"] if d == 128] == [1, 129]
+    assert e["full"] == [(2, 300, 700, 64), (2, 128, 1024, 64),
+                         (2, 300, 700, 128)]
+    assert e["seg"] == [64, 128]
+    assert e["bshd"] == [(2, 129, 16, 64), (2, 129, 8, 128)]
+
+
 def test_segment_edge_rows_hold_the_cases_they_name():
     t = 1000
     rows = cs.seg_edges(np.random.RandomState(2), t)
@@ -128,6 +152,30 @@ def test_build_log_names_each_kernel():
     assert cs.kernel_entry(fp32) == "entry flash_fwd_kernel<64, false>"
     typed = "'_ZN12_GLOBAL__N_112paged_kernelI13__nv_bfloat16Li64EEvv'"
     assert cs.kernel_entry(typed).startswith("entry _ZN12")
+
+
+@pytest.mark.parametrize("kernel,seg,kind", [
+    ("flash_dq_kernel_sm90", False, "K-DQ"),
+    ("flash_dq_kernel_sm90", True, "K-SDQ"),
+    ("flash_dkv_kernel_sm90", False, "K-DKV"),
+    ("flash_dkv_kernel_sm90", True, "K-SDKV"),
+])
+@pytest.mark.parametrize("d", [64, 128])
+def test_hopper_backward_kernels_are_named_and_classified(kernel, seg, kind,
+                                                          d):
+    """Phase 1 names the bf16 backward bodies from ptxas' mangled entry,
+    and the profiles classify them from the demangled and the mangled
+    name alike, both SEG values."""
+    flag = "true" if seg else "false"
+    mangled = (f"_ZN55_GLOBAL__N__0f1e2d3c_22_flash_attention_bwd_cu_7a6b5c4d"
+               f"4sm90{len(kernel)}{kernel}ILi{d}ELb{int(seg)}EEEv"
+               "14CUtensorMap_stS2_S2_S2_PKfS4_PKiP13__nv_bfloat16")
+    line = f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'"
+    assert cs.kernel_entry(line) == f"entry {kernel}<{d}, {flag}>"
+    demangled = (f"void (anonymous namespace)::sm90::{kernel}<{d}, {flag}>"
+                 "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, ...)")
+    assert cs.kernel_kind(demangled) == kind
+    assert cs.kernel_kind(mangled) == kind
 
 
 def test_profile_skips_user_annotations():

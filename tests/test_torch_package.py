@@ -85,3 +85,27 @@ def test_entry_points_default_to_cuda():
         GPTForCausalLM(gpt_tiny())
     m = GPTForCausalLM(gpt_tiny(), device="cpu")
     assert next(m.parameters()).device.type == "cpu"
+
+
+def test_kernel_library_hash_covers_headers(monkeypatch, tmp_path):
+    """The built library is named by a hash of ``csrc/``: a changed header
+    (``*.cuh``, included by the sources, never compiled alone) names a new
+    library just as a changed source does, so a stale one is never
+    reused."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    real = {p.name for p in _build.sources() + _build.headers()}
+    assert {"flash_attention_fwd.cu", "flash_attention_bwd.cu",
+            "sm90.cuh"} <= real
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    assert [p.name for p in _build.sources()] == ["k.cu"]
+    assert [p.name for p in _build.headers()] == ["h.cuh"]
+    first = _build.digest()
+    assert _build.digest() == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build.digest()
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build.digest() not in (first, second)

@@ -2,7 +2,8 @@
 shared weights: the continuous-batching scheduler with and without
 evictions, one teacher-forced packed prefill and decode step, and
 greedy ``generate()``; plus the port's own allocator, scatter, intake,
-deadline and anomaly-guard behaviour."""
+deadline and anomaly-guard behaviour, and deadline admission control
+against the JAX scheduler's."""
 import numpy as np
 import pytest
 import torch
@@ -12,12 +13,15 @@ from paddle_tpu.models import gpt as JM
 from paddle_tpu.serving.engine import ServingConfig as JConfig
 from paddle_tpu.serving.engine import ServingEngine as JEngine
 from paddle_tpu.serving.scheduler import ContinuousBatchingScheduler as JSched
+from paddle_tpu.serving.scheduler import RejectedError as JRejected
 from paddle_tpu.serving.scheduler import Request as JRequest
+from paddle_tpu.serving.spec_decode import SpecDecodeConfig as JSpec
 from paddle_tpu_torch.models import gpt as TM
 from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
                                       PagedKVCache, PagePool, PagesExhausted,
                                       RejectedError, Request, ServingConfig,
-                                      ServingEngine, bucket_for)
+                                      ServingEngine, SpecDecodeConfig,
+                                      bucket_for)
 from paddle_tpu_torch.serving.kv_cache import _scatter_pages
 from paddle_tpu_torch.utils.convert import from_paddle_tpu_state
 
@@ -217,3 +221,92 @@ def test_anomaly_guard_fails_only_the_poisoned_request(models):
     assert hit[1][0] == "error" and len(hit[1][1]) == 3
     for rid in (0, 2):   # batch-mates are bit-identical to the clean run
         assert hit[rid] == clean[rid] and clean[rid][0] == "finished"
+
+
+def _admit(sched, req_cls, rid, prompt, max_new, deadline=None):
+    """Submit one request: ``("admitted", None)`` or ``(reason,
+    retry_after_s)`` of the rejection, and the request's status."""
+    req = req_cls(rid=rid, prompt=prompt, max_new_tokens=max_new,
+                  deadline_s=deadline)
+    try:
+        sched.submit(req)
+        return ("admitted", None, req.status)
+    except (RejectedError, JRejected) as e:
+        return (e.reason, e.retry_after_s, req.status)
+
+
+@pytest.mark.parametrize("case", [
+    # (EMA s, max_waiting, admission_control, queued ahead, max_new,
+    #  deadline s, expected outcome)
+    (0.05, None, True, 2, 10, 0.1, "deadline_unmeetable"),
+    (0.05, None, False, 2, 10, 0.1, "admitted"),
+    (0.05, None, True, 2, 10, 1.0, "admitted"),
+    (0.0, 1, True, 1, 4, None, "queue_full"),
+    (0.004, 2, True, 2, 4, 0.5, "queue_full"),
+    (1e-4, None, True, 0, 4, 1e-6, "deadline_unmeetable"),
+])
+def test_admission_control_matches_jax(models, case):
+    """Deadline admission control is control flow: with the tick EMA set
+    on both sides (as the JAX scheduler's virtual-clock tests do), the
+    port sheds exactly the requests the JAX scheduler sheds, for the same
+    reason and with the same ``retry_after_s``, floored at
+    ``max(hint, ema, 1e-3)``."""
+    ema, max_waiting, control, ahead, max_new, deadline, want = case
+    jm, tm = models
+    p = np.arange(10, dtype=np.int32)
+    outcomes = []
+    for sched_cls, eng, req_cls in (
+            (JSched, JEngine(jm, JConfig(**_CFG)), JRequest),
+            (ContinuousBatchingScheduler,
+             ServingEngine(tm, ServingConfig(**_CFG)), Request)):
+        s = sched_cls(eng, max_waiting=max_waiting,
+                      admission_control=control)
+        for i in range(ahead):
+            s.submit(req_cls(rid=i, prompt=p, max_new_tokens=2))
+        s._tick_s_ema = ema
+        outcomes.append(_admit(s, req_cls, 99, p, max_new, deadline))
+    assert outcomes[0] == outcomes[1]
+    reason, retry, status = outcomes[1]
+    assert reason == want
+    if want == "admitted":
+        assert status == "waiting" and retry is None
+    else:
+        assert status == "rejected"
+        hint = ema * ahead
+        assert retry == max(hint, ema, 1e-3)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["decode", "verify"])
+def test_tick_ema_follows_decode_and_verify_ticks(models, spec):
+    """The EMA starts at 0 and is set by the first decode tick (plain) or
+    verify tick (speculative) on both sides; a request whose deadline is
+    below one tick is then shed on both."""
+    class Always:                       # drafts on every tick
+        def propose(self, ctx, budget):
+            return [1] * max(0, budget)
+
+    jm, tm = models
+    prompt = np.arange(20, dtype=np.int32)
+    for sched_cls, eng, req_cls, cfg in (
+            (JSched, JEngine(jm, JConfig(**_CFG)), JRequest, JSpec),
+            (ContinuousBatchingScheduler,
+             ServingEngine(tm, ServingConfig(**_CFG)), Request,
+             SpecDecodeConfig)):
+        s = sched_cls(eng, spec_decode=cfg(k=4) if spec else None,
+                      drafter=Always() if spec else None)
+        calls = {"decode": 0, "verify": 0}
+        for name in calls:
+            def counted(*a, _fn=getattr(eng, name), _name=name):
+                calls[_name] += 1
+                return _fn(*a)
+            setattr(eng, name, counted)
+        assert s._tick_s_ema == 0.0
+        s.submit(req_cls(rid=0, prompt=prompt, max_new_tokens=8))
+        s.step()
+        assert calls == ({"decode": 0, "verify": 1} if spec
+                         else {"decode": 1, "verify": 0})
+        assert s._tick_s_ema > 0.0
+        reason, retry, status = _admit(s, req_cls, 1, prompt, 8,
+                                       deadline=s._tick_s_ema / 2)
+        assert (reason, status) == ("deadline_unmeetable", "rejected")
+        assert retry == max(s._tick_s_ema, 1e-3)

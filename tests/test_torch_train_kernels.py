@@ -143,16 +143,39 @@ def test_dispatch_rejects_what_is_not_ported():
                and float(g.abs().max()) > 0 for g in grads)
 
 
-def test_training_wrappers_never_fall_back_off_the_cpu():
+@pytest.mark.parametrize("wrapper", [
+    "packed_fwd", "packed_dq", "packed_dkv", "seg_dq", "seg_dkv", "bshd_dq",
+    "bshd_dkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_wrappers_never_fall_back_off_the_cpu(monkeypatch, wrapper,
+                                                       dtype):
+    """A tensor that is not on the CPU never reaches a plain version: each
+    training wrapper, the six backward ones included, goes to its launch
+    path, which raises where there is no kernel."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version was called off the CPU")
+
+    for mod, ref in ((fp, "packed_attention_ref"), (fp, "packed_dq_ref"),
+                     (fp, "packed_dkv_ref"), (fp, "segment_dq_ref"),
+                     (fp, "segment_dkv_ref"), (fa, "bshd_dq_ref"),
+                     (fa, "bshd_dkv_ref")):
+        monkeypatch.setattr(mod, ref, refuse)
     meta = torch.device("meta")
-    x = torch.empty(1, 64, NH * D, device=meta)
+    x = torch.empty(1, 64, NH * D, dtype=dtype, device=meta)
+    y = torch.empty(1, 64, NH, D, dtype=dtype, device=meta)
     lse = torch.empty(1, 64, NH, device=meta)
+    seg = torch.empty(1, 64, dtype=torch.int32, device=meta)
+    call = {
+        "packed_fwd": lambda: fp.packed_fwd(x, x, x, NH),
+        "packed_dq": lambda: fp.packed_dq(x, x, x, x, lse, lse, NH),
+        "packed_dkv": lambda: fp.packed_dkv(x, x, x, x, lse, lse, NH),
+        "seg_dq": lambda: fp.seg_dq(x, x, x, x, lse, lse, seg, NH),
+        "seg_dkv": lambda: fp.seg_dkv(x, x, x, x, lse, lse, seg, NH),
+        "bshd_dq": lambda: fa.bshd_dq(y, y, y, y, lse, lse),
+        "bshd_dkv": lambda: fa.bshd_dkv(y, y, y, y, lse, lse),
+    }[wrapper]
     with pytest.raises(ValueError, match="no kernel"):
-        fp.packed_fwd(x, x, x, NH)
-    with pytest.raises(ValueError, match="no kernel"):
-        fp.packed_dq(x, x, x, x, lse, lse, NH)
-    with pytest.raises(ValueError, match="no kernel"):
-        fp.packed_dkv(x, x, x, x, lse, lse, NH)
+        call()
 
 
 def test_row_layout_keeps_slices_and_copies_the_rest():
