@@ -16,9 +16,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (where one exists), its device time under the profiler (which leaves
    out the card's waits on the host) and its bound (bytes over HBM
    bandwidth or FLOPs over peak, whichever is larger, at the published
-   peak of the part); then, untimed, the forward and backward kernels
-   in bf16 at the edges of their tiles (``check_fwd_edges``,
-   ``check_bwd_edges``);
+   peak of the part); the paged rows also with L2 flushed between
+   launches (``cold_ms``); then, untimed, the forward and backward
+   kernels in bf16 at the edges of their tiles (``check_fwd_edges``,
+   ``check_bwd_edges``) and the paged kernels in bf16 and fp32 at their
+   chunks' edges over poisoned page tables (``check_paged_edges``);
 3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
    answers 3 requests through the continuous-batching scheduler, and
    ``generate()`` completes 2 prompts; the card's logits at every
@@ -187,6 +189,31 @@ def time_ms(fn, iters=30, warmup=5) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
 
 
+def cold_ms(fn, iters=20, warmup=3) -> float:
+    """Median CUDA-event time of ``fn`` with the L2 cache flushed before
+    each run by writing a 128 MB buffer (the H100's L2 holds 50 MB): a
+    decode tick reads each layer's own pools cold. The flush is outside
+    the events, and a spin of ~0.5 ms after it keeps the card busy while
+    the host enqueues ``fn``, so the events time the kernels and not the
+    host."""
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device=DEV)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(iters):
+        flush.fill_(1.0)
+        torch.cuda._sleep(1_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
 def device_ms(fn, iters=20, warmup=3) -> float:
     """Device time of one ``fn`` call under torch.profiler: the kernels
     it launched, summed, per call. Beside ``time_ms``'s CUDA-event time,
@@ -217,25 +244,39 @@ def max_err(a, b) -> float:
 # -- phase 2: kernels against their plain versions --------------------------
 
 def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
-              int8=False):
+              int8=False, lens=None, page_size=16, max_pages=64,
+              poison=False):
     """K-DEC (``qlen`` None: one query row) or K-MQ (a verify window of
     ``qlen`` rows) against its plain version at serving's decode shape;
     ``int8``: int8 pools with per-page scales (K-DEC8, K-MQ8) read by a
-    ``dtype`` query."""
+    ``dtype`` query. ``lens`` (else 32 drawn, the first three 0, 1 and
+    the whole table) may run past the table; ``poison``: the kernel's
+    table holds a page id far past the pool in every slot its request
+    does not reach, so a read there faults (the plain version, which
+    gathers the whole table, gets zeros there)."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     name = ("K-DEC" if qlen is None else "K-MQ") + ("8" if int8 else "")
-    b, ps, maxp = 32, 16, 64
+    ps, maxp = page_size, max_pages
+    if lens is None:
+        b = 32
+        lens = rng.randint(1, maxp * ps + 1, size=b)
+        lens[0], lens[1], lens[2] = 0, 1, maxp * ps   # pad row, 1, full
+    else:
+        lens = np.asarray(lens)
+        b = len(lens)
     n_pages = 1 + b * maxp
-    lens = rng.randint(1, maxp * ps + 1, size=b)
-    lens[0], lens[1], lens[2] = 0, 1, maxp * ps   # pad row, 1, full
     pt = np.zeros((b, maxp), np.int32)
     perm = rng.permutation(np.arange(1, n_pages))
     used = 0
     for r in range(b):
-        n = -(-int(lens[r]) // ps)
+        n = min(maxp, -(-max(0, int(lens[r])) // ps))
         pt[r, :n] = perm[used:used + n]
         used += n
+    kern_pt = pt
+    if poison:
+        kern_pt = np.where(np.arange(maxp)[None, :] < -(-np.maximum(
+            lens, 0)[:, None] // ps), pt, n_pages + 2 ** 24).astype(np.int32)
     dev = DEV
     rows = 1 if qlen is None else qlen
     qshape = (b, nh, d) if qlen is None else (b, qlen, nh, d)
@@ -252,23 +293,25 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
             np.float32)).to(dev, dtype) for _ in range(2))
         sc = None
     pt_t = torch.from_numpy(pt).to(dev)
+    kpt_t = torch.from_numpy(kern_pt).to(dev)
     sl_t = torch.from_numpy(lens.astype(np.int32)).to(dev)
     kern, plain = ((pa.paged_decode_attention, pa.paged_attention_ref)
                    if qlen is None else (pa.paged_multiquery_attention,
                                          pa.paged_multiquery_attention_ref))
-    out = kern(q, kp, vp, pt_t, sl_t, scales=sc)
+    out = kern(q, kp, vp, kpt_t, sl_t, scales=sc)
     torch.cuda.synchronize()
     pool = (lambda x: x) if int8 else (lambda x: x.float())
     ref = plain(q.float(), pool(kp), pool(vp), pt_t, sl_t, scales=sc)
     err = max_err(out, ref)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     ok = err <= tol and bool(torch.isfinite(out).all()) and bool(
-        (out[0] == 0).all())
+        (out[torch.from_numpy(lens <= 0).to(dev)] == 0).all())
     what = (f"{str(dtype)[6:]}" + (" q, int8 pools" if int8 else "")
             + ("" if qlen is None else f" qlen={qlen}"))
     log(f"  {name} {what} nh={nh} nh_kv={nh_kv} d={d} B={b} "
-        f"page_size={ps}: max_abs_err {err:.3e} (tol {tol}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"page_size={ps} max_pages={maxp}"
+        + (f" lens={lens.tolist()}" if b <= 16 else "")
+        + f": max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
     require(ok, f"{name} disagrees with its plain version")
     res = {"max_abs_err": err}
     if timed:
@@ -285,6 +328,8 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
         res["ms"] = time_ms(lambda: kern(q, kp, vp, pt_t, sl_t, scales=sc))
         res["device_ms"] = device_ms(lambda: kern(q, kp, vp, pt_t, sl_t,
                                                   scales=sc))
+        res["cold_ms"] = cold_ms(lambda: kern(q, kp, vp, pt_t, sl_t,
+                                              scales=sc))
         res["plain_ms"] = time_ms(lambda: plain(q, kp, vp, pt_t, sl_t,
                                                 scales=sc), iters=20)
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
@@ -293,6 +338,44 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
         res["shape"] = (f"B={b} nh={nh} nh_kv={nh_kv} d={d} page_size={ps} "
                         f"tokens={tok} {what}")
     return res
+
+
+# check_paged_edges' cases: page sizes (256-token chunks of 32 and 8
+# pages over a 640-token table), (nh, nh_kv, d), and per window length the
+# lengths: chunk edges, the whole table and past it; windows whose rows
+# straddle a chunk edge; and seq_len < qlen
+PAGED_EDGES = {
+    "tables": [(8, 80), (32, 20)],
+    "heads": [(16, 16, 64), (16, 4, 64), (8, 2, 128)],
+    "lens": {None: [0, 1, 255, 256, 257, 511, 512, 513, 640, 700],
+             5: [0, 3, 258, 260, 514, 256, 640, 700],
+             8: [0, 5, 259, 263, 515, 257, 640, 700]},
+}
+
+
+def check_paged_edges(dtypes=(torch.bfloat16, torch.float32),
+                      poison=True) -> dict:
+    """K-DEC, K-DEC8, K-MQ and K-MQ8 against their plain versions over
+    ``PAGED_EDGES``, each table poisoned past its request's pages (see
+    ``check_dec``; the CPU rehearsal, whose wrappers are the plain
+    versions, passes ``poison=False``). Untimed, from a seed of its own so
+    the timed rows keep their inputs. Returns each kernel's worst
+    error."""
+    rng = np.random.RandomState(5)
+    worst = dict.fromkeys(("K-DEC", "K-DEC8", "K-MQ", "K-MQ8"), 0.0)
+    for dtype in dtypes:
+        for ps, maxp in PAGED_EDGES["tables"]:
+            for nh, nh_kv, d in PAGED_EDGES["heads"]:
+                for qlen, lens in PAGED_EDGES["lens"].items():
+                    for int8 in (False, True):
+                        name = (("K-DEC" if qlen is None else "K-MQ")
+                                + ("8" if int8 else ""))
+                        res = check_dec(rng, dtype, nh, nh_kv, d, None,
+                                        timed=False, qlen=qlen, int8=int8,
+                                        lens=lens, page_size=ps,
+                                        max_pages=maxp, poison=poison)
+                        worst[name] = max(worst[name], res["max_abs_err"])
+    return worst
 
 
 def segments(rng, t, n_seg):
@@ -799,10 +882,14 @@ def phase_kernels(peaks) -> dict:
     out = {}
     log("[2] kernels against their plain versions")
     out["K-DEC"] = check_dec(rng, bf, 16, 16, 64, peaks, timed=True)
+    # the GQA case (nh 16, nh_kv 4) is timed as K-DEC's "also" row
+    dec_gqa = None
     for dt, nh, nh_kv, d in [(f32, 16, 16, 64), (bf, 16, 4, 64),
                              (f32, 16, 4, 64), (bf, 16, 16, 128),
                              (f32, 8, 8, 128)]:
-        check_dec(rng, dt, nh, nh_kv, d, peaks, timed=False)
+        gqa = (dt, nh_kv) == (bf, 4)
+        res = check_dec(rng, dt, nh, nh_kv, d, peaks, timed=gqa)
+        dec_gqa = res if gqa else dec_gqa
     # the verify window (K-MQ at k=4) and the int8 pools (K-DEC8, K-MQ8)
     # at K-DEC's timed shape, its lengths drawn from the same seed, then
     # fp32, GQA, qlen 1 and 8, head_dim 128 from a seed of their own, so
@@ -860,20 +947,24 @@ def phase_kernels(peaks) -> dict:
     # K-SEG's row is serving's prefill_packed (phase 4, most launches);
     # phase 11's shape stands beside it, as serving's does beside K-BSHD's
     for name, other in (("K-SEG", packed_train.pop("K-SEG")),
-                        ("K-BSHD", prefill_batch)):
+                        ("K-BSHD", prefill_batch), ("K-DEC", dec_gqa)):
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        other["max_abs_err"])
         out[name]["also"] = {k: other[k] for k in (
-            "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
+            "shape", "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms") if k in other}
     out.update(packed_train)
     for name, err in check_bwd_edges().items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    for name, err in check_paged_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     for name, row in out.items():
         for r in (row, row.get("also")):
             if r:
+                cold = (f", {r['cold_ms']:.4f} with L2 flushed"
+                        if "cold_ms" in r else "")
                 log(f"  {name} at {r['shape']}: {r['ms']:.4f} ms "
-                    f"({r['device_ms']:.4f} on the device), plain "
+                    f"({r['device_ms']:.4f} on the device{cold}), plain "
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, "
                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
@@ -1186,6 +1277,10 @@ def phase_profile(model, ticks=20, spec=None) -> dict:
     by_kernel = device_ms_by_kernel(prof)
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    by_kind = {}
+    for name, ms in by_kernel.items():
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms / ticks
     host = time.perf_counter()
     logits = np.random.RandomState(0).randn(
         32 * (1 if spec is None else spec.k + 1),
@@ -1198,6 +1293,8 @@ def phase_profile(model, ticks=20, spec=None) -> dict:
          "device_busy_ms_per_tick": busy_ms / ticks,
          "device_idle_share": 1.0 - busy_ms / wall_ms,
          "host_argmax_ms": argmax_ms,
+         "device_ms_per_tick_by_kind": dict(sorted(
+             by_kind.items(), key=lambda kv: -kv[1])),
          "top_device_ms_per_tick": {k[:60]: v / ticks for k, v in top}}
     log("  " + json.dumps(m))
     return m
@@ -1645,11 +1742,14 @@ def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
 
 
 # device kernel name -> what it is, first match wins; a key of several
-# parts matches when every part is in the name. The SEG instantiations
+# parts matches when every part is in the name. K-DEC, K-DEC8, K-MQ and
+# K-MQ8 all launch the paged split kernel (and its merge): one kind. The SEG instantiations
 # end in "true>" (fp32 `flash_dq_kernel<64, true>`, bf16
 # `flash_dq_kernel_sm90<64, true>`); K-BSHD, K-BDQ and K-BDKV launch the
 # K-PACK, K-DQ and K-DKV instantiations.
-KERNEL_KINDS = ((("flash_fwd_kernel", "true>"), "K-SEG"),
+KERNEL_KINDS = ((("paged_split_kernel",), "paged"),
+                (("paged_merge_kernel",), "paged"),
+                (("flash_fwd_kernel", "true>"), "K-SEG"),
                 (("flash_dq_kernel", "true>"), "K-SDQ"),
                 (("flash_dkv_kernel", "true>"), "K-SDKV"),
                 (("flash_fwd_kernel",), "K-PACK"),
@@ -1842,7 +1942,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": main_path[name],
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
-            "device_ms": r.get("device_ms"),
+            "device_ms": r.get("device_ms"), "cold_ms": r.get("cold_ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),

@@ -45,11 +45,12 @@ _F = ctypes.c_float
 # c_void_p (a bare Python int would be cut to 32 bits).
 _SIGNATURES = {
     # q, k_pages, v_pages, scales (NULL unless the pools are int8),
-    # page_table, seq_lens, out, batch, nh, nh_kv, head_dim, page_size,
-    # max_pages, scale, dtype, stream
-    "paged_attention_decode": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+    # page_table, seq_lens, out, workspace (NULL with one chunk), batch,
+    # nh, nh_kv, head_dim, page_size, max_pages, chunk_pages,
+    # rows_per_cta, scale, dtype, stream
+    "paged_attention_decode": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     # as the decode entry, with qlen after batch
-    "paged_attention_multiquery": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    "paged_attention_multiquery": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
     # q, k, v, o, lse, batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
     # scale, causal, dtype, stream
     "flash_attention_fwd_packed": [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P],

@@ -12,9 +12,10 @@ K-MQ8       ``_mq_kernel`` with ``quantized=True``
 ==========  ==========================================================
 
 The CUDA source is ``paddle_tpu_torch/csrc/paged_attention.cu``: one
-kernel template, instantiated for one query row (decode) and for windows
-of up to :data:`MAX_QLEN` rows (verify), over pools in the query's dtype
-or in int8.
+split kernel (``paged_split_kernel``) and one merge kernel
+(``paged_merge_kernel``) serve all four, over pools in the query's dtype
+or in int8, for one query row (decode) and windows of up to
+:data:`MAX_QLEN` rows (verify).
 
 Layouts (the serving engine's contract, as in the JAX package):
 ``q`` ``(B, nh, d)`` (decode) or ``(B, qlen, nh, d)`` (verify);
@@ -28,17 +29,24 @@ shape and dtype.
 
 What bounds them on the H100: the K/V bytes of the tokens each request
 really holds (``sum_b seq_len_b * 2 * nh_kv * d * elem``, elem 1 for
-int8); the arithmetic is ``4 * qlen * d`` FLOPs per KV row and head. The
-kernels read exactly those rows, each once for all window rows: one CTA
-per (request, head) loops only over the request's own tokens, four in
-flight per warp, each K/V row one coalesced warp load, every warp
-keeping ``qlen`` fp32 online-softmax states merged across warps at the
-end. The int8 dequant is fused into the dot products with the page's
-scales, as on the TPU; no fp32 copy of the cache is made. The TPU
-kernels had to fetch and mask every page of the table.
+int8); the arithmetic is ``4 * qlen * (nh / nh_kv) * d`` FLOPs per K/V
+row. The kernels split each request's context into chunks of
+:func:`split_plan`'s whole pages (about 256 tokens), one CTA per
+(chunk, request, kv head) serving every query row that reads the head,
+and stream the chunk's pages through a ring of ``cp.async`` copies in
+shared memory; a second kernel merges the chunks' ``(m, l, acc)`` in base
+2. A bf16 query with at least :data:`TENSOR_CORE_ROWS` rows a kv head (the
+verify window, GQA) takes the tensor-core body (``mma.sync``), the rest
+the CUDA-core body. The grid, the body and the fp32 workspace come from
+shapes and dtypes alone (:func:`launch_plan`): the host never reads
+``seq_lens``.
+:func:`paged_split_ref` states the split and the merge in plain PyTorch
+(the CPU tests hold it to the JAX package); nothing on the main path
+calls it. The int8 dequant is fused into the dot products with the
+page's scales, as on the TPU; no fp32 copy of the cache is made.
 
 The wrappers take the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -48,12 +56,49 @@ from . import _build
 
 __all__ = ["paged_decode_attention", "paged_multiquery_attention",
            "paged_attention_ref", "paged_multiquery_attention_ref",
-           "MAX_QLEN"]
+           "paged_split_ref", "split_plan", "launch_plan", "MAX_QLEN"]
 
 # kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = {"K-DEC": 0, "K-DEC8": 0, "K-MQ": 0, "K-MQ8": 0}
 MAX_QLEN = 8        # the widest window K-MQ takes (kMaxQlen in the source)
+CHUNK_TOKENS = 256  # a chunk's tokens, rounded down to whole pages
+TENSOR_CORE_ROWS = 4     # rows a kv head from which bf16 takes mma.sync
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
+
+
+def split_plan(page_size, max_pages):
+    """``(chunk_pages, n_chunks)``: each request's context is cut into
+    chunks of ``chunk_pages`` whole pages (about :data:`CHUNK_TOKENS`
+    tokens, at least one page), ``n_chunks`` of them over the table."""
+    chunk_pages = max(1, CHUNK_TOKENS // page_size)
+    return chunk_pages, -(-max_pages // chunk_pages)
+
+
+def launch_plan(b, qlen, nh, nh_kv, d, page_size, max_pages,
+                tensor_cores=False):
+    """The kernels' launch from shapes alone: the split kernel's grid
+    ``(n_chunks * row_tiles, B, nh_kv)``, the query rows each CTA serves
+    (``rows_per_cta``) and the fp32 workspace of the chunks' ``(acc, m,
+    l)``, ``None`` with one chunk (the split kernel then writes the
+    output itself). A kv head is read by ``qlen * nh / nh_kv`` rows; with
+    ``tensor_cores`` (a bf16 query, over bf16 or int8 pools) and at least
+    :data:`TENSOR_CORE_ROWS` of them a CTA takes them in tiles of 16 on
+    the tensor cores, else on the CUDA cores in tiles of 1, 2, 4 or 8 (at
+    most 4 at d 128)."""
+    chunk_pages, n_chunks = split_plan(page_size, max_pages)
+    rows = qlen * (nh // nh_kv)
+    if tensor_cores and rows >= TENSOR_CORE_ROWS:
+        rows_per_cta = 16
+    else:
+        rows_per_cta = min(8 if d == 64 else 4,
+                           1 << (rows - 1).bit_length())
+    row_tiles = -(-rows // rows_per_cta)
+    return {"chunk_pages": chunk_pages, "n_chunks": n_chunks,
+            "rows_per_cta": rows_per_cta, "row_tiles": row_tiles,
+            "grid": (n_chunks * row_tiles, b, nh_kv),
+            "workspace": ((n_chunks, b, qlen, nh, d + 2) if n_chunks > 1
+                          else None)}
 
 
 def _gather_dequant(fn, k_pages, v_pages, page_table, scales, d):
@@ -136,6 +181,57 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens,
     return torch.einsum("bhk,bkhd->bhd", p.to(v.dtype), v).to(q.dtype)
 
 
+def paged_split_ref(q, k_pages, v_pages, page_table, seq_lens,
+                    scale=None, scales=None):
+    """The kernels' split and merge in plain PyTorch, ``q``
+    ``(B, qlen, nh, d)``: per chunk of :func:`split_plan`'s pages, each
+    row's partial ``(m, l, acc)`` in base 2 over the positions it sees;
+    then the chunks a request's length reaches, merged. Computes what
+    :func:`paged_multiquery_attention_ref` does (qlen 1 is the decode);
+    nothing on the main path calls it."""
+    b, qlen, nh, d = q.shape
+    max_pages = page_table.shape[1]
+    page_size = k_pages.shape[1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    k, v = _gather_dequant("paged_split_ref", k_pages, v_pages, page_table,
+                           scales, d)
+    rows = k.shape[1]
+    k = k.view(b, rows, -1, d).float()
+    v = v.view(b, rows, -1, d).float()
+    if k.shape[2] != nh:  # GQA: query head h reads kv head h // group
+        k = k.repeat_interleave(nh // k.shape[2], dim=2)
+        v = v.repeat_interleave(nh // v.shape[2], dim=2)
+    qs = q.float() * (scale * _LOG2E)
+    seq = seq_lens.long()
+    length = seq.clamp(max=rows)          # past the table: clamped
+    lim = torch.minimum(length[:, None], seq[:, None] - qlen + 1
+                        + torch.arange(qlen, device=q.device)[None, :])
+    chunk_pages, n_chunks = split_plan(page_size, max_pages)
+    chunk = chunk_pages * page_size
+    ms, ls, accs, live = [], [], [], []
+    for c in range(n_chunks):
+        lo, hi = c * chunk, min((c + 1) * chunk, rows)
+        s = torch.einsum("bqhd,bkhd->bqhk", qs, k[:, lo:hi])
+        pos = torch.arange(lo, hi, device=q.device)
+        ok = (pos[None, None, :] < lim[:, :, None])[:, :, None, :]
+        s = s.masked_fill(~ok, _NEG_INF)
+        m = s.amax(-1)                                 # (B, qlen, nh)
+        p = torch.exp2(s - m[..., None]).masked_fill(~ok, 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bqhk,bkhd->bqhd", p, v[:, lo:hi]))
+        live.append(lo < length)                       # (B,)
+    live = torch.stack(live)[:, :, None, None]         # (C, B, 1, 1)
+    m = torch.stack(ms).masked_fill(~live, _NEG_INF)   # dead chunks: none
+    mm = m.amax(0)
+    w = torch.exp2(m - mm).masked_fill(~live, 0.0)
+    l = (torch.stack(ls) * w).sum(0)
+    o = (torch.stack(accs) * w[..., None]).sum(0)
+    o = torch.where(l[..., None] > 0, o / l.clamp(min=1e-30)[..., None],
+                    torch.zeros_like(o))
+    return o.to(q.dtype)
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, seq_lens,
                            scale=None, scales=None):
     """One decode step of paged attention, ``q`` ``(B, nh, d)``: the
@@ -186,14 +282,14 @@ def _check_scales(fn, scales, k_pages, nh_kv):
         raise TypeError(f"{fn}: scales must be float32, got {scales.dtype}")
 
 
-def _launch(entry, q, k_pages, v_pages, page_table, seq_lens, scale,
-            scales):
-    """Check ``q`` ``(B, qlen, nh, d)`` and the pools, then launch
-    ``entry`` on the current stream. Returns the output, q's shape."""
+def _kernel_args(entry, q, k_pages, v_pages, page_table, seq_lens, scale,
+                 scales):
+    """Check ``q`` ``(B, qlen, nh, d)`` and the pools, allocate the output
+    and the workspace, and return ``(output, the C entry's arguments
+    before the stream, workspace)``. Reads shapes, dtypes and pointers
+    only: no value of ``seq_lens`` or ``page_table`` reaches the host."""
     fn = ("paged_decode_attention" if entry == "paged_attention_decode"
           else "paged_multiquery_attention")
-    if q.device.type != "cuda":
-        raise ValueError(f"{fn}: no kernel for device {q.device}")
     if k_pages.dim() != 3:
         raise ValueError(f"{fn}: pools (P, page_size, nh_kv*d) expected")
     b, qlen, nh, d = q.shape
@@ -228,17 +324,42 @@ def _launch(entry, q, k_pages, v_pages, page_table, seq_lens, scale,
         raise ValueError(f"{fn}: tensors on different devices")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{fn}: tensors must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{fn}: pools must start on a 16-byte boundary "
+                         "(the kernel copies 16-byte pieces)")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    max_pages = page_table.shape[1]
+    plan = launch_plan(b, qlen, nh, nh_kv, d, page_size, max_pages,
+                       tensor_cores=q.dtype == torch.bfloat16)
     out = torch.empty_like(q)
-    lib = _build.load_library()
+    ws = (None if plan["workspace"] is None else
+          torch.empty(plan["workspace"], dtype=torch.float32,
+                      device=q.device))
     mq = () if entry == "paged_attention_decode" else (qlen,)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             None if scales is None else scales.data_ptr(),
             page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            b, *mq, nh, nh_kv, d, page_size, page_table.shape[1],
-            float(scale), _build.dtype_code(q.dtype), stream)
+            None if ws is None else ws.data_ptr(),
+            b, *mq, nh, nh_kv, d, page_size, max_pages,
+            plan["chunk_pages"], plan["rows_per_cta"], float(scale),
+            _build.dtype_code(q.dtype))
+    return out, args, ws
+
+
+def _launch(entry, q, k_pages, v_pages, page_table, seq_lens, scale,
+            scales):
+    """Launch ``entry`` (the split kernel, then the merge kernel when
+    there is more than one chunk) on the current stream. Returns the
+    output, q's shape."""
+    if q.device.type != "cuda":
+        fn = ("paged_decode_attention" if entry == "paged_attention_decode"
+              else "paged_multiquery_attention")
+        raise ValueError(f"{fn}: no kernel for device {q.device}")
+    out, args, _ws = _kernel_args(entry, q, k_pages, v_pages, page_table,
+                                 seq_lens, scale, scales)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
     _build.check(rc, entry)
     return out

@@ -20,6 +20,8 @@ def on_cpu(monkeypatch):
                         (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "device_ms", lambda fn, iters=20, warmup=3:
                         (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "cold_ms", lambda fn, iters=20, warmup=3:
+                        (fn(), 0.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     return cs.peaks_for("NVIDIA H100 80GB HBM3")
 
@@ -51,6 +53,7 @@ def test_kernel_checks_report_every_key(on_cpu, check, args, kw):
     rng = np.random.RandomState(0)
     res = getattr(cs, check)(rng, *args, on_cpu, timed=True, **kw)
     assert _KEYS <= set(res)
+    assert check != "check_dec" or res["cold_ms"] == 0.0
     assert res["max_abs_err"] == 0.0     # plain version against itself
     assert res["bound_ms"] > 0 and res["bound_by"] in ("bytes",
                                                        "operations")
@@ -104,6 +107,38 @@ def test_backward_edge_checks_rehearse_on_cpu(on_cpu):
     res = cs.check_bwd_edges(torch.float32, heads=2)
     assert res == dict.fromkeys(("K-DQ", "K-DKV", "K-SDQ", "K-SDKV",
                                  "K-BDQ", "K-BDKV"), 0.0)
+
+
+def test_paged_edge_checks_rehearse_on_cpu(on_cpu):
+    """Phase 2's paged edge checks, run here in fp32 through the plain
+    versions (unpoisoned: the plain version gathers the whole table):
+    every case runs, and each of the four kernels reports its worst
+    error."""
+    res = cs.check_paged_edges((torch.float32,), poison=False)
+    assert res == dict.fromkeys(("K-DEC", "K-DEC8", "K-MQ", "K-MQ8"), 0.0)
+
+
+def test_paged_edge_cases_cross_the_chunk_edges():
+    """The paged edge cases put lengths on both sides of every chunk edge
+    (256 tokens at both page sizes), at the whole table and past it;
+    windows of 5 and 8 whose rows straddle an edge, and shorter than the
+    context; GQA 4 at d 64 and d 128."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    e = cs.PAGED_EDGES
+    for ps, maxp in e["tables"]:
+        cp, n = pa.split_plan(ps, maxp)
+        assert cp * ps == 256 and maxp * ps == 640 and n == 3
+    assert {ps for ps, _ in e["tables"]} == {8, 32}
+    assert {(nh // kv, d) for nh, kv, d in e["heads"]} == {(1, 64), (4, 64),
+                                                           (4, 128)}
+    assert {255, 256, 257, 511, 512, 513, 640, 700} <= set(e["lens"][None])
+    for qlen in (5, 8):
+        lens = e["lens"][qlen]
+        assert any(x - qlen < 256 < x for x in lens)     # straddles 256
+        assert any(x - qlen < 512 < x for x in lens)     # straddles 512
+        assert any(0 < x < qlen for x in lens) and 0 in lens
+        assert 700 in lens
 
 
 def test_backward_edge_cases_hold_the_shapes_named():
@@ -176,6 +211,27 @@ def test_hopper_backward_kernels_are_named_and_classified(kernel, seg, kind,
                  "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, ...)")
     assert cs.kernel_kind(demangled) == kind
     assert cs.kernel_kind(mangled) == kind
+
+
+@pytest.mark.parametrize("kind", range(4))
+@pytest.mark.parametrize("d,rows", [(64, 1), (64, 8), (128, 4)])
+def test_paged_kernels_are_named_and_classified(kind, d, rows):
+    """Phase 1 names the paged split and merge kernels from ptxas' mangled
+    entries, and the profiles class both as one ``paged`` kind, from the
+    demangled and the mangled name alike."""
+    split = (f"_ZN12_GLOBAL__N_118paged_split_kernelILi{kind}ELi{d}ELi{rows}"
+             "EEEvNS_6ParamsE")
+    merge = (f"_ZN12_GLOBAL__N_118paged_merge_kernelILi{kind}ELi{d}EEEvPKfPK"
+             "iPviiiii")
+    for mangled, name, args in ((split, "paged_split_kernel",
+                                 f"{kind}, {d}, {rows}"),
+                                (merge, "paged_merge_kernel", f"{kind}, {d}")):
+        line = (f"ptxas info    : Compiling entry function '{mangled}' for "
+                "'sm_90a'")
+        assert cs.kernel_entry(line) == f"entry {name}<{args}>"
+        assert cs.kernel_kind(mangled) == "paged"
+        assert cs.kernel_kind(f"void (anonymous namespace)::{name}<{args}>"
+                              "((anonymous namespace)::Params)") == "paged"
 
 
 def test_profile_skips_user_annotations():
