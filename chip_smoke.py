@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases 0,1,2  # device, build, kernel checks
     python3 chip_smoke.py --phases 0,1,2,14,15,16 # speculative and int8
+    python3 chip_smoke.py --phases 0,1,2,19,20,21,22  # the LLaMA family
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -20,7 +21,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    launches (``cold_ms``); then, untimed, the forward and backward
    kernels in bf16 at the edges of their tiles (``check_fwd_edges``,
    ``check_bwd_edges``) and the paged kernels in bf16 and fp32 at their
-   chunks' edges over poisoned page tables (``check_paged_edges``);
+   chunks' edges over poisoned page tables (``check_paged_edges``); and
+   timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
+   128, 32 heads);
 3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
    answers 3 requests through the continuous-batching scheduler, and
    ``generate()`` completes 2 prompts; the card's logits at every
@@ -77,9 +80,31 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     the pool bytes against phase 4's bf16 pool;
 17. (opt-in) profile of 20 verify ticks (phase 6 with k=4 on repetitious
     prompts);
-18. (opt-in) profile of 3 nn-API training steps at phase 12's shape.
+18. (opt-in) profile of 3 nn-API training steps at phase 12's shape;
+19. LLaMA serving accuracy, fp32: ``llama_7b()`` width, 2 layers, MHA
+    and GQA-8 (random weights drawn on the card, copied to the CPU): 3
+    requests through the scheduler held against a teacher-forced CPU
+    forward (2e-3), the no-cache forward (K-BSHD) against the CPU's
+    (2e-3), and for GQA the card's and the CPU's engines fed the same
+    tokens through a packed prefill, decode steps and a k=4 verify window
+    on int8 pools (1e-2, each step from the same pool bytes: K-DEC8,
+    K-MQ8) and fp32 pools (2e-3: K-DEC, K-MQ);
+20. LLaMA-7B serving load, bf16, 32 layers, full width: phase 4's
+    configuration and trace over vocab 32000; every request finishes, no
+    page leaks, K-DEC = decode ticks x 32, K-SEG = prefill calls x 32;
+    then one ``prefill_batch`` of 4 prompts (K-BSHD = 32); decode
+    tokens/s, tick and TTFT percentiles, prefill tokens/s, weight and
+    pool bytes, peak memory;
+21. LLaMA training accuracy, fp32: ``llama_7b()`` width, 2 layers,
+    GQA-8, 1 x 256: ``llama_loss`` grads and 3 trainer steps card vs CPU
+    (phase 7's gates), then ``LlamaForCausalLM`` + mean next-token CE +
+    ``backward()`` card vs CPU (phase 12's gate; ``k_proj``/``v_proj``
+    grads only through K-BDKV);
+22. LLaMA training, bf16: ``HybridParallelTrainer`` at ``llama_7b()``
+    width, 8 of 32 layers, on a fixed 4 x 2048 batch, as phase 8: losses
+    finite and falling, per step 16 K-PACK, 8 K-DQ and 8 K-DKV.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16) sets the kernels' launch
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-22) sets the kernels' launch
 counts to 0 just before it and reads them just after. The line before the
 last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -100,6 +125,7 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch.io.packing import pack_documents, packing_efficiency
 from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
                                          GPTPretrainingCriterion, gpt_345m)
+from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.parallel import hybrid
@@ -124,6 +150,20 @@ def model_config():
 
 
 LAYERS = model_config().num_layers
+
+
+def llama_config(**kw):
+    """LLaMA-7B at its published widths (``llama_7b()``: hidden 4096, 32
+    heads of 128, FFN 11008, vocab 32000); ``num_layers`` cuts the
+    depth, ``num_kv_heads`` makes it GQA."""
+    return llama_7b(**kw)
+
+
+def llama_model(cfg, device, dtype, seed):
+    """A LLaMA model with random weights drawn on ``device`` itself."""
+    return LlamaForCausalLM(cfg, device=device, dtype=dtype,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(seed)).eval()
 SOURCES = {
     "K-DEC": ("paddle_tpu_torch/csrc/paged_attention.cu",
               "paddle_tpu/ops/pallas/paged_attention.py:70"),
@@ -876,6 +916,38 @@ def check_bshd_train(rng, dtype, b, s, h, d, peaks, timed):
                      f"{label} (pairs={pairs}) {str(dtype)[6:]}")
 
 
+# phase 2's timed rows at the shapes the LLaMA phases launch (d 128, 32
+# heads): K-DEC MHA and GQA-8 at serving's batch, K-SEG at a full packed
+# prefill, K-BSHD at a 4-row prefill_batch, training's three at 4 x 2048
+LLAMA_ROWS = {"dec": (32, (32, 8), 128), "seg": (2048, 32, 128),
+              "bshd": (4, 1024, 32, 128), "train": (4, 2048, 32, 128)}
+ROW_KEYS = ("shape", "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")
+
+
+def llama_rows(peaks, rows=None) -> dict:
+    """The kernels at ``LLAMA_ROWS``, timed, from a seed of their own (so
+    the other rows keep their inputs): ``{name: [row, ...]}``."""
+    r = rows or LLAMA_ROWS
+    rng = np.random.RandomState(19)
+    bf = torch.bfloat16
+    out = {}
+
+    def add(name, res):
+        out.setdefault(name, []).append({k: res[k] for k in ROW_KEYS
+                                         if k in res})
+
+    nh, kvs, d = r["dec"]
+    for nh_kv in kvs:
+        add("K-DEC", check_dec(rng, bf, nh, nh_kv, d, peaks, timed=True))
+    add("K-SEG", check_seg(rng, bf, *r["seg"], peaks, timed=True))
+    add("K-BSHD", check_bshd(rng, bf, *r["bshd"], peaks, timed=True))
+    for name, res in check_train(rng, bf, *r["train"], peaks,
+                                 timed=True).items():
+        add(name, res)
+    return out
+
+
 def phase_kernels(peaks) -> dict:
     rng = np.random.RandomState(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -958,8 +1030,12 @@ def phase_kernels(peaks) -> dict:
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     for name, err in check_paged_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    for name, rows in llama_rows(peaks).items():
+        out[name]["llama"] = rows
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       *(r["max_abs_err"] for r in rows))
     for name, row in out.items():
-        for r in (row, row.get("also")):
+        for r in (row, row.get("also"), *row.get("llama", ())):
             if r:
                 cold = (f", {r['cold_ms']:.4f} with L2 flushed"
                         if "cold_ms" in r else "")
@@ -1108,7 +1184,7 @@ def serve_load(model, cfg, reqs, spec, what) -> tuple:
     config) over a warmed-up engine of ``cfg``; every request must finish
     with finite logits, no page may leak, and each kernel must launch
     once per layer per tick of its kind. Returns the metrics and the
-    scheduler."""
+    scheduler (its engine at ``.engine``)."""
     eng = ServingEngine(model, cfg)
     warm = ContinuousBatchingScheduler(eng, spec_decode=spec)
     warm.submit(Request(rid=-1, prompt=reqs[0].prompt, max_new_tokens=8))
@@ -1145,9 +1221,10 @@ def serve_load(model, cfg, reqs, spec, what) -> tuple:
     n_pf = len(sched.prefill_calls)
     dec, mq = (("K-DEC8", "K-MQ8") if cfg.kv_dtype == "int8"
                else ("K-DEC", "K-MQ"))
-    require(launches[dec] == n_dec * LAYERS, (launches, n_dec))
-    require(launches[mq] == n_ver * LAYERS, (launches, n_ver))
-    require(launches["K-SEG"] == n_pf * LAYERS, (launches, n_pf))
+    layers = model.cfg.num_layers
+    require(launches[dec] == n_dec * layers, (launches, n_dec))
+    require(launches[mq] == n_ver * layers, (launches, n_ver))
+    require(launches["K-SEG"] == n_pf * layers, (launches, n_pf))
     vms = [v[0] for v in sched.verify_ticks]
     proposed = sum(v[2] for v in sched.verify_ticks)
     dec_tokens = sum(len(r.generated) - 1 for r in reqs)
@@ -1352,48 +1429,13 @@ def phase_spec_accuracy(counts, serving=None, n_req=3,
             "cpu": ServingEngine(cpu, ServingConfig(**serving,
                                                     kv_dtype="int8")),
             "fp32": ServingEngine(model, ServingConfig(**serving))}
-    w = 5
-    ps = serving["page_size"]
-    pages = {k: [e.pool.allocate(-(-(len(x) + decode_steps + w) // ps))
-                 for x in seqs] for k, e in engs.items()}
-    require(pages["card"] == pages["cpu"] == pages["fp32"], pages)
-    pt = np.zeros((n_req, engs["card"].max_pages_per_seq), np.int32)
-    for i, pg in enumerate(pages["card"]):
-        pt[i, :len(pg)] = pg
-    card = dict.fromkeys(K.KERNELS, 0)    # the card engine's launches
-
-    def step(name, *args):
-        out = {}
-        for k, e in engs.items():
-            before = K.launch_counts()
-            out[k] = getattr(e, name)(*args)
-            if k == "card":
-                for n, c in K.launch_counts().items():
-                    card[n] += c - before[n]
-        return out
-
-    outs = [step("prefill_packed", seqs, pages["card"])]
-    lens = np.asarray([len(x) for x in seqs], np.int32)
-    ctx = [list(x) for x in seqs]
-    for _ in range(decode_steps):
-        tok = np.argmax(outs[-1]["card"], -1).astype(np.int32)
-        for i in range(n_req):
-            ctx[i].append(int(tok[i]))
-        outs.append(step("decode", tok, pt, lens))
-        lens = lens + 1
-    tok = np.argmax(outs[-1]["card"], -1).astype(np.int32)
-    win = np.zeros((n_req, w), np.int32)
-    drafter = NgramDrafter(k=w - 1)
-    for i in range(n_req):
-        d = drafter.propose(ctx[i] + [int(tok[i])], w - 1)
-        win[i, 0], win[i, 1:1 + len(d)] = tok[i], d
-    outs.append(step("verify", win, pt, lens))
-    counts["phase14_int8"] = card
+    outs, counts["phase14_int8"] = lockstep(engs, seqs, decode_steps, w=5,
+                                            counted=("card",))
     err = max(float(np.abs(o["card"] - o["cpu"]).max()) for o in outs)
     gap = max(float(np.abs(o["card"] - o["fp32"]).max()) for o in outs)
     finite = all(np.isfinite(o["card"]).all() for o in outs)
     log(f"  int8 pools, {n_req} requests: prefill, {decode_steps} decode "
-        f"steps and a verify of {w}: card vs CPU logits max_abs_err "
+        f"steps and a verify of 5: card vs CPU logits max_abs_err "
         f"{err:.3e} (tol 1e-2); int8 vs fp32 pools on the card {gap:.3e}")
     require(finite and err <= 1e-2, "int8 card logits disagree with the CPU")
     require(counts["phase14_int8"]["K-DEC8"] == decode_steps * LAYERS
@@ -1404,6 +1446,65 @@ def phase_spec_accuracy(counts, serving=None, n_req=3,
     del model, cpu, eng, sched, engs
     torch.cuda.empty_cache()
     return m
+
+
+def lockstep(engs, seqs, decode_steps, w, counted, shared=()) -> tuple:
+    """Step every engine of ``engs`` (name -> engine, the same serving
+    configuration) through the same tokens, the first engine's greedy
+    choices: one packed prefill of ``seqs``, ``decode_steps`` decode
+    steps, then one verify window of ``w`` tokens drafted by
+    ``NgramDrafter(k=w - 1)``, as ``SpecDecodeConfig(k=w - 1)`` verifies.
+    ``shared`` names ``(dst, src)`` engine pairs: before every step
+    ``dst``'s pools (and int8 scales) become a copy of ``src``'s, so the
+    two read the same bytes and differ only in what the step writes.
+    Returns each step's logits by engine and the launches made by the
+    engines named in ``counted``."""
+    first = next(iter(engs))
+    ps = engs[first].kv.page_size
+    pages = {k: [e.pool.allocate(-(-(len(x) + decode_steps + w) // ps))
+                 for x in seqs] for k, e in engs.items()}
+    require(all(p == pages[first] for p in pages.values()), pages)
+    n = len(seqs)
+    pt = np.zeros((n, engs[first].max_pages_per_seq), np.int32)
+    for i, pg in enumerate(pages[first]):
+        pt[i, :len(pg)] = pg
+    launches = dict.fromkeys(K.KERNELS, 0)
+
+    def step(name, *args):
+        for dst, src in shared:
+            a, b = engs[dst].kv, engs[src].kv
+            for d, s in zip(a.k_stores + a.v_stores + (a.s_stores or []),
+                            b.k_stores + b.v_stores + (b.s_stores or [])):
+                d.copy_(s)
+        out = {}
+        for k, e in engs.items():
+            before = K.launch_counts()
+            out[k] = getattr(e, name)(*args)
+            if k in counted:
+                for kern, c in K.launch_counts().items():
+                    launches[kern] += c - before[kern]
+        return out
+
+    outs = [step("prefill_packed", seqs, pages[first])]
+    lens = np.asarray([len(x) for x in seqs], np.int32)
+    ctx = [list(x) for x in seqs]
+    for _ in range(decode_steps):
+        tok = np.argmax(outs[-1][first], -1).astype(np.int32)
+        for i in range(n):
+            ctx[i].append(int(tok[i]))
+        outs.append(step("decode", tok, pt, lens))
+        lens = lens + 1
+    tok = np.argmax(outs[-1][first], -1).astype(np.int32)
+    win = np.zeros((n, w), np.int32)
+    drafter = NgramDrafter(k=w - 1)
+    for i in range(n):
+        d = drafter.propose(ctx[i] + [int(tok[i])], w - 1)
+        win[i, 0], win[i, 1:1 + len(d)] = tok[i], d
+    outs.append(step("verify", win, pt, lens))
+    for k, e in engs.items():
+        for pg in pages[k]:
+            e.pool.free(pg)
+    return outs, launches
 
 
 def phase_spec_load(model, counts, n_req=64, serving=None,
@@ -1493,13 +1594,15 @@ def worst_grad(g_card, g_cpu):
     return worst, worst_leaf
 
 
-def card_vs_cpu(tcfg, batch, what) -> dict:
-    """``gpt_loss`` grads on the card against the CPU's at the same
-    params (every leaf within 1e-4 of its largest CPU grad, loss within
-    1e-4), then 3 trainer steps per side (losses within 1e-4, grad norms
-    within 1e-4 relative). ``batch`` is ``(tokens, labels)`` or, packed,
-    ``(tokens, labels, segment_ids, positions)``."""
-    mcfg = model_config()
+def card_vs_cpu(tcfg, batch, what, mcfg=None, steps=None) -> dict:
+    """The trainer's loss grads (``gpt_loss``, or ``llama_loss`` for a
+    LLaMA ``mcfg``) on the card against the CPU's at the same params
+    (every leaf within 1e-4 of its largest CPU grad, loss within 1e-4),
+    then 3 trainer steps per side (losses within 1e-4, grad norms within
+    1e-4 relative), on ``steps`` (3 batches) or on ``batch`` each time.
+    A batch is ``(tokens, labels)`` or, packed, ``(tokens, labels,
+    segment_ids, positions)``."""
+    mcfg = mcfg or model_config()
     card = hybrid.HybridParallelTrainer(mcfg, tcfg)
     cpu = hybrid.HybridParallelTrainer(mcfg, tcfg, device="cpu")
     tokens, labels, *extras = batch
@@ -1509,17 +1612,17 @@ def card_vs_cpu(tcfg, batch, what) -> dict:
     loss_h, g_cpu = _loss_grads(cpu, tokens, labels,
                                 cpu._packed_extras(*seg_pos))
     worst, worst_leaf = worst_grad(g_card, g_cpu)
-    log(f"  {what}: gpt_loss card {loss_c:.6f} cpu {loss_h:.6f}; grads: "
+    log(f"  {what}: loss card {loss_c:.6f} cpu {loss_h:.6f}; grads: "
         f"worst leaf {worst_leaf} max_abs_err / max|cpu grad| {worst:.3e} "
         f"(tol 1e-4)")
-    require(abs(loss_c - loss_h) <= 1e-4, f"{what} gpt_loss: card vs CPU")
+    require(abs(loss_c - loss_h) <= 1e-4, f"{what} loss: card vs CPU")
     require(worst <= 1e-4, f"{what} grads of {worst_leaf}: card vs CPU")
-    steps = []
-    for i in range(3):
-        lc, lh = (float(t.step(tokens, labels, *extras)) for t in (card, cpu))
+    log_steps = []
+    for i, step_batch in enumerate(steps or [batch] * 3):
+        lc, lh = (float(t.step(*step_batch)) for t in (card, cpu))
         nc, nh = float(card.last_grad_norm), float(cpu.last_grad_norm)
-        steps.append({"loss_card": lc, "loss_cpu": lh, "gnorm_card": nc,
-                      "gnorm_cpu": nh})
+        log_steps.append({"loss_card": lc, "loss_cpu": lh,
+                          "gnorm_card": nc, "gnorm_cpu": nh})
         log(f"  step {i + 1}: loss card {lc:.6f} cpu {lh:.6f}; grad norm "
             f"card {nc:.6f} cpu {nh:.6f}")
         require(abs(lc - lh) <= 1e-4, f"{what} step {i + 1} loss: card vs "
@@ -1530,7 +1633,7 @@ def card_vs_cpu(tcfg, batch, what) -> dict:
     del card, cpu
     torch.cuda.empty_cache()
     return {"grad_worst_ratio": worst, "grad_worst_leaf": worst_leaf,
-            "loss_card": loss_c, "loss_cpu": loss_h, "steps": steps}
+            "loss_card": loss_c, "loss_cpu": loss_h, "steps": log_steps}
 
 
 def phase_train_accuracy(counts, batch=2, seq=256) -> dict:
@@ -1581,10 +1684,12 @@ def phase_packed_accuracy(counts, batch=2, seq=256, doc_lengths=(20, 100),
     return m
 
 
-def train_setup(batch=8, seq=1024, packed=False, doc_lengths=(32, 1024)):
-    """Phase 8's (or, packed, phase 11's) trainer and its batch on the
-    card: ``(trainer, device batch, packing efficiency)``."""
-    mcfg = model_config()
+def train_setup(batch=8, seq=1024, packed=False, doc_lengths=(32, 1024),
+                mcfg=None):
+    """Phase 8's (or, packed, phase 11's; with ``mcfg``, phase 22's)
+    trainer and its batch on the card: ``(trainer, device batch, packing
+    efficiency)``."""
+    mcfg = mcfg or model_config()
     tcfg = hybrid.TrainerConfig(learning_rate=3e-4, warmup_steps=2,
                                 total_steps=100, packed_sequences=packed)
     trainer = hybrid.HybridParallelTrainer(mcfg, tcfg)
@@ -1599,11 +1704,17 @@ def train_setup(batch=8, seq=1024, packed=False, doc_lengths=(32, 1024)):
 
 
 def phase_train(counts, peaks, iters=10, batch=8, seq=1024, packed=False,
-                doc_lengths=(32, 1024)) -> dict:
-    tag = "phase11" if packed else "phase8"
+                doc_lengths=(32, 1024), mcfg=None, tag=None,
+                label="GPT-345M") -> dict:
+    """``iters`` timed bf16 trainer steps after one warm-up (phases 8, 11
+    and, with a LLaMA ``mcfg``, 22): losses finite (and falling
+    unpacked), and per step two forward launches per layer (remat
+    recomputes each) and one of each backward kernel."""
+    tag = tag or ("phase11" if packed else "phase8")
     log(f"[{tag[5:]}] {'packed ' if packed else ''}training, bf16: "
-        f"GPT-345M, {batch} x {seq}, remat, guard on")
-    trainer, dev_batch, eff = train_setup(batch, seq, packed, doc_lengths)
+        f"{label}, {batch} x {seq}, remat, guard on")
+    trainer, dev_batch, eff = train_setup(batch, seq, packed, doc_lengths,
+                                          mcfg)
     first = trainer.step_presharded(*dev_batch)          # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1619,7 +1730,8 @@ def phase_train(counts, peaks, iters=10, batch=8, seq=1024, packed=False,
     tok_s = batch * seq / (wall / iters)
     n = trainer.num_params()
     flops_tok = 6 * n + 12 * mcfg.num_layers * mcfg.hidden_size * seq
-    m = {"batch": batch, "seq": seq, "step_ms": step_ms,
+    m = {"model": label, "layers": mcfg.num_layers, "batch": batch,
+         "seq": seq, "step_ms": step_ms,
          "tokens_per_s": tok_s, "mfu": tok_s * flops_tok / peaks["bf16"],
          "flops_per_token": flops_tok, "num_params": n,
          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1630,12 +1742,13 @@ def phase_train(counts, peaks, iters=10, batch=8, seq=1024, packed=False,
         m["real_tokens_per_s"] = tok_s * eff
     log("  " + json.dumps(m))
     require(all(np.isfinite(losses)), "non-finite training loss")
+    layers = mcfg.num_layers
     if packed:
-        want = {"K-SEG": 2 * LAYERS, "K-SDQ": LAYERS, "K-SDKV": LAYERS,
+        want = {"K-SEG": 2 * layers, "K-SDQ": layers, "K-SDKV": layers,
                 "K-PACK": 0, "K-DQ": 0, "K-DKV": 0}
     else:
         require(losses[-1] < losses[0], "training loss did not fall")
-        want = {"K-PACK": 2 * LAYERS, "K-DQ": LAYERS, "K-DKV": LAYERS}
+        want = {"K-PACK": 2 * layers, "K-DQ": layers, "K-DKV": layers}
     for name, per_step in want.items():
         require(counts[tag][name] == per_step * iters,
                 f"{name}: {counts[tag][name]} launches in {iters} "
@@ -1665,6 +1778,44 @@ def nn_setup(rng, shape):
     return model, opt, step
 
 
+def nn_grads_vs_cpu(card, cpu, ids, labels, watch, what) -> dict:
+    """One fp32 forward (logits), mean next-token cross entropy
+    (``GPTPretrainingCriterion``) and ``backward()`` of the same model
+    on the card and on the CPU: losses within 1e-4, every parameter's
+    grad on the card within 1e-4 of its largest CPU grad, and each
+    parameter whose name holds a ``watch`` part with a nonzero grad (the
+    attention projections whose grads flow only through the backward
+    kernels). Returns the errors and the card's launches."""
+    crit = GPTPretrainingCriterion()
+    ids, labels = torch.from_numpy(ids), torch.from_numpy(labels)
+    before = K.launch_counts()
+    loss_c = crit(card(ids.to(DEV)), labels.to(DEV))
+    loss_c.backward()
+    torch.cuda.synchronize()
+    launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+    loss_h = crit(cpu(ids), labels)
+    loss_h.backward()
+    loss_c, loss_h = float(loss_c.detach()), float(loss_h.detach())
+    g_card = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    g_cpu = {n: p.grad for n, p in cpu.named_parameters()}
+    require(set(g_card) == set(g_cpu) and all(
+        g is not None for g in (*g_card.values(), *g_cpu.values())),
+        "a parameter got no grad")
+    worst, worst_leaf = worst_grad(g_card, g_cpu)
+    watched = {n: g for n, g in g_cpu.items() if any(w in n for w in watch)}
+    w_worst, w_leaf = worst_grad(g_card, watched)
+    log(f"  {what}: loss card {loss_c:.6f} cpu {loss_h:.6f}; grads: worst "
+        f"{worst_leaf} {worst:.3e}, worst of {'/'.join(watch)} {w_leaf} "
+        f"{w_worst:.3e} (tol 1e-4); launches {launches}")
+    require(abs(loss_c - loss_h) <= 1e-4, f"{what} loss: card vs CPU")
+    require(worst <= 1e-4, f"{what} grads of {worst_leaf}: card vs CPU")
+    require(min(float(g.abs().max()) for g in watched.values()) > 0,
+            f"{what}: a {'/'.join(watch)} weight got a zero grad")
+    return {"loss_card": loss_c, "loss_cpu": loss_h,
+            "grad_worst_ratio": worst, "grad_worst_leaf": worst_leaf,
+            f"{'_'.join(watch)}_worst_ratio": w_worst, "launches": launches}
+
+
 def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
                    shape=(4, 1024)) -> dict:
     """The nn API: ``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` ->
@@ -1678,40 +1829,17 @@ def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
         f"AdamW at {shape[0]} x {shape[1]}")
     rng = np.random.RandomState(12)
     vocab = model_config().vocab_size
-    crit = GPTPretrainingCriterion()
     card = build_model(DEV, torch.float32).train()
     cpu = build_model("cpu", torch.float32).train()
     cpu.load_state_dict(card.state_dict())
-    ids, labels = (torch.from_numpy(x) for x in train_batch(rng, *acc_shape,
-                                                             vocab))
+    ids, labels = train_batch(rng, *acc_shape, vocab)
     K.reset_launch_counts()
-    loss_c = crit(card(ids.to(DEV)), labels.to(DEV))
-    loss_c.backward()
-    torch.cuda.synchronize()
-    acc_counts = K.launch_counts()
-    loss_h = crit(cpu(ids), labels)
-    loss_h.backward()
-    loss_c, loss_h = float(loss_c.detach()), float(loss_h.detach())
-    g_card = {n: p.grad.cpu() for n, p in card.named_parameters()}
-    g_cpu = {n: p.grad for n, p in cpu.named_parameters()}
-    require(set(g_card) == set(g_cpu) and all(
-        g is not None for g in (*g_card.values(), *g_cpu.values())),
-        "a parameter got no grad")
-    worst, worst_leaf = worst_grad(g_card, g_cpu)
-    qkv = {n: g for n, g in g_cpu.items() if "qkv_proj" in n}
-    qkv_worst, qkv_leaf = worst_grad(g_card, qkv)
-    log(f"  loss card {loss_c:.6f} cpu {loss_h:.6f}; grads: "
-        f"worst {worst_leaf} {worst:.3e}, worst qkv_proj {qkv_leaf} "
-        f"{qkv_worst:.3e} (tol 1e-4); launches {acc_counts}")
-    require(abs(loss_c - loss_h) <= 1e-4, "nn-API loss: card vs CPU")
-    require(worst <= 1e-4, f"nn-API grads of {worst_leaf}: card vs CPU")
-    require(min(float(g.abs().max()) for g in qkv.values()) > 0,
-            "qkv_proj got a zero grad")
-    for name in ("K-BSHD", "K-BDQ", "K-BDKV"):
-        require(acc_counts[name] == LAYERS, f"nn-API backward launched "
-                f"{name} {acc_counts[name]} times, not {LAYERS}")
+    acc = nn_grads_vs_cpu(card, cpu, ids, labels, ("qkv_proj",), "nn API")
     del card, cpu
     torch.cuda.empty_cache()
+    for name in ("K-BSHD", "K-BDQ", "K-BDKV"):
+        require(acc["launches"][name] == LAYERS, f"nn-API backward launched "
+                f"{name} {acc['launches'][name]} times, not {LAYERS}")
 
     model, opt, step = nn_setup(rng, shape)
     first = step()                                         # warm-up
@@ -1724,9 +1852,11 @@ def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
     counts["phase12"] = K.launch_counts()
     losses = [float(first)] + [float(x) for x in losses]
     tokens = shape[0] * shape[1]
-    m = {"loss_card_fp32": loss_c, "loss_cpu_fp32": loss_h,
-         "grad_worst_ratio": worst, "grad_worst_leaf": worst_leaf,
-         "qkv_proj_worst_ratio": qkv_worst, "batch": shape[0],
+    m = {"loss_card_fp32": acc["loss_card"], "loss_cpu_fp32": acc["loss_cpu"],
+         "grad_worst_ratio": acc["grad_worst_ratio"],
+         "grad_worst_leaf": acc["grad_worst_leaf"],
+         "qkv_proj_worst_ratio": acc["qkv_proj_worst_ratio"],
+         "batch": shape[0],
          "seq": shape[1], "step_ms": wall / steps * 1e3,
          "tokens_per_s": tokens * steps / wall, "losses": losses,
          "launches": counts["phase12"]}
@@ -1738,6 +1868,220 @@ def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
                 f"steps, expected {LAYERS} per step")
     del model, opt
     torch.cuda.empty_cache()
+    return m
+
+
+# -- phases 19-22: the LLaMA family (d 128) -----------------------------------
+
+def phase_llama_accuracy(counts, layers=2, serving=None, n_req=3,
+                         prompt=(100, 300), new_tokens=16, seq=200,
+                         decode_steps=6) -> dict:
+    """LLaMA serving accuracy, fp32, at ``llama_7b()`` width and
+    ``layers`` layers, MHA (32 kv heads) and GQA (8), random weights drawn
+    on the card and carried to a CPU copy by ``load_state_dict``: (a)
+    ``n_req`` requests through the scheduler, the card's logits at every
+    generated position against a teacher-forced CPU forward (2e-3); (b)
+    the card's no-cache forward (K-BSHD) against the CPU's (2e-3); (c)
+    GQA only: the card's engines and the port's engines on the CPU fed
+    the same tokens (``lockstep``: packed prefill, decode steps, one
+    ``SpecDecodeConfig(k=4)`` verify window), int8 pools within 1e-2
+    with the CPU engine reading the card's pool bytes at every step
+    (K-DEC8, K-MQ8; a free-running CPU int8 engine is reported beside
+    it), fp32 pools within 2e-3 (K-DEC, K-MQ)."""
+    log(f"[19] LLaMA serving accuracy, fp32: llama_7b width, {layers} "
+        "layers, MHA and GQA-8, card vs CPU")
+    serving = serving or dict(page_size=16, max_model_len=1024, max_batch=8,
+                              max_prefill_tokens=2048)
+    k = SpecDecodeConfig(k=4).k
+    K.reset_launch_counts()
+    m = {}
+    for name, kv in (("mha", None), ("gqa", 8)):
+        cfg = llama_config(num_layers=layers, num_kv_heads=kv)
+        model = llama_model(cfg, DEV, torch.float32, 19)
+        cpu = LlamaForCausalLM(cfg, device="cpu").eval()
+        cpu.load_state_dict(model.state_dict())
+        rng = np.random.RandomState(19)
+        vocab = cfg.vocab_size
+        eng = ServingEngine(model, ServingConfig(**serving))
+        require(eng.num_kv_heads == cfg.kv_heads, eng.num_kv_heads)
+        sched = ContinuousBatchingScheduler(eng)
+        reqs = [Request(rid=i, prompt=rng.randint(0, vocab, rng.randint(
+            prompt[0], prompt[1] + 1)).astype(np.int32),
+            max_new_tokens=new_tokens) for i in range(n_req)]
+        rows = record_logits(sched, reqs)
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        require(all(r.status == "finished" for r in reqs),
+                [r.status for r in reqs])
+        require(eng.pool.in_use == 0, "leaked pages")
+        for r in reqs:
+            teacher_forced_check(cpu, r.prompt.astype(np.int64), r.generated,
+                                 committed_rows(r, rows[r.rid]),
+                                 f"{name} scheduler rid {r.rid} (prompt "
+                                 f"{len(r.prompt)})")
+        ids = torch.from_numpy(rng.randint(0, vocab, (2, seq)))
+        with torch.no_grad():
+            err = max_err(model(ids.to(DEV)).cpu(), cpu(ids))
+        log(f"  {name} no-cache forward (2, {seq}): logits max_abs_err "
+            f"{err:.3e} (tol 2e-3)")
+        require(err <= 2e-3, f"{name} no-cache forward: card vs CPU")
+        m[name] = {"no_cache_err": err}
+        if kv:
+            # int8 codes flip where the card's and the CPU's fp32 K/V (one
+            # matmul rounding apart) straddle a rounding boundary, and at
+            # this width the flips move logits by ~1e-2; the gated CPU
+            # engine therefore starts every step from the card's pool
+            # bytes ("cpu"), the free-running one is reported ("cpu_own")
+            seqs = [rng.randint(0, vocab, rng.randint(*prompt)).astype(
+                np.int32) for _ in range(n_req)]
+            i8 = ServingConfig(**serving, kv_dtype="int8")
+            f32 = ServingConfig(**serving)
+            engs = {"card": ServingEngine(model, i8),
+                    "cpu": ServingEngine(cpu, i8),
+                    "cpu_own": ServingEngine(cpu, i8),
+                    "card_fp32": ServingEngine(model, f32),
+                    "cpu_fp32": ServingEngine(cpu, f32)}
+            outs, card = lockstep(engs, seqs, decode_steps, k + 1,
+                                  counted=("card", "card_fp32"),
+                                  shared=(("cpu", "card"),))
+
+            def err(a, b):
+                return max(max_err(torch.from_numpy(o[a]),
+                                   torch.from_numpy(o[b])) for o in outs)
+
+            e8, e8_own, e32 = (err("card", "cpu"), err("card", "cpu_own"),
+                               err("card_fp32", "cpu_fp32"))
+            gap = err("card", "card_fp32")
+            finite = all(np.isfinite(o["card"]).all() for o in outs)
+            log(f"  gqa lockstep, {n_req} requests: prefill, {decode_steps} "
+                f"decode steps and a verify of {k + 1}: int8 pools card vs "
+                f"CPU on the same pool bytes {e8:.3e} (tol 1e-2), on its own "
+                f"pools {e8_own:.3e} (reported); fp32 pools {e32:.3e} (tol "
+                f"2e-3); int8 vs fp32 pools on the card {gap:.3e}; card "
+                f"launches {card}")
+            require(finite and e8 <= 1e-2, "int8 card logits disagree")
+            require(e32 <= 2e-3, "fp32 verify/decode logits disagree")
+            for kern in ("K-DEC8", "K-DEC"):
+                require(card[kern] == decode_steps * layers, (kern, card))
+            for kern in ("K-MQ8", "K-MQ"):
+                require(card[kern] == layers, (kern, card))
+            m[name].update(int8_card_vs_cpu=e8, int8_card_vs_cpu_own=e8_own,
+                           fp32_card_vs_cpu=e32, int8_vs_fp32_gap=gap)
+            del engs
+        del model, cpu, eng, sched
+        torch.cuda.empty_cache()
+    counts["phase19"] = K.launch_counts()
+    for kern in ("K-SEG", "K-DEC", "K-BSHD", "K-DEC8", "K-MQ", "K-MQ8"):
+        require(counts["phase19"][kern] > 0, f"phase 19 never launched {kern}")
+    log(f"  launches {counts['phase19']}")
+    return m
+
+
+def phase_llama_load(counts, layers=None, n_req=64, serving=None,
+                     prompt=(64, 768), new_tokens=(32, 128)) -> dict:
+    """LLaMA-7B serving load, bf16, full width and depth (``layers``
+    cuts it for the CPU rehearsal), MHA, weights drawn on the card: phase
+    4's configuration and trace over vocab 32000 through ``serve_load``
+    (every request finishes, no page leaks, K-DEC = decode ticks x
+    layers, K-SEG = prefill calls x layers), then one ``prefill_batch``
+    of the trace's 4 longest prompts (K-BSHD = layers), its last-token
+    logits finite and beside a packed prefill of the same prompts."""
+    cfg = llama_config(**({"num_layers": layers} if layers else {}))
+    log(f"[20] LLaMA-7B serving load, bf16: {cfg.num_layers} layers, "
+        f"{n_req} requests")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = llama_model(cfg, DEV, torch.bfloat16, 20)
+    build_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    reqs = load_trace(cfg.vocab_size, n_req, prompt, new_tokens)
+    m, sched = serve_load(model, ServingConfig(**(serving or LOAD_CFG),
+                                               dtype=torch.bfloat16),
+                          reqs, None, "LLaMA-7B plain")
+    counts["phase20"] = m["launches"]
+    eng = sched.engine
+    seqs = sorted((r.prompt for r in reqs), key=len)[-4:]
+    ps = eng.kv.page_size
+    pages = [eng.pool.allocate(-(-len(x) // ps)) for x in seqs]
+    before = K.launch_counts()
+    batch = eng.prefill_batch(seqs, pages)
+    launches = {n: c - before[n] for n, c in K.launch_counts().items()}
+    # the same prompts packed, two to a call (four exceed one call's cap)
+    packed = np.concatenate([eng.prefill_packed(seqs[i:i + 2],
+                                                pages[i:i + 2])
+                             for i in (0, 2)])
+    for pg in pages:
+        eng.pool.free(pg)
+    require(eng.pool.in_use == 0, "leaked pages")
+    require(bool(np.isfinite(batch).all()), "non-finite prefill_batch logits")
+    require(launches["K-BSHD"] == cfg.num_layers, launches)
+    for n in K.KERNELS:
+        counts["phase20"][n] += launches[n]
+    m.update(
+        model="LLaMA-7B", layers=cfg.num_layers, build_s=build_s,
+        weight_bytes=weight_bytes,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        prefill_batch_shape=[len(seqs), max(len(x) for x in seqs)],
+        prefill_batch_vs_packed=max_err(torch.from_numpy(batch),
+                                        torch.from_numpy(packed)),
+        prefill_batch_argmax_agree=int((np.argmax(batch, -1)
+                                        == np.argmax(packed, -1)).sum()))
+    log(f"  decode {m['decode_tokens_per_s']:.1f} tokens/s, tick p50 / p90 "
+        f"{m['decode_tick_ms_p50']} / {m['decode_tick_ms_p90']} ms, TTFT "
+        f"p50 {m['ttft_ms_p50']} ms, prefill "
+        f"{m['prefill_tokens_per_s']:.1f} tokens/s; weights {weight_bytes} "
+        f"bytes, pool {m['pool_bytes']} bytes, peak "
+        f"{m['max_memory_allocated_gb']:.2f} GB; prefill_batch vs packed "
+        f"{m['prefill_batch_vs_packed']:.3e}, argmax agree "
+        f"{m['prefill_batch_argmax_agree']}/{len(seqs)}")
+    del model, sched, eng
+    torch.cuda.empty_cache()
+    return m
+
+
+def phase_llama_train_accuracy(counts, layers=2, kv_heads=8, batch=1,
+                               seq=256) -> dict:
+    """LLaMA training accuracy, fp32, at ``llama_7b()`` width, ``layers``
+    layers, GQA: (a) ``llama_loss`` grads and 3 trainer steps, card vs
+    CPU (``card_vs_cpu``); (b) the nn API, ``LlamaForCausalLM`` + mean
+    next-token CE + ``backward()``, card vs CPU (``nn_grads_vs_cpu``):
+    ``k_proj``/``v_proj`` get their grads only through the GQA repeat and
+    K-BDKV."""
+    log(f"[21] LLaMA training accuracy, fp32: llama_7b width, {layers} "
+        f"layers, GQA-{kv_heads}, card vs CPU, {batch} x {seq}")
+    mcfg = llama_config(num_layers=layers, num_kv_heads=kv_heads)
+    tcfg = hybrid.TrainerConfig(compute_dtype=torch.float32,
+                                learning_rate=1e-3, warmup_steps=2,
+                                total_steps=10)
+    rng = np.random.RandomState(21)
+    # a fresh row for each step: one AdamW step fits this 616M-parameter
+    # model to a 256-token row, and the grads that remain there, each
+    # gold token's probability minus one, are differences of two nearly
+    # equal fp32 numbers, which the two devices round apart past the
+    # grad-norm gate
+    batches = [train_batch(rng, batch, seq, mcfg.vocab_size)
+               for _ in range(4)]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = card_vs_cpu(tcfg, batches[0], "llama_loss", mcfg, steps=batches[1:])
+    card = llama_model(mcfg, DEV, torch.float32, 21).train()
+    cpu = LlamaForCausalLM(mcfg, device="cpu").train()
+    cpu.load_state_dict(card.state_dict())
+    nn_acc = nn_grads_vs_cpu(card, cpu, *batches[0], ("k_proj", "v_proj"),
+                             "LLaMA nn API")
+    for name in ("K-BSHD", "K-BDQ", "K-BDKV"):
+        require(nn_acc["launches"][name] == layers,
+                f"nn-API backward launched {name} "
+                f"{nn_acc['launches'][name]} times, not {layers}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    counts["phase21"] = K.launch_counts()
+    log(f"  launches {counts['phase21']}; {time.perf_counter() - t0:.1f} s")
+    for name in ("K-PACK", "K-DQ", "K-DKV"):
+        require(counts["phase21"][name] > 0, f"phase 21 never launched {name}")
+    m["nn_api"] = nn_acc
     return m
 
 
@@ -1848,7 +2192,7 @@ def phase_nn_profile(steps=3, shape=(4, 1024)) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,7,8,10,11,12,14,15,16",
+                    default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22",
                     help="comma-separated; 6, 9, 13, 17 and 18 (profiles) "
                     "are opt-in")
     args = ap.parse_args()
@@ -1925,13 +2269,27 @@ def main() -> int:
         e2e["packed_profile"] = phase_train_profile(packed=True)
     if 18 in phases:
         e2e["nn_profile"] = phase_nn_profile()
+    if 19 in phases:
+        e2e["llama_accuracy"] = phase_llama_accuracy(counts)
+    if 20 in phases:
+        e2e["llama_load"] = phase_llama_load(counts)
+    if 21 in phases:
+        e2e["llama_train_accuracy"] = phase_llama_train_accuracy(counts)
+    if 22 in phases:
+        e2e["llama_train"] = phase_train(
+            counts, peaks, batch=4, seq=2048, mcfg=llama_config(num_layers=8),
+            tag="phase22", label="LLaMA-7B width, 8 of 32 layers")
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
-    # (16) serving, each phase's runs counted
-    main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16)
-    main_path = {name: sum(c.get(name, 0) for key, c in counts.items()
-                           if int(key[5:].split("_")[0]) in main_phases)
-                 for name in K.KERNELS}
+    # (16) serving, and the LLaMA phases (19-22), each phase's runs counted
+    main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22)
+
+    def launched(which):
+        return {name: sum(c.get(name, 0) for key, c in counts.items()
+                          if int(key[5:].split("_")[0]) in which)
+                for name in K.KERNELS}
+
+    main_path, llama_path = launched(main_phases), launched((19, 20, 21, 22))
     if set(main_phases) <= phases:
         missing = [n for n, c in main_path.items() if c == 0]
         require(not missing, f"main path never launched {missing}")
@@ -1941,12 +2299,13 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": main_path[name],
+            "launches_llama": llama_path[name],
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "device_ms": r.get("device_ms"), "cold_ms": r.get("cold_ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),
-            **({"also": r["also"]} if "also" in r else {}),
+            **{k: r[k] for k in ("also", "llama") if k in r},
             "pass": name in kern})
     log(json.dumps({"e2e": e2e, "launches_by_phase": counts}))
     log(json.dumps({"kernels": summary}))

@@ -1,5 +1,5 @@
-"""Model families (port of ``paddle_tpu.models``): GPT so far."""
-from . import gpt
+"""Model families (port of ``paddle_tpu.models``): GPT and LLaMA."""
+from . import gpt, llama
 from .gpt import (
     GPTConfig,
     GPTForCausalLM,
@@ -9,6 +9,15 @@ from .gpt import (
     gpt_345m,
     gpt_tiny,
 )
+from .llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    LlamaModel,
+    llama_7b,
+    llama_tiny,
+)
 
-__all__ = ["gpt", "GPTConfig", "GPTModel", "GPTForCausalLM",
-           "GPTPretrainingCriterion", "gpt_tiny", "gpt_345m", "gpt_1p3b"]
+__all__ = ["gpt", "llama", "GPTConfig", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt_345m", "gpt_1p3b",
+           "LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
+           "llama_7b"]

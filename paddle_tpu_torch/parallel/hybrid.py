@@ -1,15 +1,18 @@
-"""Single-device GPT trainer (port of ``paddle_tpu.parallel.hybrid``).
+"""Single-device trainer for GPT and LLaMA (port of
+``paddle_tpu.parallel.hybrid``).
 
 ``HybridParallelTrainer.step`` runs one training step: value and grad of
-``transformer_core.gpt_loss`` (the packed flash kernels K-PACK, K-DQ and
-K-DKV on CUDA; with ``packed_sequences=True`` the segmented K-SEG, K-SDQ
-and K-SDKV over rows packed by ``io.packing``), AdamW with global-norm
-clipping, and the in-step anomaly guard, which commits the new params
-and optimizer state only where the loss and the grad norm are finite
-(``where(finite, new, old)``). The
-guard's counters stay on the device; the host reads one step's skip flag
-after the next step has been enqueued (lag 1), through a pinned copy and
-a CUDA event, so the guard adds no other synchronisation.
+the model family's loss, ``transformer_core.gpt_loss`` or, for a
+``LlamaConfig``, ``llama_core.llama_loss`` (``_arch_for``; the packed
+flash kernels K-PACK, K-DQ and K-DKV on CUDA; with
+``packed_sequences=True``, GPT only as in the JAX package, the segmented
+K-SEG, K-SDQ and K-SDKV over rows packed by ``io.packing``), AdamW with
+global-norm clipping, and the in-step anomaly guard, which commits the
+new params and optimizer state only where the loss and the grad norm
+are finite (``where(finite, new, old)``). The guard's counters stay on
+the device; the host reads one step's skip flag after the next step has
+been enqueued (lag 1), through a pinned copy and a CUDA event, so the
+guard adds no other synchronisation.
 
 Only the single-device branch of the JAX trainer is ported. These raise
 ``NotImplementedError``, naming the slice that brings them: any mesh axis
@@ -31,8 +34,10 @@ import torch
 
 from ..device import resolve_device
 from ..io.packing import positions_from_segment_ids
+from ..models.llama import LlamaConfig
 from ..utils import fault_injection as fi
 from ..utils.tree import flatten, tree_map, unflatten
+from . import llama_core
 from . import transformer_core as core
 
 __all__ = ["DIVERGENCE_EXIT_CODE", "NumericalDivergenceError",
@@ -167,14 +172,22 @@ def _guard_defaults(cfg: TrainerConfig) -> dict:
     }
 
 
+def _arch_for(model_cfg):
+    """The functional core for a model config's family: ``(init, loss,
+    name)``, GPT by default, LLaMA for a ``LlamaConfig``."""
+    if isinstance(model_cfg, LlamaConfig):
+        return llama_core.llama_init, llama_core.llama_loss, "llama"
+    return core.gpt_init, core.gpt_loss, "gpt"
+
+
 def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(
         f"{what} is not ported yet; it comes with {slice_name}")
 
 
 class HybridParallelTrainer:
-    """One-device GPT trainer on ``device`` (CUDA unless ``"cpu"`` is
-    asked for).
+    """One-device GPT or LLaMA trainer on ``device`` (CUDA unless
+    ``"cpu"`` is asked for).
 
     Usage:
         t = HybridParallelTrainer(gpt_345m(), TrainerConfig())
@@ -184,11 +197,12 @@ class HybridParallelTrainer:
     def __init__(self, model_cfg, cfg: TrainerConfig, device=None):
         self.model_cfg = model_cfg
         self.cfg = cfg
+        self._init_fn, self._loss_fn, self.arch = _arch_for(model_cfg)
         self._validate()
         self.device = resolve_device(device)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.params = tree_map(lambda t: t.to(self.device),
-                               core.gpt_init(model_cfg, gen))
+                               self._init_fn(model_cfg, gen))
         self.opt = adamw_init(self.params)
         self.guard = {k: torch.tensor(v, device=self.device)
                       for k, v in _guard_defaults(cfg).items()}
@@ -219,6 +233,11 @@ class HybridParallelTrainer:
                 "packed_sequences cannot combine with sequence parallelism "
                 "(sep > 1): the ring shards the sequence while the packed "
                 "mask is per-token; run packed batches with sep=1")
+        if cfg.packed_sequences and self.arch != "gpt":
+            raise ValueError(
+                f"packed_sequences supports the GPT family only (got arch "
+                f"{self.arch!r}): per-segment RoPE reset is not wired "
+                "through the LLaMA core yet")
         axes = {a: getattr(cfg, a) for a in ("dp", "mp", "pp", "sharding",
                                               "sep")}
         if any(n != 1 for n in axes.values()) or cfg.vpp != 1:
@@ -236,17 +255,16 @@ class HybridParallelTrainer:
 
     # -- the step -----------------------------------------------------------
     def loss_and_grads(self, params, tokens, labels, poison=1.0, extras=()):
-        """``(loss * poison, grads)`` of ``gpt_loss`` at ``params``: the
-        loss detached, the grads a tree like ``params``. ``extras`` is
-        ``(segment_ids, positions)`` in packed mode, else empty."""
+        """``(loss * poison, grads)`` of the family's loss at ``params``:
+        the loss detached, the grads a tree like ``params``. ``extras`` is
+        ``(segment_ids, positions)`` in packed mode (GPT), else empty."""
         paths, leaves = zip(*((path, p.detach().requires_grad_(True))
                               for path, p in flatten(params)))
-        seg, pos = extras if extras else (None, None)
-        raw = core.gpt_loss(self.model_cfg, unflatten(zip(paths, leaves)),
+        kw = dict(zip(("segment_ids", "positions"), extras))
+        raw = self._loss_fn(self.model_cfg, unflatten(zip(paths, leaves)),
                             tokens, labels,
                             compute_dtype=self.cfg.compute_dtype,
-                            remat=self.cfg.remat, segment_ids=seg,
-                            positions=pos) * poison
+                            remat=self.cfg.remat, **kw) * poison
         grads = torch.autograd.grad(raw, leaves)
         return raw.detach(), unflatten(zip(paths, grads))
 
@@ -258,6 +276,7 @@ class HybridParallelTrainer:
         loss, grads = self.loss_and_grads(params, tokens, labels, poison,
                                           extras)
         new_p, new_opt, gnorm = adamw_update(cfg, params, grads, opt)
+        del grads   # one state's worth of memory less at the commit below
         if not cfg.anomaly_guard:
             return (new_p, new_opt, guard, loss, gnorm,
                     torch.zeros((), dtype=torch.bool, device=loss.device))

@@ -57,9 +57,11 @@ class ServingConfig:
 
 
 class ServingEngine:
-    """Paged-KV model runner for ``GPTForCausalLM`` (a model whose trunk
-    ``.gpt`` takes ``(input_ids, position_ids, caches=)``). Runs on the
-    model's device."""
+    """Paged-KV model runner for ``GPTForCausalLM`` and
+    ``LlamaForCausalLM``: the trunk (GPT's ``.gpt``, LLaMA's ``.model``)
+    takes ``(input_ids, position_ids, caches=)``, the head is GPT's
+    ``_logits`` or LLaMA's ``lm_head``; the pools keep the config's
+    ``kv_heads``. Runs on the model's device."""
 
     def __init__(self, model, cfg: Optional[ServingConfig] = None):
         self.cfg = cfg or ServingConfig()
@@ -71,6 +73,11 @@ class ServingEngine:
         self.num_kv_heads = getattr(mc, "kv_heads", None) or mc.num_heads
         self.head_dim = mc.head_dim
         self.vocab_size = mc.vocab_size
+        # trunk and head discovery: GPT keeps them at .gpt and ._logits,
+        # LLaMA at .model and .lm_head
+        self._trunk = model.gpt if hasattr(model, "gpt") else model.model
+        self._head = (model._logits if hasattr(model, "_logits")
+                      else model.lm_head)
         if self.cfg.max_model_len > mc.max_position_embeddings:
             raise ValueError(
                 f"max_model_len {self.cfg.max_model_len} exceeds the "
@@ -157,7 +164,7 @@ class ServingEngine:
         state = self.kv.make_state(
             "decode", slot_t, self.num_heads, page_table=pt_t,
             seq_lens=sl_t, **_touched_kw(tch))
-        logits = _paged_forward(self.model, tok_t, pos_t, state, None)
+        logits = _paged_forward(self, tok_t, pos_t, state, None)
         return logits[:n]
 
     @torch.no_grad()
@@ -213,7 +220,7 @@ class ServingEngine:
             "verify", slot_t, self.num_heads, page_table=pt_t,
             seq_lens=sl_t, **_touched_kw(tch))
         gather = torch.arange(b * w, device=self.device)  # every row
-        logits = _paged_forward(self.model, tok_t, pos_t, state, gather)
+        logits = _paged_forward(self, tok_t, pos_t, state, gather)
         return logits.reshape(b, w, -1)[:n]
 
     @torch.no_grad()
@@ -298,7 +305,7 @@ class ServingEngine:
             mode, slot_t, self.num_heads,
             segment_ids=None if seg is None else dev[4],
             **_touched_kw(dev[4 + (seg is not None):]))
-        return _paged_forward(self.model, tok_t, pos_t, state, gather_t)
+        return _paged_forward(self, tok_t, pos_t, state, gather_t)
 
     # -- sampling -----------------------------------------------------------
 
@@ -328,14 +335,14 @@ def _touched_kw(arrays) -> dict:
     return {"touched_pages": arrays[0], "touched_valid": arrays[1]}
 
 
-def _paged_forward(model, tokens, positions, state, gather_idx):
+def _paged_forward(engine, tokens, positions, state, gather_idx):
     """Thread a PagedForwardState through the trunk, gather the requested
     rows (the last row when ``gather_idx`` is None: decode, S == 1),
     project to logits and bring them to the host as float32 numpy (the
     step's one intentional sync)."""
-    hidden = model.gpt(tokens, positions, caches=state)   # (B, S, H)
+    hidden = engine._trunk(tokens, positions, caches=state)   # (B, S, H)
     if gather_idx is None:
         rows = hidden[:, -1]
     else:
         rows = hidden.reshape(-1, hidden.shape[-1])[gather_idx]
-    return model._logits(rows).float().cpu().numpy()
+    return engine._head(rows).float().cpu().numpy()

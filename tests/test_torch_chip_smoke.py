@@ -409,3 +409,94 @@ def test_spec_and_int8_load_phases_rehearse_on_cpu(tiny_serving):
     # int8 codes are half of bf16's bytes, plus 8 bytes of scales per page
     # and kv head against bf16's 2 * page_size * d * 2 = 1024 (d = 32)
     assert m["pool_bytes_ratio"] == pytest.approx(0.5 + 8 / 1024)
+
+
+@pytest.fixture
+def tiny_llama(tiny_serving, monkeypatch):
+    """Phases 19-22 at ``llama_tiny`` widths on the CPU: ``llama_config``
+    keeps the depth it is asked for and the GQA group (32 heads over 8 kv
+    heads become 4 over 1), on top of ``tiny_serving``."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.llama import llama_tiny
+
+    def tiny(num_layers=2, num_kv_heads=None):
+        kv = None if num_kv_heads is None else 4 * num_kv_heads // 32
+        return dataclasses.replace(llama_tiny(), num_layers=num_layers,
+                                   num_kv_heads=kv)
+
+    monkeypatch.setattr(cs, "llama_config", tiny)
+    return tiny_serving
+
+
+def test_llama_serving_accuracy_phase_rehearses_on_cpu(tiny_llama):
+    counts = {}
+    m = cs.phase_llama_accuracy(counts, serving=_TINY_SERVING, n_req=2,
+                                prompt=(10, 30), new_tokens=6, seq=20,
+                                decode_steps=3)
+    assert set(m) == {"mha", "gqa"}
+    assert set(m["gqa"]) == {"no_cache_err", "int8_card_vs_cpu",
+                             "int8_card_vs_cpu_own", "fp32_card_vs_cpu",
+                             "int8_vs_fp32_gap"}
+    assert m["mha"]["no_cache_err"] == m["gqa"]["no_cache_err"] == 0.0
+    g = m["gqa"]
+    assert g["int8_card_vs_cpu"] == g["int8_card_vs_cpu_own"] == 0.0
+    assert g["fp32_card_vs_cpu"] == 0.0 and g["int8_vs_fp32_gap"] > 0
+    for name in ("K-SEG", "K-DEC", "K-BSHD", "K-DEC8", "K-MQ", "K-MQ8"):
+        assert counts["phase19"][name] > 0, name
+
+
+@pytest.mark.parametrize("layers", [2, 32])
+def test_llama_load_phase_rehearses_on_cpu(tiny_llama, layers):
+    """Phase 20's launch formulas hold at its full depth of 32 layers:
+    K-DEC = decode ticks x 32, K-SEG = prefill calls x 32, K-BSHD = 32
+    for the one prefill_batch."""
+    counts = {}
+    m = cs.phase_llama_load(counts, layers=layers, n_req=4,
+                            serving=_TINY_SERVING, prompt=(8, 16),
+                            new_tokens=(2, 5))
+    c = counts["phase20"]
+    assert c["K-DEC"] == m["decode_ticks"] * layers
+    assert c["K-SEG"] == m["prefill_calls"] * layers
+    assert c["K-BSHD"] == layers and c["K-MQ"] == 0
+    assert {"decode_tokens_per_s", "decode_tick_ms_p50", "decode_tick_ms_p90",
+            "ttft_ms_p50", "prefill_tokens_per_s", "weight_bytes",
+            "pool_bytes", "max_memory_allocated_gb", "build_s",
+            "prefill_batch_vs_packed", "prefill_batch_argmax_agree"} <= set(m)
+    assert m["weight_bytes"] > 0 and m["prefill_batch_shape"][0] == 4
+
+
+def test_llama_training_phases_rehearse_on_cpu(tiny_llama):
+    counts = {}
+    acc = cs.phase_llama_train_accuracy(counts, batch=1, seq=32)
+    assert acc["grad_worst_ratio"] == 0.0 and len(acc["steps"]) == 3
+    assert acc["nn_api"]["grad_worst_ratio"] == 0.0
+    assert acc["nn_api"]["k_proj_v_proj_worst_ratio"] == 0.0
+    assert acc["nn_api"]["launches"]["K-BDKV"] == 2
+    # phase 22 at its depth of 8 layers: per step 16 K-PACK (forward and
+    # the remat recompute), 8 K-DQ, 8 K-DKV
+    m = cs.phase_train(counts, tiny_llama, iters=2, batch=1, seq=32,
+                       mcfg=cs.llama_config(num_layers=8), tag="phase22",
+                       label="LLaMA")
+    assert m["layers"] == 8 and m["losses"][-1] < m["losses"][0]
+    assert counts["phase22"]["K-PACK"] == 2 * 16
+    assert counts["phase22"]["K-DQ"] == counts["phase22"]["K-DKV"] == 2 * 8
+    assert {"step_ms", "tokens_per_s", "mfu", "max_memory_allocated_gb",
+            "num_params", "flops_per_token"} <= set(m)
+
+
+def test_llama_kernel_rows_report_every_key(on_cpu):
+    rows = cs.llama_rows(on_cpu, {"dec": (2, (2, 1), 64),
+                                  "seg": (200, 2, 64),
+                                  "bshd": (2, 70, 2, 64),
+                                  "train": (2, 70, 2, 64)})
+    assert {k: len(v) for k, v in rows.items()} == {
+        "K-DEC": 2, "K-SEG": 1, "K-BSHD": 1, "K-PACK": 1, "K-DQ": 1,
+        "K-DKV": 1}
+    for name, rs in rows.items():
+        for r in rs:
+            assert _KEYS <= set(r), name
+            # bf16 inputs against the fp32 plain version: the checks' own
+            # tolerances (2e-2 paged and forward, 1e-2 training) held
+            assert r["bound_ms"] > 0 and r["max_abs_err"] <= 2e-2
+    assert cs.LLAMA_ROWS["train"] == (4, 2048, 32, 128)

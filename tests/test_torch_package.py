@@ -28,8 +28,10 @@ print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
 
-# modules the walk must reach (the training slice's among them)
+# modules the walk must reach (the training and LLaMA slices' among them)
 _MUST_IMPORT = {
+    "paddle_tpu_torch.models.llama",
+    "paddle_tpu_torch.parallel.llama_core",
     "paddle_tpu_torch.parallel.hybrid",
     "paddle_tpu_torch.parallel.transformer_core",
     "paddle_tpu_torch.utils.fault_injection",
@@ -46,7 +48,7 @@ def test_port_imports_without_jax_or_paddle_tpu():
                        env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
     n_modules = int(p.stdout.split()[0])
-    assert n_modules >= 19, p.stdout
+    assert n_modules >= 21, p.stdout
     assert _MUST_IMPORT <= set(p.stdout.split()[2:]), p.stdout
 
 
