@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 0,1,2  # device, build, kernel checks
     python3 chip_smoke.py --phases 0,1,2,14,15,16 # speculative and int8
     python3 chip_smoke.py --phases 0,1,2,19,20,21,22  # the LLaMA family
+    python3 chip_smoke.py --phases 0,1,23,24  # remat policies, durability
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -97,14 +98,41 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     pool bytes, peak memory;
 21. LLaMA training accuracy, fp32: ``llama_7b()`` width, 2 layers,
     GQA-8, 1 x 256: ``llama_loss`` grads and 3 trainer steps card vs CPU
-    (phase 7's gates), then ``LlamaForCausalLM`` + mean next-token CE +
-    ``backward()`` card vs CPU (phase 12's gate; ``k_proj``/``v_proj``
-    grads only through K-BDKV);
+    (phase 7's gates), one trainer step's loss and grads under
+    ``remat="names:attn_out_kernel,attn_lse,ffn_in"`` card vs CPU at the
+    same gates with K-PACK launched once a layer, then
+    ``LlamaForCausalLM`` + mean next-token CE + ``backward()`` card vs
+    CPU (phase 12's gate; ``k_proj``/``v_proj`` grads only through
+    K-BDKV);
 22. LLaMA training, bf16: ``HybridParallelTrainer`` at ``llama_7b()``
     width, 8 of 32 layers, on a fixed 4 x 2048 batch, as phase 8: losses
-    finite and falling, per step 16 K-PACK, 8 K-DQ and 8 K-DKV.
+    finite and falling, per step 16 K-PACK, 8 K-DQ and 8 K-DKV;
+23. remat policies, GPT-345M: fp32 at 2 x 256, for remat False,
+    ``"full"``, ``"dots"`` and ``"names:attn_out_kernel,attn_lse"``, the
+    trainer's loss and grads on the card against the CPU's under the same
+    policy (phase 7's gates) and against the card's ``remat=False`` grads
+    (<= 1e-6 of each leaf's largest); then ``bench.py``'s configuration
+    (bf16, lr 1e-4, warmup 10, total 1000, 56 x 1024) under True,
+    ``"dots"``, ``names:`` and ``names:`` with ``ffn_in`` (the fc_in
+    product saved), 1 warm-up and 5 timed steps each: step ms, tokens/s,
+    MFU, peak memory, launches per step (K-PACK 24 under both ``names:``
+    policies, 48 under True and ``"dots"``);
+24. durability drills: (a) GPT-345M bf16 with ``loss_scaling=True``,
+    ``scale_incr_every=2`` and a NaN at step 3: the scale follows its
+    schedule and the losses equal, bitwise, a clean run that skips that
+    batch, and the grads autograd returns under the scale are the plain
+    grads times it (<= 1e-6 of each leaf's largest); (b) a sync and an async checkpoint of the full GPT-345M train
+    state (bytes, save, snapshot, commit and load ms), and a fresh
+    trainer that loads it gives the next 3 losses bitwise; (c) a worker
+    process (2 layers at GPT-345M width, async saves every 2 steps) is
+    preempted by ``PADDLE_FI_PREEMPT_AT_STEP=3``, exits 118 with a
+    just-in-time checkpoint that verifies, and its relaunch resumes at
+    step 3 and ends with the params of an uninterrupted 6-step run,
+    bitwise; (d) two NaN steps in a row under ``max_consecutive_skips=2``
+    raise ``NumericalDivergenceError`` rolled back to the last checkpoint,
+    whose params the trainer then holds.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-22) sets the kernels' launch
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-24) sets the kernels' launch
 counts to 0 just before it and reads them just after. The line before the
 last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -112,18 +140,24 @@ last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
 import paddle_tpu_torch as ptt
+from paddle_tpu_torch.distributed import checkpoint as ckpt
 from paddle_tpu_torch.io.packing import pack_documents, packing_efficiency
-from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          GPTPretrainingCriterion, gpt_345m)
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 from paddle_tpu_torch.ops import kernels as K
@@ -133,7 +167,7 @@ from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
                                       NgramDrafter, Request, ServingConfig,
                                       ServingEngine, SpecDecodeConfig,
                                       repetitious_trace)
-from paddle_tpu_torch.utils.tree import flatten
+from paddle_tpu_torch.utils.tree import flatten, tree_map
 
 # published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
 # fp32 FLOP/s outside the tensor cores, HBM bytes/s
@@ -2041,6 +2075,33 @@ def phase_llama_load(counts, layers=None, n_req=64, serving=None,
     return m
 
 
+LLAMA_NAMES = "names:attn_out_kernel,attn_lse,ffn_in"
+
+
+def llama_names_step(mcfg, tcfg, batch, layers) -> dict:
+    """Phase 21's step under ``LLAMA_NAMES``: the trainer's loss and grads
+    card vs CPU at phase 7's gates, with K-PACK launched once a layer
+    (the saved forward outputs spare the recompute its kernel)."""
+    ncfg = dataclasses.replace(tcfg, remat=LLAMA_NAMES)
+    card = hybrid.HybridParallelTrainer(mcfg, ncfg)
+    cpu = hybrid.HybridParallelTrainer(mcfg, ncfg, device="cpu")
+    before = K.launch_counts()["K-PACK"]
+    loss_c, g_card = _loss_grads(card, *batch)
+    kpack = K.launch_counts()["K-PACK"] - before
+    loss_h, g_cpu = _loss_grads(cpu, *batch)
+    worst, leaf = worst_grad(g_card, g_cpu)
+    r = {"remat": LLAMA_NAMES, "loss_card": loss_c, "loss_cpu": loss_h,
+         "grad_worst_ratio": worst, "grad_worst_leaf": leaf, "k_pack": kpack}
+    log(f"  {json.dumps(r)}")
+    require(abs(loss_c - loss_h) <= 1e-4, "phase 21 names: loss card vs CPU")
+    require(worst <= 1e-4, f"phase 21 names: grads of {leaf} card vs CPU")
+    require(kpack == layers, f"phase 21 names: {kpack} K-PACK launches, "
+            f"expected {layers}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return r
+
+
 def phase_llama_train_accuracy(counts, layers=2, kv_heads=8, batch=1,
                                seq=256) -> dict:
     """LLaMA training accuracy, fp32, at ``llama_7b()`` width, ``layers``
@@ -2066,6 +2127,7 @@ def phase_llama_train_accuracy(counts, layers=2, kv_heads=8, batch=1,
     K.reset_launch_counts()
     t0 = time.perf_counter()
     m = card_vs_cpu(tcfg, batches[0], "llama_loss", mcfg, steps=batches[1:])
+    m["names"] = llama_names_step(mcfg, tcfg, batches[0], layers)
     card = llama_model(mcfg, DEV, torch.float32, 21).train()
     cpu = LlamaForCausalLM(mcfg, device="cpu").train()
     cpu.load_state_dict(card.state_dict())
@@ -2082,6 +2144,460 @@ def phase_llama_train_accuracy(counts, layers=2, kv_heads=8, batch=1,
     for name in ("K-PACK", "K-DQ", "K-DKV"):
         require(counts["phase21"][name] > 0, f"phase 21 never launched {name}")
     m["nn_api"] = nn_acc
+    return m
+
+
+# -- phases 23-24: the remat policies and the durability drills -------------
+
+ACC_POLICIES = (False, "full", "dots", "names:attn_out_kernel,attn_lse")
+SPEED_POLICIES = (True, "dots", "names:attn_out_kernel,attn_lse",
+                  "names:attn_out_kernel,attn_lse,ffn_in")
+BENCH_TRAINER = dict(learning_rate=1e-4, warmup_steps=10, total_steps=1000)
+
+
+def policy_tag(remat) -> str:
+    return {True: "true", False: "false", "full": "full", "dots": "dots",
+            SPEED_POLICIES[-1]: "names_ffn_in"}.get(remat, "names")
+
+
+def bench_setup(remat, shape=(56, 1024)):
+    """A bf16 trainer at ``bench.py``'s config under ``remat`` and its
+    batch on the card: random tokens and labels of ``shape`` (seed 0)."""
+    mcfg = model_config()
+    trainer = hybrid.HybridParallelTrainer(
+        mcfg, hybrid.TrainerConfig(remat=remat, **BENCH_TRAINER))
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, mcfg.vocab_size, shape)
+    labs = rng.randint(0, mcfg.vocab_size, shape)
+    return trainer, trainer.shard_batch(toks, labs)
+
+
+def phase_remat(counts, peaks, acc=(2, 256), speed=(56, 1024),
+                steps=5) -> dict:
+    """Phase 23: the remat policies at GPT-345M. (a) fp32 at ``acc``: per
+    policy the trainer's loss and grads on the card against the CPU's
+    under the same policy (phase 7's gates) and against the card's own
+    ``remat=False`` grads (<= 1e-6 of each leaf's largest); (b) bf16 at
+    ``bench.py``'s config and ``speed`` batch: per policy 1 warm-up and
+    ``steps`` timed steps, K-PACK 24 a step under the ``names:`` policies
+    and 48 under True and ``"dots"``."""
+    mcfg = model_config()
+    layers = mcfg.num_layers
+    log(f"[23] remat policies: GPT-345M, fp32 {acc[0]} x {acc[1]} card vs "
+        f"CPU, then bf16 {speed[0]} x {speed[1]} (bench.py's config)")
+    t_phase = time.perf_counter()
+    tokens, labels = train_batch(np.random.RandomState(23), *acc,
+                                 mcfg.vocab_size)
+    out = {"accuracy": {}, "speed": {}}
+    ref = None
+    K.reset_launch_counts()
+    for remat in ACC_POLICIES:
+        tcfg = hybrid.TrainerConfig(compute_dtype=torch.float32, remat=remat)
+        card = hybrid.HybridParallelTrainer(mcfg, tcfg)
+        cpu = hybrid.HybridParallelTrainer(mcfg, tcfg, device="cpu")
+        before = K.launch_counts()["K-PACK"]
+        loss_c, g_card = _loss_grads(card, tokens, labels)
+        kpack = K.launch_counts()["K-PACK"] - before
+        loss_h, g_cpu = _loss_grads(cpu, tokens, labels)
+        worst, leaf = worst_grad(g_card, g_cpu)
+        ref = g_card if ref is None else ref
+        gap, gap_leaf = worst_grad(g_card, ref)
+        r = {"loss_card": loss_c, "loss_cpu": loss_h, "grad_worst_ratio":
+             worst, "grad_worst_leaf": leaf, "vs_no_remat": gap,
+             "vs_no_remat_bitwise": all(torch.equal(g_card[k], ref[k])
+                                        for k in ref),
+             "k_pack": kpack}
+        log(f"  {remat!r}: {json.dumps(r)}")
+        require(abs(loss_c - loss_h) <= 1e-4, f"phase 23 {remat!r} loss: "
+                "card vs CPU")
+        require(worst <= 1e-4, f"phase 23 {remat!r} grads of {leaf}: card "
+                "vs CPU")
+        require(gap <= 1e-6, f"phase 23 {remat!r} grads of {gap_leaf}: "
+                "against remat=False on the card")
+        want = layers if remat in (False, ACC_POLICIES[-1]) else 2 * layers
+        require(kpack == want, f"phase 23 {remat!r}: {kpack} K-PACK "
+                f"launches, expected {want}")
+        out["accuracy"][str(remat)] = r
+        del card, cpu
+        torch.cuda.empty_cache()
+    counts["phase23_acc"] = K.launch_counts()
+    batch, seq = speed
+    for remat in SPEED_POLICIES:
+        tag = f"phase23_{policy_tag(remat)}"
+        trainer, (t_dev, l_dev) = bench_setup(remat, speed)
+        first = trainer.step_presharded(t_dev, l_dev)       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [trainer.step_presharded(t_dev, l_dev)
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[tag] = K.launch_counts()
+        losses = [float(first)] + [float(x) for x in losses]
+        n = trainer.num_params()
+        flops_tok = 6 * n + 12 * layers * mcfg.hidden_size * seq
+        tok_s = batch * seq / (wall / steps)
+        m = {"remat": remat, "batch": batch, "seq": seq,
+             "step_ms": wall / steps * 1e3, "tokens_per_s": tok_s,
+             "mfu": tok_s * flops_tok / peaks["bf16"],
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "losses": losses,
+             "launches_per_step": {k: counts[tag][k] / steps
+                                   for k in ("K-PACK", "K-DQ", "K-DKV")}}
+        log("  " + json.dumps(m))
+        require(all(np.isfinite(losses)), f"phase 23 {remat!r}: non-finite "
+                "loss")
+        per_step = layers if remat in SPEED_POLICIES[2:] else 2 * layers
+        want = {"K-PACK": per_step, "K-DQ": layers, "K-DKV": layers}
+        for name, k in want.items():
+            require(counts[tag][name] == k * steps,
+                    f"phase 23 {remat!r}: {counts[tag][name]} {name} "
+                    f"launches in {steps} steps, expected {k} a step")
+        out["speed"][str(remat)] = m
+        del trainer
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  {out['s']:.1f} s")
+    return out
+
+
+class DrillLoader:
+    """A dataloader for the drills: batch ``i`` is drawn from seed
+    ``seed + i``; ``state_dict`` is its cursor, as the trainer's
+    checkpoints expect of a dataloader."""
+
+    def __init__(self, seed, batch, seq, vocab):
+        self.seed, self.batch, self.seq, self.vocab = seed, batch, seq, vocab
+        self.cursor = 0
+
+    def next(self):
+        out = train_batch(np.random.RandomState(self.seed + self.cursor),
+                          self.batch, self.seq, self.vocab)
+        self.cursor += 1
+        return out
+
+    def state_dict(self):
+        return {"cursor": self.cursor}
+
+    def load_state_dict(self, sd):
+        self.cursor = int(sd["cursor"])
+
+
+def drill_config(**kw):
+    return hybrid.TrainerConfig(learning_rate=3e-4, warmup_steps=2,
+                                total_steps=100, **kw)
+
+
+def params_equal(a, b) -> bool:
+    """Bitwise equality of two param trees (on any devices)."""
+    fa, fb = dict(flatten(a)), dict(flatten(b))
+    return fa.keys() == fb.keys() and all(
+        torch.equal(fa[k].cpu(), fb[k].cpu()) for k in fa)
+
+
+def scale_schedule(cfg, steps, bad) -> list:
+    """The loss scale after each of ``steps`` steps when the steps in
+    ``bad`` are skipped: halved on a skip (floor 1), doubled after
+    ``scale_incr_every`` finite steps in a row."""
+    s, good, out = cfg.init_loss_scale, 0, []
+    for i in range(1, steps + 1):
+        if i in bad:
+            s, good = max(s * cfg.scale_decr_ratio, 1.0), 0
+        else:
+            good += 1
+            if good >= cfg.scale_incr_every:
+                s, good = s * cfg.scale_incr_ratio, 0
+        out.append(s)
+    return out
+
+
+def scaled_grads_gap(trainer, tokens, labels) -> tuple:
+    """The grads autograd returns for ``trainer``'s loss times its loss
+    scale against the plain loss's grads times the scale: (worst gap
+    over each leaf's largest scaled grad, bitwise equal, the scale)."""
+    seen = []
+    grad = torch.autograd.grad
+
+    def spy(*args, **kwargs):
+        seen.append(grad(*args, **kwargs))
+        return seen[-1]
+
+    tok, lab = trainer.shard_batch(tokens, labels)
+    scale = trainer.guard["loss_scale"]
+    with mock.patch.object(torch.autograd, "grad", spy):
+        trainer.loss_and_grads(trainer.params, tok, lab)
+        trainer.loss_and_grads(trainer.params, tok, lab, scale=scale)
+    s = float(scale)
+    pairs = list(zip(seen[1], seen[0]))
+    worst = max(float((a - b * s).abs().max() / a.abs().max().clamp_min(
+        torch.finfo(a.dtype).tiny)) for a, b in pairs)
+    return worst, all(torch.equal(a, b * s) for a, b in pairs), s
+
+
+def drill_loss_scaling(counts, batch=4, seq=1024, steps=6, nan_step=3):
+    """(a) ``loss_scaling=True``, ``scale_incr_every=2``, a NaN at
+    ``nan_step``: the scale follows ``scale_schedule``, and every loss
+    equals, bitwise, a clean run's that skips that batch; the grads
+    autograd returns under the scale are the plain grads times it."""
+    mcfg = model_config()
+    tcfg = drill_config(loss_scaling=True, scale_incr_every=2)
+    rng = np.random.RandomState(24)
+    batches = [train_batch(rng, batch, seq, mcfg.vocab_size)
+               for _ in range(steps)]
+    K.reset_launch_counts()
+    with mock.patch.dict(os.environ, PADDLE_FI_NAN_AT_STEP=str(nan_step)):
+        t = hybrid.HybridParallelTrainer(mcfg, tcfg)
+        losses, scales = [], []
+        for b in batches:
+            losses.append(float(t.step(*b)))
+            scales.append(float(t.guard["loss_scale"]))
+        state = t.anomaly_state()
+    clean = hybrid.HybridParallelTrainer(mcfg, tcfg)
+    gap, bitwise, scale = scaled_grads_gap(clean, *batches[0])
+    kept = [float(clean.step(*b)) for i, b in enumerate(batches, 1)
+            if i != nan_step]
+    counts["phase24_scale"] = K.launch_counts()
+    want = scale_schedule(tcfg, steps, {nan_step})
+    got = losses[:nan_step - 1] + losses[nan_step:]
+    m = {"scales": scales, "schedule": want, "losses": losses,
+         "clean_losses": kept, "anomaly": state,
+         "scaler": t.grad_scaler_state_dict(),
+         "scaled_grads": {"scale": scale, "worst_gap": gap,
+                          "bitwise": bitwise}}
+    log("  (a) loss scaling: " + json.dumps(m))
+    require(scales == want, "phase 24 (a): loss scale off its schedule")
+    require(scale == tcfg.init_loss_scale and gap <= 1e-6, "phase 24 (a): "
+            "autograd's grads are not the plain grads times the scale")
+    require(not np.isfinite(losses[nan_step - 1])
+            and state["skips_total"] == 1, "phase 24 (a): the NaN step was "
+            "not skipped")
+    require(got == kept, "phase 24 (a): losses differ from the clean run "
+            "that skips the batch")
+    require(params_equal(t.params, clean.params), "phase 24 (a): params "
+            "differ from the clean run")
+    del t, clean
+    torch.cuda.empty_cache()
+    return m
+
+
+def drill_checkpoint(counts, batch=4, seq=1024, before=2, after=3):
+    """(b) A sync save after ``before`` steps, one more step, an async
+    save (two checkpoints of the full train state on disk), then a fresh
+    trainer loads the newest: its next ``after`` losses equal the
+    uninterrupted run's bitwise."""
+    mcfg = model_config()
+    tcfg = drill_config()
+    loader = DrillLoader(240, batch, seq, mcfg.vocab_size)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    K.reset_launch_counts()
+    try:
+        t = hybrid.HybridParallelTrainer(mcfg, tcfg)
+        for _ in range(before):
+            t.step(*loader.next())
+        t.anomaly_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync_path = t.save_checkpoint(root, t.global_step, keep_last_n=2,
+                                      dataloader=loader)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        t.step(*loader.next())
+        t.anomaly_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        async_path = t.save_checkpoint(root, t.global_step, keep_last_n=2,
+                                       dataloader=loader, async_save=True)
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        t.flush_checkpoints()
+        commit_ms = t._async_mgrs[root].last_commit_s * 1e3
+        ok = [ckpt.verify_checkpoint(p) for p in (sync_path, async_path)]
+        nbytes = sum(os.path.getsize(os.path.join(async_path, f))
+                     for f in os.listdir(async_path))
+        resume_cursor = loader.cursor
+        want = [float(t.step(*loader.next())) for _ in range(after)]
+        del t
+        torch.cuda.empty_cache()
+        fresh = hybrid.HybridParallelTrainer(mcfg, tcfg)
+        loader.load_state_dict({"cursor": 0})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = fresh.load_checkpoint(root, dataloader=loader)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        got = [float(fresh.step(*loader.next())) for _ in range(after)]
+        on_disk = sorted(os.listdir(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts["phase24_ckpt"] = K.launch_counts()
+    m = {"bytes": nbytes, "sync_save_ms": sync_ms,
+         "async_snapshot_ms": snapshot_ms, "async_commit_ms": commit_ms,
+         "load_ms": load_ms, "verify": ok, "on_disk": on_disk,
+         "resumed_step": step, "losses": want, "resumed_losses": got}
+    log("  (b) checkpoint: " + json.dumps(m))
+    require(all(v[0] for v in ok), f"phase 24 (b): {ok}")
+    require(step == before + 1 and loader.cursor == resume_cursor + after,
+            "phase 24 (b): resumed at the wrong step or data cursor")
+    require(got == want, "phase 24 (b): resumed losses differ from the "
+            "uninterrupted run's")
+    del fresh
+    torch.cuda.empty_cache()
+    return m
+
+
+def drill_train(spec, root=None):
+    """The preemption drill's training loop (run in a worker process, and
+    uninterrupted in this one): ``spec["steps"]`` steps of a
+    ``spec["model"]`` GPT on ``spec["device"]``, an async save every
+    ``spec["save_every"]`` steps under ``root`` (with the preemption
+    guard armed there), resuming from ``root`` when it holds a
+    checkpoint. Returns ``(trainer, resumed_at)``."""
+    mcfg = GPTConfig(**spec["model"])
+    t = hybrid.HybridParallelTrainer(mcfg, drill_config(),
+                                     device=spec["device"])
+    loader = DrillLoader(2400, spec["batch"], spec["seq"], mcfg.vocab_size)
+    start = 0
+    if root is not None:
+        t.enable_preemption_guard(root, dataloader=loader)
+        start = t.load_checkpoint(root, dataloader=loader) or 0
+    while t.global_step < spec["steps"]:
+        t.step(*loader.next())
+        if root is not None and t.global_step % spec["save_every"] == 0:
+            t.save_checkpoint(root, t.global_step, dataloader=loader,
+                              async_save=True)
+    t.flush_checkpoints()
+    return t, start
+
+
+def drill_worker(spec_json: str) -> int:
+    """``chip_smoke.py --drill-worker SPEC``: one generation of the
+    preemption drill; writes its params to ``spec["out"]`` (``.npz``)."""
+    spec = json.loads(spec_json)
+    t, start = drill_train(spec, spec["root"])
+    np.savez(spec["out"], **{"/".join(path): p.cpu().numpy()
+                             for path, p in flatten(t.params)})
+    print(json.dumps({"resumed_at": start, "global_step": t.global_step}),
+          flush=True)
+    return 0
+
+
+def drill_preemption(counts, layers=2, batch=2, seq=512, steps=6,
+                     preempt_at=3, save_every=2) -> dict:
+    """(c) A worker process trains ``layers`` layers at GPT-345M width
+    with async saves every ``save_every`` steps and
+    ``PADDLE_FI_PREEMPT_AT_STEP``: it exits 118 with a just-in-time
+    checkpoint that verifies; the relaunch resumes there, and its params
+    after ``steps`` steps equal an uninterrupted run's bitwise."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    cfg = dataclasses.replace(model_config(), num_layers=layers)
+    spec = {"model": dataclasses.asdict(cfg), "device": DEV.type,
+            "batch": batch, "seq": seq, "steps": steps,
+            "save_every": save_every, "root": os.path.join(work, "ckpt"),
+            "out": os.path.join(work, "params.npz")}
+    env = dict(os.environ, PADDLE_FI_PREEMPT_AT_STEP=str(preempt_at),
+               PADDLE_FI_DIR=os.path.join(work, "fi"))
+    cmd = [sys.executable, os.path.abspath(__file__), "--drill-worker",
+           json.dumps(spec)]
+    try:
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            p = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                               timeout=600)
+            runs.append({"rc": p.returncode,
+                         "s": time.perf_counter() - t0,
+                         "stdout": p.stdout.strip()[-300:],
+                         "stderr": p.stderr.strip()[-600:]})
+        jit = os.path.join(spec["root"], f"step-{preempt_at}")
+        jit_ok = ckpt.verify_checkpoint(jit)
+        got = dict(np.load(spec["out"]))
+        K.reset_launch_counts()
+        ref, _ = drill_train(spec)
+        want = {"/".join(path): p.cpu().numpy()
+                for path, p in flatten(ref.params)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts["phase24_preempt"] = K.launch_counts()
+    resumed = json.loads(runs[1]["stdout"].splitlines()[-1]) \
+        if runs[1]["rc"] == 0 else None
+    m = {"runs": runs, "jit_checkpoint": jit_ok, "relaunch": resumed,
+         "params_bitwise": got.keys() == want.keys() and all(
+             np.array_equal(got[k], want[k]) for k in want)}
+    log("  (c) preemption: " + json.dumps(m))
+    require(runs[0]["rc"] == hybrid.PREEMPTED_EXIT_CODE,
+            f"phase 24 (c): the preempted worker exited {runs[0]['rc']}, "
+            f"not {hybrid.PREEMPTED_EXIT_CODE}: {runs[0]['stderr']}")
+    require(jit_ok[0], f"phase 24 (c): just-in-time checkpoint {jit_ok}")
+    require(runs[1]["rc"] == 0 and resumed["resumed_at"] == preempt_at,
+            f"phase 24 (c): the relaunch did not resume at {preempt_at}: "
+            f"{runs[1]}")
+    require(m["params_bitwise"], "phase 24 (c): params after the relaunch "
+            "differ from the uninterrupted run's")
+    del ref
+    torch.cuda.empty_cache()
+    return m
+
+
+def drill_rollback(counts, layers=2, batch=2, seq=512, saved=2) -> dict:
+    """(d) ``max_consecutive_skips=2`` and NaNs at two steps in a row after
+    a save at step ``saved``: the trainer raises
+    ``NumericalDivergenceError`` with ``rolled_back_to == saved``, and its
+    params are the checkpoint's."""
+    mcfg = dataclasses.replace(model_config(), num_layers=layers)
+    loader = DrillLoader(2440, batch, seq, mcfg.vocab_size)
+    root = tempfile.mkdtemp(prefix="chip_smoke_rollback_")
+    K.reset_launch_counts()
+    err = None
+    try:
+        t = hybrid.HybridParallelTrainer(
+            mcfg, drill_config(max_consecutive_skips=2))
+        for _ in range(saved):
+            t.step(*loader.next())
+        t.save_checkpoint(root, t.global_step)
+        at_save = tree_map(lambda p: p.detach().cpu().clone(), t.params)
+        bad = f"{saved + 1},{saved + 2}"
+        with mock.patch.dict(os.environ, PADDLE_FI_NAN_AT_STEP=bad):
+            try:
+                for _ in range(4):
+                    t.step(*loader.next())
+                t.anomaly_state()
+            except hybrid.NumericalDivergenceError as e:
+                err = e
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts["phase24_rollback"] = K.launch_counts()
+    m = {"raised": err is not None, "message": str(err)[:200],
+         "rolled_back_to": getattr(err, "rolled_back_to", None),
+         "global_step": t.global_step,
+         "params_equal_checkpoint": params_equal(t.params, at_save)}
+    log("  (d) rollback: " + json.dumps(m))
+    require(err is not None and err.rolled_back_to == saved,
+            f"phase 24 (d): no rollback to step {saved}: {m}")
+    require(m["params_equal_checkpoint"] and t.global_step == saved,
+            "phase 24 (d): params after the rollback differ from the "
+            "checkpoint's")
+    del t
+    torch.cuda.empty_cache()
+    return m
+
+
+def phase_durability(counts, scale_shape=(4, 1024), ckpt_shape=(4, 1024),
+                     drill_shape=(2, 512)) -> dict:
+    """Phase 24: loss scaling, a checkpoint round trip of the full train
+    state, a preemption drill across two processes, and a divergence
+    rollback, each bitwise against its uninterrupted run."""
+    log("[24] durability drills: GPT-345M loss scaling and checkpoints, "
+        "preemption and rollback at 2 layers")
+    t0 = time.perf_counter()
+    m = {"loss_scaling": drill_loss_scaling(counts, *scale_shape),
+         "checkpoint": drill_checkpoint(counts, *ckpt_shape),
+         "preemption": drill_preemption(counts, batch=drill_shape[0],
+                                        seq=drill_shape[1]),
+         "rollback": drill_rollback(counts, batch=drill_shape[0],
+                                    seq=drill_shape[1])}
+    m["s"] = time.perf_counter() - t0
+    log(f"  {m['s']:.1f} s")
     return m
 
 
@@ -2192,10 +2708,16 @@ def phase_nn_profile(steps=3, shape=(4, 1024)) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22",
-                    help="comma-separated; 6, 9, 13, 17 and 18 (profiles) "
-                    "are opt-in")
+                    default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
+                    "23,24",
+                    help="comma-separated; 6, 9, 13, 17 and 18 "
+                    "(profiles) are opt-in")
+    ap.add_argument("--drill-worker", metavar="SPEC",
+                    help="run one generation of phase 24's preemption drill "
+                    "(JSON spec; used by phase 24 itself)")
     args = ap.parse_args()
+    if args.drill_worker:
+        return drill_worker(args.drill_worker)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2279,10 +2801,15 @@ def main() -> int:
         e2e["llama_train"] = phase_train(
             counts, peaks, batch=4, seq=2048, mcfg=llama_config(num_layers=8),
             tag="phase22", label="LLaMA-7B width, 8 of 32 layers")
+    if 23 in phases:
+        e2e["remat"] = phase_remat(counts, peaks)
+    if 24 in phases:
+        e2e["durability"] = phase_durability(counts)
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
-    # (16) serving, and the LLaMA phases (19-22), each phase's runs counted
-    main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22)
+    # (16) serving, the LLaMA phases (19-22), the remat policies (23) and
+    # the durability drills (24), each phase's runs counted
+    main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24)
 
     def launched(which):
         return {name: sum(c.get(name, 0) for key, c in counts.items()

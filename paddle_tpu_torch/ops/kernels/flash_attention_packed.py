@@ -21,11 +21,14 @@ Segment ids: position i attends j only where ``seg[i] == seg[j]`` and
 ``prefill_packed`` (every admitted request packed into one
 ``(1, T, NH*D)`` row) and the packed-sequence trainer's forward, which
 hands q, k, v over as column slices of the fused qkv. K-PACK, K-DQ and
-K-DKV are the
-training path, tied together by ``FlashAttentionPacked``
-(``flash_attention_packed``); K-SEG, K-SDQ and K-SDKV are the packed-
-sequence trainer's, tied together by ``FlashAttentionPackedSeg``
-(``flash_attention_packed_seg``). Each backward computes
+K-DKV are the training path (``flash_attention_packed``); K-SEG, K-SDQ
+and K-SDKV are the packed-sequence trainer's
+(``flash_attention_packed_seg``), tied together by
+``FlashAttentionPacked`` and ``FlashAttentionPackedSeg``. Each forward
+is an operator, ``paddle_tpu_torch::packed_fwd`` and
+``paddle_tpu_torch::seg_fwd``, whose outputs o and lse a remat policy
+can save (``OUTPUT_NAMES``, the JAX package's ``attn_out_kernel`` and
+``attn_lse``). Each backward computes
 ``delta = sum_d(dO * O)`` per head in fp32 and then launches its dQ and
 dK/dV kernels. The forward sources are ``paddle_tpu_torch/csrc/
 flash_attention_fwd.cu`` (K-SEG, K-PACK, shared with K-BSHD), the
@@ -68,7 +71,8 @@ __all__ = ["flash_attention_packed_segmented", "segment_attention_ref",
            "segment_dq_ref", "segment_dkv_ref", "packed_fwd", "packed_dq",
            "packed_dkv", "seg_fwd", "seg_dq", "seg_dkv",
            "FlashAttentionPacked", "flash_attention_packed",
-           "FlashAttentionPackedSeg", "flash_attention_packed_seg"]
+           "FlashAttentionPackedSeg", "flash_attention_packed_seg",
+           "OUTPUT_NAMES", "FORWARD_OPS", "PLAIN_CALLS"]
 
 # kernel launches since the last reset (each wrapper adds one to its
 # kernel's count per launch)
@@ -198,14 +202,22 @@ def segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
     return _dkv_ref(q, k, v, do, lse, delta, nh, True, scale, segment_ids)
 
 
+def _kernel_device(what, q):
+    """A forward wrapper's device rule, checked before its op is called:
+    the CPU takes the plain version, CUDA the kernel, and any other
+    device (``meta`` included, whose fake would otherwise answer) has no
+    kernel."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {q.device}")
+
+
 def packed_fwd(q, k, v, nh, causal=True, scale=None):
     """Packed flash forward: the plain version for CPU tensors, K-PACK
-    for CUDA tensors. Returns ``(o, lse)``."""
-    if q.device.type == "cpu":
-        return packed_attention_ref(q, k, v, nh, causal=causal, scale=scale)
-    out = _launch_fwd("packed_fwd", q, k, v, nh, causal, scale)
-    LAUNCHES["K-PACK"] += 1
-    return out
+    for CUDA tensors. Returns ``(o, lse)``, the outputs of the op
+    ``paddle_tpu_torch::packed_fwd``."""
+    _kernel_device("packed_fwd", q)
+    return torch.ops.paddle_tpu_torch.packed_fwd(
+        q, k, v, nh, bool(causal), float(_scale_of(q, nh, scale)))
 
 
 def packed_dq(q, k, v, do, lse, delta, nh, causal=True, scale=None):
@@ -235,12 +247,11 @@ def packed_dkv(q, k, v, do, lse, delta, nh, causal=True, scale=None):
 def seg_fwd(q, k, v, segment_ids, nh, scale=None):
     """Segment-masked causal forward over ``(B, S, NH*D)`` whose q, k, v
     may be column slices of the fused qkv: the plain version for CPU
-    tensors, K-SEG for CUDA tensors. Returns ``(o, lse)``."""
-    if q.device.type == "cpu":
-        return segment_attention_ref(q, k, v, segment_ids, nh, scale=scale)
-    out = _launch_fwd("seg_fwd", q, k, v, nh, True, scale, segment_ids)
-    LAUNCHES["K-SEG"] += 1
-    return out
+    tensors, K-SEG for CUDA tensors. Returns ``(o, lse)``, the outputs of
+    the op ``paddle_tpu_torch::seg_fwd``."""
+    _kernel_device("seg_fwd", q)
+    return torch.ops.paddle_tpu_torch.seg_fwd(
+        q, k, v, segment_ids, nh, float(_scale_of(q, nh, scale)))
 
 
 # the JAX package's name for the forward
@@ -398,16 +409,91 @@ def _delta(do, o, nh):
     return (do.float() * o.float()).reshape(*o.shape[:2], nh, -1).sum(-1)
 
 
+# -- the two training forwards as ops a remat policy can name ---------------
+#
+# ``torch.utils.checkpoint``'s selective policies see dispatcher-level
+# ops, not Python functions: registered as operators of the
+# ``paddle_tpu_torch`` library, the forwards are visible to them. Their
+# two outputs are the values the JAX package tags ``attn_out_kernel`` (o)
+# and ``attn_lse`` (lse): a policy that saves the op keeps both, and the
+# recompute then never runs the kernel again. The CUDA implementation
+# launches the kernel and counts it in ``LAUNCHES``, the CPU one runs the
+# plain version and counts it in ``PLAIN_CALLS``, the Meta one gives the
+# shapes. ``FlashAttentionPacked`` and ``FlashAttentionPackedSeg`` call
+# the ops in their forwards and carry the autograd formula (the JAX
+# package's custom_vjp): ``delta`` per head in fp32, then the dQ and
+# dK/dV kernels. The operators are defined through ``torch.library``'s
+# ``Library`` rather than ``torch.library.custom_op``, whose per-call
+# checks cost several times the host time of the rest of the launch.
+
+# the names the JAX package gives the forward op's outputs
+OUTPUT_NAMES = ("attn_out_kernel", "attn_lse")
+
+# plain-version forward calls since the last reset (CPU tensors), so the
+# CPU tests count what a remat policy replays as the card counts launches
+PLAIN_CALLS = {"K-PACK": 0, "K-SEG": 0}
+
+_LIB = torch.library.Library("paddle_tpu_torch", "DEF")
+_LIB.define("packed_fwd(Tensor q, Tensor k, Tensor v, int nh, bool causal, "
+            "float scale) -> (Tensor, Tensor)")
+_LIB.define("seg_fwd(Tensor q, Tensor k, Tensor v, Tensor segment_ids, "
+            "int nh, float scale) -> (Tensor, Tensor)")
+
+
+def _packed_fwd_cpu(q, k, v, nh, causal, scale):
+    PLAIN_CALLS["K-PACK"] += 1
+    return packed_attention_ref(q, k, v, nh, causal=causal, scale=scale)
+
+
+def _packed_fwd_cuda(q, k, v, nh, causal, scale):
+    out = _launch_fwd("packed_fwd", q, k, v, nh, causal, scale)
+    LAUNCHES["K-PACK"] += 1
+    return out
+
+
+def _seg_fwd_cpu(q, k, v, segment_ids, nh, scale):
+    PLAIN_CALLS["K-SEG"] += 1
+    return segment_attention_ref(q, k, v, segment_ids, nh, scale=scale)
+
+
+def _seg_fwd_cuda(q, k, v, segment_ids, nh, scale):
+    out = _launch_fwd("seg_fwd", q, k, v, nh, True, scale, segment_ids)
+    LAUNCHES["K-SEG"] += 1
+    return out
+
+
+def _fwd_meta(q, nh):
+    b, sq, hp = q.shape
+    return (q.new_empty((b, sq, hp)),
+            q.new_empty((b, sq, nh), dtype=torch.float32))
+
+
+for _name, _cpu, _cuda, _meta in (
+        ("packed_fwd", _packed_fwd_cpu, _packed_fwd_cuda,
+         lambda q, k, v, nh, causal, scale: _fwd_meta(q, nh)),
+        ("seg_fwd", _seg_fwd_cpu, _seg_fwd_cuda,
+         lambda q, k, v, segment_ids, nh, scale: _fwd_meta(q, nh))):
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _meta, "Meta")
+
+# the ops a remat policy saves to keep both named outputs
+FORWARD_OPS = (torch.ops.paddle_tpu_torch.packed_fwd.default,
+               torch.ops.paddle_tpu_torch.seg_fwd.default)
+
+
 class FlashAttentionPacked(torch.autograd.Function):
     """Packed flash attention with its backward (mirrors the JAX
-    package's ``_flash_packed`` custom_vjp): the forward runs K-PACK and
-    saves ``(q, k, v, o, lse)``; the backward computes ``delta`` per head
-    in fp32 and runs K-DQ and K-DKV. On CPU tensors each step is its
-    plain version."""
+    package's ``_flash_packed`` custom_vjp): the forward is the op
+    ``paddle_tpu_torch::packed_fwd`` (K-PACK) and saves
+    ``(q, k, v, o, lse)``; the backward computes ``delta`` per head in
+    fp32 and runs K-DQ and K-DKV. On CPU tensors each step is its plain
+    version."""
 
     @staticmethod
     def forward(ctx, q, k, v, nh, causal, scale):
-        o, lse = packed_fwd(q, k, v, nh, causal=causal, scale=scale)
+        o, lse = torch.ops.paddle_tpu_torch.packed_fwd(q, k, v, nh, causal,
+                                                       scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.attn = (nh, causal, scale)
         return o
@@ -430,21 +516,23 @@ def flash_attention_packed(q, k, v, nh, causal=True, scale=None):
     if q.shape[-1] % nh:
         raise ValueError(f"hidden {q.shape[-1]} not divisible by num_heads "
                          f"{nh}")
-    scale = _scale_of(q, nh, scale)
-    return FlashAttentionPacked.apply(q, k, v, nh, causal, scale)
+    _kernel_device("flash_attention_packed", q)
+    scale = float(_scale_of(q, nh, scale))
+    return FlashAttentionPacked.apply(q, k, v, nh, bool(causal), scale)
 
 
 class FlashAttentionPackedSeg(torch.autograd.Function):
     """Segment-masked causal flash attention with its backward (mirrors
     the JAX package's ``_flash_packed_seg`` custom_vjp for self-attention):
-    the forward runs K-SEG and saves ``(q, k, v, seg, o, lse)``; the
-    backward computes ``delta`` per head in fp32 and runs K-SDQ and
-    K-SDKV. The ids take no gradient. On CPU tensors each step is its
-    plain version."""
+    the forward is the op ``paddle_tpu_torch::seg_fwd`` (K-SEG) and saves
+    ``(q, k, v, seg, o, lse)``; the backward computes ``delta`` per head
+    in fp32 and runs K-SDQ and K-SDKV. The ids take no gradient. On CPU
+    tensors each step is its plain version."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, nh, scale):
-        o, lse = seg_fwd(q, k, v, segment_ids, nh, scale=scale)
+        o, lse = torch.ops.paddle_tpu_torch.seg_fwd(q, k, v, segment_ids, nh,
+                                                    scale)
         ctx.save_for_backward(q, k, v, segment_ids, o, lse)
         ctx.attn = (nh, scale)
         return o
@@ -471,6 +559,7 @@ def flash_attention_packed_seg(q, k, v, segment_ids, nh, scale=None):
     if tuple(segment_ids.shape) != tuple(q.shape[:2]):
         raise ValueError(f"segment_ids shape {tuple(segment_ids.shape)} != "
                          f"batch/seq {tuple(q.shape[:2])}")
+    _kernel_device("flash_attention_packed_seg", q)
     seg = segment_ids.to(torch.int32).contiguous()
-    scale = _scale_of(q, nh, scale)
+    scale = float(_scale_of(q, nh, scale))
     return FlashAttentionPackedSeg.apply(q, k, v, seg, nh, scale)

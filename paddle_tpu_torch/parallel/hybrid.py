@@ -14,10 +14,27 @@ the device; the host reads one step's skip flag after the next step has
 been enqueued (lag 1), through a pinned copy and a CUDA event, so the
 guard adds no other synchronisation.
 
+Dynamic loss scaling (``loss_scaling=True``) lives in the same guard,
+on the device: the loss is multiplied by the scale and the grads divided
+by it; a skipped step halves the scale (floored at 1.0), and
+``scale_incr_every`` finite steps in a row double it.
+
+A checkpoint is the full train state in the JAX package's layout and
+key names (``_flat_state``: ``['params'][...]``, ``['opt'][...]``,
+``guard/*``, ``meta/global_step``, ``data/cursor_json``), written
+atomically by ``distributed.checkpoint`` (``save_checkpoint``, sync or
+async) and restored by ``load_checkpoint``; a checkpoint of either
+package resumes in the other. ``enable_preemption_guard`` turns SIGTERM
+or SIGUSR1 into a just-in-time checkpoint and :class:`TrainingPreempted`
+(exit 118) at the next step boundary, and a divergence abort rolls the
+state back to the newest valid checkpoint before it raises. The port
+has no framework RNG stream yet, so it writes no ``rng/key`` and
+ignores one it loads (neither loss draws random numbers).
+
 Only the single-device branch of the JAX trainer is ported. These raise
 ``NotImplementedError``, naming the slice that brings them: any mesh axis
-(``dp``, ``mp``, ``pp``, ``sharding``, ``sep``) above 1 (multi-device),
-``loss_scaling``, checkpoints and preemption, and telemetry, the memory
+(``dp``, ``mp``, ``pp``, ``sharding``, ``sep``) above 1 and the
+cross-rank consistency check (multi-device), and telemetry, the memory
 plan and the HTTP endpoint. ``TrainerConfig`` keeps every field and
 default of the JAX package's; ``telemetry`` and ``compile_ledger`` are
 accepted and record nothing in this slice (PyTorch runs eagerly, there
@@ -26,21 +43,28 @@ is no compile to ledger).
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import sys
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.checkpoint import (AsyncCheckpointManager,
+                                      CheckpointError, CheckpointManager)
 from ..io.packing import positions_from_segment_ids
 from ..models.llama import LlamaConfig
 from ..utils import fault_injection as fi
+from ..utils.preemption import (PREEMPTED_EXIT_CODE, PreemptionGuard,
+                                TrainingPreempted)
 from ..utils.tree import flatten, tree_map, unflatten
 from . import llama_core
 from . import transformer_core as core
 
 __all__ = ["DIVERGENCE_EXIT_CODE", "NumericalDivergenceError",
+           "PREEMPTED_EXIT_CODE", "PreemptionGuard", "TrainingPreempted",
            "TrainerConfig", "HybridParallelTrainer", "global_norm",
            "adamw_init", "adamw_update"]
 
@@ -51,9 +75,10 @@ DIVERGENCE_EXIT_CODE = 117
 
 class NumericalDivergenceError(RuntimeError):
     """Raised once the anomaly guard has skipped
-    ``TrainerConfig.max_consecutive_skips`` steps in a row. Checkpoints
-    are not ported, so no state is rolled back (``rolled_back_to`` is
-    None), as in the JAX package without a checkpoint root."""
+    ``TrainerConfig.max_consecutive_skips`` steps in a row. Where the
+    trainer knows a checkpoint root, it first reloads the newest valid
+    checkpoint there, and ``rolled_back_to`` is its step (None without a
+    root or a valid checkpoint)."""
 
     exit_code = DIVERGENCE_EXIT_CODE
 
@@ -82,7 +107,7 @@ class TrainerConfig:
     warmup_steps: int = 100
     total_steps: int = 10000
     compute_dtype: Any = torch.bfloat16
-    # False | True/"full" ("dots" and "names:a,b" are not ported yet)
+    # False | True/"full" | "dots" | "names:a,b" (transformer_core)
     remat: Any = True
     ring_attention: bool = True
     seed: int = 0
@@ -180,6 +205,11 @@ def _arch_for(model_cfg):
     return core.gpt_init, core.gpt_loss, "gpt"
 
 
+def _keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a dict path: ``['opt']['m']['wte']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
 def _not_ported(what: str, slice_name: str):
     raise NotImplementedError(
         f"{what} is not ported yet; it comes with {slice_name}")
@@ -212,6 +242,10 @@ class HybridParallelTrainer:
         self.anomaly = {"skips_total": 0, "consecutive": 0,
                         "last_skipped": False,
                         "loss_scale": float(self.guard["loss_scale"])}
+        self._ckpt_root = None        # newest root seen by save/load
+        self._async_mgrs = {}         # root -> AsyncCheckpointManager
+        self._preempt_guard = None    # PreemptionGuard when enabled
+        self._preempt_ckpt = None     # (root, dataloader, keep_last_n)
 
     def _validate(self):
         cfg = self.cfg
@@ -243,21 +277,22 @@ class HybridParallelTrainer:
         if any(n != 1 for n in axes.values()) or cfg.vpp != 1:
             _not_ported(f"a mesh axis above 1 ({axes}, vpp={cfg.vpp})",
                         "the multi-device slice")
-        if cfg.loss_scaling:
-            _not_ported("loss_scaling", "a later training slice")
         if cfg.consistency_check_every:
             _not_ported("the cross-rank consistency check",
                         "the multi-device slice")
         if cfg.http_port is not None:
             _not_ported("the trainer's HTTP ops endpoint",
                         "the training telemetry slice")
-        core._remat_wrap(None, cfg.remat)   # an unported policy raises now
+        core._remat_wrap(None, cfg.remat)   # an unknown policy raises now
 
     # -- the step -----------------------------------------------------------
-    def loss_and_grads(self, params, tokens, labels, poison=1.0, extras=()):
+    def loss_and_grads(self, params, tokens, labels, poison=1.0, extras=(),
+                       scale=None):
         """``(loss * poison, grads)`` of the family's loss at ``params``:
         the loss detached, the grads a tree like ``params``. ``extras`` is
-        ``(segment_ids, positions)`` in packed mode (GPT), else empty."""
+        ``(segment_ids, positions)`` in packed mode (GPT), else empty.
+        With a loss ``scale`` (an fp32 device scalar) the grads are taken
+        of ``loss * scale`` and multiplied by ``1 / scale``."""
         paths, leaves = zip(*((path, p.detach().requires_grad_(True))
                               for path, p in flatten(params)))
         kw = dict(zip(("segment_ids", "positions"), extras))
@@ -265,7 +300,12 @@ class HybridParallelTrainer:
                             tokens, labels,
                             compute_dtype=self.cfg.compute_dtype,
                             remat=self.cfg.remat, **kw) * poison
-        grads = torch.autograd.grad(raw, leaves)
+        if scale is None:
+            grads = torch.autograd.grad(raw, leaves)
+        else:
+            grads = torch.autograd.grad(raw * scale.to(raw.dtype), leaves)
+            inv = 1.0 / scale
+            grads = [g * inv.to(g.dtype) for g in grads]
         return raw.detach(), unflatten(zip(paths, grads))
 
     def _step_fn(self, tokens, labels, extras, poison):
@@ -273,8 +313,10 @@ class HybridParallelTrainer:
         ``(params, opt, guard, loss, grad_norm, skipped)``, all on the
         device."""
         cfg, params, opt, guard = self.cfg, self.params, self.opt, self.guard
-        loss, grads = self.loss_and_grads(params, tokens, labels, poison,
-                                          extras)
+        scale = guard["loss_scale"]
+        loss, grads = self.loss_and_grads(
+            params, tokens, labels, poison, extras,
+            scale if cfg.loss_scaling else None)
         new_p, new_opt, gnorm = adamw_update(cfg, params, grads, opt)
         del grads   # one state's worth of memory less at the commit below
         if not cfg.anomaly_guard:
@@ -289,14 +331,25 @@ class HybridParallelTrainer:
         new_opt = commit(new_opt, opt)
         skipped = ~finite
         new_guard = {
-            "loss_scale": guard["loss_scale"],
-            "good_steps": torch.where(finite, guard["good_steps"] + 1,
-                                      0).to(torch.int32),
             "skip_count": torch.where(finite, 0, guard["skip_count"] + 1
                                       ).to(torch.int32),
             "skips_total": (guard["skips_total"]
                             + skipped.to(torch.int32)),
         }
+        if cfg.loss_scaling:
+            good = torch.where(finite, guard["good_steps"] + 1, 0)
+            grow = finite & (good >= cfg.scale_incr_every)
+            new_guard["loss_scale"] = torch.where(
+                finite,
+                torch.where(grow, scale * cfg.scale_incr_ratio, scale),
+                torch.clamp(scale * cfg.scale_decr_ratio, min=1.0),
+            ).to(torch.float32)
+            new_guard["good_steps"] = torch.where(grow, 0, good).to(
+                torch.int32)
+        else:
+            new_guard["loss_scale"] = scale
+            new_guard["good_steps"] = torch.where(
+                finite, guard["good_steps"] + 1, 0).to(torch.int32)
         return new_p, new_opt, new_guard, loss, gnorm, skipped
 
     # -- API ----------------------------------------------------------------
@@ -373,6 +426,12 @@ class HybridParallelTrainer:
                                    *self._guard_snapshot(skipped))
             if prev is not None:
                 self._resolve_guard(prev)
+        # preemption is consumed at the END of the step boundary: after
+        # step N is dispatched, before the caller pulls batch N+1, so the
+        # just-in-time checkpoint's data cursor is the last trained step's
+        if (self._preempt_guard is not None
+                and self._preempt_guard.preemption_noticed(self.global_step)):
+            self._handle_preemption(loss)
         return loss
 
     def _guard_snapshot(self, skipped):
@@ -414,10 +473,35 @@ class HybridParallelTrainer:
         self.anomaly["consecutive"] = consec
         budget = self.cfg.max_consecutive_skips
         if budget and consec >= budget:
+            rolled = None
+            if self._ckpt_root is not None:
+                rolled = self.load_checkpoint(self._ckpt_root)
             raise NumericalDivergenceError(
                 f"{consec} consecutive non-finite train steps (budget "
-                f"{budget}) at step {step}: training state is diverging; "
-                "no checkpoint root known, state NOT rolled back")
+                f"{budget}) at step {step}: training state is diverging"
+                + (f"; rolled back to checkpoint step {rolled}"
+                   if rolled is not None else
+                   "; no checkpoint root known, state NOT rolled back"),
+                rolled_back_to=rolled)
+
+    def grad_scaler_state_dict(self) -> dict:
+        """A GradScaler-style ``state_dict()`` of the device-side dynamic
+        loss scale (the JAX package's ``paddle_tpu.amp.GradScaler``
+        format)."""
+        return {"scale": float(self.guard["loss_scale"]),
+                "incr_ratio": self.cfg.scale_incr_ratio,
+                "decr_ratio": self.cfg.scale_decr_ratio,
+                "incr_count": int(self.guard["good_steps"]),
+                "decr_count": 0}
+
+    def load_grad_scaler_state_dict(self, sd: dict) -> None:
+        """Adopt a GradScaler-style ``state_dict()`` into the device-side
+        scaler (the scale and the growth counter)."""
+        self.guard["loss_scale"] = torch.tensor(
+            np.float32(sd["scale"]), device=self.device)
+        self.guard["good_steps"] = torch.tensor(
+            np.int32(sd.get("incr_count", 0)), device=self.device)
+        self.anomaly["loss_scale"] = float(np.float32(sd["scale"]))
 
     def anomaly_state(self) -> dict:
         """Resolve any in-flight step and return the host mirror of the
@@ -431,6 +515,184 @@ class HybridParallelTrainer:
     def num_params(self) -> int:
         return int(sum(p.numel() for _, p in flatten(self.params)))
 
+    # -- fault-tolerant checkpointing --------------------------------------
+    # A checkpoint is the FULL train state: params, optimizer, the
+    # guard's loss scale and counters, the global step and (given a
+    # dataloader) its cursor, so a resumed run continues bit for bit.
+    # Keys and layout are the JAX package's, so either package resumes the
+    # other's checkpoints.
+
+    def _flat_state(self, dataloader=None) -> dict:
+        flat = {_keystr(path): leaf for path, leaf in
+                flatten({"params": self.params, "opt": self.opt})}
+        for k, v in self.guard.items():
+            flat[f"guard/{k}"] = v
+        flat["meta/global_step"] = np.int64(self.global_step)
+        if dataloader is not None:
+            sd = dataloader.state_dict()
+            flat["data/cursor_json"] = np.frombuffer(
+                json.dumps(sd, sort_keys=True).encode(), dtype=np.uint8)
+        return flat
+
+    def save_checkpoint(self, root: str, step: int, keep_last_n: int = 3,
+                        dataloader=None, async_save: bool = False) -> str:
+        """Atomically write ``root/step-<N>/`` -- the full train state,
+        with ``dataloader.state_dict()`` when one is passed -- and rotate
+        to the newest ``keep_last_n``. Returns the path.
+
+        ``async_save=True`` copies the state to the host inline (so the
+        saved values are exactly this step's) and commits on a background
+        thread. At most one save is in flight per root; a background
+        write error re-raises at the next save or
+        :meth:`flush_checkpoints`. Call :meth:`flush_checkpoints` before
+        the process exits."""
+        self._ckpt_root = root
+        state = self._flat_state(dataloader=dataloader)
+        if async_save:
+            return self._async_mgr(root, keep_last_n).save(state, step)
+        return CheckpointManager(root, keep_last_n=keep_last_n).save(state,
+                                                                     step)
+
+    def _async_mgr(self, root: str, keep_last_n: int):
+        """The per-root AsyncCheckpointManager (kept: in-flight tracking
+        and error propagation must survive across calls)."""
+        mgr = self._async_mgrs.get(root)
+        if mgr is None:
+            mgr = self._async_mgrs[root] = AsyncCheckpointManager(
+                root, keep_last_n=keep_last_n)
+        else:
+            mgr.keep_last_n = keep_last_n
+        return mgr
+
+    def flush_checkpoints(self) -> None:
+        """Block until every in-flight async commit lands; re-raise the
+        first background write error after draining every root."""
+        first_err = None
+        for mgr in self._async_mgrs.values():
+            try:
+                mgr.wait()
+            except CheckpointError as e:
+                if first_err is None:
+                    first_err = e
+        if first_err is not None:
+            raise first_err
+
+    def load_checkpoint(self, root: str, dataloader=None):
+        """Resume from the newest *valid* checkpoint under ``root`` (torn
+        or corrupt steps are skipped loudly): params and optimizer, and,
+        where present, the guard, the global step and the dataloader
+        cursor; each missing group warns and takes its fresh default.
+        Returns the restored step, or None when no valid checkpoint
+        exists."""
+        self._ckpt_root = root
+        found = CheckpointManager(root).load_latest()
+        if found is None:
+            return None
+        step, state = found
+        items = flatten({"params": self.params, "opt": self.opt})
+        keys = [_keystr(path) for path, _ in items]
+        missing = [k for k in keys if k not in state]
+        if missing:
+            raise CheckpointError(
+                f"checkpoint under {root!r} does not match this trainer's "
+                f"state tree; missing keys: {missing[:5]} (model/optimizer "
+                "config changed since the checkpoint was written?)")
+        for (_, leaf), k in zip(items, keys):
+            if tuple(state[k].shape) != tuple(leaf.shape):
+                raise CheckpointError(
+                    f"checkpoint under {root!r}: {k} has shape "
+                    f"{tuple(state[k].shape)}, this trainer "
+                    f"{tuple(leaf.shape)}")
+        restored = unflatten(
+            (path, torch.from_numpy(state[k]).to(device=leaf.device,
+                                                  dtype=leaf.dtype))
+            for (path, leaf), k in zip(items, keys))
+        self.params, self.opt = restored["params"], restored["opt"]
+        self._restore_extras(root, step, state, dataloader)
+        return step
+
+    def _restore_extras(self, root, step, state, dataloader) -> None:
+        """Restore the train state beyond params and optimizer; each
+        missing group is a loud warning and a fresh default, never a
+        silent zero."""
+        def warn(what, default):
+            print(f"[checkpoint] WARNING: {root!r} step-{step} has no "
+                  f"{what} (written before full-TrainState checkpoints?); "
+                  f"resuming with {default}", file=sys.stderr)
+
+        defaults = _guard_defaults(self.cfg)
+        if all(f"guard/{k}" in state for k in defaults):
+            host = {k: np.asarray(state[f"guard/{k}"]).astype(v.dtype)
+                    for k, v in defaults.items()}
+        else:
+            warn("anomaly-guard/loss-scale state",
+                 "a fresh scale + zeroed skip counters")
+            host = defaults
+        self.guard = {k: torch.tensor(v, device=self.device)
+                      for k, v in host.items()}
+        self._pending_guard = None
+        self.anomaly.update({
+            "skips_total": int(host["skips_total"]),
+            "consecutive": int(host["skip_count"]),
+            "last_skipped": False,
+            "loss_scale": float(host["loss_scale"]),
+        })
+        if "rng/key" in state:
+            print(f"[checkpoint] {root!r} step-{step}: ignoring rng/key (the "
+                  "port has no framework RNG stream yet)", file=sys.stderr)
+        if "meta/global_step" in state:
+            self.global_step = int(np.asarray(state["meta/global_step"]))
+        else:
+            warn("global step", f"the checkpoint's step number ({step})")
+            self.global_step = int(step)
+        if dataloader is not None:
+            if "data/cursor_json" in state:
+                dataloader.load_state_dict(json.loads(
+                    np.asarray(state["data/cursor_json"]).tobytes().decode()))
+            else:
+                warn("data-iterator cursor",
+                     "the dataloader's current position (data may replay)")
+
+    # -- preemption-aware graceful shutdown ------------------------------
+
+    def enable_preemption_guard(self, root: str, dataloader=None,
+                                keep_last_n: int = 3, guard=None):
+        """Arm graceful preemption shutdown: SIGTERM/SIGUSR1 (or the
+        ``PADDLE_FI_PREEMPT_AT_STEP`` drill) is latched and consumed at
+        the next step boundary -- any in-flight async save is flushed, a
+        just-in-time full-state checkpoint is written under ``root``, and
+        :class:`TrainingPreempted` (a ``SystemExit`` with
+        :data:`PREEMPTED_EXIT_CODE`) is raised. Returns the guard."""
+        self._preempt_guard = (guard if guard is not None
+                               else PreemptionGuard())
+        self._preempt_ckpt = (root, dataloader, keep_last_n)
+        self._ckpt_root = root
+        return self._preempt_guard
+
+    def _handle_preemption(self, loss=None):
+        root, dataloader, keep_last_n = self._preempt_ckpt
+        step = self.global_step
+        why = self._preempt_guard.why or "notice"
+        print(f"[preemption] {why}: flushing in-flight saves and writing "
+              f"just-in-time checkpoint at step {step}", file=sys.stderr,
+              flush=True)
+        # the in-flight commit lands first (the series stays ordered); an
+        # earlier commit's error must not stop the just-in-time save,
+        # which is the zero-lost-steps guarantee
+        try:
+            self.flush_checkpoints()
+        except CheckpointError as e:
+            print(f"[preemption] WARNING: flushing async saves failed "
+                  f"({e}); writing the just-in-time checkpoint anyway",
+                  file=sys.stderr, flush=True)
+        path = self.save_checkpoint(root, step, keep_last_n=keep_last_n,
+                                    dataloader=dataloader)
+        raise TrainingPreempted(
+            f"preempted ({why}): just-in-time checkpoint written at "
+            f"step {step} ({path}); exiting {PREEMPTED_EXIT_CODE}",
+            step=step, checkpoint_path=path, loss=loss)
+
+
     # -- not ported in this slice --------------------------------------------
     @property
     def telemetry(self):
@@ -441,17 +703,6 @@ class HybridParallelTrainer:
 
     def memory_plan(self, compute_executable: bool = False):
         _not_ported("the memory plan", "the training telemetry slice")
-
-    def save_checkpoint(self, root, step, keep_last_n=3, dataloader=None,
-                        async_save=False):
-        _not_ported("checkpoints", "the trainer durability slice")
-
-    def load_checkpoint(self, root, dataloader=None):
-        _not_ported("checkpoints", "the trainer durability slice")
-
-    def enable_preemption_guard(self, root, dataloader=None, keep_last_n=3,
-                                guard=None):
-        _not_ported("the preemption guard", "the trainer durability slice")
 
     def enable_consistency_check(self, every, dataloader=None,
                                  exchange_dir=None, timeout_s=None):

@@ -17,7 +17,10 @@ fp32); the kv heads are expanded by a broadcast ``(nkv, 1, d) -> (nkv, g,
 d)``, each repeated ``g`` times in a row; then
 ``ops.attention_dispatch.causal_attention_packed`` (K-PACK forward, K-DQ
 and K-DKV backward on CUDA). Layers run in a Python loop, each under
-``transformer_core._remat_wrap`` (remat False, True or "full").
+``transformer_core._remat_wrap`` (every policy of the GPT core); the
+block tags ``attn_out`` and ``ffn_in`` (the ``gate * up`` product, which
+a policy naming it saves and the recompute skips) for ``"names:..."``,
+where the JAX core does.
 
 Not ported yet: ``llama_param_specs`` and ring attention (the
 multi-device slice; ``ring`` other than None raises). Packed-sequence
@@ -128,10 +131,12 @@ def llama_block(cfg, p: Params, x, cos, sin, compute_dtype=torch.bfloat16,
                     .reshape(*lead, nh * d))
 
         kk, vv = expand(kk), expand(vv)
-    a = causal_attention_packed(q, kk, vv, nh, ring=ring)
+    a = tc.checkpoint_name(causal_attention_packed(q, kk, vv, nh, ring=ring),
+                           "attn_out")
     x = x + a @ c(p["o_w"])
     y = _rms(x.float(), p["ln2_g"], eps).to(compute_dtype)
-    z = F.silu(y @ c(p["gate_w"])) * (y @ c(p["up_w"]))
+    z = tc.named_op("ffn_in", torch.mul, F.silu(y @ c(p["gate_w"])),
+                    y @ c(p["up_w"]))
     return x + z @ c(p["down_w"])
 
 

@@ -9,9 +9,21 @@ The masters stay fp32; each block casts them to the compute dtype where
 it uses them, LayerNorm runs in fp32 on the fp32 gains.
 
 The JAX package scans over the layer dim; here a Python loop runs the
-layers, each under ``torch.utils.checkpoint`` when ``remat`` is True or
-``"full"`` (the block is recomputed in the backward pass, so the K-PACK
-forward launches twice per layer per step). Attention is
+layers, each under ``torch.utils.checkpoint`` unless ``remat`` is off
+(``_remat_wrap``): True or ``"full"`` keeps only the block's input and
+recomputes the block in the backward pass, so the K-PACK forward
+launches twice per layer per step; ``"dots"`` and ``"names:a,b"`` are
+the JAX package's selective policies, run through
+``create_selective_checkpoint_contexts``. ``"dots"`` saves every matrix
+product (``aten.mm``, ``aten.addmm``) and recomputes the rest, the
+attention forward included; ``"names:..."`` saves the values tagged
+with those names, each as the output of the operator that makes it
+(``named_op``): ``ffn_in``, the fc_in product, which the recompute then
+skips; ``attn_out``, kept as a view, which spares no recompute (the
+kernel still runs for its lse, as in JAX); and ``attn_out_kernel`` and
+``attn_lse``, the attention forward op's own outputs, which are saved
+(and the kernel skipped in the recompute) only when both are named.
+Attention is
 ``ops.attention_dispatch.causal_attention_packed`` over q, k, v taken as
 column slices of the fused qkv projection.
 
@@ -21,25 +33,28 @@ in every block (K-SEG, K-SDQ, K-SDKV), positions reset per document, and
 the loss averages over real within-document labels only
 (``packed_loss_mask``).
 
-Not ported yet, and raising ``NotImplementedError``: the ``"dots"`` and
-``"names:..."`` remat policies, ring attention and the vocab-parallel
-embedding (the multi-device slice).
+Not ported yet, and raising ``NotImplementedError``: ring attention and
+the vocab-parallel embedding (the multi-device slice).
 """
 from __future__ import annotations
 
+import contextvars
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention_dispatch import causal_attention_packed
+from ..ops.kernels.flash_attention_packed import FORWARD_OPS, OUTPUT_NAMES
 
 __all__ = ["gpt_init", "gpt_block", "embed_lookup", "gpt_embed",
            "gpt_trunk", "gpt_logits", "softmax_xent", "gpt_forward",
            "chunked_xent_on", "chunked_xent", "packed_loss_mask",
-           "gpt_loss"]
+           "gpt_loss", "checkpoint_name", "named_op"]
 
 Params = Dict[str, Any]
 
@@ -89,9 +104,54 @@ def gpt_init(cfg, generator: Optional[torch.Generator] = None,
     }
 
 
-def _dense(x, w, b):
-    """``x @ w + b`` over the last dim, one GEMM with the bias."""
-    out = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+# -- the remat policies' tags -------------------------------------------------
+#
+# The JAX package tags values with ``jax.ad_checkpoint.checkpoint_name``;
+# its ``save_only_these_names`` policy saves them, and its recompute drops
+# whatever the saved values make unneeded. A PyTorch recompute reruns the
+# block's Python, and a selective policy sees operators, not values, so
+# a tag here names the operator that makes the value: ``named_op(name,
+# op, *args)`` runs ``op(*args)``, one operator, and under a
+# ``"names:..."`` policy that names ``name`` the policy saves its output,
+# so the recompute takes the saved value instead of running the operator
+# again. The operators are the JAX package's tagged values: ``ffn_in`` is
+# the fc_in product (GPT) or ``gate * up`` (LLaMA), and the recompute
+# skips that product, as JAX's does; ``attn_out`` is the attention
+# output, tagged through ``aten.alias``, a view of the forward op's o:
+# the value is kept without a copy, and the forward kernel still runs
+# again for its lse, as in JAX. Outside such a policy a tag only runs
+# its operator.
+
+_NAMES = contextvars.ContextVar("remat_names", default=())
+_SAVING = contextvars.ContextVar("remat_saving", default=False)
+
+
+def named_op(name: Optional[str], op, *args):
+    """``op(*args)``, one operator whose output the JAX package tags
+    ``name``: saved by a ``"names:..."`` policy that names it (and not
+    run again in the recompute), else simply run."""
+    if name not in _NAMES.get():
+        return op(*args)
+    token = _SAVING.set(True)
+    try:
+        return op(*args)
+    finally:
+        _SAVING.reset(token)
+
+
+def checkpoint_name(x, name: str):
+    """Tag ``x`` itself as ``name``: under a policy that names it, a view
+    of ``x`` that the policy saves (``named_op`` over ``aten.alias``),
+    else ``x``."""
+    if name not in _NAMES.get():
+        return x
+    return named_op(name, torch.ops.aten.alias.default, x)
+
+
+def _dense(x, w, b, name=None):
+    """``x @ w + b`` over the last dim, one GEMM with the bias; ``name``
+    tags the product (``named_op``)."""
+    out = named_op(name, torch.addmm, b, x.reshape(-1, x.shape[-1]), w)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -113,9 +173,10 @@ def gpt_block(cfg, p: Params, x, compute_dtype=torch.bfloat16, ring=None,
     a = causal_attention_packed(qkv[..., :hp], qkv[..., hp:2 * hp],
                                 qkv[..., 2 * hp:], cfg.num_heads, ring=ring,
                                 segment_ids=seg)
+    a = checkpoint_name(a, "attn_out")
     x = x + _dense(a, c(p["out_w"]), c(p["out_b"]))
     y = _norm(x.float(), p["ln2_g"], p["ln2_b"], eps).to(compute_dtype)
-    y = F.gelu(_dense(y, c(p["fc_in_w"]), c(p["fc_in_b"])),
+    y = F.gelu(_dense(y, c(p["fc_in_w"]), c(p["fc_in_b"]), "ffn_in"),
                approximate="tanh")
     return x + _dense(y, c(p["fc_out_w"]), c(p["fc_out_b"]))
 
@@ -170,21 +231,53 @@ def gpt_forward(cfg, params: Params, tokens, compute_dtype=torch.bfloat16,
     return gpt_logits(cfg, params, x, compute_dtype)
 
 
+# the products ``"dots"`` saves: JAX's dots_with_no_batch_dims_saveable
+# (every ``x @ w`` of the blocks reaches the dispatcher as one of these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
 def _remat_wrap(body, remat):
     """remat selector: False/None/"none" runs ``body`` as it is; True or
     "full" keeps only the block's input and recomputes the block in the
-    backward pass (``torch.utils.checkpoint``, non-reentrant)."""
+    backward pass (``torch.utils.checkpoint``, non-reentrant); "dots"
+    saves the matrix products' outputs and recomputes the rest; "names:
+    a,b" saves only the outputs of the operators tagged a or b
+    (``named_op``), which the recompute then does not run again: the
+    fc_in product or ``gate * up`` for ``ffn_in``, a view of the
+    attention output for ``attn_out`` (no operator spared), and the
+    attention forward op, kernel and all, when both of its outputs'
+    names, ``attn_out_kernel`` and ``attn_lse``, are named. A name
+    nothing carries saves nothing, as in the JAX package."""
     if remat in (False, None, "none"):
         return body
     if remat is True or remat == "full":
         return lambda *args: checkpoint(body, *args, use_reentrant=False,
                                         preserve_rng_state=False)
-    if remat == "dots" or (isinstance(remat, str)
-                           and remat.startswith("names:")):
-        raise NotImplementedError(
-            f"remat policy {remat!r} is not ported yet: only False, True "
-            "and 'full'")
-    raise ValueError(f"unknown remat policy: {remat!r}")
+    if remat == "dots":
+        names, saved = (), _DOTS
+    elif isinstance(remat, str) and remat.startswith("names:"):
+        names = tuple(n for n in remat[len("names:"):].split(",") if n)
+        saved = FORWARD_OPS if set(OUTPUT_NAMES) <= set(names) else ()
+    else:
+        raise ValueError(f"unknown remat policy: {remat!r}")
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved or _SAVING.get()
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   policy)
+
+    def tagged(*args):
+        token = _NAMES.set(names)
+        try:
+            return body(*args)
+        finally:
+            _NAMES.reset(token)
+
+    return lambda *args: checkpoint(tagged, *args, use_reentrant=False,
+                                    preserve_rng_state=False,
+                                    context_fn=context_fn)
 
 
 def gpt_trunk(cfg, params: Params, tokens, compute_dtype=torch.bfloat16,

@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s own logic on the CPU: it refuses to run without a
 card, its kernel checks (comparison, bound, JSON keys) work at tiny
 shapes with the plain versions standing in for the kernels, and its
-training phases (7, 8, 10-12) and speculative and int8 serving phases
-(14-16) run end to end at a tiny GPT."""
+training phases (7, 8, 10-12), speculative and int8 serving phases
+(14-16), LLaMA phases (19-22), remat policies (23) and durability
+drills (24) run end to end at tiny widths."""
 import numpy as np
 import pytest
 import torch
@@ -311,6 +312,61 @@ def test_packed_training_phases_rehearse_on_cpu(tiny_training):
     assert counts["phase11"]["K-SEG"] == 3 * 2 * 2
     assert counts["phase11"]["K-SDQ"] == counts["phase11"]["K-SDKV"] == 6
     assert counts["phase11"]["K-PACK"] == 0
+
+
+def test_remat_phase_rehearses_on_cpu(tiny_training):
+    """Phase 23 at a tiny GPT: every policy's grads equal the CPU's and
+    remat=False's, and the plain forward runs once a layer a step under
+    ``names:attn_out_kernel,attn_lse``, twice under True and "dots"."""
+    counts = {}
+    m = cs.phase_remat(counts, tiny_training, acc=(2, 32), speed=(2, 64),
+                       steps=2)
+    assert set(m["accuracy"]) == {str(p) for p in cs.ACC_POLICIES}
+    for r in m["accuracy"].values():
+        assert r["grad_worst_ratio"] == 0.0 and r["vs_no_remat_bitwise"]
+    assert {k: r["k_pack"] for k, r in m["accuracy"].items()} == {
+        "False": 2, "full": 4, "dots": 4, "names:attn_out_kernel,attn_lse": 2}
+    speed = m["speed"]
+    assert speed["names:attn_out_kernel,attn_lse"]["launches_per_step"] == {
+        "K-PACK": 2, "K-DQ": 2, "K-DKV": 2}
+    assert speed["names:attn_out_kernel,attn_lse,ffn_in"][
+        "launches_per_step"] == {"K-PACK": 2, "K-DQ": 2, "K-DKV": 2}
+    for remat in ("True", "dots"):
+        assert speed[remat]["launches_per_step"]["K-PACK"] == 4
+    assert counts["phase23_names"]["K-PACK"] == 2 * 2
+    assert counts["phase23_names_ffn_in"]["K-PACK"] == 2 * 2
+    assert counts["phase23_true"]["K-PACK"] == 2 * 4
+    assert {"step_ms", "tokens_per_s", "mfu",
+            "max_memory_allocated_gb"} <= set(speed["dots"])
+
+
+def test_durability_phase_rehearses_on_cpu(tiny_training):
+    """Phase 24 at a tiny GPT on the CPU: loss scaling against its
+    schedule and a clean run, a checkpoint round trip, the preemption
+    drill across two worker processes, and the divergence rollback, each
+    bitwise."""
+    counts = {}
+    m = cs.phase_durability(counts, scale_shape=(2, 32), ckpt_shape=(2, 32),
+                            drill_shape=(2, 32))
+    a = m["loss_scaling"]
+    # grown after steps 2 and 5 (two finite in a row), halved at 3
+    assert a["scales"] == [2.0 ** 15, 2.0 ** 16, 2.0 ** 15, 2.0 ** 15,
+                           2.0 ** 16, 2.0 ** 16]
+    assert a["scaler"]["scale"] == 2.0 ** 16
+    assert a["scaled_grads"]["scale"] == 2.0 ** 15
+    assert a["scaled_grads"]["worst_gap"] == 0.0
+    b = m["checkpoint"]
+    assert b["resumed_step"] == 3 and b["resumed_losses"] == b["losses"]
+    assert b["on_disk"] == ["step-2", "step-3"] and b["bytes"] > 0
+    c = m["preemption"]
+    assert [r["rc"] for r in c["runs"]] == [118, 0]
+    assert c["relaunch"] == {"resumed_at": 3, "global_step": 6}
+    assert c["params_bitwise"]
+    d = m["rollback"]
+    assert d["rolled_back_to"] == 2 and d["params_equal_checkpoint"]
+    for key in ("phase24_scale", "phase24_ckpt", "phase24_preempt",
+                "phase24_rollback"):
+        assert counts[key]["K-PACK"] > 0, key
 
 
 def test_nn_api_training_phase_rehearses_on_cpu(tiny_training):

@@ -38,6 +38,8 @@ _MUST_IMPORT = {
     "paddle_tpu_torch.utils.convert",
     "paddle_tpu_torch.ops.kernels.flash_attention_packed",
     "paddle_tpu_torch.io.packing",
+    "paddle_tpu_torch.distributed.checkpoint",
+    "paddle_tpu_torch.utils.preemption",
 }
 
 
@@ -48,7 +50,7 @@ def test_port_imports_without_jax_or_paddle_tpu():
                        env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
     n_modules = int(p.stdout.split()[0])
-    assert n_modules >= 21, p.stdout
+    assert n_modules >= 24, p.stdout
     assert _MUST_IMPORT <= set(p.stdout.split()[2:]), p.stdout
 
 
@@ -71,7 +73,9 @@ def test_port_sources_never_import_jax_or_paddle_tpu():
     assert len(files) >= 20
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"paddle_tpu_torch/parallel/hybrid.py",
-            "paddle_tpu_torch/parallel/transformer_core.py"} <= names
+            "paddle_tpu_torch/parallel/transformer_core.py",
+            "paddle_tpu_torch/distributed/checkpoint.py",
+            "paddle_tpu_torch/utils/preemption.py"} <= names
     assert not offenders, offenders
 
 
