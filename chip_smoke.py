@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 0,1,2,14,15,16 # speculative and int8
     python3 chip_smoke.py --phases 0,1,2,19,20,21,22  # the LLaMA family
     python3 chip_smoke.py --phases 0,1,23,24  # remat policies, durability
+    python3 chip_smoke.py --phases 0,1,25  # run telemetry, ops endpoint
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -130,9 +131,32 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     step 3 and ends with the params of an uninterrupted 6-step run,
     bitwise; (d) two NaN steps in a row under ``max_consecutive_skips=2``
     raise ``NumericalDivergenceError`` rolled back to the last checkpoint,
-    whose params the trainer then holds.
+    whose params the trainer then holds;
+25. run telemetry, with the JSONL sink in a temp dir: (a) phase 8's
+    trainer with ``http_port=0``, 12 steps (the second measured by
+    ``memory_plan(compute_executable=True)``): the accounted tokens/s of
+    steps 4-12 within 3% of a synchronised wall of the same steps, 12
+    JSONL step records, ``flops_source == "analytic_6NT"``, MFU
+    (accounting) / MFU (``bench.py``'s count) = 6N / (6N + 12·L·H·S) to
+    1e-6, ``/metrics`` (scraped from a thread) with the trainer's
+    ``step_time_ms``, ``tokens_per_sec`` and ``mfu``, ``/healthz`` 200
+    with the role and step, the memory plan's state bytes equal to the
+    live tensors', ``peak_bytes_in_use`` = ``max_memory_allocated()``,
+    K-PACK 48, K-DQ 24, K-DKV 24 a step; then the telemetry overhead
+    ratio (OFF vs ON with the sink, interleaved, best of 5 x 16 steps,
+    printed); (b) phase 4's trace with a ``ServingTracer``, an
+    ``SLOTracker`` and ``start_http(0)``, scraped from a thread, with a
+    1 s ``/debug/profile`` capture opened once the trace decodes: the
+    request and token counters, the tracer's TTFT p50 = ``nearest_rank``
+    of the requests' own, the capture holds the K-DEC launches of every
+    decode tick inside its window, ``/healthz`` 200, then 503 ``wedged`` with the
+    tick loop held past ``stall_threshold_s`` and 200 with ``?live``; the
+    median per-tick host split and the trace overhead ratio (tracer and
+    sink ON vs OFF, best of 3, printed); (c) an async checkpoint save
+    and load of phase 24 (c)'s state: the checkpoint counters, histograms
+    and in-flight gauge as the JAX package records them.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-24) sets the kernels' launch
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-25) sets the kernels' launch
 counts to 0 just before it and reads them just after. The line before the
 last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -160,6 +184,7 @@ from paddle_tpu_torch.io.packing import pack_documents, packing_efficiency
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          GPTPretrainingCriterion, gpt_345m)
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+from paddle_tpu_torch.observability import hw
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.parallel import hybrid
@@ -169,12 +194,6 @@ from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
                                       repetitious_trace)
 from paddle_tpu_torch.utils.tree import flatten, tree_map
 
-# published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s,
-# fp32 FLOP/s outside the tensor cores, HBM bytes/s
-PEAKS = {
-    "H100 PCIe": {"bf16": 756e12, "fp32": 51e12, "hbm": 2.0e12},
-    "H100": {"bf16": 989e12, "fp32": 67e12, "hbm": 3.35e12},   # SXM
-}
 DEV = torch.device("cuda")   # the card
 
 
@@ -240,10 +259,12 @@ def require(cond, what) -> None:
 
 
 def peaks_for(name: str) -> dict:
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    raise RuntimeError(f"no published peaks for {name!r}")
+    """The part's published peaks from the port's one table
+    (``observability.hw``), the trainer's MFU denominator too."""
+    peaks = hw.peaks_for(name)
+    if peaks is None:
+        raise RuntimeError(f"no published peaks for {name!r}")
+    return peaks
 
 
 def time_ms(fn, iters=30, warmup=5) -> float:
@@ -1213,17 +1234,22 @@ def pct(xs, q):
     return float(np.percentile(xs, q)) if len(xs) else None
 
 
-def serve_load(model, cfg, reqs, spec, what) -> tuple:
+def serve_load(model, cfg, reqs, spec, what, before_run=None,
+               **sched_kw) -> tuple:
     """Serve ``reqs`` through a fresh scheduler (``spec``: its speculative
-    config) over a warmed-up engine of ``cfg``; every request must finish
-    with finite logits, no page may leak, and each kernel must launch
-    once per layer per tick of its kind. Returns the metrics and the
-    scheduler (its engine at ``.engine``)."""
+    config; ``sched_kw``: its other arguments) over a warmed-up engine of
+    ``cfg``; every request must finish with finite logits, no page may
+    leak, and each kernel must launch once per layer per tick of its
+    kind. ``before_run(sched)`` runs just before the requests are
+    submitted. Returns the metrics and the scheduler (its engine at
+    ``.engine``)."""
     eng = ServingEngine(model, cfg)
-    warm = ContinuousBatchingScheduler(eng, spec_decode=spec)
+    warm = ContinuousBatchingScheduler(eng, spec_decode=spec, tracer=None)
     warm.submit(Request(rid=-1, prompt=reqs[0].prompt, max_new_tokens=8))
     warm.run()
-    sched = ContinuousBatchingScheduler(eng, spec_decode=spec)
+    sched = ContinuousBatchingScheduler(eng, spec_decode=spec, **sched_kw)
+    if before_run is not None:
+        before_run(sched)
     finite = {"ok": True}
     steps = eng.decode, eng.verify
 
@@ -2454,19 +2480,29 @@ def drill_train(spec, root=None):
     guard armed there), resuming from ``root`` when it holds a
     checkpoint. Returns ``(trainer, resumed_at)``."""
     mcfg = GPTConfig(**spec["model"])
-    t = hybrid.HybridParallelTrainer(mcfg, drill_config(),
-                                     device=spec["device"])
-    loader = DrillLoader(2400, spec["batch"], spec["seq"], mcfg.vocab_size)
-    start = 0
-    if root is not None:
-        t.enable_preemption_guard(root, dataloader=loader)
-        start = t.load_checkpoint(root, dataloader=loader) or 0
-    while t.global_step < spec["steps"]:
-        t.step(*loader.next())
-        if root is not None and t.global_step % spec["save_every"] == 0:
-            t.save_checkpoint(root, t.global_step, dataloader=loader,
-                              async_save=True)
-    t.flush_checkpoints()
+    # on the CPU a reduction's bits depend on how many threads split it,
+    # and the worker processes and this one each size their thread teams
+    # at run time: one thread everywhere keeps the runs bitwise
+    threads = torch.get_num_threads()
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+    try:
+        t = hybrid.HybridParallelTrainer(mcfg, drill_config(),
+                                         device=spec["device"])
+        loader = DrillLoader(2400, spec["batch"], spec["seq"],
+                             mcfg.vocab_size)
+        start = 0
+        if root is not None:
+            t.enable_preemption_guard(root, dataloader=loader)
+            start = t.load_checkpoint(root, dataloader=loader) or 0
+        while t.global_step < spec["steps"]:
+            t.step(*loader.next())
+            if root is not None and t.global_step % spec["save_every"] == 0:
+                t.save_checkpoint(root, t.global_step, dataloader=loader,
+                                  async_save=True)
+        t.flush_checkpoints()
+    finally:
+        torch.set_num_threads(threads)
     return t, start
 
 
@@ -2601,6 +2637,498 @@ def phase_durability(counts, scale_shape=(4, 1024), ckpt_shape=(4, 1024),
     return m
 
 
+# -- phase 25: run telemetry and the ops endpoint ------------------------------
+
+def http_get(url, timeout=60):
+    """``(status, body)`` of one GET; an HTTP error's status too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class Scraper:
+    """Scrapes ``routes`` of an ops endpoint from its own thread, every
+    ``every`` seconds and once more when stopped: ``codes[route]`` holds
+    every status seen, ``last[route]`` the newest ``(status, body)``."""
+
+    def __init__(self, url, routes, every=0.25):
+        import threading
+
+        self.url, self.routes, self.every = url, routes, every
+        self.codes = {r: [] for r in routes}
+        self.last = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _scrape(self):
+        for route in self.routes:
+            self.last[route] = http_get(self.url + route)
+            self.codes[route].append(self.last[route][0])
+
+    def _run(self):
+        while not self._stop.wait(self.every):
+            self._scrape()
+        self._scrape()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        return self
+
+
+def jsonl_records(obs_dir):
+    """Every record of the sink's streams under ``obs_dir``."""
+    from paddle_tpu_torch.observability import sink
+
+    sink.flush()
+    recs = []
+    for name in sorted(os.listdir(obs_dir)):
+        if name.endswith(".jsonl"):
+            with open(os.path.join(obs_dir, name)) as f:
+                recs += [json.loads(line) for line in f if line.strip()]
+    return recs
+
+
+def state_nbytes(*trees) -> int:
+    return sum(x.numel() * x.element_size()
+               for tree in trees for _, x in flatten(tree))
+
+
+def telemetry_train(counts, peaks, obs_dir, steps=12, batch=8, seq=1024,
+                    trials=5, trial_steps=16, warmup=3) -> dict:
+    """(a) Phase 8's trainer with telemetry, the sink and ``http_port=0``:
+    ``steps`` steps (the second measured by ``memory_plan(
+    compute_executable=True)``), the accounting against a synchronised
+    wall of steps 4..N, the JSONL step records, both MFUs, the scraped
+    endpoint, the memory plan against the live tensors; then the
+    telemetry overhead ratio, the JAX package's protocol at this shape
+    (OFF vs ON with the sink live and a heartbeat file, ``warmup`` steps
+    each, then interleaved, best of ``trials`` x ``trial_steps``
+    steps)."""
+    from paddle_tpu_torch import observability as obs
+
+    mcfg = model_config()
+    tcfg = dict(learning_rate=3e-4, warmup_steps=2, total_steps=100)
+    trainer = hybrid.HybridParallelTrainer(
+        mcfg, hybrid.TrainerConfig(http_port=0, **tcfg))
+    tokens, labels = train_batch(np.random.RandomState(0), batch, seq,
+                                 mcfg.vocab_size)
+    dev_batch = trainer.shard_batch(tokens, labels)
+    scraper = Scraper(trainer.http.url, ("/metrics", "/healthz"))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    host_ms, t_wall = [], None
+    for i in range(steps):
+        if i == 1:
+            trainer.memory_plan(compute_executable=True)  # measures step 2
+        if i == 3:
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter()
+        t0 = time.perf_counter()
+        trainer.step_presharded(*dev_batch)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_wall
+    counts["phase25_train"] = K.launch_counts()
+    summ = trainer.telemetry_summary()
+    peak = torch.cuda.max_memory_allocated()
+    scraper.stop()
+    trainer.http.stop()
+    label = trainer.telemetry.trainer
+    recs = [r for r in jsonl_records(obs_dir)
+            if r.get("kind") == "step" and r.get("trainer") == label]
+    tok = batch * seq
+    timed = recs[3:]
+    acc_tok_s = len(timed) * tok / (sum(r["step_time_ms"]
+                                        for r in timed) / 1e3)
+    wall_tok_s = (steps - 3) * tok / wall_s
+    host_tok_s = (steps - 3) * tok / (sum(host_ms[3:]) / 1e3)
+    n = trainer.num_params()
+    flops_tok = 6 * n + 12 * mcfg.num_layers * mcfg.hidden_size * seq
+    hist = summ["step_time_ms"]          # steps 2..N, the gauge's window
+    bench_mfu = (hist["count"] * tok / (hist["sum"] / 1e3) * flops_tok
+                 / peaks["bf16"])
+    live = state_nbytes(trainer.params, trainer.opt)
+    plan = summ["memory_plan"]
+    planned = (plan["state"]["params"]["global_bytes"]
+               + plan["state"]["opt_state"]["global_bytes"])
+    mem = summ["device_memory"]
+    metrics = scraper.last["/metrics"][1].decode()
+    health_code, health = scraper.last["/healthz"]
+    health = json.loads(health)
+    m = {"steps": steps, "records": len(recs),
+         "accounted_tokens_per_s": acc_tok_s,
+         "synced_wall_tokens_per_s": wall_tok_s,
+         "accounted_vs_wall": acc_tok_s / wall_tok_s - 1,
+         "host_wall_tokens_per_s": host_tok_s,
+         "host_wall_vs_wall": host_tok_s / wall_tok_s - 1,
+         "step_time_ms": hist, "compile_ms": summ["compile_ms"],
+         "flops_source": summ["flops_source"],
+         "mfu_accounting": summ["mfu"], "mfu_bench": bench_mfu,
+         "mfu_ratio": summ["mfu"] / bench_mfu,
+         "mfu_ratio_want": 6 * n / flops_tok,
+         "memory_plan_bytes": planned, "live_state_bytes": live,
+         "executable_plan": plan["executable"],
+         "device_memory": mem, "max_memory_allocated": peak,
+         "healthz": [health_code, health.get("role"), health.get("step")],
+         "scrapes": {r: len(c) for r, c in scraper.codes.items()},
+         "launches": counts["phase25_train"]}
+    layers = mcfg.num_layers
+    want = {"K-PACK": 2 * layers, "K-DQ": layers, "K-DKV": layers}
+    del trainer
+    torch.cuda.empty_cache()
+    m["obs_instrumentation_overhead_ratio"] = train_overhead_ratio(
+        mcfg, tcfg, (tokens, labels), trials, trial_steps, warmup)
+    log("  (a) training: " + json.dumps(m))
+    require(len(recs) == steps, f"phase 25 (a): {len(recs)} step records")
+    require(abs(m["accounted_vs_wall"]) <= 0.03,
+            f"phase 25 (a): accounted tokens/s {acc_tok_s:.1f} vs the "
+            f"synchronised wall's {wall_tok_s:.1f}")
+    require(m["flops_source"] == "analytic_6NT", m["flops_source"])
+    require(abs(m["mfu_ratio"] / m["mfu_ratio_want"] - 1) <= 1e-6,
+            f"phase 25 (a): MFU ratio {m['mfu_ratio']} != 6N / (6N + "
+            f"12LHS) {m['mfu_ratio_want']}")
+    for name in ("step_time_ms", "tokens_per_sec", "mfu"):
+        key = f'{name}{{trainer="{label}"'
+        require(key in metrics, f"phase 25 (a): /metrics lacks {key}")
+    require(health_code == 200 and health.get("role") == "trainer"
+            and health.get("step") == steps, f"phase 25 (a): {health}")
+    require(planned == live, f"phase 25 (a): memory plan {planned} B, "
+            f"live state {live} B")
+    for name, per_step in want.items():
+        require(counts["phase25_train"][name] == per_step * steps,
+                f"phase 25 (a): {name} {counts['phase25_train']}")
+    if DEV.type == "cuda":
+        require(mem["max"]["peak_bytes_in_use"] == peak,
+                f"phase 25 (a): peak {mem} vs {peak}")
+        require(plan["executable"]["source"] == "measured"
+                and plan["executable"]["peak_bytes"] > 0,
+                f"phase 25 (a): {plan['executable']}")
+    return m
+
+
+def train_overhead_ratio(mcfg, tcfg, batch, trials, steps, warmup):
+    """``obs_instrumentation_overhead_ratio``: telemetry OFF vs ON with
+    the sink live and a heartbeat file, each arm ``steps`` steps a trial,
+    interleaved, best of ``trials``: OFF s/step over ON s/step."""
+    hb = tempfile.mkdtemp(prefix="chip_smoke_hb_")
+    old = os.environ.get("PADDLE_HEARTBEAT_FILE")
+    os.environ["PADDLE_HEARTBEAT_FILE"] = os.path.join(hb, "hb")
+    try:
+        arms = {}
+        for on in (True, False):
+            t = hybrid.HybridParallelTrainer(
+                mcfg, hybrid.TrainerConfig(telemetry=on, **tcfg))
+            arms[on] = (t, t.shard_batch(*batch))
+
+        def measure(on):
+            t, b = arms[on]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                t.step_presharded(*b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps
+
+        for _ in range(warmup):
+            for on in (True, False):
+                arms[on][0].step_presharded(*arms[on][1])
+        best = {True: float("inf"), False: float("inf")}
+        for _ in range(trials):
+            for on in (False, True):
+                best[on] = min(best[on], measure(on))
+        del arms
+        torch.cuda.empty_cache()
+        return best[False] / best[True]
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_HEARTBEAT_FILE", None)
+        else:
+            os.environ["PADDLE_HEARTBEAT_FILE"] = old
+        shutil.rmtree(hb, ignore_errors=True)
+
+
+def kernel_events(trace_path, key) -> int:
+    """Device kernel events of a Chrome trace whose name holds ``key``."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and key in e.get("name", ""))
+
+
+def telemetry_serve(counts, obs_dir, n_req=64, trials=3, ratio_req=32,
+                    serving=None, trace=None, stall_s=3.0) -> dict:
+    """(b) Phase 4's trace through a scheduler with a ``ServingTracer``,
+    an ``SLOTracker`` (``DEFAULT_SLOS``) and ``start_http(0)``, scraped
+    from a thread while it runs, with a 1 s ``/debug/profile`` capture
+    that the first decode tick starts and waits for, so its window lies
+    inside the trace (a capture asked for at the trace's start once
+    opened only after the trace had ended: CUPTI's set-up alone can take
+    seconds); the capture must hold the K-DEC launches of every decode
+    tick inside its window. Then the counters, the tracers' TTFT, the wedged readiness, the
+    per-tick host split, and the trace overhead ratio (tracer and sink
+    ON vs OFF on the trace's first ``ratio_req`` requests, interleaved,
+    best of ``trials``)."""
+    import threading
+
+    from paddle_tpu_torch import observability as obs
+
+    model = build_model(DEV, torch.bfloat16)
+    cfg = ServingConfig(**(serving or LOAD_CFG), dtype=torch.bfloat16)
+    vocab = model.cfg.vocab_size
+    reqs = load_trace(vocab, n=n_req, **(trace or {}))
+    names = ("serving_requests_total", "serving_requests_completed_total",
+             "serving_tokens_generated_total")
+    state = {}
+
+    def before_run(sched):
+        obs.configure(obs_dir)
+        state["base"] = {k: obs.registry().total(k) for k in names}
+        sched.start_http(0)
+        state["scraper"] = Scraper(sched.http.url, (
+            "/metrics", "/slo", "/healthz", "/debug/requests"), every=0.5)
+        # the process's first capture sets up CUPTI: pay it before the trace
+        code, body = http_get(sched.http.url + "/debug/profile?secs=0.05")
+        require(code == 200, f"phase 25 (b): warm-up capture {code} {body}")
+        state["profile"] = {}
+        state["decodes"] = []
+
+        def capture():
+            t0 = time.perf_counter()
+            state["profile"]["reply"] = http_get(
+                sched.http.url + "/debug/profile?secs=1")
+            state["profile"]["s"] = time.perf_counter() - t0
+
+        state["profiler"] = threading.Thread(target=capture, daemon=True)
+        decode = state["plain_decode"] = sched.engine.decode
+
+        def timed_decode(*a):
+            if not state["decodes"]:
+                # the first tick starts the capture and waits until it
+                # records, so the trace's ticks fill its window
+                window = sched.http.profile_window
+                window.clear()
+                state["profiler"].start()
+                t_wait = time.perf_counter()
+                while "open" not in sched.http.profile_window:
+                    require(time.perf_counter() - t_wait < 120,
+                            "phase 25 (b): the profiler did not start")
+                    time.sleep(0.001)
+                state["profile"]["wait_s"] = time.perf_counter() - t_wait
+            t = time.time()
+            out = decode(*a)
+            state["decodes"].append((t, time.time()))
+            return out
+
+        sched.engine.decode = timed_decode
+
+    slo = obs.SLOTracker()
+    m, sched = serve_load(model, cfg, reqs, None, "traced",
+                          before_run=before_run, tracer=obs.ServingTracer(),
+                          slo=slo, stall_threshold_s=stall_s)
+    counts["phase25_serve"] = m["launches"]
+    state["profiler"].join()
+    scraper = state["scraper"].stop()
+    delta = {k: obs.registry().total(k) - state["base"][k] for k in names}
+    own = [(r.t_first_token - r.t_submit) * 1e3 for r in reqs]
+    docs = sched.tracer.snapshot()["finished_recent"]
+    ttft_tracer = obs.nearest_rank([d["ttft_ms"] for d in docs], 0.5)
+    ttft_own = obs.nearest_rank([round(x, 3) for x in own], 0.5)
+    ticks = [r for r in jsonl_records(obs_dir) if r.get("kind") == "tick"]
+    split = {k: float(np.median([t[k] for t in ticks]))
+             for k in ("dur_ms", "admit_ms", "prefill_ms", "decode_ms",
+                       "evict_ms")}
+    split["host_ms"] = float(np.median(
+        [t["dur_ms"] - t["prefill_ms"] - t["decode_ms"] for t in ticks]))
+    dur = [t["dur_ms"] for t in ticks]
+    tick_totals = {"dur_ms_sum": float(sum(dur)), "dur_ms_max": max(dur),
+                   "decode_ms_sum": float(sum(t["decode_ms"] for t in ticks)),
+                   "prefill_ms_sum": float(sum(t["prefill_ms"]
+                                               for t in ticks))}
+    sched.engine.decode = state["plain_decode"]
+    code, body = state["profile"]["reply"]
+    prof = json.loads(body)
+    k_dec_events = (kernel_events(prof["path"], "paged_split_kernel")
+                    if code == 200 and DEV.type == "cuda" else None)
+    # decode ticks wholly inside the recording window (1 ms in from each
+    # edge): each returns the host its logits, so its kernels ran inside
+    w_open, w_close = prof.get("window") or (0.0, 0.0)
+    ticks_inside = sum(1 for a, b in state["decodes"]
+                       if a >= w_open + 1e-3 and b <= w_close - 1e-3)
+    slo_doc = json.loads(scraper.last["/slo"][1])
+    # the tick loop stops with work queued: not ready past the threshold
+    url = sched.http.url
+    sched.submit(Request(rid=n_req, prompt=reqs[0].prompt,
+                         max_new_tokens=4))
+    sched.step()
+    time.sleep(stall_s + 0.5)
+    wedged_code, wedged = http_get(url + "/healthz")
+    live_code, _ = http_get(url + "/healthz?live")
+    sched.run()
+    after_code, _ = http_get(url + "/healthz")
+    sched.stop_http()
+    m.update({
+        "counter_deltas": delta,
+        "generated_tokens": sum(len(r.generated) for r in reqs),
+        "ttft_ms_p50_tracer": ttft_tracer, "ttft_ms_p50_own": ttft_own,
+        "ttft_ms_p50_slo_1m": slo_doc["slis"]["ttft_ms"]["windows"][
+            "1m"]["p50"],
+        "tick_split_ms_median": split, "ticks": len(ticks),
+        "tick_totals_ms": tick_totals,
+        "healthz_codes_during_trace": sorted(set(
+            scraper.codes["/healthz"])),
+        "healthz_wedged": [wedged_code, json.loads(wedged)["wedged"]],
+        "healthz_live": live_code, "healthz_after": after_code,
+        "profile": {"code": code, "s": state["profile"]["s"],
+                    "wait_s": state["profile"].get("wait_s"),
+                    "device_kernels": prof.get("device_kernels"),
+                    "decode_ticks_inside": ticks_inside,
+                    "k_dec_events": k_dec_events},
+        "scrapes": {r: len(c) for r, c in scraper.codes.items()}})
+    m["serving_trace_overhead_ratio"] = serve_overhead_ratio(
+        sched.engine, vocab, ratio_req, trace, obs_dir, trials)
+    log("  (b) serving: " + json.dumps(m))
+    require(delta["serving_requests_total"] == n_req
+            and delta["serving_requests_completed_total"] == n_req,
+            f"phase 25 (b): {delta}")
+    require(delta["serving_tokens_generated_total"]
+            == m["generated_tokens"], f"phase 25 (b): {delta}")
+    require(len(docs) == n_req and ttft_tracer == ttft_own,
+            f"phase 25 (b): TTFT p50 {ttft_tracer} vs {ttft_own}")
+    require(200 in scraper.codes["/healthz"]
+            and m["healthz_wedged"] == [503, True] and live_code == 200
+            and after_code == 200, f"phase 25 (b): healthz {m}")
+    for route in ("/metrics", "/slo", "/debug/requests"):
+        require(scraper.last[route][0] == 200, f"phase 25 (b): {route}")
+    require(code == 200, f"phase 25 (b): /debug/profile {code} {prof}")
+    require(ticks_inside > 0, "phase 25 (b): no decode tick ran inside "
+            f"the profile capture's window {m['profile']}")
+    if DEV.type == "cuda":
+        layers = model.cfg.num_layers
+        require(k_dec_events >= layers * ticks_inside,
+                "phase 25 (b): the profile capture lacks K-DEC launches of "
+                f"the decode ticks inside its window {m['profile']}")
+    del model, sched
+    torch.cuda.empty_cache()
+    return m
+
+
+def serve_overhead_ratio(eng, vocab, n_req, trace, obs_dir, trials):
+    """``serving_trace_overhead_ratio``: the trace again on ``eng``,
+    tracer and sink ON vs OFF, interleaved, best of ``trials``: ON
+    output tokens/s over OFF's."""
+    from paddle_tpu_torch import observability as obs
+
+    def run(on):
+        obs.configure(obs_dir if on else "")
+        sched = ContinuousBatchingScheduler(
+            eng, tracer=obs.ServingTracer() if on else None)
+        reqs = load_trace(vocab, n=n_req, **(trace or {}))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            sched.submit(r)
+        sched.run()
+        torch.cuda.synchronize()
+        return sum(len(r.generated) for r in reqs) / (
+            time.perf_counter() - t0)
+
+    best = {True: 0.0, False: 0.0}
+    for _ in range(trials):
+        for on in (False, True):
+            best[on] = max(best[on], run(on))
+    obs.configure(obs_dir)
+    return best[True] / best[False]
+
+
+def telemetry_checkpoint(obs_dir, layers=2) -> dict:
+    """(c) One ``AsyncCheckpointManager`` save and one load of the train
+    state of phase 24 (c)'s trainer (``layers`` layers at GPT-345M
+    width): the counters move as the JAX package's do (bytes = the shard
+    file written), the in-flight gauge is back at 0, the state loads
+    back bitwise."""
+    from paddle_tpu_torch import observability as obs
+
+    reg = obs.registry()
+    mcfg = dataclasses.replace(model_config(), num_layers=layers)
+    t = hybrid.HybridParallelTrainer(mcfg, drill_config())
+    state = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v)) for k, v in t._flat_state().items()}
+    del t
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_ckpt_")
+    names = ("checkpoint_bytes_total", "checkpoint_saves_total",
+             "checkpoint_loads_total")
+    hists = ("checkpoint_manager_save_ms", "checkpoint_save_ms",
+             "checkpoint_load_ms")
+    base = {k: reg.total(k) for k in names}
+    hbase = {k: reg.histogram(k).count for k in hists}
+    gauge = reg.gauge("checkpoint_async_saves_in_flight", root=root)
+    try:
+        mgr = ckpt.AsyncCheckpointManager(root)
+        t0 = time.perf_counter()
+        path = mgr.save(state, 1)
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        in_flight = gauge.value
+        mgr.wait()
+        shard = os.path.getsize(os.path.join(path, "shard-0.pkl"))
+        step, loaded = mgr.load_latest()
+        events = [r for r in jsonl_records(obs_dir)
+                  if r.get("name") == "checkpoint_saved"
+                  and r.get("path") == path]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    m = {"shard_bytes": shard,
+         "deltas": {k: reg.total(k) - base[k] for k in names},
+         "histogram_counts": {k: reg.histogram(k).count - hbase[k]
+                              for k in hists},
+         "in_flight_after_save": in_flight, "in_flight_after_wait":
+         gauge.value, "snapshot_ms": snapshot_ms,
+         "saved_events": len(events), "step": step,
+         "bitwise": loaded.keys() == state.keys() and all(
+             np.array_equal(loaded[k], state[k]) for k in state)}
+    log("  (c) checkpoint: " + json.dumps(m))
+    require(m["deltas"] == {"checkpoint_bytes_total": shard,
+                            "checkpoint_saves_total": 1,
+                            "checkpoint_loads_total": 1},
+            f"phase 25 (c): {m['deltas']}")
+    require(m["histogram_counts"] == {"checkpoint_manager_save_ms": 1,
+                                      "checkpoint_save_ms": 0,
+                                      "checkpoint_load_ms": 1},
+            f"phase 25 (c): {m['histogram_counts']}")
+    require(m["in_flight_after_wait"] == 0 and m["saved_events"] == 1
+            and m["bitwise"] and step == 1, f"phase 25 (c): {m}")
+    return m
+
+
+def phase_telemetry(counts, peaks, train=None, serve=None) -> dict:
+    """Phase 25: run telemetry and the ops endpoint on the port's main
+    paths, the JSONL sink in a temp dir (removed after)."""
+    from paddle_tpu_torch import observability as obs
+
+    log("[25] run telemetry: GPT-345M training and serving with the sink, "
+        "the tracer, the SLO plane and the ops endpoint")
+    t0 = time.perf_counter()
+    obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        obs.configure(obs_dir)
+        m = {"training": telemetry_train(counts, peaks, obs_dir,
+                                         **(train or {})),
+             "serving": telemetry_serve(counts, obs_dir, **(serve or {})),
+             "checkpoint": telemetry_checkpoint(obs_dir)}
+    finally:
+        obs.configure("")
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    m["s"] = time.perf_counter() - t0
+    log(f"  {m['s']:.1f} s")
+    return m
+
+
 # device kernel name -> what it is, first match wins; a key of several
 # parts matches when every part is in the name. K-DEC, K-DEC8, K-MQ and
 # K-MQ8 all launch the paged split kernel (and its merge): one kind. The SEG instantiations
@@ -2709,7 +3237,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
-                    "23,24",
+                    "23,24,25",
                     help="comma-separated; 6, 9, 13, 17 and 18 "
                     "(profiles) are opt-in")
     ap.add_argument("--drill-worker", metavar="SPEC",
@@ -2805,11 +3333,15 @@ def main() -> int:
         e2e["remat"] = phase_remat(counts, peaks)
     if 24 in phases:
         e2e["durability"] = phase_durability(counts)
+    if 25 in phases:
+        e2e["telemetry"] = phase_telemetry(counts, peaks)
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
-    # (16) serving, the LLaMA phases (19-22), the remat policies (23) and
-    # the durability drills (24), each phase's runs counted
-    main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24)
+    # (16) serving, the LLaMA phases (19-22), the remat policies (23), the
+    # durability drills (24) and the telemetry phase (25), each phase's
+    # runs counted
+    main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24,
+                   25)
 
     def launched(which):
         return {name: sum(c.get(name, 0) for key, c in counts.items()

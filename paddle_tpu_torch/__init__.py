@@ -10,12 +10,17 @@ path is a CUDA kernel written by hand for ``sm_90a`` under
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit ``"cpu"`` they raise.
 
-Ported so far: GPT paged serving (``models.gpt``, ``serving``), the
-single-device GPT training step (``parallel``) with packed sequences
-(``io.packing``), training through the nn API (``GPTForCausalLM`` with
-``GPTPretrainingCriterion``), and their ten attention kernels
-(``ops.kernels``). The rest of the Paddle API surface is not ported yet.
+Ported so far: GPT and LLaMA paged serving (``models``, ``serving``),
+the single-device training step (``parallel``) with packed sequences
+(``io.packing``), remat policies, loss scaling, checkpoints
+(``distributed.checkpoint``) and preemption, training through the nn API
+(``GPTForCausalLM`` with ``GPTPretrainingCriterion``), run telemetry and
+the ops endpoint (``observability``), and their thirteen attention
+kernels (``ops.kernels``). The rest of the Paddle API surface is not
+ported yet.
 """
-from . import device, io, models, ops, parallel, serving, utils
+from . import (device, distributed, io, models, observability, ops,
+               parallel, serving, utils)
 
-__all__ = ["device", "io", "models", "ops", "parallel", "serving", "utils"]
+__all__ = ["device", "distributed", "io", "models", "observability", "ops",
+           "parallel", "serving", "utils"]

@@ -36,9 +36,14 @@ The port runs one process, so every checkpoint it writes has
 ``nprocs`` 1 and one piece per tensor covering all of it; it loads the
 JAX package's multi-piece checkpoints all the same. numpy has no
 bfloat16, so bf16 tensors are refused (the trainer's state is fp32 and
-int). The JAX package's checkpoint metrics (``checkpoint_save_blocked_ms``,
-``checkpoint_saves_total``, the in-flight gauge and the save spans) come
-with the port's telemetry slice.
+int).
+
+Telemetry is the JAX package's: ``checkpoint_save`` / ``checkpoint_load``
+spans, ``checkpoint_bytes_total{direction="save"}``,
+``checkpoint_saves_total``, ``checkpoint_loads_total``, the
+``checkpoint_manager_save_ms`` and ``checkpoint_save_blocked_ms``
+histograms, the ``checkpoint_async_saves_in_flight{root}`` gauge and a
+``checkpoint_saved`` JSONL event per committed step.
 """
 from __future__ import annotations
 
@@ -53,6 +58,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from .. import observability as obs
 
 __all__ = [
     "save_state_dict",
@@ -157,7 +164,10 @@ def save_state_dict(state_dict: dict, path: str) -> None:
     atomically: everything is staged in ``path.tmp`` and committed with
     one directory rename, so a crash at any point leaves either the
     previous checkpoint or a ``.tmp`` residue -- never a torn ``path``."""
-    _commit_snapshot(_snapshot_state_dict(state_dict), path)
+    with obs.span("checkpoint_save", event_type="PythonUserDefined"):
+        nbytes = _commit_snapshot(_snapshot_state_dict(state_dict), path)
+    obs.counter("checkpoint_bytes_total", direction="save").inc(nbytes)
+    obs.counter("checkpoint_saves_total").inc()
 
 
 def _host_array(v, copy: bool) -> np.ndarray:
@@ -332,6 +342,13 @@ def load_state_dict(path: str, device=None, verify: bool = True) -> dict:
     raises :class:`CheckpointError` and is never partially loaded.
     ``verify=False`` is for callers that just ran
     :func:`verify_checkpoint` themselves."""
+    with obs.span("checkpoint_load", event_type="PythonUserDefined"):
+        out = _load_state_dict_impl(path, device, verify)
+    obs.counter("checkpoint_loads_total").inc()
+    return out
+
+
+def _load_state_dict_impl(path, device, verify):
     _recover_interrupted_swap(path)
     meta_path = os.path.join(path, "meta.json")
     if not os.path.exists(meta_path):
@@ -424,10 +441,17 @@ class CheckpointManager:
 
     def save(self, state_dict: dict, step: int) -> str:
         """Atomically write ``step-<N>/``, then rotate old steps."""
+        t0 = time.perf_counter()
         self._sweep_stale_staging(min_age_s=_CONSTRUCTION_SWEEP_AGE_S)
         path = self.step_dir(step)
         save_state_dict(state_dict, path)
         self._rotate()
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        obs.registry().histogram("checkpoint_manager_save_ms").observe(dur_ms)
+        if obs.enabled():
+            obs.emit({"kind": "event", "name": "checkpoint_saved",
+                      "step": int(step), "path": path,
+                      "dur_ms": round(dur_ms, 3)})
         return path
 
     def _sweep_stale_staging(self, min_age_s: float = 0.0) -> None:
@@ -538,7 +562,14 @@ class AsyncCheckpointManager(CheckpointManager):
     def save(self, state_dict: dict, step: int) -> str:
         """Snapshot inline, commit in the background. Returns the final
         path (which exists only once the commit lands)."""
-        self.wait()  # at most one in flight; re-raises a previous error
+        # backpressure: at most one commit in flight; the stall is
+        # visible in checkpoint_save_blocked_ms
+        t0 = time.perf_counter()
+        in_flight = self.in_flight()
+        self.wait()  # re-raises a previous commit's error
+        if in_flight:
+            obs.registry().histogram("checkpoint_save_blocked_ms").observe(
+                (time.perf_counter() - t0) * 1e3)
         self._sweep_stale_staging(min_age_s=_CONSTRUCTION_SWEEP_AGE_S)
         path = self.step_dir(step)
         snapshot = _snapshot_state_dict(state_dict, copy=True)
@@ -546,34 +577,56 @@ class AsyncCheckpointManager(CheckpointManager):
         # protect BEFORE the thread starts: a sync manager's sweep between
         # thread start and the commit's own protect would race
         _protect_paths(staging, path)
+        # per-root label: two managers (different roots) must not clear
+        # each other's in-flight signal
+        in_flight = obs.gauge("checkpoint_async_saves_in_flight",
+                              root=self.root)
+        in_flight.set(1)
         try:
             self._thread = threading.Thread(
                 target=self._commit_in_background,
-                args=(snapshot, path, int(step)),
+                args=(snapshot, path, int(step), t0),
                 name=f"ckpt-commit-step-{int(step)}", daemon=True)
             self._thread.start()
         except BaseException:
             self._thread = None
             _unprotect_paths(staging, path)
+            in_flight.set(0)
             raise
         return path
 
-    def _commit_in_background(self, snapshot, path, step) -> None:
+    def _commit_in_background(self, snapshot, path, step, t0) -> None:
+        in_flight = obs.gauge("checkpoint_async_saves_in_flight",
+                              root=self.root)
         try:
             try:
                 t_commit = time.perf_counter()
-                _commit_snapshot(snapshot, path)
+                nbytes = _commit_snapshot(snapshot, path)
                 self.last_commit_s = time.perf_counter() - t_commit
             finally:
                 _unprotect_paths(path + _STAGING_SUFFIX, path)
         except Exception as e:  # re-raised at the next save()/wait()
             self._error = e
+            in_flight.set(0)
             return
         try:
-            # past this point the checkpoint IS durable: a rotation
-            # hiccup must not be reported as a failed commit
+            # past this point the checkpoint IS durable: a rotation or
+            # telemetry hiccup must not be reported as a failed commit
             self._rotate()
-        except OSError as e:
-            print(f"[checkpoint] WARNING: rotation after step-{step} "
-                  f"failed ({type(e).__name__}: {e}); the checkpoint "
-                  "itself is committed and valid", file=sys.stderr)
+            dur_ms = (time.perf_counter() - t0) * 1e3
+            obs.counter("checkpoint_bytes_total", direction="save").inc(
+                nbytes)
+            obs.counter("checkpoint_saves_total").inc()
+            obs.registry().histogram("checkpoint_manager_save_ms").observe(
+                dur_ms)
+            if obs.enabled():
+                obs.emit({"kind": "event", "name": "checkpoint_saved",
+                          "step": step, "path": path, "async": True,
+                          "dur_ms": round(dur_ms, 3)})
+        except Exception as e:
+            print(f"[checkpoint] WARNING: post-commit bookkeeping for "
+                  f"step-{step} failed ({type(e).__name__}: {e}); the "
+                  "checkpoint itself is committed and valid",
+                  file=sys.stderr)
+        finally:
+            in_flight.set(0)

@@ -31,11 +31,23 @@ wall time, exceeds its deadline is shed at submit) -- both make
 hint -- and the decode anomaly guard (a non-finite logits row fails
 ONLY the offending request).
 
-Not ported yet: the tracer and metrics registry, the SLO plane,
-tenancy, the HTTP endpoint, drain and fault injection. The constructor
-raises on their arguments. In their place the scheduler keeps plain
-per-step host records (``decode_tick_ms``, ``verify_ticks``,
+The ops plane is the JAX package's: every ``serving_*`` counter, gauge
+and histogram it records, a :class:`~paddle_tpu_torch.observability.
+ServingTracer` (``tracer``: built when the JSONL sink is on, ``None``
+turns it off) with per-request phase timelines and per-tick
+admit/prefill/decode/evict/draft splits, an optional
+:class:`~paddle_tpu_torch.observability.SLOTracker` (``slo``) fed TTFT,
+queue wait, tick time and request outcomes, per-token commit times on
+each request (``Request.t_tokens``), and :meth:`start_http` for
+``/metrics``, ``/healthz`` (503 while shedding or once the tick loop has
+stalled past ``stall_threshold_s`` with work queued), ``/slo``,
+``/dashboard`` and ``/debug/requests``. Besides, the scheduler keeps
+plain per-step host records (``decode_tick_ms``, ``verify_ticks``,
 ``prefill_calls``) for the caller to summarise.
+
+Not ported yet: tenancy, drain and its guard, ``adopt``, the
+prefill-only role and the fault-injection hooks (the fleet slice). The
+constructor raises on their arguments.
 """
 from __future__ import annotations
 
@@ -47,11 +59,16 @@ from typing import Deque, List, Optional
 
 import numpy as np
 
+from ..observability import sink
+from ..observability.metrics import registry
+from ..observability.tracing import ServingTracer
 from .engine import ServingEngine
 from .kv_cache import PagesExhausted
 from .spec_decode import Drafter, NgramDrafter, SpecDecodeConfig
 
 __all__ = ["Request", "RejectedError", "ContinuousBatchingScheduler"]
+
+_AUTO = object()   # tracer default: one exactly when the sink is on
 
 
 class RejectedError(RuntimeError):
@@ -77,6 +94,10 @@ class Request:
     deadline_s: Optional[float] = None  # TTL from submit (scheduler clock)
     # -- runtime state (scheduler-owned) ------------------------------------
     generated: List[int] = dataclasses.field(default_factory=list)
+    # per-token commit timestamps (scheduler clock), parallel to
+    # ``generated``: tokens committed in one tick share that tick's
+    # timestamp (the tick-granular inter-token latency)
+    t_tokens: List[float] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
     context_len: int = 0               # tokens written to the pool
     status: str = "waiting"   # waiting|running|finished|timeout|error|
@@ -100,11 +121,12 @@ class Request:
 
 class ContinuousBatchingScheduler:
     def __init__(self, engine: ServingEngine, clock=time.monotonic,
-                 max_waiting: Optional[int] = None,
+                 tracer=_AUTO, max_waiting: Optional[int] = None,
                  admission_control: bool = True,
                  anomaly_guard: bool = True,
                  spec_decode: Optional[SpecDecodeConfig] = None,
-                 drafter: Optional[Drafter] = None, **unported):
+                 drafter: Optional[Drafter] = None,
+                 slo=None, stall_threshold_s: float = 30.0, **unported):
         if unported:
             raise NotImplementedError(
                 "ContinuousBatchingScheduler: not ported yet: "
@@ -134,6 +156,24 @@ class ContinuousBatchingScheduler:
         self.finished: List[Request] = []
         self._steps = 0
         self._deadline_live = 0        # live requests carrying a deadline
+        self._shedding = False   # latched on reject, cleared once none waits
+        # tracer=None disables per-request tracing entirely (the OFF arm
+        # of the serving_trace_overhead_ratio measurement); the default
+        # builds one exactly when an obs run is active
+        if tracer is _AUTO:
+            tracer = ServingTracer() if sink.enabled() else None
+        self.tracer: Optional[ServingTracer] = tracer
+        self.http = None
+        # the SLO plane (observability.slo): slo=None disables it, every
+        # feed below is behind ``if self.slo is not None``
+        self.slo = slo
+        if slo is not None and self.tracer is not None:
+            self.tracer.slo = slo   # the tracer feeds tick-granular ITL
+        # stall detection for /healthz: stamped at every tick end; a
+        # live process whose tick loop stopped past the threshold while
+        # holding work reads NOT-ready (wedged)
+        self.stall_threshold_s = float(stall_threshold_s)
+        self._t_last_tick: Optional[float] = None
         # host wall time of every plain decode tick (ms), of every verify
         # tick (ms, committed, proposed, accepted) and of every packed
         # prefill (requests, tokens, ms) — the engine returns host
@@ -141,6 +181,89 @@ class ContinuousBatchingScheduler:
         self.decode_tick_ms: List[float] = []
         self.verify_ticks: List[tuple] = []
         self.prefill_calls: List[tuple] = []
+
+    # -- the ops endpoint -----------------------------------------------------
+
+    def start_http(self, port: int = 0, host: str = "127.0.0.1"):
+        """Start the live ops endpoint for this scheduler (``/metrics``,
+        ``/healthz``, ``/slo``, ``/dashboard``, ``/debug/requests``,
+        ``/debug/profile``). Returns the bound ``(host, port)`` (with
+        ``port=0`` the OS picks one); the endpoint stays on ``self.http``.
+        Idempotent. Requests need a tracer: one is created if the
+        scheduler was built without."""
+        from ..observability.http_endpoint import ObsHTTPEndpoint
+        if self.http is not None:
+            return (self.http._host, self.http.port)
+        if self.tracer is None:
+            self.tracer = ServingTracer()
+        if self.slo is not None:
+            self.tracer.slo = self.slo
+
+        def _requests_snapshot():
+            # the request table + the pool's capacity identity, so a
+            # /debug/requests scrape alone names the kv configuration
+            snap = self.tracer.snapshot()
+            kv = self.engine.kv
+            snap["kv_dtype"] = kv.kv_dtype
+            snap["kv_scale_pool_bytes"] = kv.scale_pool_bytes()
+            snap["pages_total"] = self.engine.pool.num_pages
+            return snap
+
+        self.http = ObsHTTPEndpoint(
+            port=port, host=host, health=self._health_snapshot,
+            requests=_requests_snapshot,
+            slo=(self.slo.snapshot if self.slo is not None else None))
+        self.http.start()
+        return (host, self.http.port)
+
+    def stop_http(self) -> None:
+        """Stop the ops endpoint if one is running (idempotent)."""
+        http, self.http = self.http, None
+        if http is not None:
+            http.stop()
+
+    def _health_snapshot(self) -> dict:
+        pool = self.engine.pool
+        kv = self.engine.kv
+        age = (self.clock() - self._t_last_tick
+               if self._t_last_tick is not None else None)
+        # wedged: the process answers HTTP but the tick loop stopped
+        # while still holding work; readiness flips 503 on it
+        wedged = bool(self.has_work and age is not None
+                      and age > self.stall_threshold_s)
+        return {
+            "role": "serving",
+            "tick": self._steps,
+            "running": len(self.running),
+            "waiting": len(self.waiting),
+            "finished": len(self.finished),
+            "pages_in_use": pool.in_use,
+            "pages_total": pool.num_pages,
+            "kv_dtype": kv.kv_dtype,
+            "kv_pool_bytes": kv.pool_bytes(),
+            "kv_scale_pool_bytes": kv.scale_pool_bytes(),
+            "overloaded": self.overloaded,
+            "draining": False,
+            "tick_s_ema": round(self._tick_s_ema, 6),
+            "last_tick_age_s": (round(age, 4)
+                                if age is not None else None),
+            "stall_threshold_s": self.stall_threshold_s,
+            "wedged": wedged,
+            "slo_alerts_firing": (self.slo.firing_count()
+                                  if self.slo is not None else 0),
+        }
+
+    def _queue_full(self) -> bool:
+        """THE ``max_waiting`` predicate, shared by ``overloaded`` (the
+        /healthz readiness) and ``_admission_check`` (submit shedding)."""
+        return (self.max_waiting is not None
+                and len(self.waiting) >= self.max_waiting)
+
+    @property
+    def overloaded(self) -> bool:
+        """Is the scheduler shedding load? True while the bounded queue
+        is full or since the last rejection until the queue drains."""
+        return self._queue_full() or self._shedding
 
     # -- intake -------------------------------------------------------------
 
@@ -177,14 +300,17 @@ class ContinuousBatchingScheduler:
                           if req.deadline_s is not None else None)
         if req.t_deadline is not None:
             self._deadline_live += 1
+        registry().counter("serving_requests_total").inc()
         self.waiting.append(req)
+        if self.tracer:
+            self.tracer.on_submit(req.rid, len(req.prompt),
+                                  req.max_new_tokens)
 
     def _admission_check(self, req: Request) -> None:
         """Every submit-time shedding decision, in the JAX scheduler's
         order (raises :class:`RejectedError` through ``_reject``): the
         bounded queue, then deadline admission control."""
-        if (self.max_waiting is not None
-                and len(self.waiting) >= self.max_waiting):
+        if self._queue_full():
             self._reject(req, "queue_full",
                          self._tick_s_ema * len(self.waiting))
         if (self.admission_control and req.deadline_s is not None
@@ -201,9 +327,18 @@ class ContinuousBatchingScheduler:
     def _reject(self, req: Request, reason: str,
                 retry_after_s: float) -> None:
         """Shed ``req`` at submit, the hint floored at one tick (and at
-        1 ms while no tick has been timed)."""
+        1 ms while no tick has been timed): counter, JSONL event, and the
+        overload flag the ``/healthz`` readiness reports."""
         retry = max(float(retry_after_s), self._tick_s_ema, 1e-3)
         req.status = "rejected"
+        self._shedding = True
+        registry().counter("serving_rejected_total").inc()
+        if self.slo is not None:
+            self.slo.on_shed()
+        if sink.enabled():
+            sink.emit({"kind": "event", "name": "request_rejected",
+                       "rid": req.rid, "reason": reason,
+                       "retry_after_s": round(retry, 4)})
         raise RejectedError(
             f"request {req.rid} rejected ({reason}): retry after "
             f"~{retry:.3f}s", retry_after_s=retry, reason=reason)
@@ -233,6 +368,8 @@ class ContinuousBatchingScheduler:
     def step(self) -> None:
         """One serving iteration: deadline expiry, admit+prefill,
         grow/evict, decode."""
+        if self.tracer:
+            self.tracer.begin_tick()
         if self._deadline_live:
             self._expire(self.clock())
         self._admit_and_prefill()
@@ -242,6 +379,19 @@ class ContinuousBatchingScheduler:
             else:
                 self._decode_plain()
         self._steps += 1
+        self._t_last_tick = self.clock()
+        if self._shedding and not self.waiting:
+            self._shedding = False   # queue drained: overload is over
+        registry().gauge("serving_pages_in_use").set(
+            self.engine.pool.in_use)
+        if self.slo is not None:
+            self.slo.maybe_evaluate()
+        if self.tracer:
+            self.tracer.end_tick(
+                running=len(self.running), waiting=len(self.waiting),
+                pages_in_use=self.engine.pool.in_use,
+                pages_total=self.engine.pool.num_pages,
+                max_batch=self.engine.cfg.max_batch)
 
     def run(self) -> None:
         while self.has_work:
@@ -272,6 +422,8 @@ class ContinuousBatchingScheduler:
         batch: List[Request] = []
         toks: List[np.ndarray] = []
         total = 0
+        # tracer-only clock: the untraced tick does not pay the call
+        t_admit = time.perf_counter() if self.tracer else None
         while self.waiting and len(self.running) + len(batch) < cfg.max_batch:
             req = self.waiting[0]
             ctx = self._prefill_tokens(req)
@@ -297,12 +449,21 @@ class ContinuousBatchingScheduler:
             batch.append(req)
             toks.append(ctx)
             total += len(ctx)
+        if self.tracer:
+            self.tracer.acc(
+                "admit_ms", (time.perf_counter() - t_admit) * 1e3)
         if not batch:
             return
+        # queue wait ends where the prefill begins; read the clock once
+        # for the whole batch, only when the SLO plane is on
+        t_q = self.clock() if self.slo is not None else None
+        pf_us = time.time() * 1e6 if self.tracer else None
         t0 = time.perf_counter()
         logits = self.engine.prefill_packed(toks, [r.pages for r in batch])
-        self.prefill_calls.append(
-            (len(batch), total, (time.perf_counter() - t0) * 1e3))
+        pf_ms = (time.perf_counter() - t0) * 1e3
+        self.prefill_calls.append((len(batch), total, pf_ms))
+        if self.tracer:
+            self.tracer.on_prefill([r.rid for r in batch], pf_us, pf_ms)
         now = self.clock()
         for req, row in zip(batch, logits):
             req.status = "running"
@@ -311,7 +472,13 @@ class ContinuousBatchingScheduler:
                 tok = int(self.engine.sample(
                     row[None], req.temperature, req.top_k)[0])
                 req.generated.append(tok)
+                req.t_tokens.append(now)
                 req.t_first_token = now
+                registry().counter("serving_tokens_generated_total").inc()
+                if self.slo is not None and req.t_submit is not None:
+                    self.slo.observe_ttft((now - req.t_submit) * 1e3)
+                    self.slo.observe_queue_wait(
+                        (t_q - req.t_submit) * 1e3)
             # re-admission after eviction: the newest generated token is
             # already known; the prefill only rebuilt the pool pages
             if req.done:
@@ -378,9 +545,19 @@ class ContinuousBatchingScheduler:
         req.preemptions += 1
         self.running.remove(req)
         self.waiting.appendleft(req)
+        registry().counter("serving_preemptions_total").inc()
+        if self.tracer:
+            self.tracer.on_evict(req.rid)
+        if sink.enabled():
+            sink.emit({"kind": "event", "name": "serving_preemption",
+                       "rid": req.rid, "generated": len(req.generated)})
 
     def _decode_plain(self) -> None:
+        ev0 = time.perf_counter() if self.tracer else None
         self._grow_or_evict()
+        if self.tracer:
+            self.tracer.acc(
+                "evict_ms", (time.perf_counter() - ev0) * 1e3)
         runners = [r for r in self.running if r.status == "running"]
         if not runners:
             return
@@ -390,11 +567,20 @@ class ContinuousBatchingScheduler:
             pt[i, :len(r.pages)] = r.pages
         tokens = np.asarray([r.last_token for r in runners], np.int32)
         lens = np.asarray([r.context_len for r in runners], np.int32)
+        dc_us = time.time() * 1e6 if self.tracer else None
         t0 = time.perf_counter()
         logits = self.engine.decode(tokens, pt, lens)
         dur_s = time.perf_counter() - t0
-        self.decode_tick_ms.append(dur_s * 1e3)
+        dur_ms = dur_s * 1e3
+        self.decode_tick_ms.append(dur_ms)
         self._observe_tick(dur_s)
+        registry().histogram("serving_decode_step_ms").observe(dur_ms)
+        registry().counter("serving_decode_steps_total").inc()
+        if self.slo is not None:
+            self.slo.observe_tick(dur_ms)
+        if self.tracer:
+            self.tracer.on_decode_tick(
+                [r.rid for r in runners], dc_us, dur_ms)
         if self.anomaly_guard and not np.isfinite(float(logits.sum())):
             # cheap scalar screen; the per-row scan runs only on anomaly
             runners, logits = self._fail_anomalous(runners, logits)
@@ -408,9 +594,12 @@ class ContinuousBatchingScheduler:
                 self.engine.sample(logits[i][None], r.temperature,
                                    r.top_k)[0]
                 for i, r in enumerate(runners)], np.int32)
+        tokens_total = registry().counter("serving_tokens_generated_total")
         for i, req in enumerate(runners):
             req.context_len += 1
             req.generated.append(int(toks[i]))
+            req.t_tokens.append(now)
+            tokens_total.inc()
             if req.done:
                 self._finish(req, now)
 
@@ -427,6 +616,7 @@ class ContinuousBatchingScheduler:
         k = self.spec.k
         # propose BEFORE page growth so provisioning covers the window
         # actually drafted; an eviction below orphans its draft
+        dr0 = time.perf_counter() if self.tracer else None
         now = self.clock()
         drafts: dict = {}
         for req in self.running:
@@ -443,11 +633,18 @@ class ContinuousBatchingScheduler:
             ctx = req.prompt.tolist() + req.generated
             d = self.drafter.propose(ctx, budget)
             drafts[req.rid] = [int(t) for t in d[:budget]]
+        if self.tracer:
+            self.tracer.acc(
+                "draft_ms", (time.perf_counter() - dr0) * 1e3)
         if not any(drafts.values()):
             # nothing drafted anywhere: a verify window would spend (k+1)x
             # the decode work to commit one token per lane
             return self._decode_plain()
+        ev0 = time.perf_counter() if self.tracer else None
         self._grow_or_evict(extra=lambda r: len(drafts.get(r.rid, ())))
+        if self.tracer:
+            self.tracer.acc(
+                "evict_ms", (time.perf_counter() - ev0) * 1e3)
         runners = [r for r in self.running if r.status == "running"]
         if not runners:
             return
@@ -462,10 +659,15 @@ class ContinuousBatchingScheduler:
                 tokens[i, 1:1 + len(d)] = d
             pt[i, :len(r.pages)] = r.pages
         lens = np.asarray([r.context_len for r in runners], np.int32)
+        dc_us = time.time() * 1e6 if self.tracer else None
         t0 = time.perf_counter()
         logits = self.engine.verify(tokens, pt, lens)  # (n, w, vocab)
         dur_ms = (time.perf_counter() - t0) * 1e3
         self._observe_tick(dur_ms / 1e3)
+        registry().histogram("serving_decode_step_ms").observe(dur_ms)
+        registry().counter("serving_decode_steps_total").inc()
+        if self.slo is not None:
+            self.slo.observe_tick(dur_ms)
         if self.anomaly_guard and not np.isfinite(float(logits.sum())):
             runners, logits = self._fail_anomalous(runners, logits)
         if not runners:
@@ -495,11 +697,24 @@ class ContinuousBatchingScheduler:
             accepted += m
             committed += len(toks)
         self.verify_ticks.append((dur_ms, committed, proposed, accepted))
+        registry().counter("serving_tokens_generated_total").inc(committed)
+        if proposed:
+            registry().counter("serving_spec_proposed_total").inc(proposed)
+        if accepted:
+            registry().counter("serving_spec_accepted_total").inc(accepted)
+        if self.tracer:
+            self.tracer.on_decode_tick(
+                [r.rid for r in runners], dc_us, dur_ms,
+                tokens=committed, spec_proposed=proposed,
+                spec_accepted=accepted)
         for req, n_d, m, toks in commits:
             req.spec_proposed += n_d
             req.spec_accepted += m
             req.context_len += len(toks)
             req.generated.extend(toks)
+            # a verify tick commits its whole window at the tick end:
+            # every committed token shares the timestamp (per-tick ITL)
+            req.t_tokens.extend([now] * len(toks))
             if req.done:
                 self._finish(req, now)
 
@@ -540,3 +755,47 @@ class ContinuousBatchingScheduler:
         if req.t_deadline is not None:
             self._deadline_live -= 1
         self.finished.append(req)
+        latency_ms = (now - req.t_submit) * 1e3 if req.t_submit else None
+        ttft_ms = ((req.t_first_token - req.t_submit) * 1e3
+                   if req.t_first_token and req.t_submit else None)
+        if status == "finished":
+            registry().counter("serving_requests_completed_total").inc()
+            if latency_ms is not None:
+                registry().histogram(
+                    "serving_request_latency_ms").observe(latency_ms)
+            if ttft_ms is not None:
+                registry().histogram("serving_ttft_ms").observe(ttft_ms)
+        elif status == "timeout":
+            registry().counter("serving_timeouts_total").inc()
+        elif status == "error":
+            registry().counter("serving_request_errors_total").inc()
+        elif status == "cancelled":
+            registry().counter("serving_cancelled_total").inc()
+        if self.slo is not None:
+            # goodput numerator = tokens from requests that finished
+            # within their own deadline (loadgen's definition)
+            good = (len(req.generated) if status == "finished"
+                    and (req.t_deadline is None or now <= req.t_deadline)
+                    else 0)
+            self.slo.on_request_done(status, tokens=len(req.generated),
+                                     good_tokens=good)
+        if sink.enabled():
+            rec = {"kind": "event", "name": "request_done",
+                   "rid": req.rid, "status": status,
+                   "tokens": len(req.generated),
+                   "prompt_tokens": int(len(req.prompt)),
+                   "latency_ms": (round(latency_ms, 3)
+                                  if latency_ms is not None else None),
+                   "ttft_ms": (round(ttft_ms, 3)
+                               if ttft_ms is not None else None),
+                   "preemptions": req.preemptions}
+            if self.spec is not None:
+                rec["spec_proposed"] = req.spec_proposed
+                rec["spec_accepted"] = req.spec_accepted
+            sink.emit(rec)
+        if self.tracer:
+            self.tracer.on_finish(req.rid, latency_ms, ttft_ms,
+                                  tokens=len(req.generated),
+                                  status=status,
+                                  spec_proposed=req.spec_proposed,
+                                  spec_accepted=req.spec_accepted)

@@ -37,6 +37,10 @@ from paddle_tpu_torch.parallel import hybrid as thybrid
 from paddle_tpu_torch.utils.convert import from_gpt_params
 from paddle_tpu_torch.utils.tree import flatten
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 
 def _state(seed=0, n=64):
     rng = np.random.RandomState(seed)

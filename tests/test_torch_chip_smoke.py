@@ -2,13 +2,17 @@
 card, its kernel checks (comparison, bound, JSON keys) work at tiny
 shapes with the plain versions standing in for the kernels, and its
 training phases (7, 8, 10-12), speculative and int8 serving phases
-(14-16), LLaMA phases (19-22), remat policies (23) and durability
-drills (24) run end to end at tiny widths."""
+(14-16), LLaMA phases (19-22), remat policies (23), durability drills
+(24) and run telemetry (25) run end to end at tiny widths."""
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
+
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
 
 _KEYS = {"max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
          "bound_by", "library_ms", "shape"}
@@ -247,6 +251,21 @@ def test_profile_skips_user_annotations():
               NS(key="aten::mm", device_type=cpu, self_device_time_total=0)]
     prof = NS(key_averages=lambda: events)
     assert cs.device_ms_by_kernel(prof) == {"gemm": 3.0}
+    # a telemetry span is a record_function range: the profiler marks it
+    # a user annotation, so its device-side copy is skipped too
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import observability as obs
+
+    with profile(activities=[ProfilerActivity.CPU]) as real:
+        with obs.span("checkpoint_save"):
+            torch.ones(3).add_(1)
+    (span,) = [e for e in real.key_averages() if e.key == "checkpoint_save"]
+    assert span.is_user_annotation
+    events.append(NS(key=span.key, device_type=cuda,
+                     self_device_time_total=7e3,
+                     is_user_annotation=span.is_user_annotation))
+    assert cs.device_ms_by_kernel(prof) == {"gemm": 3.0}
 
 
 @pytest.fixture
@@ -367,6 +386,60 @@ def test_durability_phase_rehearses_on_cpu(tiny_training):
     for key in ("phase24_scale", "phase24_ckpt", "phase24_preempt",
                 "phase24_rollback"):
         assert counts[key]["K-PACK"] > 0, key
+
+
+def test_drill_is_bitwise_whatever_the_thread_count(tiny_training):
+    """Phase 24 (c)'s training loop ends with the same params bit for bit
+    whether its process runs 8 intra-op threads or 2: on the CPU a
+    reduction's bits depend on how many threads split it, so
+    ``drill_train`` runs on one (and restores the caller's count)."""
+    import dataclasses
+
+    from paddle_tpu_torch.utils.tree import flatten
+
+    spec = {"model": dataclasses.asdict(cs.model_config()),
+            "device": "cpu", "batch": 2, "seq": 32, "steps": 4,
+            "save_every": 2}
+    params = {}
+    try:
+        for threads in (8, 2):
+            torch.set_num_threads(threads)
+            t, _ = cs.drill_train(spec)
+            assert torch.get_num_threads() == threads
+            params[threads] = dict(flatten(t.params))
+    finally:
+        torch.set_num_threads(1)
+    assert params[8].keys() == params[2].keys()
+    assert all(torch.equal(params[8][k], params[2][k]) for k in params[8])
+
+
+def test_telemetry_phase_rehearses_on_cpu(tiny_serving):
+    """Phase 25 at a tiny GPT on the CPU, its HTTP checks included (the
+    CUDA-only ones, device memory and the profile's K-DEC events, are
+    left out by the phase itself): 5 accounted steps, the endpoint
+    scraped from a thread, the serving counters, TTFT and wedged
+    readiness, and the checkpoint metrics."""
+    counts = {}
+    m = cs.phase_telemetry(
+        counts, tiny_serving,
+        train=dict(steps=5, batch=2, seq=32, trials=1, trial_steps=1,
+                   warmup=1),
+        serve=dict(n_req=6, trials=1, ratio_req=3, serving=_TINY_SERVING,
+                   trace=dict(prompt=(8, 24), new_tokens=(4, 8)),
+                   stall_s=0.5))
+    a, b, c = m["training"], m["serving"], m["checkpoint"]
+    assert a["records"] == 5 and a["flops_source"] == "analytic_6NT"
+    assert a["memory_plan_bytes"] == a["live_state_bytes"]
+    assert a["healthz"] == [200, "trainer", 5]
+    assert a["obs_instrumentation_overhead_ratio"] > 0
+    assert counts["phase25_train"]["K-PACK"] == 5 * 2 * 2
+    assert b["counter_deltas"]["serving_requests_total"] == 6
+    assert b["ttft_ms_p50_tracer"] == b["ttft_ms_p50_own"]
+    assert b["healthz_wedged"] == [503, True] and b["healthz_live"] == 200
+    assert b["profile"]["code"] == 200 and b["ticks"] > 0
+    assert b["profile"]["decode_ticks_inside"] > 0
+    assert counts["phase25_serve"]["K-DEC"] == b["decode_ticks"] * 2
+    assert c["deltas"]["checkpoint_saves_total"] == 1 and c["bitwise"]
 
 
 def test_nn_api_training_phase_rehearses_on_cpu(tiny_training):

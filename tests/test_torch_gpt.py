@@ -11,6 +11,10 @@ from paddle_tpu_torch.models import gpt as TM
 from paddle_tpu_torch.utils.convert import (expected_leaves,
                                             from_paddle_tpu_state)
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def jax_tiny():

@@ -21,6 +21,10 @@ from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.asarray(x))

@@ -28,6 +28,10 @@ from paddle_tpu_torch.serving import (ContinuousBatchingScheduler, Request,
 from paddle_tpu_torch.utils.convert import (expected_llama_leaves,
                                             from_llama_state)
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 _CFG = dict(page_size=8, max_model_len=64, max_batch=8,
             max_prefill_tokens=128)
 

@@ -27,6 +27,10 @@ from paddle_tpu_torch.utils.convert import (expected_llama_params,
                                             from_llama_state)
 from paddle_tpu_torch.utils.tree import flatten, unflatten
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 B, S = 2, 48
 ATOL = 1e-5
 # Adam's eps for the trainer comparison, as tests/test_torch_trainer.py

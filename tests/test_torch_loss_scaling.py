@@ -23,6 +23,10 @@ from paddle_tpu_torch.parallel import hybrid as thybrid
 from paddle_tpu_torch.utils.convert import from_gpt_params, from_llama_params
 from paddle_tpu_torch.utils.tree import flatten
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 B, S = 2, 32
 EPS = 1e-5      # Adam's eps, as tests/test_torch_trainer.py sets it
 ARCHS = {"gpt": (JM.gpt_tiny, TM.gpt_tiny, from_gpt_params),

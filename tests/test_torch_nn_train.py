@@ -30,6 +30,10 @@ from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 from paddle_tpu_torch.utils.convert import from_paddle_tpu_state
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 B, S, H, D, BLOCK = 2, 256, 2, 64, 128
 

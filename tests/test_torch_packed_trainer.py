@@ -37,6 +37,10 @@ from paddle_tpu_torch.parallel import transformer_core as tcore
 from paddle_tpu_torch.utils.convert import from_gpt_params
 from paddle_tpu_torch.utils.tree import flatten, unflatten
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 B, NH, D, BLOCK = 2, 2, 64, 128
 ATOL = 1e-5
 

@@ -9,6 +9,10 @@ import torch
 from paddle_tpu.io import packing as jp
 from paddle_tpu_torch.io import packing as tp
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 FIELDS = ("tokens", "labels", "segment_ids", "positions")
 
 

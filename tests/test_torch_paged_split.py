@@ -16,6 +16,10 @@ from paddle_tpu.ops.pallas.paged_attention import (
     paged_multiquery_attention_xla)
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 _TABLE = 640             # tokens a page table reaches: 2.5 chunks of 256
 _LENS = {                # per window length: chunk edges, table, past it
     1: [0, 1, 255, 256, 257, _TABLE, _TABLE + 13],

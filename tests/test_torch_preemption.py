@@ -29,6 +29,10 @@ from paddle_tpu_torch.parallel import hybrid as thybrid
 from paddle_tpu_torch.utils import preemption
 from paddle_tpu_torch.utils.tree import flatten
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -307,9 +311,11 @@ print(json.dumps({"resumed_at": start, "cursor": loader.cursor}))
 
 def test_two_process_preemption_drill_loses_no_step(tmp_path):
     root, fi_dir = str(tmp_path / "ckpt"), str(tmp_path / "fi")
+    # the workers run one intra-op thread each, as this process does
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""),
-               PADDLE_FI_PREEMPT_AT_STEP="1", PADDLE_FI_DIR=fi_dir)
+               PADDLE_FI_PREEMPT_AT_STEP="1", PADDLE_FI_DIR=fi_dir,
+               OMP_NUM_THREADS="1")
 
     def run(root_arg, out):
         return subprocess.run(

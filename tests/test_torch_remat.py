@@ -34,6 +34,10 @@ from paddle_tpu_torch.parallel import transformer_core as tgpt
 from paddle_tpu_torch.utils.convert import from_gpt_params, from_llama_params
 from paddle_tpu_torch.utils.tree import flatten, unflatten
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 B, S = 2, 48
 ATOL = 1e-5
 EPS = 1e-5      # Adam's eps, as tests/test_torch_trainer.py sets it

@@ -25,6 +25,10 @@ from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
 from paddle_tpu_torch.serving.kv_cache import _scatter_pages
 from paddle_tpu_torch.utils.convert import from_paddle_tpu_state
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 _CFG = dict(page_size=8, max_model_len=64, max_batch=8,
             max_prefill_tokens=128)
 
@@ -158,8 +162,8 @@ def test_scatter_drops_oob_slots_in_place():
 def test_scheduler_intake_validation(models):
     _, tm = models
     eng = ServingEngine(tm, ServingConfig(**_CFG, num_pages=6))
-    with pytest.raises(NotImplementedError, match="slo"):
-        ContinuousBatchingScheduler(eng, slo=object())
+    with pytest.raises(NotImplementedError, match="tenancy"):
+        ContinuousBatchingScheduler(eng, tenancy=object())
     s = ContinuousBatchingScheduler(eng, max_waiting=1)
     p = np.arange(10, dtype=np.int32)
     with pytest.raises(ValueError, match="max_model_len"):

@@ -33,6 +33,10 @@ from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
                                       repetitious_trace)
 from paddle_tpu_torch.utils.convert import from_paddle_tpu_state
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 _CFG = dict(page_size=8, max_model_len=64, max_batch=8,
             max_prefill_tokens=128)
 

@@ -18,6 +18,10 @@ from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 B, NH, D, BLOCK = 2, 2, 64, 128
 ATOL = 1e-5
 

@@ -21,6 +21,10 @@ from paddle_tpu_torch.utils.convert import (expected_gpt_params,
                                             from_gpt_params)
 from paddle_tpu_torch.utils.tree import flatten
 
+# one intra-op thread: the suite runs several workers on the machine's
+# cores, and each worker's idle OpenMP team would spin against theirs
+torch.set_num_threads(1)
+
 B, S = 2, 64
 
 
@@ -274,7 +278,7 @@ def test_from_gpt_params_rejects_unknown_missing_and_misshapen(jax_params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"dp": 2}, {"sep": 2}, {"http_port": 0}, {"consistency_check_every": 4}])
+    {"dp": 2}, {"sep": 2}, {"mp": 2}, {"consistency_check_every": 4}])
 def test_trainer_rejects_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         thybrid.HybridParallelTrainer(gpt_tiny(), thybrid.TrainerConfig(**kw),
