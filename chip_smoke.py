@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 0,1,2,19,20,21,22  # the LLaMA family
     python3 chip_smoke.py --phases 0,1,23,24  # remat policies, durability
     python3 chip_smoke.py --phases 0,1,25  # run telemetry, ops endpoint
+    python3 chip_smoke.py --phases 0,1,26  # loadgen, pool plans, the fleet
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -154,9 +155,42 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     median per-tick host split and the trace overhead ratio (tracer and
     sink ON vs OFF, best of 3, printed); (c) an async checkpoint save
     and load of phase 24 (c)'s state: the checkpoint counters, histograms
-    and in-flight gauge as the JAX package records them.
+    and in-flight gauge as the JAX package records them;
+26. the rest of serving, GPT-345M: (a) phase 4's trace (bf16) through
+    ``loadgen.run_continuous`` (a scheduler with a tracer) and
+    ``run_static_baseline``: every request finishes, the report's tokens
+    equal the scheduler's, the continuous run launches K-SEG and K-DEC
+    once a layer per prefill and tick, the baseline K-BSHD once a layer
+    per batch; both reports beside the tracer's TTFT and ITL; (b)
+    ``plan_kv_pool`` for GPT-345M and LLaMA-7B at bf16 and int8 against
+    the card's capacity (the JAX function's page counts at 80 GiB), each
+    planned pool allocated alone with ``pool_bytes() == kv_bytes``, and
+    ``mem_get_info`` around it; (c) ``copy_pages`` between caches of
+    GPT-345M's pool shape, bf16 and int8, filled with random bytes, with
+    and without ``limit``: bitwise, scales included, no other page or
+    drop page touched, and a CPU cache refused; (d) a prefill-role and a
+    decode-role replica (fp32 pools of 1,024 pages) under
+    ``ReplicaRouter`` and ``DisaggCoordinator``, 16 requests of
+    ``synthetic_trace``: every stream equals one fused replica's except
+    at a near-tie (top-2 gap under 1e-3), both pools end with nothing in
+    use or leased, the prefill replica launches K-SEG and no K-DEC and
+    the decode replica K-DEC; then int8 pools (K-DEC8 on the decode
+    replica; streams reported), then ``PADDLE_FI_HANDOFF_PARTIAL`` on one
+    request, which re-prefills on the decode replica and keeps its
+    stream; (e) two fused replicas on a virtual clock, ``a`` killed
+    mid-decode (``PADDLE_FI_ROUTER_KILL_REPLICA``) and ``b`` wedged for
+    0.5 s (``PADDLE_FI_ROUTER_WEDGE_REPLICA``): every request finishes,
+    no delivered token is rewritten, fp32 streams equal the fused
+    replica's by (d)'s rule, and after ``restart()`` the card's allocated
+    bytes are back within one pool's bytes of their value before the
+    kill; then two replicas on tick threads of their own serve 4 of the
+    requests to the same streams; (f) two tenants on one replica (``multi_tenant_trace``): the
+    floor-protected ``gold`` is never preempted while ``batch`` is,
+    ``batch`` is shed with its bucket's refill time as the hint and
+    admitted once the clock has moved by it, ``/healthz`` lists both
+    tenants, ``/slo?tenant=gold`` answers the keyed view.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-25) sets the kernels' launch
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-26) sets the kernels' launch
 counts to 0 just before it and reads them just after. The line before the
 last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -3129,6 +3163,620 @@ def phase_telemetry(counts, peaks, train=None, serve=None) -> dict:
     return m
 
 
+# -- phase 26: the rest of serving -------------------------------------------
+
+# phase 26's fleet configuration: the pools of (d)-(e), 1024 pages of 16
+# tokens, fp32 (3.2 GB each at GPT-345M)
+FLEET_CFG = dict(page_size=16, max_model_len=256, max_batch=16,
+                 max_prefill_tokens=1024, num_pages=1024)
+# (f): a pool small enough that two tenants' bursts must preempt
+TENANT_CFG = dict(page_size=16, max_model_len=64, max_batch=16,
+                  max_prefill_tokens=1024, num_pages=24)
+# phase 26's traces draw token ids below 1024 whatever the model's vocab,
+# so a rehearsal at a tiny GPT schedules exactly what the card does
+TRACE_VOCAB = 1024
+# plan_kv_pool's page counts at an 80 GiB card, from the JAX function
+PLAN_PAGES_80G = {("gpt_345m", "bf16"): 15571, ("gpt_345m", "int8"): 31022,
+                  ("llama_7b", "bf16"): 180, ("llama_7b", "int8"): 359}
+
+
+def mem_allocated():
+    return torch.cuda.memory_allocated(DEV) if DEV.type == "cuda" else None
+
+
+def mem_info():
+    return (list(torch.cuda.mem_get_info(DEV)) if DEV.type == "cuda"
+            else None)
+
+
+def counted_tick(rep, per) -> bool:
+    """One replica tick with the launches it made added to ``per``: the
+    fleet's replicas tick one after another on this thread, so each
+    delta is that replica's own."""
+    before = K.launch_counts()
+    ran = rep.tick()
+    for name, n in K.launch_counts().items():
+        per[name] = per.get(name, 0) + n - before[name]
+    return ran
+
+
+def stream_check(got, ref_tokens, ref_rows):
+    """``None`` when ``got`` equals the reference stream, else ``(pos,
+    gap)``: the first position where they part and the reference logits'
+    top-2 gap there (a near-tie when under 1e-3)."""
+    for i, (a, b) in enumerate(zip(got, ref_tokens)):
+        if a != b:
+            top2 = np.sort(ref_rows[i])[-2:]
+            return i, float(top2[1] - top2[0])
+    if len(got) != len(ref_tokens):
+        return min(len(got), len(ref_tokens)), float("inf")
+    return None
+
+
+def hold_streams(what, streams, ref, exact=True) -> dict:
+    """Every stream of ``streams`` (rid -> tokens) against the fused
+    reference (rid -> (tokens, rows)): equal, or parted at a near-tie.
+    With ``exact`` a parting off a near-tie fails the run."""
+    same, near, off = 0, [], []
+    for rid, toks in streams.items():
+        part = stream_check(toks, *ref[rid])
+        if part is None:
+            same += 1
+        elif part[1] < 1e-3:
+            near.append((rid, *part))
+        else:
+            off.append((rid, *part))
+    log(f"  {what}: {same} of {len(streams)} streams equal the fused "
+        f"replica's, near-ties {near}, off near-ties {off}")
+    if exact:
+        require(not off, f"{what}: a stream parts from the fused replica's "
+                f"off a near-tie: {off}")
+    return {"identical": same, "near_ties": near, "off_near_ties": off}
+
+
+def fleet_loadgen(counts, model, n_req=64, serving=None,
+                  trace=None) -> dict:
+    """(a) Phase 4's trace through ``run_continuous`` (a scheduler with a
+    tracer) and ``run_static_baseline`` on one bf16 engine."""
+    from paddle_tpu_torch.observability import (ServingTracer, nearest_rank,
+                                                registry)
+    from paddle_tpu_torch.serving import run_continuous, run_static_baseline
+
+    cfg = ServingConfig(**(serving or LOAD_CFG), dtype=torch.bfloat16)
+    vocab = model.cfg.vocab_size
+    eng = ServingEngine(model, cfg)
+    warm = ContinuousBatchingScheduler(eng, tracer=None)
+    warm.submit(Request(rid=-1, prompt=load_trace(vocab, n=1, **(
+        trace or {}))[0].prompt, max_new_tokens=8))
+    warm.run()
+    reqs = load_trace(vocab, n=n_req, **(trace or {}))
+    sched = ContinuousBatchingScheduler(eng, tracer=ServingTracer())
+    tok0 = registry().total("serving_tokens_generated_total")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    cont = run_continuous(eng, reqs, scheduler=sched)
+    torch.cuda.synchronize()
+    counts["phase26_cont"] = K.launch_counts()
+    tokens = sum(len(r.generated) for r in sched.finished)
+    require(cont["completed"] == n_req == len(sched.finished),
+            f"phase 26 (a): {cont['completed']} of {n_req} finished")
+    require(cont["total_tokens"] == tokens == registry().total(
+        "serving_tokens_generated_total") - tok0
+        == sum(r.max_new_tokens for r in reqs),
+        f"phase 26 (a): report {cont['total_tokens']} tokens, scheduler "
+        f"{tokens}")
+    require(cont["decode_steps"] == sched._steps, "phase 26 (a): steps")
+    layers = model.cfg.num_layers
+    c = counts["phase26_cont"]
+    require(c["K-SEG"] == len(sched.prefill_calls) * layers
+            and c["K-DEC"] == len(sched.decode_tick_ms) * layers
+            and c["K-SEG"] > 0 and c["K-DEC"] > 0 and c["K-BSHD"] == 0,
+            f"phase 26 (a): continuous launches {c}")
+    docs = sched.tracer.snapshot()["finished_recent"]
+    tracer = {"ttft_ms_p50": nearest_rank([d["ttft_ms"] for d in docs], 0.5),
+              "itl_ms_p50": nearest_rank(
+                  [d["itl_ms_p50"] for d in docs if "itl_ms_p50" in d], 0.5)}
+    sreqs = load_trace(vocab, n=n_req, **(trace or {}))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    static = run_static_baseline(eng, sreqs)
+    torch.cuda.synchronize()
+    counts["phase26_static"] = s = K.launch_counts()
+    bs = cfg.max_batch
+    batches = [sreqs[i:i + bs] for i in range(0, n_req, bs)]
+    steps = sum(max(r.max_new_tokens for r in b) - 1 for b in batches)
+    require(static["completed"] == n_req and all(
+        len(r.generated) == r.max_new_tokens for r in sreqs),
+        "phase 26 (a): the static baseline stopped short")
+    require(s["K-BSHD"] == len(batches) * layers and s["K-SEG"] == 0
+            and s["K-DEC"] == steps * layers,
+            f"phase 26 (a): static launches {s}")
+    require(eng.pool.in_use == 0, "phase 26 (a): leaked pages")
+    same = sum(r.generated == q.generated for r, q in zip(
+        sorted(reqs, key=lambda r: r.rid), sorted(sreqs,
+                                                  key=lambda r: r.rid)))
+    log("  (a) " + json.dumps({"continuous": cont, "static": static,
+                               "tracer": tracer,
+                               "static_streams_equal": same}))
+    return {"continuous": cont, "static": static, "tracer": tracer,
+            "static_streams_equal": same,
+            "continuous_over_static_tokens_per_s": (
+                cont["decode_tokens_per_sec"]
+                / static["decode_tokens_per_sec"])}
+
+
+def fleet_plans(plans=None, capacity=None, hbm_fraction=0.30) -> dict:
+    """(b) ``plan_kv_pool`` for GPT-345M and LLaMA-7B at bf16 and int8
+    against the card's capacity; a pool of each planned size is
+    allocated alone (its bytes must be the plan's) and freed."""
+    from paddle_tpu_torch.serving import PagedKVCache, plan_kv_pool
+
+    cap = capacity if capacity is not None else hw.hbm_bytes(DEV)
+    require(cap, "phase 26 (b): the card's capacity is unknown")
+    plans = plans or [("gpt_345m", model_config()), ("llama_7b",
+                                                      llama_config())]
+    out = {}
+    for name, mcfg in plans:
+        for pool, kw in (("bf16", {"dtype": torch.bfloat16}),
+                         ("int8", {"kv_dtype": "int8"})):
+            plan = plan_kv_pool(mcfg, capacity_bytes=cap,
+                                hbm_fraction=hbm_fraction, **kw)
+            want = PLAN_PAGES_80G.get((name, pool))
+            require(plan["num_pages"] >= 2, f"phase 26 (b): {name} {pool} "
+                    f"plans {plan['num_pages']} pages")
+            require(cap != 80 << 30 or want is None
+                    or plan["num_pages"] == want,
+                    f"phase 26 (b): {name} {pool} {plan['num_pages']} "
+                    f"pages, the JAX function plans {want}")
+            torch.cuda.synchronize()
+            before = mem_info()
+            kv = PagedKVCache(
+                mcfg.num_layers, plan["num_pages"], 16,
+                getattr(mcfg, "kv_heads", None) or mcfg.num_heads,
+                mcfg.head_dim, dtype=kw.get("dtype"), device=DEV,
+                kv_dtype=kw.get("kv_dtype", "fp32"))
+            torch.cuda.synchronize()
+            during = mem_info()
+            require(kv.pool_bytes() == plan["kv_bytes"],
+                    f"phase 26 (b): {name} {pool} pool {kv.pool_bytes()} "
+                    f"bytes, plan {plan['kv_bytes']}")
+            del kv
+            torch.cuda.empty_cache()
+            out[f"{name}_{pool}"] = {
+                "num_pages": plan["num_pages"], "kv_bytes": plan["kv_bytes"],
+                "state_bytes": plan["state_bytes"],
+                "mem_get_info_before": before, "mem_get_info_after": during}
+    log("  (b) " + json.dumps(out))
+    return out
+
+
+def fill_random(kv, gen):
+    """Random bytes in every store of ``kv``, drop pages included."""
+    for store in kv.k_stores + kv.v_stores + (kv.s_stores or []):
+        store.view(torch.uint8).copy_(torch.randint(
+            0, 256, store.view(torch.uint8).shape, dtype=torch.uint8,
+            generator=gen).to(store.device))
+
+
+def store_bytes(kv):
+    return [s.view(torch.uint8).clone()
+            for s in kv.k_stores + kv.v_stores + (kv.s_stores or [])]
+
+
+def fleet_copy(num_pages=64) -> dict:
+    """(c) ``copy_pages`` between two caches of the model's pool shape,
+    bf16 and int8, filled with random bytes: the destination pages
+    equal the source pages bitwise, scales included, with and without
+    ``limit``; every other page and the drop pages keep their bytes;
+    a CPU cache and a card cache never exchange pages."""
+    from paddle_tpu_torch.serving import PagedKVCache, copy_pages
+
+    mc = model_config()
+    geo = (mc.num_layers, num_pages, 16, mc.num_heads, mc.head_dim)
+    gen = torch.Generator().manual_seed(26)
+    src_pages = [5, 1, 33, 17, 60, 2, 9]
+    dst_pages = [40, 3, 12, 61, 7, 22, 50]
+    out = {}
+    for pool, kw in (("bf16", {"dtype": torch.bfloat16}),
+                     ("int8", {"kv_dtype": "int8"})):
+        for limit in (None, 3):
+            src = PagedKVCache(*geo, device=DEV, **kw)
+            dst = PagedKVCache(*geo, device=DEV, **kw)
+            fill_random(src, gen)
+            fill_random(dst, gen)
+            s0, d0 = store_bytes(src), store_bytes(dst)
+            n = copy_pages(src, dst, src_pages, dst_pages, limit=limit)
+            want = len(src_pages) if limit is None else limit
+            require(n == want, f"phase 26 (c): copied {n}, want {want}")
+            s1, d1 = store_bytes(src), store_bytes(dst)
+            moved = torch.tensor(dst_pages[:n], device=DEV)
+            from_ = torch.tensor(src_pages[:n], device=DEV)
+            keep = torch.ones(num_pages + 1, dtype=torch.bool, device=DEV)
+            keep[moved] = False
+            for a0, a1, b0, b1 in zip(s0, s1, d0, d1):
+                require(torch.equal(a0, a1), "phase 26 (c): the source "
+                        "changed")
+                require(torch.equal(b1[moved], a0[from_]),
+                        f"phase 26 (c): {pool} pages differ from the source")
+                require(torch.equal(b1[keep], b0[keep]),
+                        f"phase 26 (c): {pool} copy touched another page "
+                        "or the drop page")
+            out[f"{pool}_limit_{limit}"] = {
+                "pages": n, "stores": len(d1),
+                "bytes_per_page": sum(t[0].numel() for t in d1)}
+            del src, dst, s0, d0, s1, d1
+    if DEV.type == "cuda":
+        cpu = PagedKVCache(*geo[:1], 4, *geo[2:], device="cpu")
+        card = PagedKVCache(*geo[:1], 4, *geo[2:], device=DEV)
+        try:
+            copy_pages(cpu, card, [1], [1])
+            require(False, "phase 26 (c): a CPU cache handed pages to the "
+                    "card")
+        except ValueError as e:
+            out["cpu_to_card"] = str(e)
+    log("  (c) " + json.dumps(out))
+    return out
+
+
+def fused_reference(model, cfg, reqs):
+    """One fused scheduler over ``reqs`` (fresh copies): each rid's
+    stream and the logits row behind each of its tokens."""
+    eng = ServingEngine(model, ServingConfig(**cfg))
+    sched = ContinuousBatchingScheduler(eng)
+    copies = [Request(rid=r.rid, prompt=r.prompt.copy(),
+                      max_new_tokens=r.max_new_tokens) for r in reqs]
+    rows = record_logits(sched, copies)
+    for r in copies:
+        sched.submit(r)
+    sched.run()
+    require(eng.pool.in_use == 0, "phase 26: the reference leaked pages")
+    return {r.rid: (list(r.generated), committed_rows(r, rows[r.rid]))
+            for r in copies}
+
+
+def disagg_run(model, cfg, reqs, kv_dtype="fp32", partial=None) -> tuple:
+    """One prefill-role and one decode-role replica under a router and a
+    ``DisaggCoordinator``, ticked by this thread; ``partial`` arms
+    ``PADDLE_FI_HANDOFF_PARTIAL`` for that rid. Returns the streams, the
+    coordinator's snapshot, each replica's launches and pool state."""
+    from paddle_tpu_torch.serving import (DisaggCoordinator, LogicalRequest,
+                                          Replica, ReplicaRouter,
+                                          RouterConfig)
+
+    scfg = ServingConfig(**cfg, kv_dtype=kv_dtype)
+    if partial is not None:
+        os.environ["PADDLE_FI_HANDOFF_PARTIAL"] = str(partial)
+    try:
+        pre = Replica("pre", lambda: ServingEngine(model, scfg),
+                      role="prefill")
+        dec = Replica("dec", lambda: ServingEngine(model, scfg),
+                      role="decode")
+        router = ReplicaRouter([pre, dec], cfg=RouterConfig(
+            probe_interval_s=0.0))
+        coord = DisaggCoordinator(router)
+        lrs = [router.submit_request(LogicalRequest(
+            rid=r.rid, prompt=r.prompt.copy(),
+            max_new_tokens=r.max_new_tokens)) for r in reqs]
+        per = {"pre": {}, "dec": {}}
+        rounds = 0
+        while router.in_flight:
+            router.pump()
+            counted_tick(pre, per["pre"])
+            counted_tick(dec, per["dec"])
+            rounds += 1
+            require(rounds < 20000, "phase 26 (d): the split run stalled")
+    finally:
+        os.environ.pop("PADDLE_FI_HANDOFF_PARTIAL", None)
+    require(all(lr.status == "finished" and len(lr.delivered)
+                == lr.max_new_tokens for lr in lrs),
+            f"phase 26 (d): {[(lr.rid, lr.status) for lr in lrs]}")
+    pools = {rep.name: (rep.engine.pool.in_use, rep.engine.pool.leased)
+             for rep in (pre, dec)}
+    require(all(v == (0, 0) for v in pools.values()),
+            f"phase 26 (d): pages left in use or leased {pools}")
+    streams = {lr.rid: list(lr.delivered) for lr in lrs}
+    out = {"snapshot": coord.snapshot(), "launches": per, "rounds": rounds,
+           "redispatched": sorted(lr.rid for lr in lrs if lr.redispatches)}
+    del pre, dec, router, coord
+    return streams, out
+
+
+def fleet_disagg(counts, model, ref, reqs, cfg) -> dict:
+    """(d) The split run in fp32 against the fused replica, then int8
+    pools, then a truncated handoff."""
+    out = {}
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    streams, m = disagg_run(model, cfg, reqs)
+    counts["phase26_disagg"] = K.launch_counts()
+    pre, dec = m["launches"]["pre"], m["launches"]["dec"]
+    snap = m["snapshot"]
+    require(snap["handoffs_ok"] == len(reqs) and snap["handoffs_failed"] == 0
+            and snap["active"] == 0, f"phase 26 (d): {snap}")
+    require(pre.get("K-SEG", 0) > 0 and pre.get("K-DEC", 0) == 0
+            and dec.get("K-DEC", 0) > 0,
+            f"phase 26 (d): prefill {pre}, decode {dec}")
+    m["streams"] = hold_streams("(d) fp32 split", streams, ref)
+    out["fp32"] = m
+    K.reset_launch_counts()
+    streams, m = disagg_run(model, cfg, reqs, kv_dtype="int8")
+    counts["phase26_disagg_int8"] = K.launch_counts()
+    dec = m["launches"]["dec"]
+    require(dec.get("K-DEC8", 0) > 0 and dec.get("K-DEC", 0) == 0
+            and m["snapshot"]["handoffs_ok"] == len(reqs),
+            f"phase 26 (d): int8 {m['launches']} {m['snapshot']}")
+    m["streams"] = hold_streams("(d) int8 split", streams, ref, exact=False)
+    out["int8"] = m
+    ps = cfg["page_size"]
+    victim = max(reqs, key=lambda r: len(r.prompt))
+    require(len(victim.prompt) > ps, "phase 26 (d): no request spans two "
+            "pages")
+    K.reset_launch_counts()
+    streams, m = disagg_run(model, cfg, reqs, partial=victim.rid)
+    counts["phase26_disagg_partial"] = K.launch_counts()
+    snap = m["snapshot"]
+    require(snap["handoffs_failed"] == 1 and snap["re_prefills"] == 1
+            and snap["handoffs_ok"] == len(reqs) - 1
+            and m["redispatched"] == [victim.rid],
+            f"phase 26 (d): partial transfer {snap} {m['redispatched']}")
+    require(m["launches"]["dec"].get("K-SEG", 0) > 0,
+            "phase 26 (d): the victim did not re-prefill on the decode "
+            "replica")
+    m["streams"] = hold_streams("(d) truncated handoff", {
+        victim.rid: streams[victim.rid]}, ref)
+    out["partial"] = m
+    log("  (d) " + json.dumps(out))
+    return out
+
+
+class CreepClock:
+    """A virtual clock that moves 1 ms on every read: ages and EMAs move,
+    and a wedge of a few virtual seconds passes in a bounded number of
+    reads."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.001
+        return self.t
+
+
+def fleet_drill(counts, model, ref, reqs, cfg, kill_tick=4, wedge_tick=14,
+                wedge_s=0.5) -> dict:
+    """(e) Two fused replicas on a virtual clock: ``a`` is killed
+    mid-decode (``router_kill_replica``), then ``b`` wedges briefly
+    (``router_wedge_replica``). Every logical request finishes, no
+    delivered token repeats (each harvest only extends the stream), fp32
+    streams equal the fused replica's by (d)'s rule, and after
+    ``a.restart()`` the card's allocated bytes are back within one
+    pool's bytes of their value before the kill."""
+    from paddle_tpu_torch.serving import (LogicalRequest, Replica,
+                                          ReplicaRouter, RouterConfig)
+
+    scfg = ServingConfig(**cfg)
+    clk = CreepClock()
+    fi_dir = tempfile.mkdtemp(prefix="chip_smoke_fi_")
+    env = {"PADDLE_FI_DIR": fi_dir,
+           "PADDLE_FI_ROUTER_KILL_REPLICA": f"a:{kill_tick}",
+           "PADDLE_FI_ROUTER_WEDGE_REPLICA": f"b:{wedge_tick}:{wedge_s}"}
+    os.environ.update(env)
+    try:
+        reps = [Replica(n, lambda: ServingEngine(model, scfg), clock=clk)
+                for n in ("a", "b")]
+        a, b = reps
+        router = ReplicaRouter(reps, clock=clk, cfg=RouterConfig(
+            probe_interval_s=0.0, breaker_failures=1))
+        torch.cuda.synchronize()
+        mem_before = mem_allocated()
+        pool_bytes = a.engine.kv.pool_bytes()
+        lrs = [router.submit_request(LogicalRequest(
+            rid=r.rid, prompt=r.prompt.copy(),
+            max_new_tokens=r.max_new_tokens)) for r in reqs]
+        seen = {lr.rid: [] for lr in lrs}
+        per = {"a": {}, "b": {}}
+        K.reset_launch_counts()
+        rounds = 0
+        while router.in_flight:
+            router.pump()
+            for lr in lrs:
+                d = list(lr.delivered)
+                require(d[:len(seen[lr.rid])] == seen[lr.rid],
+                        f"phase 26 (e): rid {lr.rid}'s delivered tokens "
+                        "were rewritten")
+                seen[lr.rid] = d
+            for rep in reps:
+                counted_tick(rep, per[rep.name])
+            rounds += 1
+            require(rounds < 50000, "phase 26 (e): the fleet stalled")
+        counts["phase26_fleet"] = K.launch_counts()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        shutil.rmtree(fi_dir, ignore_errors=True)
+    snap = router.snapshot()
+    require(a.state == "dead" and a.engine is None
+            and snap["re_dispatches"] > 0,
+            f"phase 26 (e): a was not killed mid-decode {snap}")
+    require("wedged" in snap["replicas"]["b"]["history"],
+            f"phase 26 (e): b never read wedged {snap['replicas']['b']}")
+    require(all(lr.status == "finished" and len(lr.delivered)
+                == lr.max_new_tokens for lr in lrs),
+            f"phase 26 (e): {[(lr.rid, lr.status) for lr in lrs]}")
+    require(b.engine.pool.in_use == 0, "phase 26 (e): b leaked pages")
+    streams = hold_streams("(e) fleet", {lr.rid: list(lr.delivered)
+                                         for lr in lrs}, ref)
+    a.restart()
+    torch.cuda.synchronize()
+    mem_after = mem_allocated()
+    if mem_before is not None:
+        require(abs(mem_after - mem_before) < pool_bytes,
+                f"phase 26 (e): {mem_after - mem_before} bytes more after "
+                f"the restart than before the kill (one pool is "
+                f"{pool_bytes})")
+    out = {"rounds": rounds, "re_dispatches": snap["re_dispatches"],
+           "history": {n: r["history"] for n, r in snap["replicas"].items()},
+           "generation_a": a.generation, "launches": per,
+           "streams": streams, "mem_before_kill": mem_before,
+           "mem_after_restart": mem_after, "pool_bytes": pool_bytes}
+    del reps, a, b, router
+    log("  (e) " + json.dumps(out))
+    return out
+
+
+def fleet_threaded(counts, model, ref, reqs, cfg, n=4,
+                   limit_s=120.0) -> dict:
+    """(e) continued: two fused replicas on tick threads of their own
+    (``Replica.start``; each thread sets the engine's device first), the
+    router pumped from this thread: ``n`` requests finish with the fused
+    replica's streams by (d)'s rule, and the pools drain."""
+    from paddle_tpu_torch.serving import (LogicalRequest, Replica,
+                                          ReplicaRouter, RouterConfig)
+
+    scfg = ServingConfig(**cfg)
+    reps = [Replica(name, lambda: ServingEngine(model, scfg)).start()
+            for name in ("t0", "t1")]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        router = ReplicaRouter(reps, cfg=RouterConfig(
+            probe_interval_s=0.005))
+        lrs = [router.submit_request(LogicalRequest(
+            rid=r.rid, prompt=r.prompt.copy(),
+            max_new_tokens=r.max_new_tokens)) for r in reqs[:n]]
+        while router.in_flight:
+            router.pump()
+            time.sleep(0.002)
+            require(time.perf_counter() - t0 < limit_s,
+                    f"phase 26 (e): threaded fleet stalled "
+                    f"{router.snapshot()}")
+    finally:
+        for rep in reps:
+            rep.stop()
+    counts["phase26_threaded"] = K.launch_counts()
+    require(all(lr.status == "finished" for lr in lrs)
+            and all(rep.engine.pool.in_use == 0 for rep in reps),
+            "phase 26 (e): the threaded fleet left work or pages")
+    streams = hold_streams("(e) threaded", {lr.rid: list(lr.delivered)
+                                            for lr in lrs}, ref)
+    out = {"s": time.perf_counter() - t0, "streams": streams}
+    del reps, router
+    log("  (e) threaded " + json.dumps(out))
+    return out
+
+
+def fleet_tenancy(counts, model, n_per_tenant=16) -> dict:
+    """(f) Two tenants on one replica, both bursting
+    (``multi_tenant_trace``): ``gold`` (priority 1, weight 2, a floor of
+    8 pages that is also its quota) is never preempted while ``batch``
+    (rate-limited) is; ``batch`` is shed ``tenant_rate`` with its
+    bucket's exact refill time as the hint, and the shed request is
+    admitted once the clock has moved by it; ``/healthz`` lists both
+    tenants and ``/slo?tenant=gold`` answers the keyed view."""
+    from paddle_tpu_torch.observability import SLOTracker
+    from paddle_tpu_torch.serving import (RejectedError, Replica, Tenant,
+                                          TenantRegistry, multi_tenant_trace)
+
+    clk = CreepClock()
+    reg = TenantRegistry([
+        Tenant("gold", weight=2.0, priority=1, guaranteed_pages=8,
+               max_resident_pages=8),
+        Tenant("batch", priority=0, rate_tokens_per_s=200.0,
+               burst_tokens=300.0)])
+    scfg = ServingConfig(**TENANT_CFG)
+    rep = Replica("t", lambda: ServingEngine(model, scfg),
+                  make_scheduler=lambda eng: ContinuousBatchingScheduler(
+                      eng, clock=clk, tenancy=reg,
+                      slo=SLOTracker(clock=clk)), clock=clk)
+    sched = rep.scheduler
+    reqs = multi_tenant_trace(n_per_tenant, seed=26,
+                              tenants=(("gold", 1.0), ("batch", 1.0)),
+                              vocab_size=TRACE_VOCAB)
+    bucket = reg.tenants["batch"].bucket
+    shed, honoured = [], None
+    for r in reqs:
+        try:
+            rep.submit(r)
+        except RejectedError as e:
+            shed.append((r.rid, e.reason, e.tenant, e.retry_after_s))
+            if honoured is None:
+                # the hint is the bucket's refill time for the deficit;
+                # once the clock has moved by it, the bucket admits
+                cost = len(r.prompt) + r.max_new_tokens
+                exact = max((cost - bucket.level) / bucket.rate, 1e-3)
+                require(abs(e.retry_after_s - exact) < 1e-9,
+                        f"phase 26 (f): hint {e.retry_after_s}, the "
+                        f"bucket's refill time {exact}")
+                clk.t += e.retry_after_s
+                rep.submit(r)
+                honoured = r
+    require(honoured is not None and all(
+        s[1:3] == ("tenant_rate", "batch") for s in shed),
+        f"phase 26 (f): sheds {shed}")
+    sched.start_http(0)
+    K.reset_launch_counts()
+    try:
+        rep.tick()
+        code, body = http_get(f"{sched.http.url}/healthz")
+        tenants = json.loads(body).get("tenants", {})
+        require(code in (200, 503) and set(tenants) == {"gold", "batch"},
+                f"phase 26 (f): /healthz tenants {code} {tenants}")
+        while rep.tick():
+            pass
+        code, body = http_get(f"{sched.http.url}/slo?tenant=gold")
+        keyed = json.loads(body)
+        require(code == 200 and keyed.get("tenant") == "gold"
+                and keyed.get("known") is True and "slis" in keyed,
+                f"phase 26 (f): /slo?tenant=gold {code} {keyed}")
+    finally:
+        sched.stop_http()
+    counts["phase26_tenancy"] = K.launch_counts()
+    snap = reg.snapshot()
+    require(snap["gold"]["preemptions"] == 0
+            and snap["batch"]["preemptions"] > 0,
+            f"phase 26 (f): preemptions {snap}")
+    done = [r for r in sched.finished if r.status == "finished"]
+    require(len(done) == len(reqs) - len(shed) + 1
+            and honoured.status == "finished"
+            and rep.engine.pool.in_use == 0,
+            f"phase 26 (f): {len(done)} finished of {len(reqs)}, "
+            f"{len(shed)} shed")
+    out = {"tenants": snap, "shed": shed, "healthz_tenants": tenants,
+           "slo_gold_known": keyed["known"]}
+    log("  (f) " + json.dumps(out))
+    return out
+
+
+def phase_fleet(counts, load=None, plans=None, n_disagg=16) -> dict:
+    """Phase 26: the rest of serving on the card (loadgen, pool plans,
+    page copies, disaggregated prefill/decode, the replica fleet under
+    chaos, tenancy); every model is GPT-345M (``model_config()``)."""
+    from paddle_tpu_torch.serving import synthetic_trace
+
+    log("[26] the rest of serving: loadgen, pool plans, page copies, "
+        "disaggregation, the fleet, tenancy")
+    t0 = time.perf_counter()
+    out = {}
+    model = build_model(DEV, torch.bfloat16)
+    out["loadgen"] = fleet_loadgen(counts, model, **(load or {}))
+    del model
+    torch.cuda.empty_cache()
+    out["plans"] = fleet_plans(**(plans or {}))
+    out["copy"] = fleet_copy()
+    model = build_model(DEV, torch.float32)
+    reqs = synthetic_trace(n_disagg, seed=26, vocab_size=TRACE_VOCAB)
+    ref = fused_reference(model, FLEET_CFG, reqs)
+    out["disagg"] = fleet_disagg(counts, model, ref, reqs, FLEET_CFG)
+    out["drill"] = fleet_drill(counts, model, ref, reqs, FLEET_CFG)
+    out["threaded"] = fleet_threaded(counts, model, ref, reqs, FLEET_CFG)
+    out["tenancy"] = fleet_tenancy(counts, model)
+    del model, ref
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    log(f"  {out['s']:.1f} s")
+    return out
+
+
 # device kernel name -> what it is, first match wins; a key of several
 # parts matches when every part is in the name. K-DEC, K-DEC8, K-MQ and
 # K-MQ8 all launch the paged split kernel (and its merge): one kind. The SEG instantiations
@@ -3237,7 +3885,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
-                    "23,24,25",
+                    "23,24,25,26",
                     help="comma-separated; 6, 9, 13, 17 and 18 "
                     "(profiles) are opt-in")
     ap.add_argument("--drill-worker", metavar="SPEC",
@@ -3335,13 +3983,15 @@ def main() -> int:
         e2e["durability"] = phase_durability(counts)
     if 25 in phases:
         e2e["telemetry"] = phase_telemetry(counts, peaks)
+    if 26 in phases:
+        e2e["fleet"] = phase_fleet(counts)
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
     # (16) serving, the LLaMA phases (19-22), the remat policies (23), the
-    # durability drills (24) and the telemetry phase (25), each phase's
-    # runs counted
+    # durability drills (24), the telemetry phase (25) and the rest of
+    # serving (26), each phase's runs counted
     main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24,
-                   25)
+                   25, 26)
 
     def launched(which):
         return {name: sum(c.get(name, 0) for key, c in counts.items()

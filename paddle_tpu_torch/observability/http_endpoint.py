@@ -23,7 +23,8 @@ tailing files:
   (404 when the owner has no request tracer, i.e. a trainer).
 - ``/slo``              — the SLO plane's windowed-SLI document
   (``observability.slo``; 404 when no SLOTracker is attached).
-  ``/slo?tenant=<name>`` answers 404 until tenancy is ported.
+  ``/slo?tenant=<name>`` answers the keyed per-tenant view when the
+  owner attached one (``slo_tenant``), else the global document.
 - ``/dashboard``        — the zero-dep live dashboard: ONE
   self-contained HTML response over the same two snapshots.
 - ``/debug/profile?secs=N`` — an on-demand ``torch.profiler`` capture
@@ -76,12 +77,18 @@ class ObsHTTPEndpoint:
     def __init__(self, port: int = 0, host: str = "127.0.0.1",
                  health: Optional[Callable[[], Dict[str, Any]]] = None,
                  requests: Optional[Callable[[], Dict[str, Any]]] = None,
-                 slo: Optional[Callable[[], Dict[str, Any]]] = None):
+                 slo: Optional[Callable[[], Dict[str, Any]]] = None,
+                 slo_tenant: Optional[Callable[[str],
+                                               Dict[str, Any]]] = None):
         self._host = host
         self._port = int(port)
         self._health_fn = health
         self._requests_fn = requests
         self._slo_fn = slo
+        # keyed per-tenant SLO snapshot (serving/tenancy.py): serves
+        # ``/slo?tenant=<name>``; None = tenancy plane off, the query
+        # parameter is ignored and /slo answers the global document
+        self._slo_tenant_fn = slo_tenant
         # one profiler capture in flight, process-wide state guarded
         # non-blockingly: the busy reply is 409, never a queued wait
         self._profile_lock = threading.Lock()
@@ -177,13 +184,10 @@ class ObsHTTPEndpoint:
                 for part in h.path.partition("?")[2].split("&"):
                     if part.startswith("tenant="):
                         tenant = part[len("tenant="):]
-                if tenant:
-                    _reply(h, 404, _dumps(
-                        {"error": f"no tenant {tenant!r}: tenancy is not "
-                                  "ported yet (ROADMAP A.5)"}),
-                        "application/json")
-                    return
-                body = _dumps(self._slo_fn())
+                if tenant and self._slo_tenant_fn is not None:
+                    body = _dumps(self._slo_tenant_fn(tenant))
+                else:
+                    body = _dumps(self._slo_fn())
                 ctype = "application/json"
             elif path == "/dashboard":
                 from .slo import render_dashboard

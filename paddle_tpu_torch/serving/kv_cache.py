@@ -38,7 +38,12 @@ fresh scale. Touched entries equal to ``num_pages`` (sentinels) write
 back into the drop page, as out-of-range slots do. The paged kernels
 (K-DEC8, K-MQ8) fuse the dequant into their dot products.
 
-Not ported yet: ``copy_pages`` and ``plan_kv_pool``.
+:func:`copy_pages` is the disaggregated handoff's transfer: it copies
+pages of every layer from one cache into another, in place, int8 scale
+pools included. The JAX package's ``PagedKVCache.commit`` (the swap its
+functional pools need after a copy) has no counterpart: no caller of the
+port needs it, since its pools are written where they lie.
+:func:`plan_kv_pool` sizes a pool against device memory.
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ import torch
 from ..ops import attention_dispatch as disp
 
 __all__ = ["PagesExhausted", "PagePool", "PagedKVCache",
-           "PagedForwardState", "PagedLayerView"]
+           "PagedForwardState", "PagedLayerView", "copy_pages",
+           "plan_kv_pool"]
 
 
 class PagesExhausted(RuntimeError):
@@ -469,3 +475,133 @@ class PagedKVCache:
             segment_ids=segment_ids, kv_dtype=self.kv_dtype,
             s_pools=self.s_pools, s_stores=self.s_stores,
             touched_pages=touched_pages, touched_valid=touched_valid)
+
+
+def copy_pages(src_kv: PagedKVCache, dst_kv: PagedKVCache,
+               src_pages: Sequence[int], dst_pages: Sequence[int],
+               limit: Optional[int] = None) -> int:
+    """The handoff transfer: copy ``src_pages`` of every layer of
+    ``src_kv`` into ``dst_pages`` of ``dst_kv`` (a gather and an
+    in-place ``index_copy_`` per layer into the stores, int8 scale pools
+    included), so the adopting side reads the new bytes as it reads its
+    own decode writes. Returns the number of pages copied; ``limit``
+    truncates the copy (the partial-transfer fault injection): callers
+    check the count against ``len(src_pages)`` before adopting. A cache
+    on the CPU and one on a CUDA device never exchange pages (no
+    fallback across devices)."""
+    if len(src_pages) != len(dst_pages):
+        raise ValueError(
+            f"page-count mismatch: {len(src_pages)} src vs "
+            f"{len(dst_pages)} dst")
+    if src_kv.kv_dtype != dst_kv.kv_dtype:
+        raise ValueError(
+            f"kv_dtype mismatch: {src_kv.kv_dtype} -> {dst_kv.kv_dtype}")
+    n = len(src_pages)
+    if limit is not None:
+        n = max(0, min(n, int(limit)))
+    if n == 0:
+        return 0
+    geo = ("num_layers", "page_size", "num_kv_heads", "head_dim")
+    if any(getattr(src_kv, a) != getattr(dst_kv, a) for a in geo):
+        raise ValueError(
+            "pool geometry mismatch: "
+            + ", ".join(f"{a} {getattr(src_kv, a)} -> {getattr(dst_kv, a)}"
+                        for a in geo))
+    sdev, ddev = src_kv.k_stores[0].device, dst_kv.k_stores[0].device
+    if sdev.type != ddev.type:
+        raise ValueError(f"device mismatch: a {sdev} cache cannot hand "
+                         f"pages to a {ddev} cache")
+    sp, dp = list(src_pages)[:n], list(dst_pages)[:n]
+    for pages, kv, side in ((sp, src_kv, "src"), (dp, dst_kv, "dst")):
+        bad = [p for p in pages if not 0 <= int(p) < kv.num_pages]
+        if bad:
+            raise ValueError(f"{side} pages {bad} outside the pool "
+                             f"(num_pages {kv.num_pages})")
+    si = torch.tensor(sp, dtype=torch.long, device=sdev)
+    di = torch.tensor(dp, dtype=torch.long, device=ddev)
+    stores = [(src_kv.k_stores, dst_kv.k_stores),
+              (src_kv.v_stores, dst_kv.v_stores)]
+    if dst_kv.s_stores is not None:
+        stores.append((src_kv.s_stores, dst_kv.s_stores))
+    for src, dst in stores:
+        for layer in range(dst_kv.num_layers):
+            # the stores, never the views' temporaries: an advanced-index
+            # read of a view is a copy, and a copy into it is lost
+            dst[layer].index_copy_(0, di, src[layer].index_select(0, si)
+                                   .to(ddev, dst[layer].dtype))
+    return n
+
+
+def _elem_bytes(dtype) -> int:
+    """Bytes per element of a torch or numpy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).element_size()
+    import numpy as np
+
+    return int(np.dtype(dtype).itemsize)
+
+
+def plan_kv_pool(model_cfg, page_size: int = 16,
+                 hbm_fraction: float = 0.30,
+                 trainer_cfg=None, capacity_bytes: Optional[int] = None,
+                 dtype_bytes: Optional[int] = None, dtype=None,
+                 kv_dtype: str = "fp32") -> dict:
+    """Size the KV pool against device memory: capacity
+    (``hw.hbm_bytes``, or an explicit override) minus the model's
+    planned state bytes (``observability.plan_state_memory``, which
+    charges a trainer's params plus AdamW moments, as the JAX package
+    does), times ``hbm_fraction``, divided by the per-page cost across
+    layers. Returns ``{num_pages, page_bytes, kv_bytes, budget_bytes,
+    capacity_bytes, state_bytes, kv_dtype, dtype_bytes,
+    scale_page_bytes, scale_bytes}``; ``num_pages`` is ``None`` when the
+    device's capacity is unknown (the CPU) and no override was given.
+
+    Per-element bytes come from the pool dtype: ``dtype`` (a torch dtype
+    such as ``torch.bfloat16``, or a numpy one), or an explicit
+    ``dtype_bytes``, defaulting to 4 (fp32). ``kv_dtype="int8"`` plans 1
+    byte per element plus the per-page scale pool (2 fp32 scales per kv
+    head per layer)."""
+    from ..observability import hw, plan_state_memory
+
+    nh_kv = getattr(model_cfg, "kv_heads", None) or model_cfg.num_heads
+    d = model_cfg.head_dim
+    layers = model_cfg.num_layers
+    if kv_dtype == "int8":
+        elem = 1
+        scale_page_bytes = layers * 2 * nh_kv * 4  # fp32 K+V scales
+    else:
+        if dtype_bytes is not None:
+            elem = int(dtype_bytes)
+        elif dtype is not None:
+            elem = _elem_bytes(dtype)
+        else:
+            elem = 4
+        scale_page_bytes = 0
+    page_bytes = 2 * layers * page_size * nh_kv * d * elem \
+        + scale_page_bytes
+    state_bytes = None
+    try:
+        plan = plan_state_memory(model_cfg, trainer_cfg)
+        state_bytes = plan.get("total_per_device_bytes")
+    except Exception:
+        pass
+    cap = capacity_bytes if capacity_bytes is not None else hw.hbm_bytes()
+    if cap is None:
+        return {"num_pages": None, "page_bytes": page_bytes,
+                "kv_bytes": None, "budget_bytes": None,
+                "capacity_bytes": None, "state_bytes": state_bytes,
+                "kv_dtype": kv_dtype, "dtype_bytes": elem,
+                "scale_page_bytes": scale_page_bytes, "scale_bytes": None}
+    budget = max(0.0, (cap - (state_bytes or 0))) * float(hbm_fraction)
+    num_pages = int(budget // page_bytes)
+    if num_pages < 2:
+        # a pool needs >= 2 pages (page 0 reserved): the budget does not
+        # fit one, so report 0, never a plan that overshoots
+        num_pages = 0
+    return {"num_pages": num_pages, "page_bytes": page_bytes,
+            "kv_bytes": num_pages * page_bytes,
+            "budget_bytes": int(budget), "capacity_bytes": int(cap),
+            "state_bytes": state_bytes,
+            "kv_dtype": kv_dtype, "dtype_bytes": elem,
+            "scale_page_bytes": scale_page_bytes,
+            "scale_bytes": num_pages * scale_page_bytes}

@@ -1,5 +1,5 @@
 """Continuous-batching scheduler: admit/evict between steps (port of
-``paddle_tpu.serving.scheduler``, FIFO and without tenancy).
+``paddle_tpu.serving.scheduler``).
 
 The Orca iteration-level scheduling loop over the paged engine: each
 :meth:`step` (1) admits waiting requests while pages and the prefill
@@ -28,8 +28,27 @@ bounded waiting queue (``max_waiting``), deadline admission control
 service time, from a rolling average of the decode and verify ticks'
 wall time, exceeds its deadline is shed at submit) -- both make
 :meth:`submit` raise :class:`RejectedError` with a ``retry_after_s``
-hint -- and the decode anomaly guard (a non-finite logits row fails
-ONLY the offending request).
+hint -- the decode anomaly guard (a non-finite logits row fails ONLY
+the offending request), and graceful drain: :meth:`drain` stops
+admitting, runs in-flight work to completion or a grace cutoff and
+emits one ``serving_drain`` summary; :meth:`enable_drain_guard` wires it
+to SIGTERM through ``utils.preemption.PreemptionGuard``, so the process
+exits 118 as a preempted trainer does.
+
+Multi-tenancy (``tenancy=TenantRegistry(...)``, :mod:`.tenancy`):
+admission becomes weighted fair queuing over the tenants' virtual times
+(``_wfq_head``), with per-tenant token buckets (``tenant_rate``),
+concurrency caps (``tenant_quota``), resident-page quotas and
+priority preemption that never takes a tenant below its
+``guaranteed_pages`` floor. ``tenancy=None`` costs nothing: every hook
+hides behind ``if self.tenancy``.
+
+The fleet's hooks: ``prefill_only=True`` makes a prefill-role scheduler
+(it admits, prefills, samples the first token and parks its runners for
+a disaggregated handoff, :mod:`.disagg`); :meth:`adopt` takes in a
+request whose pages were copied into this pool; ``fi_scope`` (the owning
+replica's name) aims the ``PADDLE_FI_SERVE_*`` fault points at one fleet
+member.
 
 The ops plane is the JAX package's: every ``serving_*`` counter, gauge
 and histogram it records, a :class:`~paddle_tpu_torch.observability.
@@ -44,10 +63,6 @@ stalled past ``stall_threshold_s`` with work queued), ``/slo``,
 ``/dashboard`` and ``/debug/requests``. Besides, the scheduler keeps
 plain per-step host records (``decode_tick_ms``, ``verify_ticks``,
 ``prefill_calls``) for the caller to summarise.
-
-Not ported yet: tenancy, drain and its guard, ``adopt``, the
-prefill-only role and the fault-injection hooks (the fleet slice). The
-constructor raises on their arguments.
 """
 from __future__ import annotations
 
@@ -62,6 +77,7 @@ import numpy as np
 from ..observability import sink
 from ..observability.metrics import registry
 from ..observability.tracing import ServingTracer
+from ..utils import fault_injection as fi
 from .engine import ServingEngine
 from .kv_cache import PagesExhausted
 from .spec_decode import Drafter, NgramDrafter, SpecDecodeConfig
@@ -72,15 +88,22 @@ _AUTO = object()   # tracer default: one exactly when the sink is on
 
 
 class RejectedError(RuntimeError):
-    """Load shedding: the scheduler refused a request at submit time.
-    ``retry_after_s`` is the backoff hint; the rejected ``Request``
-    carries no runtime state and may be resubmitted as-is."""
+    """Load shedding: the scheduler refused a request at submit time
+    (queue full, its deadline could not be met, the server is draining,
+    or a tenant limit: ``tenant_rate`` for a token-bucket overdraw,
+    ``tenant_quota`` for the concurrency cap). ``retry_after_s`` is the
+    backoff hint (for ``tenant_rate`` the bucket's exact refill time);
+    ``tenant`` names the billed tenant when a registry is attached. The
+    rejected ``Request`` carries no runtime state and may be resubmitted
+    as-is."""
 
     def __init__(self, msg: str, retry_after_s: float = 0.0,
-                 reason: str = "overloaded"):
+                 reason: str = "overloaded",
+                 tenant: Optional[str] = None):
         super().__init__(msg)
         self.retry_after_s = float(retry_after_s)
         self.reason = reason
+        self.tenant = tenant
 
 
 @dataclasses.dataclass
@@ -92,6 +115,9 @@ class Request:
     top_k: int = 0
     arrival_s: float = 0.0             # offset into the trace (loadgen)
     deadline_s: Optional[float] = None  # TTL from submit (scheduler clock)
+    # the tenant whose budgets this request bills (serving/tenancy.py);
+    # None: the registry's default tenant. Host-side state only
+    tenant: Optional[str] = None
     # -- runtime state (scheduler-owned) ------------------------------------
     generated: List[int] = dataclasses.field(default_factory=list)
     # per-token commit timestamps (scheduler clock), parallel to
@@ -126,12 +152,14 @@ class ContinuousBatchingScheduler:
                  anomaly_guard: bool = True,
                  spec_decode: Optional[SpecDecodeConfig] = None,
                  drafter: Optional[Drafter] = None,
-                 slo=None, stall_threshold_s: float = 30.0, **unported):
-        if unported:
-            raise NotImplementedError(
-                "ContinuousBatchingScheduler: not ported yet: "
-                + ", ".join(sorted(unported)))
+                 slo=None, stall_threshold_s: float = 30.0,
+                 prefill_only: bool = False, tenancy=None):
         self.engine = engine
+        # prefill-role scheduler (disaggregation, serving/disagg.py):
+        # admits and prefills, the first token included, but never
+        # decodes; runners park until the handoff coordinator leases
+        # their pages away (or a failure path cancels them)
+        self.prefill_only = bool(prefill_only)
         # speculative decoding: either knob turns it on; the default
         # drafter is the zero-model n-gram prompt-lookup one
         if drafter is not None and spec_decode is None:
@@ -181,6 +209,35 @@ class ContinuousBatchingScheduler:
         self.decode_tick_ms: List[float] = []
         self.verify_ticks: List[tuple] = []
         self.prefill_calls: List[tuple] = []
+        # multi-tenancy (serving/tenancy.py): None costs nothing, every
+        # tenant hook below hides behind ``if self.tenancy``
+        self.tenancy = tenancy
+        self._tenant_live: dict = {}   # name -> live (waiting+running)
+        if tenancy is not None:
+            tenancy.validate(engine.pool.capacity,
+                             engine.max_pages_per_seq)
+            if slo is not None and tenancy.slo is None:
+                # the keyed per-tenant SLO view rides the scheduler's own
+                # SLO plane: the same clock, one tracker per tenant
+                from .tenancy import TenantSLOView
+                tenancy.slo = TenantSLOView(clock=clock)
+        self._completed = 0            # status=="finished" terminations
+        self._draining = False
+        self._drained = False
+        self._drain_guard = None
+        self._drain_grace_s = 30.0
+        # fault points resolved once, so an undrilled tick pays no
+        # environment lookups; fi_scope is the owning replica's name
+        # ("name@spec" aims a point at one fleet member)
+        self.fi_scope: Optional[str] = None
+        self._fi_serve = (fi.armed("serve_nan_at_tick")
+                          or fi.armed("serve_slow_tick"))
+        self._pressure_pages: List[int] = []
+        if fi.armed("serve_pool_pressure"):
+            press = min(fi.serve_pool_pressure(),
+                        max(0, engine.pool.available - 1))
+            if press:
+                self._pressure_pages = engine.pool.allocate(press)
 
     # -- the ops endpoint -----------------------------------------------------
 
@@ -212,7 +269,10 @@ class ContinuousBatchingScheduler:
         self.http = ObsHTTPEndpoint(
             port=port, host=host, health=self._health_snapshot,
             requests=_requests_snapshot,
-            slo=(self.slo.snapshot if self.slo is not None else None))
+            slo=(self.slo.snapshot if self.slo is not None else None),
+            slo_tenant=(self.tenancy.slo.snapshot_for
+                        if self.tenancy is not None
+                        and self.tenancy.slo is not None else None))
         self.http.start()
         return (host, self.http.port)
 
@@ -231,7 +291,7 @@ class ContinuousBatchingScheduler:
         # while still holding work; readiness flips 503 on it
         wedged = bool(self.has_work and age is not None
                       and age > self.stall_threshold_s)
-        return {
+        snap = {
             "role": "serving",
             "tick": self._steps,
             "running": len(self.running),
@@ -243,7 +303,7 @@ class ContinuousBatchingScheduler:
             "kv_pool_bytes": kv.pool_bytes(),
             "kv_scale_pool_bytes": kv.scale_pool_bytes(),
             "overloaded": self.overloaded,
-            "draining": False,
+            "draining": self._draining or self._drained,
             "tick_s_ema": round(self._tick_s_ema, 6),
             "last_tick_age_s": (round(age, 4)
                                 if age is not None else None),
@@ -252,6 +312,17 @@ class ContinuousBatchingScheduler:
             "slo_alerts_firing": (self.slo.firing_count()
                                   if self.slo is not None else 0),
         }
+        if self.tenancy is not None:
+            # per-tenant queue occupancy: who waits behind whom
+            tens: dict = {}
+            for r in self.waiting:
+                d = tens.setdefault(r.tenant, {"waiting": 0, "running": 0})
+                d["waiting"] += 1
+            for r in self.running:
+                d = tens.setdefault(r.tenant, {"waiting": 0, "running": 0})
+                d["running"] += 1
+            snap["tenants"] = tens
+        return snap
 
     def _queue_full(self) -> bool:
         """THE ``max_waiting`` predicate, shared by ``overloaded`` (the
@@ -294,6 +365,10 @@ class ContinuousBatchingScheduler:
                 "previous run (generated tokens/pages); submit a fresh "
                 "Request object")
         self._admission_check(req)
+        if self.tenancy is not None:
+            self.tenancy.on_admit(req.tenant)
+            self._tenant_live[req.tenant] = (
+                self._tenant_live.get(req.tenant, 0) + 1)
         req.status = "waiting"
         req.t_submit = self.clock()
         req.t_deadline = (req.t_submit + req.deadline_s
@@ -308,8 +383,16 @@ class ContinuousBatchingScheduler:
 
     def _admission_check(self, req: Request) -> None:
         """Every submit-time shedding decision, in the JAX scheduler's
-        order (raises :class:`RejectedError` through ``_reject``): the
-        bounded queue, then deadline admission control."""
+        order (raises :class:`RejectedError` through ``_reject``): drain
+        refusal, the bounded queue, deadline admission control, then the
+        tenant limits, last because ``tenant_rate`` debits the bucket on
+        acceptance (a request the other gates shed must not burn it)."""
+        if self.tenancy is not None:
+            # resolve early so every rejection bills the right tenant;
+            # stamps None -> "default"
+            req.tenant = self.tenancy.resolve(req.tenant).name
+        if self._draining or self._drained:
+            self._reject(req, "draining", self._drain_grace_s)
         if self._queue_full():
             self._reject(req, "queue_full",
                          self._tick_s_ema * len(self.waiting))
@@ -323,25 +406,53 @@ class ContinuousBatchingScheduler:
             est_s = wait_s + self._tick_s_ema * req.max_new_tokens
             if est_s > req.deadline_s:
                 self._reject(req, "deadline_unmeetable", wait_s)
+        if self.tenancy is not None:
+            self._tenant_check(req)
 
-    def _reject(self, req: Request, reason: str,
-                retry_after_s: float) -> None:
+    def _tenant_check(self, req: Request) -> None:
+        """The tenant admission gates: the live-request cap
+        (``tenant_quota``) and the token-bucket rate limit
+        (``tenant_rate``, charged prompt + max_new_tokens, the request's
+        worst case, with the bucket's refill time as the hint)."""
+        t = self.tenancy.resolve(req.tenant)
+        if (t.max_concurrent is not None
+                and self._tenant_live.get(t.name, 0) >= t.max_concurrent):
+            self._reject(req, "tenant_quota", max(self._tick_s_ema, 1e-3),
+                         tenant=t.name)
+        if t.bucket is not None:
+            cost = len(req.prompt) + req.max_new_tokens
+            ok, retry = t.bucket.try_take(cost, self.clock())
+            if not ok:
+                self._reject(req, "tenant_rate", retry, tenant=t.name)
+
+    def _reject(self, req: Request, reason: str, retry_after_s: float,
+                tenant: Optional[str] = None) -> None:
         """Shed ``req`` at submit, the hint floored at one tick (and at
-        1 ms while no tick has been timed): counter, JSONL event, and the
-        overload flag the ``/healthz`` readiness reports."""
+        1 ms while no tick has been timed): counter, JSONL event, the
+        overload flag the ``/healthz`` readiness reports, and (whatever
+        the reason) the request's tenant billed for the shed."""
         retry = max(float(retry_after_s), self._tick_s_ema, 1e-3)
+        tenant = tenant or req.tenant
         req.status = "rejected"
         self._shedding = True
         registry().counter("serving_rejected_total").inc()
         if self.slo is not None:
             self.slo.on_shed()
+        if self.tenancy is not None and tenant is not None:
+            self.tenancy.on_reject(tenant, reason)
+            if self.tenancy.slo is not None:
+                self.tenancy.slo.for_tenant(tenant).on_shed()
         if sink.enabled():
-            sink.emit({"kind": "event", "name": "request_rejected",
-                       "rid": req.rid, "reason": reason,
-                       "retry_after_s": round(retry, 4)})
+            rec = {"kind": "event", "name": "request_rejected",
+                   "rid": req.rid, "reason": reason,
+                   "retry_after_s": round(retry, 4)}
+            if tenant is not None:
+                rec["tenant"] = tenant
+            sink.emit(rec)
         raise RejectedError(
             f"request {req.rid} rejected ({reason}): retry after "
-            f"~{retry:.3f}s", retry_after_s=retry, reason=reason)
+            f"~{retry:.3f}s", retry_after_s=retry, reason=reason,
+            tenant=tenant)
 
     def _observe_tick(self, seconds: float) -> None:
         """Fold one decode or verify tick's wall time into the EMA (the
@@ -363,17 +474,72 @@ class ContinuousBatchingScheduler:
                 return True
         return False
 
+    def adopt(self, req: Request) -> None:
+        """Take in a request whose KV pages a disaggregated handoff
+        copied INTO this scheduler's pool (serving/disagg.py): ``req``
+        arrives mid-flight, its pages allocated from this engine's pool
+        and holding the copied bytes, ``context_len`` and ``generated``
+        carried over from the prefill side. A duplicate adopt (a retried
+        ack) and an adopt after free (a page table whose pages were
+        recycled) raise ``ValueError``; a full batch raises
+        :class:`RejectedError` with reason ``no_slot``, so the
+        coordinator can back off without losing the transfer."""
+        for live in list(self.running) + list(self.waiting):
+            if live.rid == req.rid:
+                raise ValueError(
+                    f"duplicate adopt of rid {req.rid}: a live request "
+                    "already carries it (retried ack?)")
+        if not req.pages or not self.engine.pool.is_adoptable(req.pages):
+            raise ValueError(
+                f"adopt of rid {req.rid}: page table "
+                f"{req.pages} is not live in this pool "
+                "(adopt-after-free)")
+        if len(self.running) >= self.engine.cfg.max_batch:
+            raise RejectedError(
+                f"adopt of rid {req.rid}: batch full "
+                f"({self.engine.cfg.max_batch})",
+                retry_after_s=max(self._tick_s_ema, 1e-3),
+                reason="no_slot")
+        now = self.clock()
+        if self.tenancy is not None:
+            # admitted (and bucket-charged) on the prefill side: here it
+            # only joins the live accounting
+            req.tenant = self.tenancy.resolve(req.tenant).name
+            self._tenant_live[req.tenant] = (
+                self._tenant_live.get(req.tenant, 0) + 1)
+        req.status = "running"
+        if req.t_submit is None:
+            req.t_submit = now
+        if req.generated and req.t_first_token is None:
+            req.t_first_token = now
+        if len(req.t_tokens) < len(req.generated):
+            req.t_tokens.extend(
+                [now] * (len(req.generated) - len(req.t_tokens)))
+        req.t_deadline = (req.t_submit + req.deadline_s
+                          if req.deadline_s is not None else None)
+        if req.t_deadline is not None:
+            self._deadline_live += 1
+        self.running.append(req)
+        registry().counter("serving_adopted_total").inc()
+        if self.tracer:
+            self.tracer.on_submit(req.rid, len(req.prompt),
+                                  req.max_new_tokens)
+
     # -- the iteration ------------------------------------------------------
 
     def step(self) -> None:
-        """One serving iteration: deadline expiry, admit+prefill,
-        grow/evict, decode."""
+        """One serving iteration: the SIGTERM drain guard, deadline
+        expiry, admit+prefill, grow/evict, decode."""
+        if (self._drain_guard is not None and not self._draining
+                and self._drain_guard.preemption_noticed(
+                    completed_step=self._steps)):
+            self._drain_and_exit()
         if self.tracer:
             self.tracer.begin_tick()
         if self._deadline_live:
             self._expire(self.clock())
         self._admit_and_prefill()
-        if self.running:
+        if self.running and not self.prefill_only:
             if self.spec is not None:
                 self._decode_spec()
             else:
@@ -386,6 +552,8 @@ class ContinuousBatchingScheduler:
             self.engine.pool.in_use)
         if self.slo is not None:
             self.slo.maybe_evaluate()
+            if self.tenancy is not None and self.tenancy.slo is not None:
+                self.tenancy.slo.maybe_evaluate()
         if self.tracer:
             self.tracer.end_tick(
                 running=len(self.running), waiting=len(self.waiting),
@@ -404,6 +572,67 @@ class ContinuousBatchingScheduler:
         for req in [r for r in list(self.running) + list(self.waiting)
                     if r.t_deadline is not None and now >= r.t_deadline]:
             self._finish(req, now, status="timeout")
+
+    # -- graceful drain -------------------------------------------------------
+
+    def enable_drain_guard(self, grace_s: float = 30.0, guard=None):
+        """Wire SIGTERM/SIGUSR1 to a graceful drain: the next :meth:`step`
+        after a preemption notice (a real signal, or the
+        ``PADDLE_FI_PREEMPT_AT_STEP`` point consulted each tick) drains
+        with ``grace_s`` and raises ``TrainingPreempted``, which exits
+        the process with 118 if it propagates. Returns the guard."""
+        if guard is None:
+            from ..utils.preemption import PreemptionGuard
+            guard = PreemptionGuard()
+        self._drain_guard = guard
+        self._drain_grace_s = float(grace_s)
+        return guard
+
+    def _drain_and_exit(self) -> None:
+        from ..utils.preemption import TrainingPreempted
+        summary = self.drain(self._drain_grace_s)
+        raise TrainingPreempted(
+            f"serving drain complete: {summary['completed']} completed, "
+            f"{summary['cancelled']} cancelled in "
+            f"{summary['drain_wall_s']}s", step=self._steps)
+
+    def drain(self, grace_s: float = 30.0) -> dict:
+        """Graceful shutdown: stop admitting new submissions (they shed
+        with reason ``draining``), keep stepping until every in-flight
+        request completes or ``grace_s`` elapses on the clock, cancel the
+        rest (pages freed), and emit ONE ``serving_drain`` JSONL summary,
+        which it returns. The scheduler refuses work afterwards."""
+        t0 = self.clock()
+        self._draining = True
+        self._drain_grace_s = float(grace_s)
+        done0 = self._completed
+        timeouts0 = sum(1 for r in self.finished if r.status == "timeout")
+        leftovers: List[Request] = []
+        try:
+            while self.has_work and (self.clock() - t0) < grace_s:
+                self.step()
+            now = self.clock()
+            leftovers = list(self.waiting) + list(self.running)
+            for req in leftovers:
+                self._finish(req, now, status="cancelled")
+        finally:
+            self._draining = False
+            self._drained = True
+        wall = self.clock() - t0
+        summary = {
+            "completed": self._completed - done0,
+            "cancelled": len(leftovers),
+            "timeouts": sum(1 for r in self.finished
+                            if r.status == "timeout") - timeouts0,
+            "drain_wall_s": round(wall, 4),
+            "grace_s": float(grace_s),
+            "pages_in_use": self.engine.pool.in_use,
+        }
+        registry().counter("serving_drains_total").inc()
+        if sink.enabled():
+            sink.emit({"kind": "event", "name": "serving_drain",
+                       **summary})
+        return summary
 
     # -- phases -------------------------------------------------------------
 
@@ -425,7 +654,10 @@ class ContinuousBatchingScheduler:
         # tracer-only clock: the untraced tick does not pay the call
         t_admit = time.perf_counter() if self.tracer else None
         while self.waiting and len(self.running) + len(batch) < cfg.max_batch:
-            req = self.waiting[0]
+            req = (self.waiting[0] if self.tenancy is None
+                   else self._wfq_head(batch))
+            if req is None:
+                break   # every queued tenant is over its page quota
             ctx = self._prefill_tokens(req)
             if batch and total + len(ctx) > cfg.max_prefill_tokens:
                 break
@@ -441,9 +673,16 @@ class ContinuousBatchingScheduler:
                         f"{self.engine.pool.available} — pool smaller "
                         "than max_pages_per_seq, misconfigured engine")
                 # head-of-line request cannot fit NOW: never skip past it
-                # (FIFO fairness); wait for completions/evictions
+                # (FIFO fairness; under tenancy, the fair-share pick);
+                # wait for completions/evictions
                 break
-            self.waiting.popleft()
+            if self.tenancy is None:
+                self.waiting.popleft()
+            else:
+                self.waiting.remove(req)
+                # the admitted context bills the tenant's virtual time
+                # (decode tokens bill as they commit)
+                self.tenancy.charge(req.tenant, len(ctx))
             req.pages = pages
             req.context_len = len(ctx)
             batch.append(req)
@@ -484,6 +723,47 @@ class ContinuousBatchingScheduler:
             if req.done:
                 self._finish(req, now)
 
+    def _wfq_head(self, batch: List[Request]) -> Optional[Request]:
+        """Weighted-fair admission pick: each tenant's FIFO head
+        competes, the ELIGIBLE tenant with the lowest virtual time wins,
+        and arrival order holds within a tenant. A tenant whose resident
+        pages (running + this tick's batch) would pass its
+        ``max_resident_pages`` stays queued this tick (never shed).
+        Returns None when nobody is eligible."""
+        heads: dict = {}
+        for r in self.waiting:
+            if r.tenant not in heads:
+                heads[r.tenant] = r
+        ps = self.engine.kv.page_size
+        resident = None
+        best = best_key = None
+        for name, r in heads.items():
+            t = self.tenancy.resolve(name)
+            if t.max_resident_pages is not None:
+                if resident is None:
+                    resident = self._pages_by_tenant(batch)
+                clen = len(r.prompt) + (len(r.generated) - 1
+                                        if r.generated else 0)
+                need = -(-clen // ps)
+                if resident.get(name, 0) + need > t.max_resident_pages:
+                    continue
+            key = (t.vtime, str(name))
+            if best_key is None or key < best_key:
+                best_key, best = key, r
+        if best is not None:
+            self.tenancy.note_pick(best.tenant)
+        return best
+
+    def _pages_by_tenant(self, extra=()) -> dict:
+        """Resident KV pages per tenant (running requests + ``extra``,
+        the admission batch being assembled)."""
+        out: dict = {}
+        for r in self.running:
+            out[r.tenant] = out.get(r.tenant, 0) + len(r.pages)
+        for r in extra:
+            out[r.tenant] = out.get(r.tenant, 0) + len(r.pages)
+        return out
+
     def _grow_or_evict(self, extra=None) -> None:
         """Each running request about to write tokens at positions
         ``context_len .. context_len + extra(req)`` needs pages through
@@ -509,7 +789,7 @@ class ContinuousBatchingScheduler:
                     avail0 = self.engine.pool.available
                     victim = self._pick_victim(exclude=req)
                     if victim is not None:
-                        self._evict(victim)
+                        self._evict(victim, for_req=req)
                     elif self.engine.pool.available <= avail0:
                         raise RuntimeError(
                             "page pool exhausted with a single running "
@@ -521,8 +801,15 @@ class ContinuousBatchingScheduler:
     def _pick_victim(self, exclude: Request) -> Optional[Request]:
         """Youngest running request (vLLM recompute policy) — but never
         one already past its deadline: those are cancelled on the spot
-        (their pages free at once) and the scan goes on."""
+        (their pages free at once) and the scan goes on.
+
+        With a tenancy registry the pick is priority preemption: among
+        the candidates, the lowest-priority tenant with the most pages
+        above its ``guaranteed_pages`` floor, youngest request first,
+        and never a victim whose eviction would take its tenant below
+        the floor. Returns None when every candidate is protected."""
         now = None
+        cands: List[Request] = []
         for req in list(reversed(self.running)):  # youngest first
             if req is exclude or req.status != "running":
                 continue
@@ -532,12 +819,29 @@ class ContinuousBatchingScheduler:
                 if now >= req.t_deadline:
                     self._finish(req, now, status="timeout")
                     continue
-            return req
-        return None
+            if self.tenancy is None:
+                return req
+            cands.append(req)
+        if self.tenancy is None or not cands:
+            return None
+        resident = self._pages_by_tenant()
+        best = best_key = None
+        for req in cands:   # youngest first: ties keep the youngest
+            t = self.tenancy.resolve(req.tenant)
+            have = resident.get(req.tenant, 0)
+            if have - len(req.pages) < t.guaranteed_pages:
+                continue   # would push the tenant below its floor
+            key = (t.priority, -(have - t.guaranteed_pages))
+            if best_key is None or key < best_key:
+                best_key, best = key, req
+        return best
 
-    def _evict(self, req: Request) -> None:
+    def _evict(self, req: Request,
+               for_req: Optional[Request] = None) -> None:
         """Recompute-style preemption: free the pages, requeue at the
-        FRONT so the victim re-prefills (prompt + generated) next."""
+        FRONT so the victim re-prefills (prompt + generated) next.
+        ``for_req``, the request the pages go to, of another tenant makes
+        this a cross-tenant preemption."""
         self.engine.pool.free(req.pages)
         req.pages = []
         req.context_len = 0
@@ -545,12 +849,23 @@ class ContinuousBatchingScheduler:
         req.preemptions += 1
         self.running.remove(req)
         self.waiting.appendleft(req)
+        cross = (for_req is not None and req.tenant is not None
+                 and for_req.tenant != req.tenant)
+        if self.tenancy is not None:
+            self.tenancy.on_preempt(req.tenant, cross=cross)
         registry().counter("serving_preemptions_total").inc()
+        if cross:
+            registry().counter(
+                "serving_cross_tenant_preemptions_total").inc()
         if self.tracer:
             self.tracer.on_evict(req.rid)
         if sink.enabled():
-            sink.emit({"kind": "event", "name": "serving_preemption",
-                       "rid": req.rid, "generated": len(req.generated)})
+            rec = {"kind": "event", "name": "serving_preemption",
+                   "rid": req.rid, "generated": len(req.generated)}
+            if req.tenant is not None:
+                rec["tenant"] = req.tenant
+                rec["cross_tenant"] = cross
+            sink.emit(rec)
 
     def _decode_plain(self) -> None:
         ev0 = time.perf_counter() if self.tracer else None
@@ -570,6 +885,8 @@ class ContinuousBatchingScheduler:
         dc_us = time.time() * 1e6 if self.tracer else None
         t0 = time.perf_counter()
         logits = self.engine.decode(tokens, pt, lens)
+        if self._fi_serve:
+            logits = self._inject_faults(runners, logits)
         dur_s = time.perf_counter() - t0
         dur_ms = dur_s * 1e3
         self.decode_tick_ms.append(dur_ms)
@@ -600,6 +917,8 @@ class ContinuousBatchingScheduler:
             req.generated.append(int(toks[i]))
             req.t_tokens.append(now)
             tokens_total.inc()
+            if self.tenancy is not None:
+                self.tenancy.charge(req.tenant, 1)
             if req.done:
                 self._finish(req, now)
 
@@ -662,6 +981,8 @@ class ContinuousBatchingScheduler:
         dc_us = time.time() * 1e6 if self.tracer else None
         t0 = time.perf_counter()
         logits = self.engine.verify(tokens, pt, lens)  # (n, w, vocab)
+        if self._fi_serve:
+            logits = self._inject_faults(runners, logits)
         dur_ms = (time.perf_counter() - t0) * 1e3
         self._observe_tick(dur_ms / 1e3)
         registry().histogram("serving_decode_step_ms").observe(dur_ms)
@@ -711,12 +1032,30 @@ class ContinuousBatchingScheduler:
             req.spec_proposed += n_d
             req.spec_accepted += m
             req.context_len += len(toks)
+            if self.tenancy is not None:
+                self.tenancy.charge(req.tenant, len(toks))
             req.generated.extend(toks)
             # a verify tick commits its whole window at the tick end:
             # every committed token shares the timestamp (per-tick ITL)
             req.t_tokens.extend([now] * len(toks))
             if req.done:
                 self._finish(req, now)
+
+    def _inject_faults(self, runners: List[Request],
+                       logits: np.ndarray) -> np.ndarray:
+        """Fault points on the decode output (armed runs only): poison
+        one request's logits row with NaN and/or stretch the tick."""
+        rid = fi.serve_nan_at_tick(self._steps, scope=self.fi_scope)
+        if rid is not None:
+            for i, r in enumerate(runners):
+                if r.rid == rid:
+                    logits = np.array(logits, copy=True)
+                    logits[i, :] = np.nan
+                    break
+        secs = fi.serve_slow_tick(self._steps, scope=self.fi_scope)
+        if secs:
+            time.sleep(secs)
+        return logits
 
     def _fail_anomalous(self, runners: List[Request], logits: np.ndarray):
         """Non-finite logits fail ONLY the offending request(s): status
@@ -754,11 +1093,15 @@ class ContinuousBatchingScheduler:
             req.pages = []
         if req.t_deadline is not None:
             self._deadline_live -= 1
+        if self.tenancy is not None and req.tenant is not None:
+            n = self._tenant_live.get(req.tenant, 1) - 1
+            self._tenant_live[req.tenant] = max(0, n)
         self.finished.append(req)
         latency_ms = (now - req.t_submit) * 1e3 if req.t_submit else None
         ttft_ms = ((req.t_first_token - req.t_submit) * 1e3
                    if req.t_first_token and req.t_submit else None)
         if status == "finished":
+            self._completed += 1
             registry().counter("serving_requests_completed_total").inc()
             if latency_ms is not None:
                 registry().histogram(
@@ -779,6 +1122,20 @@ class ContinuousBatchingScheduler:
                     else 0)
             self.slo.on_request_done(status, tokens=len(req.generated),
                                      good_tokens=good)
+            if (self.tenancy is not None and self.tenancy.slo is not None
+                    and req.tenant is not None):
+                # the keyed per-tenant SLO view, fed once per request at
+                # its terminal: TTFT, tick-granular ITL gaps, outcome
+                tr = self.tenancy.slo.for_tenant(req.tenant)
+                tr.on_request_done(status, tokens=len(req.generated),
+                                   good_tokens=good)
+                if ttft_ms is not None:
+                    tr.observe_ttft(ttft_ms)
+                ts = req.t_tokens
+                if len(ts) > 1:
+                    tr.observe_itl_many(
+                        [(ts[i] - ts[i - 1]) * 1e3
+                         for i in range(1, len(ts))])
         if sink.enabled():
             rec = {"kind": "event", "name": "request_done",
                    "rid": req.rid, "status": status,
@@ -789,6 +1146,8 @@ class ContinuousBatchingScheduler:
                    "ttft_ms": (round(ttft_ms, 3)
                                if ttft_ms is not None else None),
                    "preemptions": req.preemptions}
+            if req.tenant is not None:
+                rec["tenant"] = req.tenant
             if self.spec is not None:
                 rec["spec_proposed"] = req.spec_proposed
                 rec["spec_accepted"] = req.spec_accepted

@@ -629,3 +629,42 @@ def test_llama_kernel_rows_report_every_key(on_cpu):
             # tolerances (2e-2 paged and forward, 1e-2 training) held
             assert r["bound_ms"] > 0 and r["max_abs_err"] <= 2e-2
     assert cs.LLAMA_ROWS["train"] == (4, 2048, 32, 128)
+
+
+def test_fleet_phase_rehearses_on_cpu(tiny_serving):
+    """Phase 26 at a tiny GPT on the CPU, its card-only memory checks
+    left out by the phase itself: loadgen's two runs and their launches,
+    pool plans at a small capacity, bitwise page copies, the split run
+    (fp32, int8, a truncated handoff) held to the fused replica, the
+    fleet drill (a killed, b wedged) and the two tenants."""
+    from paddle_tpu_torch.models.llama import llama_tiny
+
+    counts = {}
+    m = cs.phase_fleet(
+        counts, load=dict(n_req=6, serving=_TINY_SERVING,
+                          trace=dict(prompt=(8, 24), new_tokens=(4, 8))),
+        plans=dict(plans=[("gpt_tiny", cs.model_config()),
+                          ("llama_tiny", llama_tiny())],
+                   capacity=64 << 20),
+        n_disagg=8)
+    a, d, e, f = m["loadgen"], m["disagg"], m["drill"], m["tenancy"]
+    assert a["continuous"]["completed"] == a["static"]["completed"] == 6
+    assert a["static_streams_equal"] == 6      # greedy, the same weights
+    assert counts["phase26_static"]["K-BSHD"] == 2 * 2
+    assert counts["phase26_cont"]["K-SEG"] > 0
+    assert set(m["plans"]) == {"gpt_tiny_bf16", "gpt_tiny_int8",
+                               "llama_tiny_bf16", "llama_tiny_int8"}
+    assert m["copy"]["bf16_limit_3"]["pages"] == 3
+    assert m["copy"]["int8_limit_None"]["stores"] == 3 * 2
+    assert d["fp32"]["streams"]["identical"] == 8
+    assert d["fp32"]["launches"]["pre"].get("K-DEC", 0) == 0
+    assert d["int8"]["launches"]["dec"]["K-DEC8"] > 0
+    assert d["partial"]["snapshot"]["re_prefills"] == 1
+    assert e["streams"]["identical"] == 8 and e["re_dispatches"] > 0
+    assert e["generation_a"] == 1 and e["mem_before_kill"] is None
+    assert f["tenants"]["gold"]["preemptions"] == 0
+    assert f["tenants"]["batch"]["preemptions"] > 0
+    assert f["healthz_tenants"].keys() == {"gold", "batch"}
+    assert counts["phase26_fleet"]["K-DEC"] > 0
+    assert m["threaded"]["streams"]["identical"] == 4
+    assert counts["phase26_threaded"]["K-DEC"] > 0

@@ -53,6 +53,12 @@ _MUST_IMPORT = {
     "paddle_tpu_torch.observability.tracing",
     "paddle_tpu_torch.observability.slo",
     "paddle_tpu_torch.observability.http_endpoint",
+    "paddle_tpu_torch.serving.kv_cache",
+    "paddle_tpu_torch.serving.loadgen",
+    "paddle_tpu_torch.serving.tenancy",
+    "paddle_tpu_torch.serving.replica",
+    "paddle_tpu_torch.serving.router",
+    "paddle_tpu_torch.serving.disagg",
 }
 
 
@@ -63,7 +69,7 @@ def test_port_imports_without_jax_or_paddle_tpu():
                        env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
     n_modules = int(p.stdout.split()[0])
-    assert n_modules >= 33, p.stdout
+    assert n_modules >= 36, p.stdout
     assert _MUST_IMPORT <= set(p.stdout.split()[2:]), p.stdout
 
 
@@ -92,6 +98,9 @@ def test_port_sources_never_import_jax_or_paddle_tpu():
     assert {f"paddle_tpu_torch/observability/{m}.py" for m in (
         "__init__", "metrics", "sink", "hw", "step_stats", "memory",
         "tracing", "slo", "http_endpoint")} <= names
+    assert {f"paddle_tpu_torch/serving/{m}.py" for m in (
+        "kv_cache", "loadgen", "tenancy", "replica", "router",
+        "disagg")} <= names
     assert not offenders, offenders
 
 

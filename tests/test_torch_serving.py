@@ -23,6 +23,7 @@ from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
                                       ServingEngine, SpecDecodeConfig,
                                       bucket_for)
 from paddle_tpu_torch.serving.kv_cache import _scatter_pages
+from paddle_tpu_torch.serving.tenancy import Tenant, TenantRegistry
 from paddle_tpu_torch.utils.convert import from_paddle_tpu_state
 
 # one intra-op thread: the suite runs several workers on the machine's
@@ -162,8 +163,13 @@ def test_scatter_drops_oob_slots_in_place():
 def test_scheduler_intake_validation(models):
     _, tm = models
     eng = ServingEngine(tm, ServingConfig(**_CFG, num_pages=6))
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        ContinuousBatchingScheduler(eng, tenancy=object())
+    # tenancy is ported: the registry's floors are validated against
+    # the pool, as the JAX scheduler does
+    with pytest.raises(ValueError, match="guaranteed_pages"):
+        ContinuousBatchingScheduler(eng, tenancy=TenantRegistry(
+            [Tenant("g", guaranteed_pages=4)]))
+    ContinuousBatchingScheduler(eng, tenancy=TenantRegistry(),
+                                prefill_only=True)
     s = ContinuousBatchingScheduler(eng, max_waiting=1)
     p = np.arange(10, dtype=np.int32)
     with pytest.raises(ValueError, match="max_model_len"):

@@ -281,7 +281,8 @@ def test_scheduler_endpoint_and_wedged_readiness(served):
     (``wedged``) once the tick loop has stalled past
     ``stall_threshold_s`` with work queued, while ``?live`` stays 200;
     ``/slo``, ``/dashboard``, ``/debug/requests`` and ``/metrics``
-    answer; ``/slo?tenant=`` is 404 until tenancy is ported; a bad
+    answer; ``/slo?tenant=`` answers the global document when no tenant
+    view is attached, as the JAX endpoint does; a bad
     ``secs`` is 400, a second profile capture 409, and a capture
     reports the recording window the endpoint keeps."""
     jsched, tsched = served["jax"][0], served["torch"][0]
@@ -311,7 +312,10 @@ def test_scheduler_endpoint_and_wedged_readiness(served):
             assert _get(url + route)[0] == 200, route
         assert json.loads(_get(url + "/debug/requests")[1])[
             "in_flight"][0]["rid"] == 0
-        assert _get(url + "/slo?tenant=a")[0] == 404
+        # no tenant view attached: the global document, as the JAX
+        # endpoint answers
+        assert _get(url + "/slo?tenant=a") == _get(url + "/slo")
+        assert _get(url + "/slo")[0] == 200
         assert _get(url + "/debug/profile?secs=x")[0] == 400
         s.http._profile_lock.acquire()
         try:
@@ -330,6 +334,34 @@ def test_scheduler_endpoint_and_wedged_readiness(served):
         s.stop_http()
     s.stop_http()          # idempotent
     assert s.http is None
+
+
+@pytest.mark.parametrize("keyed", [False, True],
+                         ids=["global", "tenant_view"])
+def test_slo_tenant_reply_matches_jax(keyed):
+    """``GET /slo?tenant=gold``: with no ``slo_tenant`` callable both
+    endpoints answer 200 with the global document; with one attached,
+    both answer its keyed view. Status and body exact."""
+    def slo():
+        return {"ok": 1}
+
+    def keyed_view(name):
+        return {"tenant": name, "known": name == "gold"}
+
+    replies = []
+    for cls in (J.ObsHTTPEndpoint, T.ObsHTTPEndpoint):
+        ep = cls(port=0, slo=slo,
+                 slo_tenant=keyed_view if keyed else None).start()
+        try:
+            replies.append([_get(ep.url + q) for q in (
+                "/slo?tenant=gold", "/slo?tenant=ghost", "/slo")])
+        finally:
+            ep.stop()
+    assert replies[1] == replies[0]
+    gold = json.loads(replies[1][0][1])
+    assert replies[1][0][0] == 200
+    assert gold == ({"tenant": "gold", "known": True} if keyed
+                    else {"ok": 1})
 
 
 # -- checkpoints -------------------------------------------------------------
