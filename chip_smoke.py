@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 0,1,23,24  # remat policies, durability
     python3 chip_smoke.py --phases 0,1,25  # run telemetry, ops endpoint
     python3 chip_smoke.py --phases 0,1,26  # loadgen, pool plans, the fleet
+    python3 chip_smoke.py --phases 0,1,27  # multi-rank training (4 ranks)
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -24,8 +25,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    launches (``cold_ms``); then, untimed, the forward and backward
    kernels in bf16 at the edges of their tiles (``check_fwd_edges``,
    ``check_bwd_edges``) and the paged kernels in bf16 and fp32 at their
-   chunks' edges over poisoned page tables (``check_paged_edges``); and
-   timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
+   chunks' edges over poisoned page tables (``check_paged_edges``),
+   K-PACK, K-DQ and K-DKV at the shapes of phase 27's ring blocks
+   (``ring_block_shapes``: full attention L x 2L and 2L x L among
+   them, in the sub-phases' dtypes); and timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
    128, 32 heads);
 3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
    answers 3 requests through the continuous-batching scheduler, and
@@ -188,10 +191,28 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     floor-protected ``gold`` is never preempted while ``batch`` is,
     ``batch`` is shed with its bucket's refill time as the hint and
     admitted once the clock has moved by it, ``/healthz`` lists both
-    tenants, ``/slo?tenant=gold`` answers the keyed view.
+    tenants, ``/slo?tenant=gold`` answers the keyed view;
+27. multi-rank training: 4 ranks (``chip_smoke.py --rank-worker SPEC``
+    processes) share this card over gloo, which stages their sends and
+    receives through pinned host buffers; first each rank checks the
+    world's collectives on CUDA tensors; then (a) GPT-345M's width at 4
+    of 24 layers, ``mp=2, sep=2``, 2 x 1024, the zigzag ring (L = 256);
+    (b) the same model at ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c)
+    LLaMA-7B's width at 2 of 32 layers, ``sep=2, sharding=2``, ZeRO 3,
+    2 x 2048: 3 fp32 steps each, the losses and each step's grad norm
+    (1e-4 relative) and the gathered params (1e-4 of each leaf's
+    largest) held to a single-rank trainer on the card from the same
+    weights and batch (whose launches stay out of the main path's
+    counts); (d) (a) in bf16
+    for 8 steps: the loss falls, step ms printed (4 ranks on one card,
+    not a multi-card rate). Every rank's K-PACK, K-DQ and K-DKV launches
+    equal ``ring_launches`` (derived from the rings' loops, printed
+    first), the zigzag ring runs its L x 2L and 2L x L full blocks, and
+    every rank's live state bytes equal ``plan_state_memory``'s.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-26) sets the kernels' launch
-counts to 0 just before it and reads them just after. The line before the
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-27) sets the kernels' launch
+counts to 0 just before it and reads them just after (phase 27 in each
+rank, the counts summed over the ranks). The line before the
 last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -199,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -1117,6 +1139,15 @@ def phase_kernels(peaks) -> dict:
     out.update(packed_train)
     for name, err in check_bwd_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    # the rings' blocks at phase 27's shapes (full attention with
+    # Sq != Sk among them), from a seed of their own
+    ring_rng = np.random.RandomState(27)
+    for dt, b, sq, sk, nh, d, causal in ring_block_shapes():
+        for name, r in check_train(ring_rng, getattr(torch, dt), b, sq, nh,
+                                   d, None, timed=False, causal=causal,
+                                   sk=sk).items():
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                           r["max_abs_err"])
     for name, err in check_paged_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     for name, rows in llama_rows(peaks).items():
@@ -3568,6 +3599,9 @@ def fleet_drill(counts, model, ref, reqs, cfg, kill_tick=4, wedge_tick=14,
         router = ReplicaRouter(reps, clock=clk, cfg=RouterConfig(
             probe_interval_s=0.0, breaker_failures=1))
         torch.cuda.synchronize()
+        # the earlier sub-phases' replicas may still wait in reference
+        # cycles: freed now, not at whatever point the collector runs
+        gc.collect()
         mem_before = mem_allocated()
         pool_bytes = a.engine.kv.pool_bytes()
         lrs = [router.submit_request(LogicalRequest(
@@ -3608,6 +3642,7 @@ def fleet_drill(counts, model, ref, reqs, cfg, kill_tick=4, wedge_tick=14,
                                          for lr in lrs}, ref)
     a.restart()
     torch.cuda.synchronize()
+    gc.collect()
     mem_after = mem_allocated()
     if mem_before is not None:
         require(abs(mem_after - mem_before) < pool_bytes,
@@ -3777,6 +3812,424 @@ def phase_fleet(counts, load=None, plans=None, n_disagg=16) -> dict:
     return out
 
 
+# -- phase 27: multi-rank training over torch.distributed ---------------------
+#
+# A world of ranks sharing the one card over gloo (NCCL cannot put two
+# ranks of one communicator on one card). Each rank is a process of this
+# script (``--rank-worker SPEC``); the spec names every sub-phase, its
+# model, layout, batch and dtype, so the CPU rehearsal runs the same code.
+
+RANKS = 4
+# sub-phase -> (family, layers, mesh layout, batch (B, S), dtype, steps)
+MULTIRANK = {
+    "a": ("gpt", 4, dict(mp=2, sep=2), (2, 1024), "float32", 3),
+    "b": ("gpt", 4, dict(dp=2, sharding=2, zero_stage=3), (4, 1024),
+          "float32", 3),
+    "c": ("llama", 2, dict(sep=2, sharding=2, zero_stage=3), (2, 2048),
+          "float32", 3),
+    "d": ("gpt", 4, dict(mp=2, sep=2), (2, 1024), "bfloat16", 8),
+}
+
+
+def multirank_config(dtype, **layout):
+    """The sub-phases' trainer: phase 7's fp32 schedule, remat and the
+    guard on, Adam's eps at 1e-3. A sharded sum and a single-rank sum of
+    one grad differ by their rounding (~1e-8 here), and where the true
+    grad is ~0 (the k part of ``qkv_b``: softmax ignores a bias shared by
+    every key) Adam turns that gap into a step gap of up to
+    ``lr * dg / eps``: at eps 1e-5 the zero-initialised biases ended 3
+    steps 1.5e-4 (``mp=2, sep=2``) and 3.0e-4 (ZeRO 3) of their largest
+    value apart while the losses agreed to 1e-7; at 1e-3 that gap is
+    ~100x smaller."""
+    return hybrid.TrainerConfig(compute_dtype=getattr(torch, dtype),
+                                learning_rate=1e-3, warmup_steps=2,
+                                total_steps=10, eps=1e-3, **layout)
+
+
+def ring_launches(layers, sep, steps, remat=True) -> dict:
+    """The launches a rank makes in ``steps`` steps, derived from the
+    rings' loops (``ops/ring_attention.py``). The zigzag ring's forward
+    runs 3 K-PACK at t = 0 (chunk i causal, chunk 2n-1-i against chunk i
+    full and itself causal) and 1 at each of the n-1 later steps
+    (step_lo or step_hi): n + 2 a layer; its backward runs the same
+    blocks as K-DQ and as K-DKV: n + 2 each. remat runs each layer's
+    forward twice. Without a ring (sep 1) a layer runs 1 of each."""
+    per = sep + 2 if sep > 1 else 1
+    return {"K-PACK": steps * layers * per * (2 if remat else 1),
+            "K-DQ": steps * layers * per, "K-DKV": steps * layers * per}
+
+
+def ring_block_shapes(runs=None) -> list:
+    """The ring blocks of the sub-phases with ``sep > 1``, as ``(dtype,
+    B, Sq, Sk, NH, d, causal)`` at a rank's batch and heads and the
+    zigzag chunk L = S / (2 sep): the diagonal L x L causal, the L x L
+    full block of t = 0, step_hi's L x 2L and step_lo's 2L x L (phase 2
+    holds each to its plain version)."""
+    shapes = set()
+    for family, _, layout, (b, s), dtype, _ in (runs or MULTIRANK).values():
+        sep = layout.get("sep", 1)
+        if sep == 1:
+            continue
+        mcfg = _model_of(family, 1)
+        lb = b // (layout.get("dp", 1) * layout.get("sharding", 1))
+        nh = mcfg.num_heads // layout.get("mp", 1)
+        L = s // sep // 2
+        for sq, sk, causal in ((L, L, True), (L, L, False),
+                               (L, 2 * L, False), (2 * L, L, False)):
+            shapes.add((dtype, lb, sq, sk, nh, mcfg.head_dim, causal))
+    return sorted(shapes)
+
+
+def _model_of(family, layers):
+    base = model_config() if family == "gpt" else llama_config()
+    return dataclasses.replace(base, num_layers=layers)
+
+
+def multirank_reference(spec, work) -> dict:
+    """A sub-phase on one rank of the card: the single-device trainer
+    from the seed's weights (written to ``work/init-<family>.pt`` for
+    the world's ranks to start from, once a family), on the same batch:
+    losses, grad norms and the final params (on the CPU)."""
+    family, layers, layout, (b, s), dtype, steps = spec
+    mcfg = _model_of(family, layers)
+    t0 = time.perf_counter()
+    t = hybrid.HybridParallelTrainer(
+        mcfg, multirank_config(dtype, zero_stage=layout.get("zero_stage", 1)),
+        device=DEV)
+    init = os.path.join(work, f"init-{family}.pt")
+    if not os.path.exists(init):
+        torch.save(dict(flatten(t.full_params())), init)
+    tokens, labels = train_batch(np.random.RandomState(27), b, s,
+                                 mcfg.vocab_size)
+    losses, gnorms = [], []
+    for _ in range(steps):
+        losses.append(float(t.step(tokens, labels)))
+        gnorms.append(float(t.last_grad_norm))
+    params = dict(flatten(t.full_params()))
+    del t
+    torch.cuda.empty_cache()
+    return {"losses": losses, "gnorms": gnorms, "params": params,
+            "s": time.perf_counter() - t0}
+
+
+def _count_plain_versions():
+    """On the CPU (the rehearsal) the packed plain versions stand for the
+    kernels and count as them."""
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    for name, ref in (("K-PACK", "packed_attention_ref"),
+                      ("K-DQ", "packed_dq_ref"), ("K-DKV", "packed_dkv_ref")):
+        orig = getattr(fp, ref)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            fp.LAUNCHES[_name] += 1
+            return _orig(*a, **kw)
+
+        setattr(fp, ref, counted)
+
+
+def check_collectives(mesh) -> dict:
+    """The world's collectives on this rank's device against the values
+    they must give: all-reduce and broadcast (gloo's own CUDA path), and
+    the host-staged all-gather, reduce-scatter and ring shift."""
+    from paddle_tpu_torch.distributed import communication as comm
+
+    r, n, dev = mesh.rank, mesh.world, mesh.device
+    world = mesh.world_group
+    x = torch.arange(6, dtype=torch.float32, device=dev) + r
+    got = {}
+    ar = comm.all_reduce(x.clone(), group=world)
+    got["all_reduce"] = bool(torch.equal(
+        ar.cpu(), torch.arange(6.) * n + n * (n - 1) / 2))
+    bc = comm.broadcast(x.clone(), src=n - 1, group=world)
+    got["broadcast"] = bool(torch.equal(bc.cpu(), torch.arange(6.) + n - 1))
+    ag = comm.all_gather_dim(x[None], 0, world)
+    got["all_gather"] = bool(torch.equal(
+        ag.cpu(), torch.arange(6.)[None] + torch.arange(float(n))[:, None]))
+    rs = comm.scatter_dim(torch.ones(n, 3, device=dev) * (r + 1), 0, world)
+    got["reduce_scatter"] = bool(torch.equal(
+        rs.cpu(), torch.full((1, 3), n * (n + 1) / 2)))
+    (sh,) = comm.ring_shift([x], world, (r + 1) % n, (r - 1) % n,
+                            host_staged=mesh.host_staged)
+    got["ring_shift"] = bool(torch.equal(sh.cpu(),
+                                         torch.arange(6.) + (r - 1) % n))
+    return got
+
+
+def multirank_worker(spec_json: str) -> int:
+    """``chip_smoke.py --rank-worker SPEC``: one rank of phase 27's world
+    (gloo over ``spec["init"]``) running every sub-phase of the spec; it
+    writes its results to ``spec["dir"]/rank<r>.json`` and, rank 0, each
+    sub-phase's gathered params to ``params-<name>.pt``."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.observability.memory import plan_state_memory
+    from paddle_tpu_torch.ops import ring_attention as ra
+
+    spec = json.loads(spec_json)
+    rank, world = spec["rank"], spec["world"]
+    dev = torch.device(spec["device"])
+    torch.set_num_threads(spec["threads"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)    # every rank: one card
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.load_library()
+    else:
+        _count_plain_versions()
+    dist.init_process_group("gloo", init_method=spec["init"],
+                            world_size=world, rank=rank)
+    mesh = build_mesh(dp=world, device=dev)
+    out = {"mesh": repr(mesh), "collectives": check_collectives(mesh)}
+    for name, (family, layers, layout, (b, s), dtype, steps) in (
+            spec["runs"].items()):
+        mcls = GPTConfig if family == "gpt" else type(llama_config())
+        mcfg = mcls(**spec["models"][family])
+        mcfg = dataclasses.replace(mcfg, num_layers=layers)
+        tcfg = multirank_config(dtype, **layout)
+        t0 = time.perf_counter()
+        init = _unflat(torch.load(os.path.join(spec["dir"],
+                                               f"init-{family}.pt"),
+                                  mmap=True))
+        t = hybrid.HybridParallelTrainer(mcfg, tcfg, device=dev,
+                                         params=init)
+        del init
+        build_s = time.perf_counter() - t0
+        live = sum(x.numel() * x.element_size()
+                   for _, x in flatten({"p": t.params, "o": t.opt}))
+        tokens, labels = train_batch(np.random.RandomState(27), b, s,
+                                     mcfg.vocab_size)
+        K.reset_launch_counts()
+        ra.BLOCKS.clear()
+        losses, gnorms, step_s = [], [], []
+        for _ in range(steps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            loss = t.step(tokens, labels)
+            losses.append(float(loss))
+            gnorms.append(float(t.last_grad_norm))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t1)
+        res = {"losses": losses, "gnorms": gnorms, "step_s": step_s,
+               "build_s": build_s,
+               "launches": K.launch_counts(),
+               "blocks": [[*k, v] for k, v in sorted(ra.BLOCKS.items())],
+               "live_state_bytes": live,
+               "planned_bytes": plan_state_memory(mcfg, tcfg)[
+                   "total_per_device_bytes"],
+               "max_memory_allocated_gb": (
+                   torch.cuda.max_memory_allocated(dev) / 1e9
+                   if dev.type == "cuda" else 0.0)}
+        if name in spec["compare"]:
+            t1 = time.perf_counter()
+            params = t.full_params()
+            if rank == 0:
+                torch.save(dict(flatten(params)),
+                           os.path.join(spec["dir"], f"params-{name}.pt"))
+            del params
+            res["gather_save_s"] = time.perf_counter() - t1
+        out[name] = res
+        del t
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _unflat(flat):
+    """``{path tuple: leaf}`` back into the nested params."""
+    from paddle_tpu_torch.utils.tree import unflatten
+
+    return unflatten(flat.items())
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_world(spec, world, timeout=600) -> list:
+    """Start ``world`` rank workers of ``spec`` and wait for them; a
+    worker that fails ends the others. Returns each rank's result."""
+    spec = dict(spec, init=f"tcp://127.0.0.1:{_free_port()}", world=world)
+    env = dict(os.environ, OMP_NUM_THREADS=str(spec["threads"]))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker",
+         json.dumps(dict(spec, rank=r))], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    t0 = time.perf_counter()
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p for p in procs if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > timeout:
+                failed = bad[0] if bad else None
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate() for p in procs]
+    if failed is not None or any(p.returncode for p in procs):
+        r = procs.index(failed) if failed is not None else next(
+            i for i, p in enumerate(procs) if p.returncode)
+        raise RuntimeError(f"chip_smoke: phase 27 rank {r} failed "
+                           f"(rc {procs[r].returncode}): "
+                           f"{logs[r][1][-3000:]}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(spec["dir"], f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _param_gaps(got, want) -> list:
+    """Each leaf's max |got - want| over its max |want|, worst first."""
+    return sorted(((float((got[k] - w).abs().max() / w.abs().max()),
+                    "/".join(k)) for k, w in want.items()), reverse=True)
+
+
+def phase_multirank(counts, runs=None, world=RANKS, threads=2) -> dict:
+    """Phase 27: ``world`` ranks sharing this card over gloo train (a)
+    GPT-345M's width at 4 of 24 layers, ``mp=2, sep=2``, 2 x 1024, the
+    zigzag ring; (b) the same model at ``dp=2, sharding=2``, ZeRO 3,
+    4 x 1024; (c) LLaMA-7B's width at 2 of 32 layers, ``sep=2,
+    sharding=2``, ZeRO 3, 2 x 2048; each 3 fp32 steps held to a
+    single-rank trainer on the card (losses and each step's grad norm
+    1e-4 relative, params 1e-4 of each leaf's largest); (d) (a) in bf16
+    for 8 steps."""
+    runs = runs or MULTIRANK
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip() if DEV.type == "cuda" else "cpu"
+    log(f"[27] multi-rank training: backend gloo, world {world}, "
+        f"{world} ranks per card ({DEV}), {smi}")
+    t0 = time.perf_counter()
+    derived = {}
+    for name, (family, layers, layout, _, _, steps) in runs.items():
+        derived[name] = ring_launches(layers, layout.get("sep", 1), steps)
+        log(f"  ({name}) {family} {layers} layers {layout}: launches a rank "
+            f"derived from the attention loops: {derived[name]}")
+    compare = [k for k, r in runs.items() if r[4] == "float32"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    spec = {"device": str(DEV), "threads": threads, "dir": work,
+            "compare": compare, "runs": runs,
+            "models": {"gpt": dataclasses.asdict(model_config()),
+                       "llama": dataclasses.asdict(llama_config())}}
+    try:
+        K.reset_launch_counts()
+        refs = {k: multirank_reference(runs[k], work) for k in compare}
+        ref_launches = K.launch_counts()
+        t1 = time.perf_counter()
+        ranks = run_world(spec, world)
+        world_s = time.perf_counter() - t1
+        got = {k: torch.load(os.path.join(work, f"params-{k}.pt"))
+               for k in compare}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  {ranks[0]['mesh']}")
+    log(f"  collectives: {ranks[0]['collectives']}")
+    ref_s = ", ".join(f"({k}) {r['s']:.1f}" for k, r in refs.items())
+    log(f"  references {ref_s} s; the world {world_s:.1f} s")
+    # the single-rank references' launches stay out of ``counts`` (the
+    # main path's): they are the comparison, not the ranks' run
+    out = {"world": world, "ranks_per_card": world, "mesh": ranks[0]["mesh"],
+           "collectives": ranks[0]["collectives"], "world_s": world_s,
+           "reference_s": {k: r["s"] for k, r in refs.items()},
+           "reference_launches": {k: v for k, v in ref_launches.items()
+                                  if v}}
+    fails = [f"rank {r} collectives: {rk['collectives']}"
+             for r, rk in enumerate(ranks)
+             if not all(rk["collectives"].values())]
+    for name, (family, layers, layout, (b, s), dtype, steps) in runs.items():
+        per_rank = [rk[name] for rk in ranks]
+        m = {"layout": layout, "batch": [b, s], "dtype": dtype,
+             "losses": per_rank[0]["losses"],
+             "gnorms": per_rank[0]["gnorms"],
+             "launches_per_rank": [r["launches"] for r in per_rank],
+             "derived_launches": derived[name],
+             "live_state_bytes": [r["live_state_bytes"] for r in per_rank],
+             "planned_bytes": per_rank[0]["planned_bytes"],
+             "build_s": max(r["build_s"] for r in per_rank),
+             "steps_s": max(sum(r["step_s"]) for r in per_rank),
+             "gather_save_s": max(r.get("gather_save_s", 0.0)
+                                  for r in per_rank),
+             "max_memory_allocated_gb": max(r["max_memory_allocated_gb"]
+                                            for r in per_rank)}
+        counts[f"phase27_{name}"] = {
+            k: sum(r["launches"].get(k, 0) for r in per_rank)
+            for k in K.KERNELS}
+        for r, pr in enumerate(per_rank):
+            if pr["losses"] != m["losses"]:
+                fails.append(f"({name}): rank {r}'s losses differ")
+            got_l = {k: pr["launches"][k] for k in derived[name]}
+            if got_l != derived[name]:
+                fails.append(f"({name}) rank {r}: launches {got_l}, "
+                             f"derived {derived[name]}")
+            if pr["live_state_bytes"] != pr["planned_bytes"]:
+                fails.append(f"({name}) rank {r}: live state "
+                             f"{pr['live_state_bytes']} B, planned "
+                             f"{pr['planned_bytes']} B")
+        if layout.get("sep", 1) > 1:
+            L = s // layout["sep"] // 2
+            shapes = {tuple(x[:4]) for r in per_rank for x in r["blocks"]}
+            m["ring_blocks"] = sorted([list(x) for x in shapes])
+            for want in (("K-PACK", L, 2 * L, False),
+                         ("K-PACK", 2 * L, L, False),
+                         ("K-PACK", L, L, False), ("K-PACK", L, L, True)):
+                if want not in shapes:
+                    fails.append(f"({name}): no {want} block in the ring")
+        if name in refs:
+            ref = refs[name]
+            lg = max(abs(a - w) / abs(w) for a, w in
+                     zip(m["losses"], ref["losses"]))
+            gg = max(abs(a - w) / abs(w) for a, w in
+                     zip(m["gnorms"], ref["gnorms"]))
+            gaps = _param_gaps(got[name], ref["params"])
+            m.update(loss_ref=ref["losses"], gnorm_ref=ref["gnorms"],
+                     loss_gap=lg, gnorm_gap=gg, param_gap=gaps[0][0],
+                     param_gap_leaf=gaps[0][1], param_gaps_worst=gaps[:5])
+            if lg > 1e-4:
+                fails.append(f"({name}) losses {m['losses']} vs one rank "
+                             f"{ref['losses']}")
+            # the grad norm checks the cross-rank grad sums directly,
+            # whatever Adam's eps does to the params
+            if gg > 1e-4:
+                fails.append(f"({name}) grad norms {m['gnorms']} vs one "
+                             f"rank {ref['gnorms']}")
+            if gaps[0][0] > 1e-4:
+                fails.append(f"({name}) params: {gaps[0][1]} off by "
+                             f"{gaps[0][0]:.3e} of its largest")
+        else:
+            med = float(np.median([max(r["step_s"][i] for r in per_rank)
+                                   for i in range(1, steps)])) * 1e3
+            m["step_ms"] = med
+            if not (m["losses"][-1] < m["losses"][0]
+                    and all(np.isfinite(m["losses"]))):
+                fails.append(f"({name}): losses {m['losses']}")
+            log(f"  ({name}) step {med:.1f} ms median of steps 2-{steps} "
+                f"(4 ranks on one card, not a multi-card rate)")
+        log(f"  ({name}) " + json.dumps(
+            {k: v for k, v in m.items() if k != "launches_per_rank"}))
+        out[name] = m
+    require(not fails, "phase 27: " + "; ".join(fails))
+    out["s"] = time.perf_counter() - t0
+    log(f"  {out['s']:.1f} s")
+    return out
+
+
 # device kernel name -> what it is, first match wins; a key of several
 # parts matches when every part is in the name. K-DEC, K-DEC8, K-MQ and
 # K-MQ8 all launch the paged split kernel (and its merge): one kind. The SEG instantiations
@@ -3885,15 +4338,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
-                    "23,24,25,26",
+                    "23,24,25,26,27",
                     help="comma-separated; 6, 9, 13, 17 and 18 "
                     "(profiles) are opt-in")
     ap.add_argument("--drill-worker", metavar="SPEC",
                     help="run one generation of phase 24's preemption drill "
                     "(JSON spec; used by phase 24 itself)")
+    ap.add_argument("--rank-worker", metavar="SPEC",
+                    help="run one rank of phase 27's world (JSON spec; used "
+                    "by phase 27 itself)")
     args = ap.parse_args()
     if args.drill_worker:
         return drill_worker(args.drill_worker)
+    if args.rank_worker:
+        return multirank_worker(args.rank_worker)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3985,13 +4443,16 @@ def main() -> int:
         e2e["telemetry"] = phase_telemetry(counts, peaks)
     if 26 in phases:
         e2e["fleet"] = phase_fleet(counts)
+    if 27 in phases:
+        e2e["multirank"] = phase_multirank(counts)
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
     # (16) serving, the LLaMA phases (19-22), the remat policies (23), the
-    # durability drills (24), the telemetry phase (25) and the rest of
-    # serving (26), each phase's runs counted
+    # durability drills (24), the telemetry phase (25), the rest of
+    # serving (26) and multi-rank training (27, every rank's launches),
+    # each phase's runs counted
     main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24,
-                   25, 26)
+                   25, 26, 27)
 
     def launched(which):
         return {name: sum(c.get(name, 0) for key, c in counts.items()

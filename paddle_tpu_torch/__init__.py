@@ -11,7 +11,10 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit ``"cpu"`` they raise.
 
 Ported so far: GPT and LLaMA paged serving (``models``, ``serving``),
-the single-device training step (``parallel``) with packed sequences
+the training step (``parallel``) on one device or over a mesh of
+``torch.distributed`` ranks (data, ZeRO, tensor and sequence
+parallelism: ``distributed.mesh``, ``distributed.communication``,
+``ops.ring_attention``), with packed sequences
 (``io.packing``), remat policies, loss scaling, checkpoints
 (``distributed.checkpoint``) and preemption, training through the nn API
 (``GPTForCausalLM`` with ``GPTPretrainingCriterion``), run telemetry and

@@ -4,8 +4,9 @@
 - **state breakdown** — :func:`state_breakdown` folds a state tree
   (nested dicts of tensors or arrays) into global and per-device bytes;
   :func:`plan_state_memory` plans a whole trainer's state (params +
-  AdamW moments) without allocating anything: the arch's init runs on
-  the ``meta`` device, PyTorch's counterpart of ``jax.eval_shape``.
+  AdamW moments) at a mesh layout without allocating anything: the
+  arch's init runs on the ``meta`` device, PyTorch's counterpart of
+  ``jax.eval_shape``, and the trainer's specs give each rank's bytes.
 - **watermark** — :func:`all_devices_memory_stats` samples
   :func:`~.step_stats.device_memory_stats` across devices (max + sum)
   and degrades to None where no device has stats (the CPU).
@@ -101,12 +102,12 @@ def plan_state_memory(model_cfg, trainer_cfg=None,
                       axis_sizes: Optional[Dict[str, int]] = None
                       ) -> Dict[str, Any]:
     """Allocation-free state-memory plan of a ``HybridParallelTrainer``
-    for ``model_cfg`` (GPT or LLaMA, through the trainer's
-    ``_arch_for``): the arch's init runs on the ``meta`` device, and the
-    params plus AdamW's two fp32 moments and its int32 step fold to
-    bytes. The port trains on one device only, so every mesh axis must
-    be 1; a larger one raises, naming the multi-device slice that brings
-    the param specs."""
+    layout for ``model_cfg`` (GPT or LLaMA, through the trainer's
+    ``_arch_for``): the arch's init runs on the ``meta`` device, the
+    trainer's param specs (``sanitize_specs``) and moment specs
+    (``_opt_specs``) are derived for the axis sizes, and the params plus
+    AdamW's two fp32 moments and its int32 step fold to global and
+    per-rank bytes, key for key the JAX package's plan."""
     import torch
 
     from ..parallel import hybrid
@@ -118,20 +119,23 @@ def plan_state_memory(model_cfg, trainer_cfg=None,
                       "sep": cfg.sep, "model": cfg.mp}
     else:
         axis_sizes = {**{a: 1 for a in _AXES}, **axis_sizes}
-    big = {a: n for a, n in axis_sizes.items() if int(n) != 1}
-    if big:
-        raise NotImplementedError(
-            f"plan_state_memory at mesh axes {big}: the port has no param "
-            "specs yet; they come with the multi-device slice (ROADMAP "
-            "A.6)")
-    init_fn, _, arch = hybrid._arch_for(model_cfg)
+
+    class _AxisSizes:
+        # stands in for a Mesh: the spec derivation reads mesh.shape only
+        shape = axis_sizes
+
+    init_fn, specs_fn, _, arch = hybrid._arch_for(model_cfg)
     with torch.device("meta"):
         shapes = init_fn(model_cfg)
-    params = state_breakdown(shapes)
+    pspecs = hybrid.sanitize_specs(
+        shapes, specs_fn(model_cfg, cfg.zero_stage, cfg.pp), _AxisSizes)
+    ospecs = hybrid._opt_specs(pspecs, cfg.zero_stage, shapes, _AxisSizes)
+    params = state_breakdown(shapes, pspecs, axis_sizes)
+    one_moment = state_breakdown(shapes, ospecs, axis_sizes)
     opt = {  # AdamW: m + v (fp32, the params' shapes) + the step scalar
-        "global_bytes": 2 * params["global_bytes"] + 4,
-        "per_device_bytes": 2 * params["per_device_bytes"] + 4,
-        "n_leaves": 2 * params["n_leaves"] + 1,
+        "global_bytes": 2 * one_moment["global_bytes"] + 4,
+        "per_device_bytes": 2 * one_moment["per_device_bytes"] + 4,
+        "n_leaves": 2 * one_moment["n_leaves"] + 1,
     }
     return {
         "arch": arch,

@@ -1,4 +1,5 @@
-"""Attention dispatch and the hand-written Hopper kernels."""
-from . import attention_dispatch, kernels
+"""Attention dispatch, ring attention and the hand-written Hopper
+kernels."""
+from . import attention_dispatch, kernels, ring_attention
 
-__all__ = ["attention_dispatch", "kernels"]
+__all__ = ["attention_dispatch", "kernels", "ring_attention"]

@@ -16,7 +16,7 @@ from .kernels import paged_attention as _paged
 
 __all__ = ["paged_attention", "paged_multiquery_attention",
            "segment_attention_packed", "causal_attention",
-           "causal_attention_packed"]
+           "causal_attention_packed", "ring_is_zigzag"]
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None,
@@ -67,6 +67,13 @@ def causal_attention(q, k, v, scale=None):
     return attention_bshd(q, k, v, causal=True, scale=scale)
 
 
+def ring_is_zigzag(ring) -> bool:
+    """True when a ring spec is the end-to-end zigzag form
+    ``(mesh, axis, "zigzag")``: the data already permuted by the
+    trainer."""
+    return ring is not None and len(ring) > 2 and ring[2] == "zigzag"
+
+
 def causal_attention_packed(q, k, v, nh, scale=None, ring=None,
                             segment_ids=None):
     """Differentiable causal attention over the packed ``(B, S, NH*D)``
@@ -74,11 +81,24 @@ def causal_attention_packed(q, k, v, nh, scale=None, ring=None,
     forward, K-DQ and K-DKV backward on CUDA; with ``segment_ids``
     ``(B, S)`` (the packed-sequence trainer) K-SEG forward, K-SDQ and
     K-SDKV backward. q, k, v may be column slices of the fused qkv
-    projection. Ring attention is not ported."""
+    projection. ``ring=(mesh, axis)`` or ``(mesh, axis, "zigzag")``:
+    q, k, v are this rank's sequence shards and attention runs as ring
+    attention over the mesh axis (``ops.ring_attention``): the zigzag
+    ring for the end-to-end zigzag layout, else the naive ring, every
+    block K-PACK, K-DQ and K-DKV on CUDA."""
+    if segment_ids is not None and ring is not None:
+        raise ValueError(
+            "segment_ids and ring attention cannot combine: the ring "
+            "shards the sequence across ranks, the packed mask is "
+            "per-token; run packed batches with sep=1")
     if ring is not None:
-        raise NotImplementedError(
-            "causal_attention_packed: ring attention (sep > 1) is not "
-            "ported; it comes with the multi-device slice")
+        from .ring_attention import ring_attention_packed
+
+        # (mesh, axis, "zigzag"): the trainer keeps the whole sequence in
+        # zigzag order end to end, so no per-call reorders
+        return ring_attention_packed(q, k, v, nh, ring[0], ring[1],
+                                     causal=True, scale=scale,
+                                     zigzag=ring_is_zigzag(ring))
     if segment_ids is not None:
         return flash_attention_packed_seg(q, k, v, segment_ids, nh,
                                           scale=scale)

@@ -1,9 +1,10 @@
-"""Training (port of ``paddle_tpu.parallel``), one device so far: the
-functional GPT core (``transformer_core``) and LLaMA core
-(``llama_core``) over stacked parameters, and the trainer with AdamW, the
-in-step anomaly guard and loss scaler, checkpoints, preemption and
-divergence rollback (``hybrid``). The mesh, tensor/pipeline/sequence
-parallelism and ZeRO are not ported."""
+"""Training (port of ``paddle_tpu.parallel``): the functional GPT core
+(``transformer_core``) and LLaMA core (``llama_core``) over stacked
+parameters, with their tensor-parallel, ZeRO-3 and ring-attention forms
+over a mesh, and the trainer with AdamW, the in-step anomaly guard and
+loss scaler, checkpoints, preemption and divergence rollback on one
+rank, and data, ZeRO 1-3, tensor and sequence parallelism over ranks
+(``hybrid``). Pipeline parallelism is not ported."""
 from . import hybrid, llama_core, transformer_core
 from .hybrid import (
     DIVERGENCE_EXIT_CODE,

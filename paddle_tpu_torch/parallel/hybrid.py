@@ -1,5 +1,5 @@
-"""Single-device trainer for GPT and LLaMA (port of
-``paddle_tpu.parallel.hybrid``).
+"""The trainer for GPT and LLaMA, on one device or over a mesh of ranks
+(port of ``paddle_tpu.parallel.hybrid``).
 
 ``HybridParallelTrainer.step`` runs one training step: value and grad of
 the model family's loss, ``transformer_core.gpt_loss`` or, for a
@@ -46,13 +46,41 @@ from the later of the dispatch and the previous step's end, to its own
 end), once its end event has fired: nothing waits for the device on the
 step path.
 
-Only the single-device branch of the JAX trainer is ported. These raise
-``NotImplementedError``, naming the slice that brings them: any mesh axis
-(``dp``, ``mp``, ``pp``, ``sharding``, ``sep``) above 1 and the
-cross-rank consistency check (multi-device). ``TrainerConfig`` keeps
-every field and default of the JAX package's; ``compile_ledger`` is
-accepted and records nothing (PyTorch runs eagerly, there is no compile
-to ledger).
+Multi-rank training (pp == 1): with any of ``dp``, ``sharding``, ``mp``
+or ``sep`` above 1 the trainer runs on a ``distributed.mesh.Mesh`` (built
+from the config over the initialised ``torch.distributed`` world unless
+one is passed), one process per rank, each holding its shards of the
+JAX package's layout: the param specs of the model family
+(``gpt_param_specs`` / ``llama_param_specs``) after
+:func:`sanitize_specs`, and the AdamW moments under :func:`_opt_specs`
+(ZeRO >= 1 shards each moment over ``"sharding"`` along its largest
+dividing dim). A step:
+
+- :meth:`shard_batch` cuts the global host batch: rows over ``("data",
+  "sharding")``, the sequence over ``"sep"``, in zigzag order when it
+  divides by ``2 * sep`` (then the ring is the zigzag ring end to end);
+- the family's loss over the rank's shards (tensor parallelism over
+  ``"model"``, ring attention over ``"sep"``, ZeRO-3's per-layer gathers)
+  is the global batch's mean on every rank;
+- the grads are summed over ``("data", "sharding", "sep")``: all-reduced
+  (ZeRO 1), reduce-scattered over ``"sharding"`` onto the moment's shard
+  (ZeRO 2, and ZeRO 3's replicated leaves), or already reduce-scattered
+  by the gathers' backward (ZeRO 3's sharded params);
+- :func:`global_norm` over the sharded grads counts each element once;
+  AdamW updates the moment's shard, decaying by the FULL leaf's
+  ``ndim >= 2``; the guard's finite flag is all-reduced so every rank
+  skips the same step; the updated shards are all-gathered over
+  ``"sharding"`` back to the param layout.
+
+The telemetry counts the global batch's tokens and the global params,
+with ``n_devices`` the world, as the JAX package does. Not ported for a
+world above one rank, and raising ``NotImplementedError`` naming the
+slice that brings them: checkpoints, the preemption guard and rollback,
+``http_port``, the consistency check; everywhere: ``pp > 1``,
+``vpp > 1``, ``sep > 1`` without ring attention, and packed sequences
+over a mesh. ``TrainerConfig`` keeps every field and default of the JAX
+package's; ``compile_ledger`` is accepted and records nothing (PyTorch
+runs eagerly, there is no compile to ledger).
 """
 from __future__ import annotations
 
@@ -70,11 +98,15 @@ import torch
 
 from .. import observability as obs
 from ..device import resolve_device
+from ..distributed import communication as comm
 from ..distributed.checkpoint import (AsyncCheckpointManager,
                                       CheckpointError, CheckpointManager)
+from ..distributed.mesh import P, build_mesh
 from ..io.packing import positions_from_segment_ids
 from ..models.llama import LlamaConfig
+from ..ops.ring_attention import to_zigzag
 from ..utils import fault_injection as fi
+from ..utils.convert import from_head_aligned, shard_params
 from ..utils.preemption import (PREEMPTED_EXIT_CODE, PreemptionGuard,
                                 TrainingPreempted)
 from ..utils.tree import flatten, tree_map, unflatten
@@ -84,7 +116,13 @@ from . import transformer_core as core
 __all__ = ["DIVERGENCE_EXIT_CODE", "NumericalDivergenceError",
            "PREEMPTED_EXIT_CODE", "PreemptionGuard", "TrainingPreempted",
            "TrainerConfig", "HybridParallelTrainer", "global_norm",
-           "adamw_init", "adamw_update"]
+           "adamw_init", "adamw_update", "sanitize_specs"]
+
+# what the next multi-device slice brings (ROADMAP A.6)
+_NEXT_PIPE = "the pipeline slice (ROADMAP A.6: pipeline.py)"
+_NEXT_CKPT = ("the multi-rank checkpoint slice (ROADMAP A.6: launch/, "
+              "consistency, multi-rank checkpoints)")
+_NEXT_A6 = "a later multi-device slice (ROADMAP A.6)"
 
 # exit code for a script that lets NumericalDivergenceError end it (the
 # JAX package's elastic watcher classifies it as "divergence")
@@ -161,6 +199,11 @@ def global_norm(tree):
                           for _, x in flatten(tree)))
 
 
+def _clip(cfg: TrainerConfig, gnorm):
+    return (torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
+            if cfg.grad_clip else 1.0)
+
+
 def adamw_init(params):
     leaf = flatten(params)[0][1]
     return {"m": tree_map(torch.zeros_like, params),
@@ -176,25 +219,12 @@ def adamw_update(cfg: TrainerConfig, params, grads, opt):
     but not ``lnf_g``/``lnf_b`` -- exactly as the JAX package does.
     Returns ``(new_params, new_opt, grad_norm)``."""
     step = opt["step"] + 1
-    stepf = step.float()
     gnorm = global_norm(grads)
-    clip = (torch.clamp(cfg.grad_clip / (gnorm + 1e-6), max=1.0)
-            if cfg.grad_clip else 1.0)
-    lr = _lr_at(cfg, stepf)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1.0 - torch.pow(b1, stepf)
-    bc2 = 1.0 - torch.pow(b2, stepf)
+    clip = _clip(cfg, gnorm)
+    lr, bc1, bc2 = _schedule(cfg, step)
 
     def upd(p, g, m, v):
-        g = g.float() * clip
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * torch.square(g)
-        mhat = m / bc1
-        vhat = v / bc2
-        step_v = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if p.dim() >= 2:
-            step_v = step_v + cfg.weight_decay * p.float()
-        return (p.float() - lr * step_v).to(p.dtype), m, v
+        return _adam_leaf(cfg, p, g, m, v, clip, lr, bc1, bc2, p.dim() >= 2)
 
     paths = [path for path, _ in flatten(params)]
     out = [upd(*leaves) for leaves in zip(*(
@@ -202,6 +232,28 @@ def adamw_update(cfg: TrainerConfig, params, grads, opt):
                                              opt["v"])))]
     new_p, new_m, new_v = (unflatten(zip(paths, col)) for col in zip(*out))
     return new_p, {"m": new_m, "v": new_v, "step": step}, gnorm
+
+
+def _schedule(cfg: TrainerConfig, step):
+    """``(lr, bc1, bc2)`` at the int32 ``step`` tensor."""
+    stepf = step.float()
+    return (_lr_at(cfg, stepf), 1.0 - torch.pow(cfg.beta1, stepf),
+            1.0 - torch.pow(cfg.beta2, stepf))
+
+
+def _adam_leaf(cfg, p, g, m, v, clip, lr, bc1, bc2, decay):
+    """One leaf's AdamW update (``decay``: the full leaf has
+    ``ndim >= 2``). Returns ``(p, m, v)``."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g = g.float() * clip
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * torch.square(g)
+    mhat = m / bc1
+    vhat = v / bc2
+    step_v = mhat / (torch.sqrt(vhat) + cfg.eps)
+    if decay:
+        step_v = step_v + cfg.weight_decay * p.float()
+    return (p.float() - lr * step_v).to(p.dtype), m, v
 
 
 def _guard_defaults(cfg: TrainerConfig) -> dict:
@@ -215,12 +267,99 @@ def _guard_defaults(cfg: TrainerConfig) -> dict:
     }
 
 
+def _axis_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    names = entry if isinstance(entry, (tuple, list)) else (entry,)
+    n = 1
+    for a in names:
+        n *= mesh.shape[a]
+    return n
+
+
+def sanitize_specs(params, specs, mesh):
+    """Drop the entries whose axis size does not divide the dim (the
+    JAX package's shape guard). ``params``: a tree of shaped leaves;
+    ``mesh``: anything with ``shape`` ``{axis: size}``."""
+    spec_of = dict(flatten(specs))
+    out = []
+    for path, leaf in flatten(params):
+        entries = list(spec_of[path])
+        entries += [None] * (len(leaf.shape) - len(entries))
+        out.append((path, P(*(e if d % _axis_size(mesh, e) == 0 else None
+                              for d, e in zip(leaf.shape, entries)))))
+    return unflatten(out)
+
+
+def _has_sharding(entries) -> bool:
+    return any("sharding" in (e if isinstance(e, (tuple, list)) else (e,))
+               for e in entries if e is not None)
+
+
+def _opt_specs(param_specs, zero_stage: int, shapes, mesh):
+    """The moments' specs: ZeRO >= 1 shards m/v over ``"sharding"``
+    along each leaf's largest dividing unsharded dim (the first such
+    on a tie), unless the param is already sharded there."""
+    nshard = mesh.shape["sharding"]
+    spec_of = dict(flatten(param_specs))
+    out = []
+    for path, leaf in flatten(shapes):
+        shape = tuple(leaf.shape)
+        entries = list(spec_of[path]) + [None] * (
+            len(shape) - len(spec_of[path]))
+        if zero_stage >= 1 and not _has_sharding(entries):
+            best, best_dim = -1, -1
+            for i, (d, e) in enumerate(zip(shape, entries)):
+                if e is None and d % nshard == 0 and d > best:
+                    best, best_dim = d, i
+            if best_dim >= 0:
+                entries[best_dim] = "sharding"
+        out.append((path, P(*entries)))
+    return unflatten(out)
+
+
 def _arch_for(model_cfg):
-    """The functional core for a model config's family: ``(init, loss,
-    name)``, GPT by default, LLaMA for a ``LlamaConfig``."""
+    """The functional core for a model config's family: ``(init, specs,
+    loss, name)``, GPT by default, LLaMA for a ``LlamaConfig``."""
     if isinstance(model_cfg, LlamaConfig):
-        return llama_core.llama_init, llama_core.llama_loss, "llama"
-    return core.gpt_init, core.gpt_loss, "gpt"
+        return (llama_core.llama_init, llama_core.llama_param_specs,
+                llama_core.llama_loss, "llama")
+    return core.gpt_init, core.gpt_param_specs, core.gpt_loss, "gpt"
+
+
+_LOSS_AXES = ("data", "sharding", "sep")
+
+
+class _Layout:
+    """The trainer's state layout over a mesh: the sanitized param specs,
+    the moments' specs, and per leaf (by path) the full shape, whether
+    the param itself is sharded over ``"sharding"`` (ZeRO 3), the dim
+    its moments add ``"sharding"`` on (``opt_dim``, None if none), and
+    how many ranks hold each element of the moments' shard (``rep``,
+    for the global norm)."""
+
+    def __init__(self, model_cfg, cfg, mesh, init_fn, specs_fn):
+        with torch.device("meta"):
+            self.shapes = init_fn(model_cfg)
+        self.pspecs = sanitize_specs(
+            self.shapes, specs_fn(model_cfg, cfg.zero_stage, cfg.pp), mesh)
+        self.ospecs = _opt_specs(self.pspecs, cfg.zero_stage, self.shapes,
+                                 mesh)
+        self.leaf = {}
+        pspec_of = dict(flatten(self.pspecs))
+        shape_of = dict(flatten(self.shapes))
+        for path, ospec in flatten(self.ospecs):
+            shape = tuple(shape_of[path].shape)
+            pspec = pspec_of[path]
+            zero3 = _has_sharding(pspec)
+            opt_dim = None
+            if not zero3 and mesh.shape["sharding"] > 1:
+                opt_dim = next((i for i, e in enumerate(ospec)
+                                if e == "sharding"), None)
+            held = math.prod(_axis_size(mesh, e) for e in ospec)
+            self.leaf[path] = {"shape": shape, "zero3": zero3,
+                               "opt_dim": opt_dim, "ndim": len(shape),
+                               "rep": mesh.world // held}
 
 
 def _keystr(path) -> str:
@@ -234,24 +373,45 @@ def _not_ported(what: str, slice_name: str):
 
 
 class HybridParallelTrainer:
-    """One-device GPT or LLaMA trainer on ``device`` (CUDA unless
-    ``"cpu"`` is asked for).
+    """GPT or LLaMA trainer on ``device`` (CUDA unless ``"cpu"`` is asked
+    for), over a mesh of ranks when the config asks for one.
 
     Usage:
         t = HybridParallelTrainer(gpt_345m(), TrainerConfig())
         loss = t.step(tokens, labels)
+
+    Multi-rank: every rank of an initialised ``torch.distributed`` world
+    (backend ``"nccl"`` with a card per rank, or ``"gloo"``) builds the
+    trainer with the same config and steps on the same global batch;
+    ``mesh`` is built from the config unless given, on ``device``.
+    ``params`` (the full stacked params, the JAX package's layout) start
+    the trainer in place of the seed's init.
     """
 
-    def __init__(self, model_cfg, cfg: TrainerConfig, device=None):
+    def __init__(self, model_cfg, cfg: TrainerConfig, device=None,
+                 mesh=None, params=None):
         self.model_cfg = model_cfg
         self.cfg = cfg
-        self._init_fn, self._loss_fn, self.arch = _arch_for(model_cfg)
+        (self._init_fn, self._specs_fn, self._loss_fn,
+         self.arch) = _arch_for(model_cfg)
         self._validate()
-        self.device = resolve_device(device)
-        gen = torch.Generator().manual_seed(cfg.seed)
-        self.params = tree_map(lambda t: t.to(self.device),
-                               self._init_fn(model_cfg, gen))
-        self.opt = adamw_init(self.params)
+        axes = {a: getattr(cfg, a) for a in ("dp", "sharding", "mp", "sep")}
+        self.mesh = self._layout = None
+        if mesh is not None or any(n != 1 for n in axes.values()):
+            self.mesh = mesh if mesh is not None else build_mesh(
+                dp=cfg.dp, pp=cfg.pp, sharding=cfg.sharding, mp=cfg.mp,
+                sep=cfg.sep, device=device)
+            self._validate_mesh()
+            self.device = self.mesh.device
+            self._layout = _Layout(model_cfg, cfg, self.mesh, self._init_fn,
+                                   self._specs_fn)
+        else:
+            self.device = resolve_device(device)
+        if params is None:
+            params = self._init_fn(model_cfg,
+                                   torch.Generator().manual_seed(cfg.seed))
+        self.set_full_params(params)
+        self.opt = self._fresh_opt()
         self.guard = {k: torch.tensor(v, device=self.device)
                       for k, v in _guard_defaults(cfg).items()}
         self.global_step = 0          # data-consumption steps dispatched
@@ -277,9 +437,36 @@ class HybridParallelTrainer:
         # -- live ops endpoint (opt-in: cfg.http_port) ---------------------
         self.http = None
         if cfg.http_port is not None:
+            self._single_rank("the ops endpoint (http_port)")
             self.http = obs.ObsHTTPEndpoint(
                 port=cfg.http_port, host=cfg.http_host,
                 health=self._health_snapshot).start()
+
+    @property
+    def world(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world
+
+    def _single_rank(self, what: str) -> None:
+        if self.world > 1:
+            _not_ported(f"{what} over {self.world} ranks", _NEXT_CKPT)
+
+    def _validate_mesh(self):
+        cfg, mesh, mcfg = self.cfg, self.mesh, self.model_cfg
+        want = {"data": cfg.dp, "pipe": cfg.pp, "sharding": cfg.sharding,
+                "sep": cfg.sep, "model": cfg.mp, "expert": 1}
+        if mesh.shape != {a: want[a] for a in mesh.shape}:
+            raise ValueError(f"mesh {mesh.shape} does not match the "
+                             f"config's axes {want}")
+        if cfg.packed_sequences and mesh.world > 1:
+            _not_ported("packed_sequences over a mesh", _NEXT_A6)
+        mp = cfg.mp
+        heads = {"num_heads": mcfg.num_heads}
+        if self.arch == "llama":
+            heads["kv heads"] = mcfg.kv_heads
+        for what, n in {**heads, "ffn_size": mcfg.ffn_size}.items():
+            if n % mp:
+                raise ValueError(f"tensor parallelism needs {what} ({n}) "
+                                 f"divisible by mp ({mp})")
 
     def _validate(self):
         cfg = self.cfg
@@ -306,14 +493,14 @@ class HybridParallelTrainer:
                 f"packed_sequences supports the GPT family only (got arch "
                 f"{self.arch!r}): per-segment RoPE reset is not wired "
                 "through the LLaMA core yet")
-        axes = {a: getattr(cfg, a) for a in ("dp", "mp", "pp", "sharding",
-                                              "sep")}
-        if any(n != 1 for n in axes.values()) or cfg.vpp != 1:
-            _not_ported(f"a mesh axis above 1 ({axes}, vpp={cfg.vpp})",
-                        "the multi-device slice")
+        if cfg.pp > 1 or cfg.vpp > 1:
+            _not_ported(f"pipeline parallelism (pp={cfg.pp}, vpp={cfg.vpp})",
+                        _NEXT_PIPE)
+        if cfg.sep > 1 and not cfg.ring_attention:
+            _not_ported("sep > 1 without ring attention (the JAX package's "
+                        "GSPMD sequence sharding)", _NEXT_A6)
         if cfg.consistency_check_every:
-            _not_ported("the cross-rank consistency check",
-                        "the multi-device slice")
+            _not_ported("the cross-rank consistency check", _NEXT_CKPT)
         core._remat_wrap(None, cfg.remat)   # an unknown policy raises now
 
     # -- the step -----------------------------------------------------------
@@ -327,6 +514,9 @@ class HybridParallelTrainer:
         paths, leaves = zip(*((path, p.detach().requires_grad_(True))
                               for path, p in flatten(params)))
         kw = dict(zip(("segment_ids", "positions"), extras))
+        if self.mesh is not None:
+            kw.update(mesh=self.mesh, specs=self._layout.pspecs,
+                      ring=self._ring_for(tokens))
         raw = self._loss_fn(self.model_cfg, unflatten(zip(paths, leaves)),
                             tokens, labels,
                             compute_dtype=self.cfg.compute_dtype,
@@ -339,6 +529,81 @@ class HybridParallelTrainer:
             grads = [g * inv.to(g.dtype) for g in grads]
         return raw.detach(), unflatten(zip(paths, grads))
 
+    def _ring_for(self, tokens):
+        """The ring spec of a local batch: None at sep 1; the end-to-end
+        zigzag ring when the global length divides by ``2 * sep`` (the
+        local one is then even: :meth:`shard_batch` permuted it), else
+        the naive ring."""
+        n = self.mesh.shape["sep"]
+        if n == 1:
+            return None
+        if tokens.shape[-1] % 2 == 0:
+            return (self.mesh, "sep", "zigzag")
+        return (self.mesh, "sep")
+
+    def _sharded_update(self, params, grads, opt):
+        """The multi-rank AdamW: grads summed over the loss axes onto the
+        moments' shards, the global norm, the update of each shard.
+        Returns ``(new_p, new_opt, gnorm, old_p)``: the params before and
+        after, and the moments, in the moments' shard layout
+        (``_unshard_opt_dim`` brings the params back)."""
+        cfg, mesh = self.cfg, self.mesh
+        sh = mesh.group("sharding")
+        paths = [path for path, _ in flatten(params)]
+        g_of = dict(flatten(grads))
+        p_sl, g_sl = {}, {}
+        for path, p in flatten(params):
+            info = self._layout.leaf[path]
+            g, dim = g_of[path], info["opt_dim"]
+            if info["zero3"]:            # reduce-scattered by the gather
+                self._sum(g, ("data", "sep"))
+            elif dim is not None and cfg.zero_stage >= 2:
+                g = comm.scatter_dim(g, dim, sh)
+                self._sum(g, ("data", "sep"))
+            else:
+                self._sum(g, _LOSS_AXES)
+                if dim is not None:
+                    g = self._my_slice(g, dim)
+            g_sl[path] = g
+            p_sl[path] = self._my_slice(p, dim) if dim is not None else p
+        sq = sum(torch.sum(torch.square(g_sl[path].float()))
+                 / self._layout.leaf[path]["rep"] for path in paths)
+        self._sum(sq, mesh.axis_names)
+        gnorm = torch.sqrt(sq)
+        step = opt["step"] + 1
+        clip = _clip(cfg, gnorm)
+        lr, bc1, bc2 = _schedule(cfg, step)
+        m_of, v_of = dict(flatten(opt["m"])), dict(flatten(opt["v"]))
+        out = [_adam_leaf(cfg, p_sl[path], g_sl[path], m_of[path],
+                          v_of[path], clip, lr, bc1, bc2,
+                          self._layout.leaf[path]["ndim"] >= 2)
+               for path in paths]
+        new_p, new_m, new_v = (unflatten(zip(paths, col))
+                               for col in zip(*out))
+        return (new_p, {"m": new_m, "v": new_v, "step": step}, gnorm,
+                unflatten(p_sl.items()))
+
+    def _sum(self, t, axes):
+        """All-reduce (sum) ``t`` in place over the mesh ``axes``."""
+        g = (self.mesh.world_group if tuple(axes) == self.mesh.axis_names
+             else self.mesh.group(axes))
+        if g is not None:
+            comm.all_reduce(t, group=g)
+
+    def _my_slice(self, t, dim):
+        n, i = self.mesh.shape["sharding"], self.mesh.coords["sharding"]
+        w = t.shape[dim] // n
+        return t.narrow(dim, i * w, w)
+
+    def _unshard_opt_dim(self, new_p):
+        """The updated moment-layout shards gathered over ``"sharding"``
+        back into the param layout."""
+        sh = self.mesh.group("sharding")
+        return unflatten(
+            (path, p if self._layout.leaf[path]["opt_dim"] is None else
+             comm.all_gather_dim(p, self._layout.leaf[path]["opt_dim"], sh))
+            for path, p in flatten(new_p))
+
     def _step_fn(self, tokens, labels, extras, poison):
         """value-and-grad, AdamW, and the guard's select; returns
         ``(params, opt, guard, loss, grad_norm, skipped)``, all on the
@@ -348,18 +613,33 @@ class HybridParallelTrainer:
         loss, grads = self.loss_and_grads(
             params, tokens, labels, poison, extras,
             scale if cfg.loss_scaling else None)
-        new_p, new_opt, gnorm = adamw_update(cfg, params, grads, opt)
+        if self.mesh is None:
+            new_p, new_opt, gnorm = adamw_update(cfg, params, grads, opt)
+            old_p = params
+        else:
+            new_p, new_opt, gnorm, old_p = self._sharded_update(
+                params, grads, opt)
         del grads   # one state's worth of memory less at the commit below
         if not cfg.anomaly_guard:
+            if self.mesh is not None:
+                new_p = self._unshard_opt_dim(new_p)
             return (new_p, new_opt, guard, loss, gnorm,
                     torch.zeros((), dtype=torch.bool, device=loss.device))
         finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+        if self.mesh is not None:
+            # every rank skips the same step
+            bad = (~finite).float()
+            comm.all_reduce(bad, comm.ReduceOp.MAX,
+                            group=self.mesh.world_group)
+            finite = bad == 0
 
         def commit(new, old):
             return tree_map(lambda n, o: torch.where(finite, n, o), new, old)
 
-        new_p = commit(new_p, params)
+        new_p = commit(new_p, old_p)
         new_opt = commit(new_opt, opt)
+        if self.mesh is not None:
+            new_p = self._unshard_opt_dim(new_p)
         skipped = ~finite
         new_guard = {
             "skip_count": torch.where(finite, 0, guard["skip_count"] + 1
@@ -383,14 +663,84 @@ class HybridParallelTrainer:
                 finite, guard["good_steps"] + 1, 0).to(torch.int32)
         return new_p, new_opt, new_guard, loss, gnorm, skipped
 
+    # -- state over a mesh ---------------------------------------------------
+    def _fresh_opt(self):
+        """Zero moments (in the moments' shard layout over a mesh) and
+        step 0."""
+        if self.mesh is None:
+            return adamw_init(self.params)
+        n = self.mesh.shape["sharding"]
+
+        def zeros(path, p):
+            dim = self._layout.leaf[path]["opt_dim"]
+            shape = list(p.shape)
+            if dim is not None:
+                shape[dim] //= n
+            return torch.zeros(shape, dtype=p.dtype, device=p.device)
+
+        m = unflatten((path, zeros(path, p)) for path, p in
+                      flatten(self.params))
+        return {"m": m, "v": tree_map(torch.zeros_like, m),
+                "step": torch.zeros((), dtype=torch.int32,
+                                    device=self.device)}
+
+    def set_full_params(self, params) -> None:
+        """Take the FULL stacked params (the JAX package's layout and
+        names; tensors or numpy arrays) as this trainer's: over a mesh,
+        this rank's shards of them (``utils.convert.shard_params``). The
+        optimizer state is left as it is."""
+        if self.mesh is None:
+            self.params = tree_map(lambda t: torch.as_tensor(t).to(
+                self.device), params)
+            return
+        shards = shard_params(params, self.model_cfg, self._layout.pspecs,
+                              self.mesh.shape, self.mesh.rank)
+        self.params = tree_map(lambda t: t.to(self.device), shards)
+
+    def full_params(self):
+        """The FULL params as CPU tensors in the JAX package's layout:
+        over a mesh every rank's shards all-gathered (every rank must
+        call it)."""
+        if self.mesh is None:
+            return tree_map(lambda t: t.detach().cpu(), self.params)
+        spec_of = dict(flatten(self._layout.pspecs))
+        out = []
+        for path, p in flatten(self.params):
+            for dim, e in enumerate(spec_of[path]):
+                if e is not None:
+                    p = comm.all_gather_dim(p, dim, self.mesh.group(e))
+            out.append((path, p.detach().cpu()))
+        return from_head_aligned(unflatten(out), self.model_cfg,
+                                 self.mesh.shape["model"])
+
     # -- API ----------------------------------------------------------------
     def shard_batch(self, tokens, labels):
-        """Host batches -> int64 tensors on the trainer's device."""
+        """Host batches -> int64 tensors on the trainer's device: over a
+        mesh, this rank's rows (over ``("data", "sharding")``) and
+        sequence shard (over ``"sep"``) of the global batch, the
+        sequence first permuted into the zigzag order where its length
+        divides by ``2 * sep`` (the end-to-end zigzag ring)."""
         def put(x):
-            return torch.as_tensor(np.asarray(x), dtype=torch.long).to(
-                self.device)
+            x = np.asarray(x)
+            if self.mesh is not None:
+                x = self._local_slice(x)
+            return torch.as_tensor(x, dtype=torch.long).to(self.device)
 
         return put(tokens), put(labels)
+
+    def _local_slice(self, x):
+        mesh = self.mesh
+        b, s = x.shape
+        nb, n = mesh.size(core.BATCH), mesh.shape["sep"]
+        if b % nb or s % n:
+            raise ValueError(f"batch {x.shape} does not divide over the "
+                             f"mesh: {nb} batch shards, {n} sequence shards")
+        if n > 1 and s % (2 * n) == 0:
+            x = to_zigzag(x, n, axis=1)
+        bi, si = mesh.coord(core.BATCH), mesh.coords["sep"]
+        return np.ascontiguousarray(
+            x[bi * (b // nb):(bi + 1) * (b // nb),
+              si * (s // n):(si + 1) * (s // n)])
 
     def _packed_extras(self, segment_ids, positions):
         """Validate the packed-mode extras and put them on the device as
@@ -566,6 +916,10 @@ class HybridParallelTrainer:
         return dict(self.anomaly)
 
     def num_params(self) -> int:
+        """The model's parameter count (the full leaves' over a mesh)."""
+        if self.mesh is not None:
+            return int(sum(math.prod(info["shape"])
+                           for info in self._layout.leaf.values()))
         return int(sum(p.numel() for _, p in flatten(self.params)))
 
     # -- fault-tolerant checkpointing --------------------------------------
@@ -599,6 +953,7 @@ class HybridParallelTrainer:
         write error re-raises at the next save or
         :meth:`flush_checkpoints`. Call :meth:`flush_checkpoints` before
         the process exits."""
+        self._single_rank("save_checkpoint")
         self._ckpt_root = root
         state = self._flat_state(dataloader=dataloader)
         if async_save:
@@ -637,6 +992,7 @@ class HybridParallelTrainer:
         cursor; each missing group warns and takes its fresh default.
         Returns the restored step, or None when no valid checkpoint
         exists."""
+        self._single_rank("load_checkpoint")
         self._ckpt_root = root
         found = CheckpointManager(root).load_latest()
         if found is None:
@@ -720,6 +1076,7 @@ class HybridParallelTrainer:
         just-in-time full-state checkpoint is written under ``root``, and
         :class:`TrainingPreempted` (a ``SystemExit`` with
         :data:`PREEMPTED_EXIT_CODE`) is raised. Returns the guard."""
+        self._single_rank("the preemption guard")
         self._preempt_guard = (guard if guard is not None
                                else PreemptionGuard())
         self._preempt_ckpt = (root, dataloader, keep_last_n)
@@ -771,7 +1128,7 @@ class HybridParallelTrainer:
             return None
         if self._accounting is None:
             self._accounting = obs.StepAccounting(
-                n_devices=1, device=self.device,
+                n_devices=self.world, device=self.device,
                 trainer=str(next(HybridParallelTrainer._trainer_ids)))
         return self._accounting
 
@@ -814,8 +1171,17 @@ class HybridParallelTrainer:
         if (compute_executable and self._exec_plan is None
                 and self.device.type == "cuda"):
             self._measure_next = True
-        params = obs.state_breakdown(self.params)
-        opt = obs.state_breakdown(self.opt)
+        if self.mesh is None:
+            params = obs.state_breakdown(self.params)
+            opt = obs.state_breakdown(self.opt)
+        else:   # global bytes from the full shapes, per device the shards
+            lay = self._layout
+            params = obs.state_breakdown(lay.shapes, lay.pspecs,
+                                         self.mesh.shape)
+            opt = obs.state_breakdown(
+                {"m": lay.shapes, "v": lay.shapes, "step": self.opt["step"]},
+                {"m": lay.ospecs, "v": lay.ospecs, "step": P()},
+                self.mesh.shape)
         return {
             "state": {
                 "params": params,
@@ -912,6 +1278,8 @@ class HybridParallelTrainer:
         once (the host wall of the dispatch), on CUDA once its end event
         has fired (:meth:`_read_timings`)."""
         tokens = int(t.numel())
+        if self.mesh is not None:     # the global batch's, as JAX counts
+            tokens *= self.mesh.size(_LOSS_AXES)
         if not isinstance(t0, torch.cuda.Event):
             self._record_step(time.perf_counter() - t0, tokens)
             return
@@ -957,5 +1325,4 @@ class HybridParallelTrainer:
     # -- not ported in this slice --------------------------------------------
     def enable_consistency_check(self, every, dataloader=None,
                                  exchange_dir=None, timeout_s=None):
-        _not_ported("the cross-rank consistency check",
-                    "the multi-device slice")
+        _not_ported("the cross-rank consistency check", _NEXT_CKPT)

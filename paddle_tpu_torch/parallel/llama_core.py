@@ -1,6 +1,6 @@
 """Functional LLaMA core for training (port of
-``paddle_tpu.parallel.llama_core``), one device: RMSNorm, rotary
-embedding, grouped-query attention and SwiGLU over stacked parameters.
+``paddle_tpu.parallel.llama_core``): RMSNorm, rotary embedding,
+grouped-query attention and SwiGLU over stacked parameters.
 
 Parameters are one dict of STACKED leaves, the JAX package's pytree leaf
 for leaf: ``wte`` ``(V, H)``, ``lnf_g`` ``(H,)``, the untied head
@@ -22,9 +22,15 @@ block tags ``attn_out`` and ``ffn_in`` (the ``gate * up`` product, which
 a policy naming it saves and the recompute skips) for ``"names:..."``,
 where the JAX core does.
 
-Not ported yet: ``llama_param_specs`` and ring attention (the
-multi-device slice; ``ring`` other than None raises). Packed-sequence
-LLaMA training raises in the trainer, as in the JAX package.
+Over a mesh the functions take this rank's shards under
+``llama_param_specs`` (the GPT core's rules, ``transformer_core``):
+q, k, v, gate and up split by columns over ``"model"`` (the kv heads too:
+``nh_kv % mp`` must be 0, and each rank's q heads then share its kv
+heads), o and down by rows with their products all-reduced, the
+embedding and the untied head ``lm_w`` vocab-parallel where the vocab
+divides; ZeRO-3 leaves gathered where used; on a ring the RoPE tables are
+taken at this rank's global (zigzag) positions. Packed-sequence LLaMA
+training raises in the trainer, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -35,10 +41,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed import communication as comm
+from ..distributed.mesh import P
 from ..ops.attention_dispatch import causal_attention_packed
+from ..ops.ring_attention import to_zigzag
 from . import transformer_core as tc
 
-__all__ = ["llama_init", "llama_block", "llama_trunk", "llama_loss"]
+__all__ = ["llama_init", "llama_param_specs", "llama_block", "llama_trunk",
+           "llama_loss"]
 
 Params = Dict[str, Any]
 
@@ -81,6 +91,31 @@ def llama_init(cfg, generator: Optional[torch.Generator] = None,
     }
 
 
+def llama_param_specs(cfg, zero_stage: int = 1, pp: int = 1) -> Params:
+    """The partition-spec tree of ``llama_init`` (the JAX package's, as
+    data): Megatron TP (q/k/v/gate/up column-split on ``"model"``, o and
+    down row-split, the vocab embedding split on the vocab, the LM head
+    column-split on the vocab); ZeRO-3 shards the remaining big dim."""
+    z = "sharding" if zero_stage >= 3 else None
+    lyr = "pipe" if pp > 1 else None
+    return {
+        "wte": P("model", z),
+        "blocks": {
+            "ln1_g": P(lyr, None),
+            "q_w": P(lyr, z, "model"),
+            "k_w": P(lyr, z, "model"),
+            "v_w": P(lyr, z, "model"),
+            "o_w": P(lyr, "model", z),
+            "ln2_g": P(lyr, None),
+            "gate_w": P(lyr, z, "model"),
+            "up_w": P(lyr, z, "model"),
+            "down_w": P(lyr, "model", z),
+        },
+        "lnf_g": P(None),
+        "lm_w": P(z, "model"),
+    }
+
+
 def _rope_tables(cfg, s: int, dtype, device=None):
     """``(cos, sin)`` ``(S, d/2)`` at positions ``0..S-1``, computed in
     float64 on the host as the JAX package does, then cast."""
@@ -107,19 +142,28 @@ def _apply_rope_packed(x, nh, cos, sin):
     return torch.stack([r1, r2], dim=-1).reshape(*lead, nh * 2 * d2)
 
 
+def _row(x, w, tp):
+    """A row-parallel product, all-reduced over ``tp``."""
+    return x @ w if tp is None else comm.reduce_from(x @ w, tp)
+
+
 def llama_block(cfg, p: Params, x, cos, sin, compute_dtype=torch.bfloat16,
-                ring=None):
+                ring=None, mesh=None):
     """One pre-norm LLaMA decoder block over ``x`` ``(B, S, H)``; ``p``
-    holds one layer's leaves (no layer dim)."""
+    holds one layer's leaves (no layer dim): this rank's shards over a
+    mesh's ``"model"`` axis, ``nh / mp`` query and ``nh_kv / mp`` kv
+    heads."""
     eps = cfg.rms_norm_epsilon
-    nh, nkv = cfg.num_heads, cfg.kv_heads
-    d = x.shape[-1] // nh
+    mp = tc._mp(mesh)
+    tp = tc._tp(mesh)
+    d = x.shape[-1] // cfg.num_heads
+    nh, nkv = cfg.num_heads // mp, cfg.kv_heads // mp
     g = nh // nkv
 
     def c(t):  # params in the compute dtype; the master stays fp32
         return t.to(compute_dtype)
 
-    y = _rms(x.float(), p["ln1_g"], eps).to(compute_dtype)
+    y = comm.copy_to(_rms(x.float(), p["ln1_g"], eps).to(compute_dtype), tp)
     q = _apply_rope_packed(y @ c(p["q_w"]), nh, cos, sin)
     kk = _apply_rope_packed(y @ c(p["k_w"]), nkv, cos, sin)
     vv = y @ c(p["v_w"])
@@ -133,28 +177,44 @@ def llama_block(cfg, p: Params, x, cos, sin, compute_dtype=torch.bfloat16,
         kk, vv = expand(kk), expand(vv)
     a = tc.checkpoint_name(causal_attention_packed(q, kk, vv, nh, ring=ring),
                            "attn_out")
-    x = x + a @ c(p["o_w"])
-    y = _rms(x.float(), p["ln2_g"], eps).to(compute_dtype)
+    x = x + _row(a, c(p["o_w"]), tp)
+    y = comm.copy_to(_rms(x.float(), p["ln2_g"], eps).to(compute_dtype), tp)
     z = tc.named_op("ffn_in", torch.mul, F.silu(y @ c(p["gate_w"])),
                     y @ c(p["up_w"]))
-    return x + z @ c(p["down_w"])
+    return x + _row(z, c(p["down_w"]), tp)
+
+
+def _local_tables(cfg, s_local, ring, device):
+    """RoPE tables at this rank's global positions: 0..S-1 without a
+    ring; on one the global tables (zigzag-ordered for the end-to-end
+    zigzag layout), this rank's slice."""
+    if ring is None:
+        return _rope_tables(cfg, s_local, torch.float32, device)
+    mesh, axis = ring[0], ring[1]
+    n, i = mesh.shape[axis], mesh.coords[axis]
+    cos, sin = _rope_tables(cfg, s_local * n, torch.float32, device)
+    zz = tc.ring_zigzag_n(ring)
+    if zz:
+        cos, sin = to_zigzag(cos, zz, axis=0), to_zigzag(sin, zz, axis=0)
+    sl = slice(i * s_local, (i + 1) * s_local)
+    return cos[sl], sin[sl]
 
 
 def llama_trunk(cfg, params: Params, tokens, compute_dtype=torch.bfloat16,
-                remat=True, ring=None, mesh=None):
+                remat=True, ring=None, mesh=None, specs=None):
     """Tokens -> hidden states ``(B, S, H)`` before the final norm;
-    ``remat`` selects the recompute policy per layer."""
-    if ring is not None:
-        raise NotImplementedError(
-            "llama_trunk: ring attention (sep > 1) is not ported; it comes "
-            "with the multi-device slice")
-    x = tc.embed_lookup(cfg, params["wte"], tokens, mesh, compute_dtype)
-    cos, sin = _rope_tables(cfg, tokens.shape[-1], torch.float32, x.device)
+    ``remat`` selects the recompute policy per layer; ``specs`` marks
+    the ZeRO-3 leaves (``transformer_core.gpt_trunk``)."""
+    wte = tc._zgather(params["wte"], specs and specs["wte"], mesh)
+    x = tc.embed_lookup(cfg, wte, tokens, mesh, compute_dtype)
+    cos, sin = _local_tables(cfg, tokens.shape[-1], ring, x.device)
     per_layer = {k: v.unbind(0) for k, v in params["blocks"].items()}
+    bspecs = specs and specs["blocks"]
 
     def body(carry, *leaves):
-        blk = dict(zip(per_layer, leaves))
-        return llama_block(cfg, blk, carry, cos, sin, compute_dtype)
+        blk = tc._gather_layer(dict(zip(per_layer, leaves)), bspecs, mesh)
+        return llama_block(cfg, blk, carry, cos, sin, compute_dtype,
+                           ring=ring, mesh=mesh)
 
     run = tc._remat_wrap(body, remat)
     for i in range(cfg.num_layers):
@@ -164,11 +224,14 @@ def llama_trunk(cfg, params: Params, tokens, compute_dtype=torch.bfloat16,
 
 def llama_loss(cfg, params: Params, tokens, labels,
                compute_dtype=torch.bfloat16, remat=True, ring=None,
-               mesh=None, chunk: int = 4096):
+               mesh=None, chunk: int = 4096, specs=None):
     """Mean next-token cross entropy: the trunk, the fp32 RMS final norm,
-    then the chunked vocab projection through the untied ``lm_w``."""
+    then the chunked vocab projection through the untied ``lm_w``
+    (vocab-parallel where the vocab divides by the ``"model"`` axis)."""
     hidden = llama_trunk(cfg, params, tokens, compute_dtype, remat,
-                         ring=ring, mesh=mesh)
+                         ring=ring, mesh=mesh, specs=specs)
     hidden = _rms(hidden.float(), params["lnf_g"], cfg.rms_norm_epsilon)
-    return tc.chunked_xent_on(hidden, params["lm_w"], labels, compute_dtype,
-                              chunk)
+    lm_w = tc._zgather(params["lm_w"], specs and specs["lm_w"], mesh)
+    return tc.chunked_xent_on(hidden, lm_w, labels, compute_dtype, chunk,
+                              mesh=mesh,
+                              vocab_parallel=tc._use_vp_embed(cfg, mesh))

@@ -22,6 +22,19 @@ untied ``lm_head`` included) and ``llama_core.llama_init``'s pytree
 (same names, same ``(in, out)`` layout).
 
 Every leaf must be accounted for: an unknown or a missing name raises.
+
+``shard_params`` cuts those stacked params (GPT or LLaMA, numpy or
+tensors) into one rank's shards under a layout: a partition-spec tree
+(``transformer_core.gpt_param_specs`` / ``llama_core.llama_param_specs``
+after ``hybrid.sanitize_specs``) and the mesh's axis sizes; each dim
+with an entry is cut into contiguous pieces, the rank's row-major
+coordinate along the entry's axes picking one. ``unshard_params`` puts
+every rank's shards back together. The fused GPT ``qkv_w``/``qkv_b`` are
+first reordered head-aligned (``head_aligned``): the JAX package's
+``P(z, "model")`` cuts the ``3H`` columns contiguously, mixing q and k
+columns on one rank (GSPMD keeps the math right whatever the cut), but
+an explicit tensor-parallel block needs each rank's q, k and v heads, so
+rank m's columns are ``[q heads of m | k heads of m | v heads of m]``.
 """
 from __future__ import annotations
 
@@ -35,7 +48,9 @@ from .tree import flatten, unflatten
 
 __all__ = ["from_paddle_tpu_state", "expected_leaves", "from_gpt_params",
            "expected_gpt_params", "from_llama_state", "expected_llama_leaves",
-           "from_llama_params", "expected_llama_params"]
+           "from_llama_params", "expected_llama_params", "qkv_order",
+           "head_aligned", "from_head_aligned", "shard_slices",
+           "shard_params", "unshard_params"]
 
 # leaves stored (in, out) by Paddle's Linear and transposed here
 _LINEAR = re.compile(
@@ -208,3 +223,121 @@ def from_llama_params(params, cfg) -> Dict[str, object]:
     ``llama_core`` dict of CPU tensors; errors as ``from_gpt_params``."""
     return _map_params(params, expected_llama_params(cfg),
                        "from_llama_params")
+
+
+# -- one rank's shards under a layout -----------------------------------------
+
+_AXES = ("data", "pipe", "sharding", "expert", "sep", "model")
+_QKV = ("qkv_w", "qkv_b")
+
+
+def qkv_order(cfg, mp: int) -> np.ndarray:
+    """Column ``c`` of the head-aligned fused qkv is column
+    ``qkv_order(cfg, mp)[c]`` of the JAX layout ``[q | k | v]``: rank m's
+    contiguous ``3H / mp`` columns hold its q heads, then its k heads,
+    then its v heads."""
+    hp = cfg.num_heads * cfg.head_dim
+    w = hp // mp
+    return np.concatenate([np.arange(sec * hp + m * w, sec * hp + (m + 1) * w)
+                           for m in range(mp) for sec in range(3)])
+
+
+def _take_last(x, idx):
+    if isinstance(x, torch.Tensor):
+        return x.index_select(-1, torch.as_tensor(idx, device=x.device))
+    return np.take(np.asarray(x), idx, axis=-1)
+
+
+def _reorder_qkv(params, cfg, mp, idx):
+    if mp == 1 or "qkv_w" not in params.get("blocks", {}):
+        return params
+    blocks = dict(params["blocks"])
+    for k in _QKV:
+        blocks[k] = _take_last(blocks[k], idx)
+    return dict(params, blocks=blocks)
+
+
+def head_aligned(params, cfg, mp: int):
+    """GPT params with ``qkv_w``/``qkv_b`` in the head-aligned column
+    order for ``mp`` tensor-parallel ranks (LLaMA params unchanged)."""
+    return _reorder_qkv(params, cfg, mp, qkv_order(cfg, mp))
+
+
+def from_head_aligned(params, cfg, mp: int):
+    """The inverse of :func:`head_aligned`."""
+    return _reorder_qkv(params, cfg, mp, np.argsort(qkv_order(cfg, mp)))
+
+
+def _entry_axes(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _coords(mesh_shape, rank):
+    out = {}
+    for a in reversed(_AXES):
+        n = int(mesh_shape.get(a, 1))
+        out[a] = rank % n
+        rank //= n
+    return out
+
+
+def shard_slices(shape, spec, mesh_shape, rank) -> tuple:
+    """The index of rank ``rank``'s shard of a ``shape`` leaf under
+    ``spec``: per dim, its contiguous piece along the entry's axes."""
+    coords = _coords(mesh_shape, rank)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, e in zip(shape, entries):
+        n, c = 1, 0
+        for a in _entry_axes(e):
+            n *= int(mesh_shape.get(a, 1))
+            c = c * int(mesh_shape.get(a, 1)) + coords[a]
+        if dim % n:
+            raise ValueError(f"dim {dim} does not divide by {n} ({e!r}); "
+                             "sanitize the specs first")
+        out.append(slice(c * (dim // n), (c + 1) * (dim // n)))
+    return tuple(out)
+
+
+def shard_params(params, cfg, specs, mesh_shape, rank) -> Dict[str, object]:
+    """Rank ``rank``'s shards (CPU tensors, each its own copy) of the full
+    stacked ``params`` under the spec tree ``specs`` and the axis sizes
+    ``mesh_shape`` (GPT's qkv head-aligned first)."""
+    params = head_aligned(params, cfg, int(mesh_shape.get("model", 1)))
+    spec_of = dict(flatten(specs))
+    out = []
+    for path, leaf in flatten(params):
+        arr = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
+            np.array(leaf))
+        sl = shard_slices(tuple(arr.shape), spec_of[path], mesh_shape, rank)
+        out.append((path, arr[sl].clone(memory_format=torch.contiguous_format)))
+    return unflatten(out)
+
+
+def unshard_params(shards, cfg, specs, mesh_shape) -> Dict[str, object]:
+    """Every rank's shards (``shards[rank]``, a tree of tensors or
+    arrays) back into the full params as numpy arrays, qkv in the JAX
+    column order."""
+    spec_of = dict(flatten(specs))
+    world = len(shards)
+    by_rank = [dict(flatten(s)) for s in shards]
+    out = []
+    for path, first in flatten(shards[0]):
+        spec = spec_of[path]
+        entries = list(spec) + [None] * (np.ndim(first) - len(spec))
+        shape = tuple(d * int(np.prod([mesh_shape.get(a, 1)
+                                       for a in _entry_axes(e)]))
+                      for d, e in zip(np.shape(first), entries))
+        full = np.empty(shape, dtype=np.asarray(
+            first.detach().cpu() if isinstance(first, torch.Tensor)
+            else first).dtype)
+        for r in range(world):
+            piece = by_rank[r][path]
+            if isinstance(piece, torch.Tensor):
+                piece = piece.detach().cpu().numpy()
+            full[shard_slices(shape, spec, mesh_shape, r)] = piece
+        out.append((path, full))
+    return from_head_aligned(unflatten(out), cfg,
+                             int(mesh_shape.get("model", 1)))

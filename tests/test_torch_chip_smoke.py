@@ -3,7 +3,9 @@ card, its kernel checks (comparison, bound, JSON keys) work at tiny
 shapes with the plain versions standing in for the kernels, and its
 training phases (7, 8, 10-12), speculative and int8 serving phases
 (14-16), LLaMA phases (19-22), remat policies (23), durability drills
-(24) and run telemetry (25) run end to end at tiny widths."""
+(24), run telemetry (25), the rest of serving (26) and multi-rank
+training (27, four gloo rank processes) run end to end at tiny
+widths."""
 import numpy as np
 import pytest
 import torch
@@ -112,6 +114,28 @@ def test_backward_edge_checks_rehearse_on_cpu(on_cpu):
     res = cs.check_bwd_edges(torch.float32, heads=2)
     assert res == dict.fromkeys(("K-DQ", "K-DKV", "K-SDQ", "K-SDKV",
                                  "K-BDQ", "K-BDKV"), 0.0)
+
+
+def test_ring_block_rows_rehearse_on_cpu(on_cpu):
+    """Phase 2's rows at phase 27's ring blocks: MULTIRANK's rings give
+    the full step_hi (L x 2L) and step_lo (2L x L) blocks at d 64 in fp32
+    and bf16 and at d 128 in fp32; the rows of a tiny ring run here
+    through the plain versions, each kernel of the three reporting."""
+    shapes = cs.ring_block_shapes()
+    for want in [("float32", 2, 256, 512, 8, 64, False),
+                 ("float32", 2, 512, 256, 8, 64, False),
+                 ("bfloat16", 2, 256, 512, 8, 64, False),
+                 ("bfloat16", 2, 512, 256, 8, 64, False),
+                 ("float32", 1, 512, 1024, 32, 128, False),
+                 ("float32", 1, 1024, 512, 32, 128, False)]:
+        assert want in shapes
+    rng = np.random.RandomState(0)
+    tiny = cs.ring_block_shapes(_TINY_RANKS)
+    assert ("float32", 2, 16, 32, 8, 64, False) in tiny
+    for dt, b, sq, sk, nh, d, causal in tiny:
+        res = cs.check_train(rng, getattr(torch, dt), b, sq, nh, d, None,
+                             timed=False, causal=causal, sk=sk)
+        assert set(res) == {"K-PACK", "K-DQ", "K-DKV"}
 
 
 def test_paged_edge_checks_rehearse_on_cpu(on_cpu):
@@ -668,3 +692,41 @@ def test_fleet_phase_rehearses_on_cpu(tiny_serving):
     assert counts["phase26_fleet"]["K-DEC"] > 0
     assert m["threaded"]["streams"]["identical"] == 4
     assert counts["phase26_threaded"]["K-DEC"] > 0
+
+
+# phase 27 at tiny widths: each sub-phase's family, layers, layout,
+# batch, dtype and steps, as MULTIRANK but sized for the CPU
+_TINY_RANKS = {
+    "a": ("gpt", 2, dict(mp=2, sep=2), (2, 64), "float32", 3),
+    "b": ("gpt", 2, dict(dp=2, sharding=2, zero_stage=3), (4, 64),
+          "float32", 3),
+    "c": ("llama", 2, dict(sep=2, sharding=2, zero_stage=3), (2, 64),
+          "float32", 3),
+    "d": ("gpt", 2, dict(mp=2, sep=2), (2, 64), "bfloat16", 4),
+}
+
+
+def test_multirank_phase_rehearses_on_cpu(tiny_llama):
+    """Phase 27 over gloo on the CPU: 4 rank processes (``chip_smoke.py
+    --rank-worker``) at gpt_tiny and llama_tiny widths, each sub-phase's
+    losses and gathered params against the single-rank trainer, the
+    launches every rank makes equal to ``ring_launches`` (the plain
+    versions counted as the kernels they stand for), the zigzag ring's
+    step_lo and step_hi blocks, live state bytes equal to the plan."""
+    counts = {}
+    m = cs.phase_multirank(counts, runs=_TINY_RANKS, threads=1)
+    assert m["world"] == 4 and all(m["collectives"].values())
+    for name in ("a", "b", "c"):
+        assert m[name]["loss_gap"] <= 1e-6, name
+        assert m[name]["param_gap"] <= 1e-4, name
+    assert m["a"]["derived_launches"] == {"K-PACK": 48, "K-DQ": 24,
+                                          "K-DKV": 24}
+    assert m["b"]["derived_launches"] == {"K-PACK": 12, "K-DQ": 6,
+                                          "K-DKV": 6}
+    # 4 ranks' launches of (a): 4 x 3 steps x 2 layers x (2 + 2) x 2
+    assert counts["phase27_a"]["K-PACK"] == 4 * 48
+    assert ["K-PACK", 16, 32, False] in m["a"]["ring_blocks"]
+    assert ["K-PACK", 32, 16, False] in m["a"]["ring_blocks"]
+    assert m["d"]["losses"][-1] < m["d"]["losses"][0]
+    assert m["d"]["step_ms"] > 0
+    assert len(set(m["c"]["live_state_bytes"])) == 1

@@ -173,10 +173,16 @@ def test_packed_llama_raises_in_both_packages():
         thybrid.HybridParallelTrainer(
             TL.llama_tiny(), thybrid.TrainerConfig(packed_sequences=True),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="ring"):
-        tcore.llama_trunk(TL.llama_tiny(), tcore.llama_init(
-            TL.llama_tiny()), torch.zeros(1, 4, dtype=torch.long),
-            ring=object())
+    # packed rows cannot ride the ring either (sep > 1), in both packages
+    with pytest.raises(ValueError, match="packed_sequences"):
+        jhybrid.HybridParallelTrainer(
+            JL.llama_tiny(), jhybrid.TrainerConfig(
+                packed_sequences=True, sep=2, telemetry=False),
+            devices=jax.devices()[:2])
+    with pytest.raises(ValueError, match="packed_sequences"):
+        thybrid.HybridParallelTrainer(
+            TL.llama_tiny(), thybrid.TrainerConfig(packed_sequences=True,
+                                                   sep=2), device="cpu")
 
 
 def test_nn_model_grads_match_jax_backward():

@@ -259,14 +259,15 @@ def _tiny_configs():
 @pytest.mark.parametrize("arch", ["gpt", "llama"])
 def test_state_memory_plan_matches_jax(arch):
     """``plan_state_memory`` on the ``meta`` device gives the JAX
-    package's ``eval_shape`` bytes, GPT and LLaMA; a mesh axis above 1
-    raises (no param specs in the port yet)."""
+    package's ``eval_shape`` bytes, GPT and LLaMA, on one device and at a
+    mesh axis above 1 (``tests/test_torch_hybrid.py`` holds every
+    trainer layout)."""
     jcfg, tcfg = _tiny_configs()[arch == "llama"]
     want = J.plan_state_memory(jcfg)
     got = T.plan_state_memory(tcfg)
     assert got == want and got["arch"] == arch
-    with pytest.raises(NotImplementedError, match="A.6"):
-        T.plan_state_memory(tcfg, axis_sizes={"model": 2})
+    assert (T.plan_state_memory(tcfg, axis_sizes={"model": 2})
+            == J.plan_state_memory(jcfg, axis_sizes={"model": 2}))
 
 
 def test_oom_risk_and_capacity_override_match_jax(monkeypatch):

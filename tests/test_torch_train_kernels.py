@@ -132,10 +132,14 @@ def test_fused_qkv_slices_and_dispatch():
 
 
 def test_dispatch_rejects_what_is_not_ported():
+    """Segment ids and a ring do not combine (as in the JAX package: the
+    ring shards the sequence, the mask is per token); the ring itself is
+    ported (``tests/test_torch_ring_attention.py``)."""
     x = torch.zeros(1, 64, NH * D)
-    with pytest.raises(NotImplementedError, match="ring"):
-        disp.causal_attention_packed(x, x, x, NH, ring=("mesh", "sep"))
     seg = torch.zeros(1, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ring"):
+        disp.causal_attention_packed(x, x, x, NH, ring=("mesh", "sep"),
+                                     segment_ids=seg)
     # segment ids with a gradient now run the segmented backward (K-SDQ,
     # K-SDKV; their plain versions on the CPU): grads reach q, k and v
     xs = [torch.randn(1, 64, NH * D, generator=torch.Generator()

@@ -278,9 +278,23 @@ def test_from_gpt_params_rejects_unknown_missing_and_misshapen(jax_params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"dp": 2}, {"sep": 2}, {"mp": 2}, {"consistency_check_every": 4}])
+    {"vpp": 2}, {"sep": 2, "ring_attention": False}, {"pp": 2},
+    {"consistency_check_every": 4}])
 def test_trainer_rejects_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
+    """Pipeline parallelism, sep > 1 without the ring and the consistency
+    check raise, naming the slice that brings them (dp, sharding, mp and
+    sep with the ring are ported: ``tests/test_torch_hybrid.py``)."""
+    with pytest.raises(NotImplementedError, match="slice"):
+        thybrid.HybridParallelTrainer(gpt_tiny(), thybrid.TrainerConfig(**kw),
+                                      device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{"dp": 2}, {"mp": 2}, {"sep": 2}])
+def test_trainer_over_a_mesh_needs_a_world(kw):
+    """A mesh axis above 1 builds a mesh over the initialised
+    torch.distributed world; without one the trainer says how to make
+    it."""
+    with pytest.raises(RuntimeError, match="init_process_group"):
         thybrid.HybridParallelTrainer(gpt_tiny(), thybrid.TrainerConfig(**kw),
                                       device="cpu")
 
