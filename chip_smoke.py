@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 0,1,25  # run telemetry, ops endpoint
     python3 chip_smoke.py --phases 0,1,26  # loadgen, pool plans, the fleet
     python3 chip_smoke.py --phases 0,1,27  # multi-rank training (4 ranks)
+    python3 chip_smoke.py --phases 0,1,28  # pipeline parallelism (4 ranks)
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -26,7 +27,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    kernels in bf16 at the edges of their tiles (``check_fwd_edges``,
    ``check_bwd_edges``) and the paged kernels in bf16 and fp32 at their
    chunks' edges over poisoned page tables (``check_paged_edges``),
-   K-PACK, K-DQ and K-DKV at the shapes of phase 27's ring blocks
+   K-PACK, K-DQ and K-DKV at the shapes of phases 27 and 28's ring blocks
    (``ring_block_shapes``: full attention L x 2L and 2L x L among
    them, in the sub-phases' dtypes); and timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
    128, 32 heads);
@@ -41,8 +42,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    kernel launches equal steps x layers; prints throughput and latency;
 5. ``generate()``, bf16: batch 4, 256-token prompts, 64 new tokens;
 6. (opt-in) profile of 20 decode ticks;
-7. training accuracy, fp32: GPT-345M (params from the port's
-   ``gpt_init``, generator seed 0) on a 2 x 256 batch; the grads of
+7. training accuracy, fp32: GPT-345M's width at ``ACC_LAYERS`` (4) of
+   its 24 layers (params from the port's ``gpt_init``, generator seed
+   0) on a 2 x 256 batch; the grads of
    ``gpt_loss`` on the card against the same grads on the CPU, every
    leaf within 1e-4 of its largest CPU grad, then 3 trainer steps on
    each side: losses within 1e-4, grad norms within 1e-4 relative;
@@ -52,7 +54,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ms, tokens/s, MFU, peak memory; losses finite and falling, and per
    step 48 K-PACK (forward + remat recompute), 24 K-DQ and 24 K-DKV;
 9. (opt-in) profile of 3 training steps at phase 8's shape;
-10. packed training accuracy, fp32: phase 7 with
+10. packed training accuracy, fp32: phase 7 (also at 4 layers) with
     ``TrainerConfig(packed_sequences=True)`` on 2 x 256 rows packed by
     ``io.packing.pack_documents`` (each >= 3 documents and a pad tail),
     ``gpt_loss`` with segment ids and positions;
@@ -101,7 +103,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     then one ``prefill_batch`` of 4 prompts (K-BSHD = 32); decode
     tokens/s, tick and TTFT percentiles, prefill tokens/s, weight and
     pool bytes, peak memory;
-21. LLaMA training accuracy, fp32: ``llama_7b()`` width, 2 layers,
+21. LLaMA training accuracy, fp32: ``llama_7b()`` width, 1 layer,
     GQA-8, 1 x 256: ``llama_loss`` grads and 3 trainer steps card vs CPU
     (phase 7's gates), one trainer step's loss and grads under
     ``remat="names:attn_out_kernel,attn_lse,ffn_in"`` card vs CPU at the
@@ -112,7 +114,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 22. LLaMA training, bf16: ``HybridParallelTrainer`` at ``llama_7b()``
     width, 8 of 32 layers, on a fixed 4 x 2048 batch, as phase 8: losses
     finite and falling, per step 16 K-PACK, 8 K-DQ and 8 K-DKV;
-23. remat policies, GPT-345M: fp32 at 2 x 256, for remat False,
+23. remat policies, GPT-345M: fp32 at 2 x 256 and 4 layers, for remat
+    False,
     ``"full"``, ``"dots"`` and ``"names:attn_out_kernel,attn_lse"``, the
     trainer's loss and grads on the card against the CPU's under the same
     policy (phase 7's gates) and against the card's ``remat=False`` grads
@@ -210,9 +213,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     first), the zigzag ring runs its L x 2L and 2L x L full blocks, and
     every rank's live state bytes equal ``plan_state_memory``'s.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-27) sets the kernels' launch
-counts to 0 just before it and reads them just after (phase 27 in each
-rank, the counts summed over the ranks). The line before the
+28. pipeline parallelism: phase 27's world of 4 ranks on the card, over
+    the ``"pipe"`` axis: (a) GPT-345M's width at 8 of 24 layers, ``pp=4``,
+    1F1B, M=8, remat, 8 x 1024; (b) ``pp=2, mp=2``, GPipe, M=4, 4 x
+    1024; (c) ``pp=2, vpp=2, dp=2``, interleaved 1F1B, M=4, remat off, 8 x
+    1024; (d) LLaMA-7B's width at 2 of 32 layers, ``pp=2, sep=2``, 1F1B,
+    M=2, 2 x 2048 (the zigzag ring in each stage): 3 fp32 steps each, the
+    losses (1e-6 relative), each step's grad norm (1e-4) and the gathered
+    params (1e-4 of each leaf's largest) held to a single-rank trainer
+    on the card; (e) GPT-345M at full depth, ``pp=4``, 1F1B, M=8, remat
+    off, 8 x 1024 bf16, 6 steps: step ms, tokens/s and every rank's peak
+    memory (4 ranks on one card, not a pipeline's speed on four cards),
+    the ideal bubble ``(pp-1)/(M+pp-1)``, and the same configuration
+    under GPipe for 2 steps, whose stage-0 peak must be higher. Every
+    rank's launches equal ``pipe_launches``, its most microbatches in
+    flight ``min(pp - s, M)`` on stage s under 1F1B and M under GPipe,
+    and its live state bytes the plan.
+
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-28) sets the kernels' launch
+counts to 0 just before it and reads them just after (phases 27 and 28
+in each rank, the counts summed over the ranks). The line before the
 last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -1139,7 +1159,7 @@ def phase_kernels(peaks) -> dict:
     out.update(packed_train)
     for name, err in check_bwd_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-    # the rings' blocks at phase 27's shapes (full attention with
+    # the rings' blocks at phases 27 and 28's shapes (full attention with
     # Sq != Sk among them), from a seed of their own
     ring_rng = np.random.RandomState(27)
     for dt, b, sq, sk, nh, d, causal in ring_block_shapes():
@@ -1761,9 +1781,21 @@ def card_vs_cpu(tcfg, batch, what, mcfg=None, steps=None) -> dict:
             "loss_card": loss_c, "loss_cpu": loss_h, "steps": log_steps}
 
 
-def phase_train_accuracy(counts, batch=2, seq=256) -> dict:
-    log(f"[7] training accuracy, fp32: GPT-345M, card vs CPU, {batch} x "
-        f"{seq}")
+# the depth of phases 7, 10 and 23 (a) in the default run: the layers
+# are identical, and at GPT-345M's 24 each phase's CPU side took ~55 s
+ACC_LAYERS = 4
+
+
+def _acc_model(layers):
+    """GPT-345M's config, at ``layers`` of its depth where given."""
+    mcfg = model_config()
+    return dataclasses.replace(mcfg, num_layers=layers) if layers else mcfg
+
+
+def phase_train_accuracy(counts, batch=2, seq=256, layers=None) -> dict:
+    mcfg = _acc_model(layers)
+    log(f"[7] training accuracy, fp32: GPT-345M width, {mcfg.num_layers} "
+        f"layers, card vs CPU, {batch} x {seq}")
     tcfg = hybrid.TrainerConfig(compute_dtype=torch.float32,
                                 learning_rate=1e-3, warmup_steps=2,
                                 total_steps=10)
@@ -1771,7 +1803,7 @@ def phase_train_accuracy(counts, batch=2, seq=256) -> dict:
                                  model_config().vocab_size)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    m = card_vs_cpu(tcfg, (tokens, labels), "unpacked")
+    m = card_vs_cpu(tcfg, (tokens, labels), "unpacked", mcfg=mcfg)
     counts["phase7"] = K.launch_counts()
     log(f"  launches {counts['phase7']}; {time.perf_counter() - t0:.1f} s")
     for name in ("K-PACK", "K-DQ", "K-DKV"):
@@ -1780,10 +1812,10 @@ def phase_train_accuracy(counts, batch=2, seq=256) -> dict:
 
 
 def phase_packed_accuracy(counts, batch=2, seq=256, doc_lengths=(20, 100),
-                          seed=0) -> dict:
-    log(f"[10] packed training accuracy, fp32: GPT-345M, card vs CPU, "
-        f"{batch} x {seq} packed")
-    mcfg = model_config()
+                          seed=0, layers=None) -> dict:
+    mcfg = _acc_model(layers)
+    log(f"[10] packed training accuracy, fp32: GPT-345M width, "
+        f"{mcfg.num_layers} layers, card vs CPU, {batch} x {seq} packed")
     tcfg = hybrid.TrainerConfig(compute_dtype=torch.float32,
                                 learning_rate=1e-3, warmup_steps=2,
                                 total_steps=10, packed_sequences=True)
@@ -1796,7 +1828,7 @@ def phase_packed_accuracy(counts, batch=2, seq=256, doc_lengths=(20, 100),
             "phase 10 rows need >= 3 documents and a pad tail each")
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    m = card_vs_cpu(tcfg, rows, "packed")
+    m = card_vs_cpu(tcfg, rows, "packed", mcfg=mcfg)
     counts["phase10"] = K.launch_counts()
     log(f"  launches {counts['phase10']}; {time.perf_counter() - t0:.1f} s")
     for name in ("K-SEG", "K-SDQ", "K-SDKV"):
@@ -1813,7 +1845,11 @@ def train_setup(batch=8, seq=1024, packed=False, doc_lengths=(32, 1024),
                 mcfg=None):
     """Phase 8's (or, packed, phase 11's; with ``mcfg``, phase 22's)
     trainer and its batch on the card: ``(trainer, device batch, packing
-    efficiency)``."""
+    efficiency)``. Earlier phases' trainers that wait in reference
+    cycles are collected first: phase 22 needs ~66 GB of the card, and
+    ~8 GB of phase 21's state left uncollected ran it out of memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
     mcfg = mcfg or model_config()
     tcfg = hybrid.TrainerConfig(learning_rate=3e-4, warmup_steps=2,
                                 total_steps=100, packed_sequences=packed)
@@ -2264,18 +2300,20 @@ def bench_setup(remat, shape=(56, 1024)):
 
 
 def phase_remat(counts, peaks, acc=(2, 256), speed=(56, 1024),
-                steps=5) -> dict:
-    """Phase 23: the remat policies at GPT-345M. (a) fp32 at ``acc``: per
+                steps=5, acc_layers=None) -> dict:
+    """Phase 23: the remat policies at GPT-345M. (a) fp32 at ``acc`` (and
+    ``acc_layers`` of its depth where given): per
     policy the trainer's loss and grads on the card against the CPU's
     under the same policy (phase 7's gates) and against the card's own
     ``remat=False`` grads (<= 1e-6 of each leaf's largest); (b) bf16 at
     ``bench.py``'s config and ``speed`` batch: per policy 1 warm-up and
     ``steps`` timed steps, K-PACK 24 a step under the ``names:`` policies
     and 48 under True and ``"dots"``."""
-    mcfg = model_config()
+    mcfg = _acc_model(acc_layers)
     layers = mcfg.num_layers
-    log(f"[23] remat policies: GPT-345M, fp32 {acc[0]} x {acc[1]} card vs "
-        f"CPU, then bf16 {speed[0]} x {speed[1]} (bench.py's config)")
+    log(f"[23] remat policies: GPT-345M, fp32 {acc[0]} x {acc[1]} at "
+        f"{layers} layers card vs CPU, then bf16 {speed[0]} x {speed[1]} "
+        "(bench.py's config)")
     t_phase = time.perf_counter()
     tokens, labels = train_batch(np.random.RandomState(23), *acc,
                                  mcfg.vocab_size)
@@ -2313,6 +2351,8 @@ def phase_remat(counts, peaks, acc=(2, 256), speed=(56, 1024),
         torch.cuda.empty_cache()
     counts["phase23_acc"] = K.launch_counts()
     batch, seq = speed
+    mcfg = model_config()        # (b) at bench.py's full depth
+    layers = mcfg.num_layers
     for remat in SPEED_POLICIES:
         tag = f"phase23_{policy_tag(remat)}"
         trainer, (t_dev, l_dev) = bench_setup(remat, speed)
@@ -3831,6 +3871,23 @@ MULTIRANK = {
 }
 
 
+# phase 28's sub-phases, in the same form: the pipelined layouts
+PIPELINE = {
+    "a": ("gpt", 8, dict(pp=4, micro_batches=8), (8, 1024), "float32", 3),
+    "b": ("gpt", 8, dict(pp=2, mp=2, pp_schedule="gpipe", micro_batches=4),
+          (4, 1024), "float32", 3),
+    "c": ("gpt", 8, dict(pp=2, vpp=2, dp=2, micro_batches=4, remat=False),
+          (8, 1024), "float32", 3),
+    "d": ("llama", 2, dict(pp=2, sep=2, micro_batches=2), (2, 2048),
+          "float32", 3),
+    "e": ("gpt", 24, dict(pp=4, micro_batches=8, remat=False), (8, 1024),
+          "bfloat16", 6),
+    "e-gpipe": ("gpt", 24, dict(pp=4, micro_batches=8, remat=False,
+                                pp_schedule="gpipe"), (8, 1024), "bfloat16",
+                2),
+}
+
+
 def multirank_config(dtype, **layout):
     """The sub-phases' trainer: phase 7's fp32 schedule, remat and the
     guard on, Adam's eps at 1e-3. A sharded sum and a single-rank sum of
@@ -3844,6 +3901,50 @@ def multirank_config(dtype, **layout):
     return hybrid.TrainerConfig(compute_dtype=getattr(torch, dtype),
                                 learning_rate=1e-3, warmup_steps=2,
                                 total_steps=10, eps=1e-3, **layout)
+
+
+def _remat_forwards(remat) -> int:
+    """How often a layer's attention forward runs under a per-layer
+    ``remat`` policy: once without recompute or where the policy saves
+    the kernel's outputs, else twice."""
+    if remat in (False, None, "none"):
+        return 1
+    if isinstance(remat, str) and remat.startswith("names:"):
+        names = set(remat[len("names:"):].split(","))
+        return 1 if {"attn_out_kernel", "attn_lse"} <= names else 2
+    return 2
+
+
+def pipe_launches(layers, pp, vpp, micro_batches, sep, remat, steps,
+                  schedule="1f1b") -> dict:
+    """The launches a rank makes in ``steps`` pipelined steps, derived
+    from the schedules (``parallel/pipeline.py``): each of the M
+    microbatches passes the rank's ``layers / pp`` layers once forward
+    and once backward (in ``vpp`` chunks of ``layers / (vpp*pp)`` under
+    the interleaved schedule), each layer's attention ``sep + 2`` blocks
+    on a zigzag ring of ``sep`` ranks, else 1. 1F1B and interleaved
+    forwards run twice under any remat policy (a forward without a graph,
+    then the backward's recompute) and once without; GPipe's follow the
+    per-layer policy (:func:`_remat_forwards`)."""
+    per = sep + 2 if sep > 1 else 1
+    passes = steps * micro_batches * (layers // pp) * per
+    if schedule == "gpipe":
+        fwd = _remat_forwards(remat)
+    else:
+        fwd = 1 if remat in (False, None, "none") else 2
+    return {"K-PACK": passes * fwd, "K-DQ": passes, "K-DKV": passes}
+
+
+def world_launches(layers, layout, steps) -> dict:
+    """:func:`pipe_launches` for a pipelined layout, else
+    :func:`ring_launches`."""
+    pp = layout.get("pp", 1)
+    if pp == 1:
+        return ring_launches(layers, layout.get("sep", 1), steps)
+    return pipe_launches(layers, pp, layout.get("vpp", 1),
+                         layout.get("micro_batches") or 2 * pp,
+                         layout.get("sep", 1), layout.get("remat", True),
+                         steps, layout.get("pp_schedule", "1f1b"))
 
 
 def ring_launches(layers, sep, steps, remat=True) -> dict:
@@ -3860,18 +3961,24 @@ def ring_launches(layers, sep, steps, remat=True) -> dict:
 
 
 def ring_block_shapes(runs=None) -> list:
-    """The ring blocks of the sub-phases with ``sep > 1``, as ``(dtype,
-    B, Sq, Sk, NH, d, causal)`` at a rank's batch and heads and the
+    """The ring blocks of the sub-phases with ``sep > 1`` (``runs``, else
+    phases 27 and 28's), as ``(dtype, B, Sq, Sk, NH, d, causal)`` at a
+    rank's batch (a microbatch's rows in a pipeline) and heads and the
     zigzag chunk L = S / (2 sep): the diagonal L x L causal, the L x L
     full block of t = 0, step_hi's L x 2L and step_lo's 2L x L (phase 2
     holds each to its plain version)."""
     shapes = set()
-    for family, _, layout, (b, s), dtype, _ in (runs or MULTIRANK).values():
+    specs = (runs.values() if runs else
+             [*MULTIRANK.values(), *PIPELINE.values()])
+    for family, _, layout, (b, s), dtype, _ in specs:
         sep = layout.get("sep", 1)
         if sep == 1:
             continue
         mcfg = _model_of(family, 1)
         lb = b // (layout.get("dp", 1) * layout.get("sharding", 1))
+        pp = layout.get("pp", 1)
+        if pp > 1:
+            lb //= layout.get("micro_batches") or 2 * pp
         nh = mcfg.num_heads // layout.get("mp", 1)
         L = s // sep // 2
         for sq, sk, causal in ((L, L, True), (L, L, False),
@@ -3885,21 +3992,27 @@ def _model_of(family, layers):
     return dataclasses.replace(base, num_layers=layers)
 
 
-def multirank_reference(spec, work) -> dict:
+def _init_path(work, family, layers) -> str:
+    return os.path.join(work, f"init-{family}-{layers}.pt")
+
+
+def multirank_reference(spec, work, seed=27) -> dict:
     """A sub-phase on one rank of the card: the single-device trainer
-    from the seed's weights (written to ``work/init-<family>.pt`` for
-    the world's ranks to start from, once a family), on the same batch:
-    losses, grad norms and the final params (on the CPU)."""
+    from the seed's weights (written to ``work/init-<family>-<layers>.pt``
+    for the world's ranks to start from, once a model), under the
+    sub-phase's remat policy, on the same batch (numpy ``seed``): losses,
+    grad norms and the final params (on the CPU)."""
     family, layers, layout, (b, s), dtype, steps = spec
     mcfg = _model_of(family, layers)
     t0 = time.perf_counter()
     t = hybrid.HybridParallelTrainer(
-        mcfg, multirank_config(dtype, zero_stage=layout.get("zero_stage", 1)),
+        mcfg, multirank_config(dtype, zero_stage=layout.get("zero_stage", 1),
+                               remat=layout.get("remat", True)),
         device=DEV)
-    init = os.path.join(work, f"init-{family}.pt")
+    init = _init_path(work, family, layers)
     if not os.path.exists(init):
         torch.save(dict(flatten(t.full_params())), init)
-    tokens, labels = train_batch(np.random.RandomState(27), b, s,
+    tokens, labels = train_batch(np.random.RandomState(seed), b, s,
                                  mcfg.vocab_size)
     losses, gnorms = [], []
     for _ in range(steps):
@@ -3957,15 +4070,18 @@ def check_collectives(mesh) -> dict:
 
 
 def multirank_worker(spec_json: str) -> int:
-    """``chip_smoke.py --rank-worker SPEC``: one rank of phase 27's world
-    (gloo over ``spec["init"]``) running every sub-phase of the spec; it
-    writes its results to ``spec["dir"]/rank<r>.json`` and, rank 0, each
-    sub-phase's gathered params to ``params-<name>.pt``."""
+    """``chip_smoke.py --rank-worker SPEC``: one rank of phase 27's or
+    28's world (gloo over ``spec["init"]``) running every sub-phase of
+    the spec, each from its model's reference weights where a reference
+    wrote them, else from the trainer's seed; it writes its results to
+    ``spec["dir"]/rank<r>.json`` and, rank 0, each compared sub-phase's
+    gathered params to ``params-<name>.pt``."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed.mesh import build_mesh
     from paddle_tpu_torch.observability.memory import plan_state_memory
     from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.parallel import pipeline
 
     spec = json.loads(spec_json)
     rank, world = spec["rank"], spec["world"]
@@ -3990,19 +4106,20 @@ def multirank_worker(spec_json: str) -> int:
         mcfg = dataclasses.replace(mcfg, num_layers=layers)
         tcfg = multirank_config(dtype, **layout)
         t0 = time.perf_counter()
-        init = _unflat(torch.load(os.path.join(spec["dir"],
-                                               f"init-{family}.pt"),
-                                  mmap=True))
+        path = _init_path(spec["dir"], family, layers)
+        init = (_unflat(torch.load(path, mmap=True))
+                if os.path.exists(path) else None)
         t = hybrid.HybridParallelTrainer(mcfg, tcfg, device=dev,
                                          params=init)
         del init
         build_s = time.perf_counter() - t0
         live = sum(x.numel() * x.element_size()
                    for _, x in flatten({"p": t.params, "o": t.opt}))
-        tokens, labels = train_batch(np.random.RandomState(27), b, s,
-                                     mcfg.vocab_size)
+        tokens, labels = train_batch(np.random.RandomState(spec["seed"]), b,
+                                     s, mcfg.vocab_size)
         K.reset_launch_counts()
         ra.BLOCKS.clear()
+        pipeline.reset_counters()
         losses, gnorms, step_s = [], [], []
         for _ in range(steps):
             if dev.type == "cuda":
@@ -4019,6 +4136,9 @@ def multirank_worker(spec_json: str) -> int:
                "launches": K.launch_counts(),
                "blocks": [[*k, v] for k, v in sorted(ra.BLOCKS.items())],
                "live_state_bytes": live,
+               "stage": t.mesh.coords["pipe"],
+               "in_flight": pipeline.COUNTERS["in_flight_max"],
+               "chunk_bytes_sent": pipeline.COUNTERS["chunk_bytes_sent"],
                "planned_bytes": plan_state_memory(mcfg, tcfg)[
                    "total_per_device_bytes"],
                "max_memory_allocated_gb": (
@@ -4084,7 +4204,7 @@ def run_world(spec, world, timeout=600) -> list:
     if failed is not None or any(p.returncode for p in procs):
         r = procs.index(failed) if failed is not None else next(
             i for i, p in enumerate(procs) if p.returncode)
-        raise RuntimeError(f"chip_smoke: phase 27 rank {r} failed "
+        raise RuntimeError(f"chip_smoke: {spec['label']} rank {r} failed "
                            f"(rc {procs[r].returncode}): "
                            f"{logs[r][1][-3000:]}")
     out = []
@@ -4100,37 +4220,48 @@ def _param_gaps(got, want) -> list:
                     "/".join(k)) for k, w in want.items()), reverse=True)
 
 
-def phase_multirank(counts, runs=None, world=RANKS, threads=2) -> dict:
-    """Phase 27: ``world`` ranks sharing this card over gloo train (a)
-    GPT-345M's width at 4 of 24 layers, ``mp=2, sep=2``, 2 x 1024, the
-    zigzag ring; (b) the same model at ``dp=2, sharding=2``, ZeRO 3,
-    4 x 1024; (c) LLaMA-7B's width at 2 of 32 layers, ``sep=2,
-    sharding=2``, ZeRO 3, 2 x 2048; each 3 fp32 steps held to a
-    single-rank trainer on the card (losses and each step's grad norm
-    1e-4 relative, params 1e-4 of each leaf's largest); (d) (a) in bf16
-    for 8 steps."""
-    runs = runs or MULTIRANK
+def phase_multirank(counts, runs=None, world=RANKS, threads=2,
+                    phase=27) -> dict:
+    """Phase 27 (``runs`` default ``MULTIRANK``): ``world`` ranks sharing
+    this card over gloo train (a) GPT-345M's width at 4 of 24 layers,
+    ``mp=2, sep=2``, 2 x 1024, the zigzag ring; (b) the same model at
+    ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c) LLaMA-7B's width at 2 of
+    32 layers, ``sep=2, sharding=2``, ZeRO 3, 2 x 2048; each 3 fp32 steps
+    held to a single-rank trainer on the card (losses and each step's
+    grad norm 1e-4 relative, params 1e-4 of each leaf's largest); (d) (a)
+    in bf16 for 8 steps.
+
+    Phase 28 (``PIPELINE``): the same world over the ``"pipe"`` axis
+    (the module docstring's sub-phases), the losses held to 1e-6
+    relative, each rank's microbatches in flight to its schedule's law
+    and (e)'s stage-0 peak below the same configuration's under GPipe
+    (``e-gpipe``)."""
+    runs = runs or (MULTIRANK if phase == 27 else PIPELINE)
+    label = f"phase {phase}"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip() if DEV.type == "cuda" else "cpu"
-    log(f"[27] multi-rank training: backend gloo, world {world}, "
-        f"{world} ranks per card ({DEV}), {smi}")
+    what = ("multi-rank training" if phase == 27 else
+            "pipeline parallelism over the \"pipe\" axis")
+    log(f"[{phase}] {what}: backend gloo, world {world}, {world} ranks per "
+        f"card ({DEV}), {smi}")
     t0 = time.perf_counter()
     derived = {}
     for name, (family, layers, layout, _, _, steps) in runs.items():
-        derived[name] = ring_launches(layers, layout.get("sep", 1), steps)
+        derived[name] = world_launches(layers, layout, steps)
         log(f"  ({name}) {family} {layers} layers {layout}: launches a rank "
-            f"derived from the attention loops: {derived[name]}")
+            f"derived from the schedules' loops: {derived[name]}")
     compare = [k for k, r in runs.items() if r[4] == "float32"]
     work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     spec = {"device": str(DEV), "threads": threads, "dir": work,
-            "compare": compare, "runs": runs,
+            "compare": compare, "runs": runs, "seed": phase, "label": label,
             "models": {"gpt": dataclasses.asdict(model_config()),
                        "llama": dataclasses.asdict(llama_config())}}
     try:
         K.reset_launch_counts()
-        refs = {k: multirank_reference(runs[k], work) for k in compare}
+        refs = {k: multirank_reference(runs[k], work, seed=phase)
+                for k in compare}
         ref_launches = K.launch_counts()
         t1 = time.perf_counter()
         ranks = run_world(spec, world)
@@ -4153,6 +4284,7 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2) -> dict:
     fails = [f"rank {r} collectives: {rk['collectives']}"
              for r, rk in enumerate(ranks)
              if not all(rk["collectives"].values())]
+    loss_tol = 1e-4 if phase == 27 else 1e-6
     for name, (family, layers, layout, (b, s), dtype, steps) in runs.items():
         per_rank = [rk[name] for rk in ranks]
         m = {"layout": layout, "batch": [b, s], "dtype": dtype,
@@ -4168,7 +4300,7 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2) -> dict:
                                   for r in per_rank),
              "max_memory_allocated_gb": max(r["max_memory_allocated_gb"]
                                             for r in per_rank)}
-        counts[f"phase27_{name}"] = {
+        counts[f"phase{phase}_{name}"] = {
             k: sum(r["launches"].get(k, 0) for r in per_rank)
             for k in K.KERNELS}
         for r, pr in enumerate(per_rank):
@@ -4182,6 +4314,9 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2) -> dict:
                 fails.append(f"({name}) rank {r}: live state "
                              f"{pr['live_state_bytes']} B, planned "
                              f"{pr['planned_bytes']} B")
+        pp = layout.get("pp", 1)
+        if pp > 1:
+            fails += _pipeline_gates(name, layout, per_rank, m)
         if layout.get("sep", 1) > 1:
             L = s // layout["sep"] // 2
             shapes = {tuple(x[:4]) for r in per_rank for x in r["blocks"]}
@@ -4201,7 +4336,7 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2) -> dict:
             m.update(loss_ref=ref["losses"], gnorm_ref=ref["gnorms"],
                      loss_gap=lg, gnorm_gap=gg, param_gap=gaps[0][0],
                      param_gap_leaf=gaps[0][1], param_gaps_worst=gaps[:5])
-            if lg > 1e-4:
+            if lg > loss_tol:
                 fails.append(f"({name}) losses {m['losses']} vs one rank "
                              f"{ref['losses']}")
             # the grad norm checks the cross-rank grad sums directly,
@@ -4216,18 +4351,54 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2) -> dict:
             med = float(np.median([max(r["step_s"][i] for r in per_rank)
                                    for i in range(1, steps)])) * 1e3
             m["step_ms"] = med
+            m["tokens_per_s"] = b * s / (med / 1e3)
             if not (m["losses"][-1] < m["losses"][0]
                     and all(np.isfinite(m["losses"]))):
                 fails.append(f"({name}): losses {m['losses']}")
-            log(f"  ({name}) step {med:.1f} ms median of steps 2-{steps} "
-                f"(4 ranks on one card, not a multi-card rate)")
+            log(f"  ({name}) step {med:.1f} ms median of steps 2-{steps}, "
+                f"{m['tokens_per_s']:.0f} tokens/s ({world} ranks on one "
+                f"card: not a multi-card rate)")
         log(f"  ({name}) " + json.dumps(
             {k: v for k, v in m.items() if k != "launches_per_rank"}))
         out[name] = m
-    require(not fails, "phase 27: " + "; ".join(fails))
+    if "e" in out and "e-gpipe" in out:
+        ours, gpipe = (next(r["max_memory_allocated_gb"] for r in
+                            (rk[k] for rk in ranks) if r["stage"] == 0)
+                       for k in ("e", "e-gpipe"))
+        out["e"]["stage0_peak_gb"] = {"1f1b": ours, "gpipe": gpipe}
+        log(f"  (e) stage 0's peak: 1F1B {ours:.3f} GB, GPipe {gpipe:.3f} "
+            f"GB")
+        if DEV.type == "cuda" and not gpipe > ours:
+            fails.append(f"(e) GPipe's stage-0 peak {gpipe:.3f} GB is not "
+                         f"above 1F1B's {ours:.3f} GB")
+    require(not fails, f"{label}: " + "; ".join(fails))
     out["s"] = time.perf_counter() - t0
     log(f"  {out['s']:.1f} s")
     return out
+
+
+def _pipeline_gates(name, layout, per_rank, m) -> list:
+    """Phase 28's checks of one pipelined sub-phase: each rank's most
+    microbatches in flight (1F1B ``min(pp - s, M)`` on stage s, GPipe
+    M); records the stages, peaks, chunk bytes and the ideal bubble."""
+    pp = layout["pp"]
+    M = layout.get("micro_batches") or 2 * pp
+    gpipe = layout.get("pp_schedule") == "gpipe"
+    m.update(stages=[r["stage"] for r in per_rank],
+             in_flight=[r["in_flight"] for r in per_rank],
+             peak_gb=[r["max_memory_allocated_gb"] for r in per_rank],
+             chunk_bytes_sent=[r["chunk_bytes_sent"] for r in per_rank],
+             ideal_bubble=(pp - 1) / (M + pp - 1))
+    fails = []
+    if layout.get("vpp", 1) > 1:
+        return fails
+    for r, pr in enumerate(per_rank):
+        want = M if gpipe else min(pp - pr["stage"], M)
+        if pr["in_flight"] != want:
+            fails.append(f"({name}) rank {r} (stage {pr['stage']}): "
+                         f"{pr['in_flight']} microbatches in flight, the "
+                         f"schedule holds {want}")
+    return fails
 
 
 # device kernel name -> what it is, first match wins; a key of several
@@ -4338,15 +4509,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
-                    "23,24,25,26,27",
+                    "23,24,25,26,27,28",
                     help="comma-separated; 6, 9, 13, 17 and 18 "
                     "(profiles) are opt-in")
     ap.add_argument("--drill-worker", metavar="SPEC",
                     help="run one generation of phase 24's preemption drill "
                     "(JSON spec; used by phase 24 itself)")
     ap.add_argument("--rank-worker", metavar="SPEC",
-                    help="run one rank of phase 27's world (JSON spec; used "
-                    "by phase 27 itself)")
+                    help="run one rank of phase 27's or 28's world (JSON "
+                    "spec; used by those phases themselves)")
     args = ap.parse_args()
     if args.drill_worker:
         return drill_worker(args.drill_worker)
@@ -4410,13 +4581,15 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
     if 7 in phases:
-        e2e["train_accuracy"] = phase_train_accuracy(counts)
+        e2e["train_accuracy"] = phase_train_accuracy(counts,
+                                                     layers=ACC_LAYERS)
     if 8 in phases:
         e2e["train"] = phase_train(counts, peaks)
     if 9 in phases:
         e2e["train_profile"] = phase_train_profile()
     if 10 in phases:
-        e2e["packed_accuracy"] = phase_packed_accuracy(counts)
+        e2e["packed_accuracy"] = phase_packed_accuracy(counts,
+                                                       layers=ACC_LAYERS)
     if 11 in phases:
         e2e["packed_train"] = phase_train(counts, peaks, packed=True)
     if 12 in phases:
@@ -4430,13 +4603,14 @@ def main() -> int:
     if 20 in phases:
         e2e["llama_load"] = phase_llama_load(counts)
     if 21 in phases:
-        e2e["llama_train_accuracy"] = phase_llama_train_accuracy(counts)
+        e2e["llama_train_accuracy"] = phase_llama_train_accuracy(counts,
+                                                                 layers=1)
     if 22 in phases:
         e2e["llama_train"] = phase_train(
             counts, peaks, batch=4, seq=2048, mcfg=llama_config(num_layers=8),
             tag="phase22", label="LLaMA-7B width, 8 of 32 layers")
     if 23 in phases:
-        e2e["remat"] = phase_remat(counts, peaks)
+        e2e["remat"] = phase_remat(counts, peaks, acc_layers=ACC_LAYERS)
     if 24 in phases:
         e2e["durability"] = phase_durability(counts)
     if 25 in phases:
@@ -4445,14 +4619,16 @@ def main() -> int:
         e2e["fleet"] = phase_fleet(counts)
     if 27 in phases:
         e2e["multirank"] = phase_multirank(counts)
+    if 28 in phases:
+        e2e["pipeline"] = phase_multirank(counts, phase=28)
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
     # (16) serving, the LLaMA phases (19-22), the remat policies (23), the
     # durability drills (24), the telemetry phase (25), the rest of
-    # serving (26) and multi-rank training (27, every rank's launches),
-    # each phase's runs counted
+    # serving (26), multi-rank training (27) and pipelines (28, every
+    # rank's launches), each phase's runs counted
     main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24,
-                   25, 26, 27)
+                   25, 26, 27, 28)
 
     def launched(which):
         return {name: sum(c.get(name, 0) for key, c in counts.items()

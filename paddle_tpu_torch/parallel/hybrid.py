@@ -46,7 +46,7 @@ from the later of the dispatch and the previous step's end, to its own
 end), once its end event has fired: nothing waits for the device on the
 step path.
 
-Multi-rank training (pp == 1): with any of ``dp``, ``sharding``, ``mp``
+Multi-rank training: with any of ``dp``, ``pp``, ``sharding``, ``mp``
 or ``sep`` above 1 the trainer runs on a ``distributed.mesh.Mesh`` (built
 from the config over the initialised ``torch.distributed`` world unless
 one is passed), one process per rank, each holding its shards of the
@@ -66,6 +66,14 @@ dividing dim). A step:
   (ZeRO 1), reduce-scattered over ``"sharding"`` onto the moment's shard
   (ZeRO 2, and ZeRO 3's replicated leaves), or already reduce-scattered
   by the gathers' backward (ZeRO 3's sharded params);
+- with ``pp > 1`` the step is a pipeline schedule over ``"pipe"``
+  (``parallel.pipeline``; ``micro_batches`` 0 means ``2 * pp``): GPipe
+  for ``pp_schedule="gpipe"``, 1F1B, or interleaved 1F1B for ``vpp >
+  1``, each returning the loss and this stage's grads; the sequence ring
+  runs inside each stage. The leaves held by every stage (the
+  embeddings, the final norm, LLaMA's head) get grads on stage 0 and the
+  last only, and are summed over ``"pipe"`` as well. ``vpp > 1`` with
+  ``pp == 1`` trains as ``pp == 1``, as in the JAX package;
 - :func:`global_norm` over the sharded grads counts each element once;
   AdamW updates the moment's shard, decaying by the FULL leaf's
   ``ndim >= 2``; the guard's finite flag is all-reduced so every rank
@@ -73,12 +81,14 @@ dividing dim). A step:
   ``"sharding"`` back to the param layout.
 
 The telemetry counts the global batch's tokens and the global params,
-with ``n_devices`` the world, as the JAX package does. Not ported for a
-world above one rank, and raising ``NotImplementedError`` naming the
-slice that brings them: checkpoints, the preemption guard and rollback,
-``http_port``, the consistency check; everywhere: ``pp > 1``,
-``vpp > 1``, ``sep > 1`` without ring attention, and packed sequences
-over a mesh. ``TrainerConfig`` keeps every field and default of the JAX
+with ``n_devices`` the world, as the JAX package does. Loss scaling and
+packed sequences with ``pp > 1`` raise ``ValueError``, as in the JAX
+package. Not ported for a world above one rank, and raising
+``NotImplementedError`` naming the slice that brings them: checkpoints,
+the preemption guard and rollback, ``http_port``, the consistency
+check; everywhere: ``sep > 1`` without ring attention (the JAX
+package's GSPMD sequence sharding), and packed sequences over a
+mesh. ``TrainerConfig`` keeps every field and default of the JAX
 package's; ``compile_ledger`` is accepted and records nothing (PyTorch
 runs eagerly, there is no compile to ledger).
 """
@@ -110,7 +120,7 @@ from ..utils.convert import from_head_aligned, shard_params
 from ..utils.preemption import (PREEMPTED_EXIT_CODE, PreemptionGuard,
                                 TrainingPreempted)
 from ..utils.tree import flatten, tree_map, unflatten
-from . import llama_core
+from . import llama_core, pipeline
 from . import transformer_core as core
 
 __all__ = ["DIVERGENCE_EXIT_CODE", "NumericalDivergenceError",
@@ -119,7 +129,6 @@ __all__ = ["DIVERGENCE_EXIT_CODE", "NumericalDivergenceError",
            "adamw_init", "adamw_update", "sanitize_specs"]
 
 # what the next multi-device slice brings (ROADMAP A.6)
-_NEXT_PIPE = "the pipeline slice (ROADMAP A.6: pipeline.py)"
 _NEXT_CKPT = ("the multi-rank checkpoint slice (ROADMAP A.6: launch/, "
               "consistency, multi-rank checkpoints)")
 _NEXT_A6 = "a later multi-device slice (ROADMAP A.6)"
@@ -336,7 +345,8 @@ class _Layout:
     the param itself is sharded over ``"sharding"`` (ZeRO 3), the dim
     its moments add ``"sharding"`` on (``opt_dim``, None if none), and
     how many ranks hold each element of the moments' shard (``rep``,
-    for the global norm)."""
+    for the global norm) and whether every pipeline stage holds the leaf
+    (``pipe_rep``: its grads are summed over ``"pipe"``)."""
 
     def __init__(self, model_cfg, cfg, mesh, init_fn, specs_fn):
         with torch.device("meta"):
@@ -357,9 +367,13 @@ class _Layout:
                 opt_dim = next((i for i, e in enumerate(ospec)
                                 if e == "sharding"), None)
             held = math.prod(_axis_size(mesh, e) for e in ospec)
+            on_pipe = any("pipe" in (e if isinstance(e, (tuple, list))
+                                     else (e,)) for e in pspec)
             self.leaf[path] = {"shape": shape, "zero3": zero3,
                                "opt_dim": opt_dim, "ndim": len(shape),
-                               "rep": mesh.world // held}
+                               "rep": mesh.world // held,
+                               "pipe_rep": (mesh.shape["pipe"] > 1
+                                            and not on_pipe)}
 
 
 def _keystr(path) -> str:
@@ -395,7 +409,8 @@ class HybridParallelTrainer:
         (self._init_fn, self._specs_fn, self._loss_fn,
          self.arch) = _arch_for(model_cfg)
         self._validate()
-        axes = {a: getattr(cfg, a) for a in ("dp", "sharding", "mp", "sep")}
+        axes = {a: getattr(cfg, a) for a in ("dp", "pp", "sharding", "mp",
+                                             "sep")}
         self.mesh = self._layout = None
         if mesh is not None or any(n != 1 for n in axes.values()):
             self.mesh = mesh if mesh is not None else build_mesh(
@@ -474,6 +489,16 @@ class HybridParallelTrainer:
             raise ValueError(f"unknown pp_schedule: {cfg.pp_schedule!r}")
         if cfg.vpp < 1:
             raise ValueError(f"vpp must be >= 1, got {cfg.vpp}")
+        if cfg.vpp > 1 and cfg.pp_schedule != "1f1b":
+            raise ValueError(
+                "virtual pipeline stages (vpp > 1) require "
+                "pp_schedule='1f1b': the GPipe schedule has no interleaved "
+                "variant")
+        if cfg.loss_scaling and cfg.pp > 1:
+            raise ValueError(
+                "loss_scaling is not supported with pipeline parallelism "
+                "(pp > 1): the schedules compute grads per stage, outside "
+                "the scaled-loss wrapper")
         if cfg.loss_scaling and not cfg.anomaly_guard:
             raise ValueError(
                 "loss_scaling=True requires anomaly_guard=True: the guard "
@@ -493,9 +518,6 @@ class HybridParallelTrainer:
                 f"packed_sequences supports the GPT family only (got arch "
                 f"{self.arch!r}): per-segment RoPE reset is not wired "
                 "through the LLaMA core yet")
-        if cfg.pp > 1 or cfg.vpp > 1:
-            _not_ported(f"pipeline parallelism (pp={cfg.pp}, vpp={cfg.vpp})",
-                        _NEXT_PIPE)
         if cfg.sep > 1 and not cfg.ring_attention:
             _not_ported("sep > 1 without ring attention (the JAX package's "
                         "GSPMD sequence sharding)", _NEXT_A6)
@@ -510,7 +532,11 @@ class HybridParallelTrainer:
         the loss detached, the grads a tree like ``params``. ``extras`` is
         ``(segment_ids, positions)`` in packed mode (GPT), else empty.
         With a loss ``scale`` (an fp32 device scalar) the grads are taken
-        of ``loss * scale`` and multiplied by ``1 / scale``."""
+        of ``loss * scale`` and multiplied by ``1 / scale``. With
+        ``pp > 1`` the loss and grads come from the pipeline schedule."""
+        if self.cfg.pp > 1:
+            loss, grads = self._pipeline_grads(params, tokens, labels)
+            return loss * poison, tree_map(lambda g: g * poison, grads)
         paths, leaves = zip(*((path, p.detach().requires_grad_(True))
                               for path, p in flatten(params)))
         kw = dict(zip(("segment_ids", "positions"), extras))
@@ -529,6 +555,22 @@ class HybridParallelTrainer:
             grads = [g * inv.to(g.dtype) for g in grads]
         return raw.detach(), unflatten(zip(paths, grads))
 
+    def _pipeline_grads(self, params, tokens, labels):
+        """``(loss, grads)`` of the schedule the config names: GPipe,
+        1F1B, or interleaved 1F1B (``vpp > 1``)."""
+        cfg = self.cfg
+        kw = dict(compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+                  mesh=self.mesh, ring=self._ring_for(tokens),
+                  specs=self._layout.pspecs)
+        args = (self.model_cfg, params, tokens, labels, cfg.pp)
+        m = cfg.micro_batches or 2 * cfg.pp
+        if cfg.vpp > 1:
+            return pipeline.pipeline_interleaved_grads(*args, cfg.vpp, m,
+                                                       **kw)
+        if cfg.pp_schedule == "gpipe":
+            return pipeline.pipeline_gpipe_grads(*args, m, **kw)
+        return pipeline.pipeline_1f1b_grads(*args, m, **kw)
+
     def _ring_for(self, tokens):
         """The ring spec of a local batch: None at sep 1; the end-to-end
         zigzag ring when the global length divides by ``2 * sep`` (the
@@ -543,7 +585,8 @@ class HybridParallelTrainer:
 
     def _sharded_update(self, params, grads, opt):
         """The multi-rank AdamW: grads summed over the loss axes onto the
-        moments' shards, the global norm, the update of each shard.
+        moments' shards (and over ``"pipe"`` for the leaves every stage
+        holds), the global norm, the update of each shard.
         Returns ``(new_p, new_opt, gnorm, old_p)``: the params before and
         after, and the moments, in the moments' shard layout
         (``_unshard_opt_dim`` brings the params back)."""
@@ -555,6 +598,8 @@ class HybridParallelTrainer:
         for path, p in flatten(params):
             info = self._layout.leaf[path]
             g, dim = g_of[path], info["opt_dim"]
+            if info["pipe_rep"]:         # stage 0's and the last's parts
+                self._sum(g, ("pipe",))
             if info["zero3"]:            # reduce-scattered by the gather
                 self._sum(g, ("data", "sep"))
             elif dim is not None and cfg.zero_stage >= 2:

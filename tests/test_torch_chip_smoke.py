@@ -340,6 +340,19 @@ def test_training_phases_rehearse_on_cpu(tiny_training):
     assert counts["phase7"]["K-DQ"] == 2 * 4 * 2
 
 
+def test_accuracy_phases_take_a_depth(tiny_training):
+    """The default run holds phases 7, 10 and 23 (a) at ``ACC_LAYERS`` of
+    the model's depth: the phases build the model at the depth asked."""
+    counts = {}
+    cs.phase_train_accuracy(counts, batch=2, seq=32, layers=1)
+    # grads + 3 steps x 1 layer, on each side
+    assert counts["phase7"]["K-DQ"] == 2 * 4 * 1
+    cs.phase_packed_accuracy(counts, batch=2, seq=64, doc_lengths=(5, 25),
+                             seed=3, layers=1)
+    assert counts["phase10"]["K-SDQ"] == 2 * 4 * 1
+    assert cs._acc_model(None) == cs.model_config()
+
+
 def test_packed_training_phases_rehearse_on_cpu(tiny_training):
     counts = {}
     acc = cs.phase_packed_accuracy(counts, batch=2, seq=64,
@@ -730,3 +743,67 @@ def test_multirank_phase_rehearses_on_cpu(tiny_llama):
     assert m["d"]["losses"][-1] < m["d"]["losses"][0]
     assert m["d"]["step_ms"] > 0
     assert len(set(m["c"]["live_state_bytes"])) == 1
+
+
+# phase 28 at tiny widths, as PIPELINE but sized for the CPU
+_TINY_PIPES = {
+    "a": ("gpt", 4, dict(pp=4, micro_batches=8), (8, 64), "float32", 3),
+    "b": ("gpt", 4, dict(pp=2, mp=2, pp_schedule="gpipe", micro_batches=4),
+          (4, 64), "float32", 3),
+    "c": ("gpt", 4, dict(pp=2, vpp=2, dp=2, micro_batches=4, remat=False),
+          (8, 64), "float32", 3),
+    "d": ("llama", 2, dict(pp=2, sep=2, micro_batches=2), (2, 64),
+          "float32", 3),
+    "e": ("gpt", 4, dict(pp=4, micro_batches=8, remat=False), (8, 64),
+          "bfloat16", 3),
+    "e-gpipe": ("gpt", 4, dict(pp=4, micro_batches=8, remat=False,
+                               pp_schedule="gpipe"), (8, 64), "bfloat16", 2),
+}
+
+
+def test_pipe_launches_follow_the_schedules():
+    """1F1B and interleaved forwards run twice under remat (no graph,
+    then the recompute), GPipe's follow the per-layer policy; a zigzag
+    ring of 2 runs 4 blocks a layer."""
+    assert cs.pipe_launches(8, 4, 1, 8, 1, True, 3) == {
+        "K-PACK": 96, "K-DQ": 48, "K-DKV": 48}
+    assert cs.pipe_launches(8, 2, 2, 4, 1, False, 3) == {
+        "K-PACK": 48, "K-DQ": 48, "K-DKV": 48}
+    assert cs.pipe_launches(4, 2, 1, 2, 2, True, 3) == {
+        "K-PACK": 96, "K-DQ": 48, "K-DKV": 48}
+    assert cs.pipe_launches(8, 2, 1, 4, 1, True, 3, "gpipe") == {
+        "K-PACK": 96, "K-DQ": 48, "K-DKV": 48}
+    assert cs.pipe_launches(8, 2, 1, 4, 1, "names:attn_out_kernel,attn_lse",
+                            3, "gpipe")["K-PACK"] == 48
+    assert cs.world_launches(4, dict(mp=2, sep=2), 3) == cs.ring_launches(
+        4, 2, 3)
+
+
+def test_pipeline_phase_rehearses_on_cpu(tiny_llama):
+    """Phase 28 over gloo on the CPU: 4 rank processes at gpt_tiny and
+    llama_tiny widths, (a)-(d) against the single-rank trainer (the
+    phase's own gates: losses 1e-6, grad norms 1e-4, params 1e-4), every
+    rank's launches equal to ``pipe_launches`` (the plain versions
+    counted as the kernels), its microbatches in flight to the
+    schedule's law, the ring's blocks in (d), the interleaved chunk
+    exchange in (c)."""
+    counts = {}
+    m = cs.phase_multirank(counts, runs=_TINY_PIPES, threads=1, phase=28)
+    for name in ("a", "b", "c", "d"):
+        assert m[name]["loss_gap"] <= 1e-6, name
+        assert m[name]["param_gap"] <= 1e-4, name
+    for name, (_, layers, lay, _, _, steps) in _TINY_PIPES.items():
+        want = cs.world_launches(layers, lay, steps)
+        assert m[name]["launches_per_rank"] == [
+            {**r, **want} for r in m[name]["launches_per_rank"]], name
+        assert counts[f"phase28_{name}"]["K-DQ"] == 4 * want["K-DQ"]
+    assert m["a"]["derived_launches"] == {"K-PACK": 48, "K-DQ": 24,
+                                          "K-DKV": 24}
+    assert m["a"]["stages"] == [0, 1, 2, 3]
+    assert m["a"]["in_flight"] == [4, 3, 2, 1]
+    assert m["b"]["in_flight"] == [4, 4, 4, 4]
+    assert m["e-gpipe"]["in_flight"] == [8] * 4
+    assert min(m["c"]["chunk_bytes_sent"]) > 0
+    assert ["K-PACK", 16, 32, False] in m["d"]["ring_blocks"]
+    assert m["e"]["ideal_bubble"] == 3 / 11 and m["e"]["step_ms"] > 0
+    assert set(m["e"]["stage0_peak_gb"]) == {"1f1b", "gpipe"}

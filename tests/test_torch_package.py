@@ -62,6 +62,7 @@ _MUST_IMPORT = {
     "paddle_tpu_torch.distributed.mesh",
     "paddle_tpu_torch.distributed.communication",
     "paddle_tpu_torch.ops.ring_attention",
+    "paddle_tpu_torch.parallel.pipeline",
 }
 
 
@@ -72,7 +73,7 @@ def test_port_imports_without_jax_or_paddle_tpu():
                        env=env, capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr
     n_modules = int(p.stdout.split()[0])
-    assert n_modules >= 39, p.stdout
+    assert n_modules >= 40, p.stdout
     assert _MUST_IMPORT <= set(p.stdout.split()[2:]), p.stdout
 
 

@@ -278,18 +278,37 @@ def test_from_gpt_params_rejects_unknown_missing_and_misshapen(jax_params):
 
 
 @pytest.mark.parametrize("kw", [
-    {"vpp": 2}, {"sep": 2, "ring_attention": False}, {"pp": 2},
+    {"sep": 2, "ring_attention": False},
+    {"pp": 2, "sep": 2, "ring_attention": False},
     {"consistency_check_every": 4}])
 def test_trainer_rejects_what_is_not_ported(kw):
-    """Pipeline parallelism, sep > 1 without the ring and the consistency
-    check raise, naming the slice that brings them (dp, sharding, mp and
-    sep with the ring are ported: ``tests/test_torch_hybrid.py``)."""
+    """sep > 1 without the ring (in a pipeline stage too) and the
+    consistency check raise, naming the slice that brings them (dp,
+    pp, sharding, mp and sep with the ring are ported:
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_pipeline.py``)."""
     with pytest.raises(NotImplementedError, match="slice"):
         thybrid.HybridParallelTrainer(gpt_tiny(), thybrid.TrainerConfig(**kw),
                                       device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"dp": 2}, {"mp": 2}, {"sep": 2}])
+def test_vpp_without_pp_trains_as_pp_1():
+    """``vpp=2`` at ``pp == 1`` is not pipelined (the JAX trainer only
+    pipelines ``pp > 1``): one rank, the plain trainer's step bit for
+    bit."""
+    sides = []
+    for kw in ({"vpp": 2}, {}):
+        t = thybrid.HybridParallelTrainer(
+            gpt_tiny(), thybrid.TrainerConfig(compute_dtype=torch.float32,
+                                              **kw), device="cpu")
+        assert t.mesh is None
+        sides.append((float(t.step(*_batch())), t.params))
+    assert sides[0][0] == sides[1][0]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(flatten(sides[0][1]), flatten(sides[1][1])))
+
+
+@pytest.mark.parametrize("kw", [{"dp": 2}, {"mp": 2}, {"sep": 2},
+                                {"pp": 2}])
 def test_trainer_over_a_mesh_needs_a_world(kw):
     """A mesh axis above 1 builds a mesh over the initialised
     torch.distributed world; without one the trainer says how to make
