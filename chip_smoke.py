@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 0,1,26  # loadgen, pool plans, the fleet
     python3 chip_smoke.py --phases 0,1,27  # multi-rank training (4 ranks)
     python3 chip_smoke.py --phases 0,1,28  # pipeline parallelism (4 ranks)
+    python3 chip_smoke.py --phases 0,1,2,29  # BERT, varlen attention
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -29,8 +30,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    chunks' edges over poisoned page tables (``check_paged_edges``),
    K-PACK, K-DQ and K-DKV at the shapes of phases 27 and 28's ring blocks
    (``ring_block_shapes``: full attention L x 2L and 2L x L among
-   them, in the sub-phases' dtypes); and timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
-   128, 32 heads);
+   them, in the sub-phases' dtypes); timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
+   128, 32 heads); and, for phase 29's full attention, K-SEG, K-SDQ and
+   K-SDKV with key-side ids at their tiles' edges (``check_keyside_edges``:
+   Sq != Sk, ids on one side only, rows that see no key) and timed at
+   ``BERT_ROWS`` (BERT-large's padded 16 x 512, the varlen row's 2048
+   queries over 3072 keys), K-BSHD, K-BDQ and K-BDKV non-causal at
+   BERT-base's 128 x 128 and BERT-large's 16 x 512;
 3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
    answers 3 requests through the continuous-batching scheduler, and
    ``generate()`` completes 2 prompts; the card's logits at every
@@ -229,8 +235,25 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     rank's launches equal ``pipe_launches``, its most microbatches in
     flight ``min(pp - s, M)`` on stage s under 1F1B and M under GPipe,
     and its live state bytes the plan.
+29. BERT and varlen attention (full attention: K-SEG, K-SDQ and K-SDKV
+    with key-side ids, K-BSHD, K-BDQ and K-BDKV non-causal): (a)
+    ``BertForPretraining`` at BERT-large's width, 2 of 24 layers, fp32,
+    2 x 512, card vs CPU on the same weights, once with row 0 padded to
+    200 tokens (the K-SEG kernels) and once unpadded (the K-BSHD ones):
+    MLM and NSP logits 2e-3, loss 1e-4, every grad 1e-4 of its leaf's
+    largest; (b) ``bench_all.py``'s BERT-base step (full depth, 128 x
+    128, fp32, MLM loss, momentum SGD lr 0.01, hidden dropout 0.1,
+    attention dropout 0): step ms, tokens/s, MFU by the bench's count
+    against the fp32 peak; (c) BERT-large at full depth, bf16 AdamW,
+    16 x 512 padded to phase 2's key lengths: step ms, tokens/s, real
+    tokens/s, peak memory; (d) ``nn.functional.flash_attn_unpadded``,
+    8 sequences, 2048 queries over 3072 keys, fp32 output and grads
+    against the plain version, and the causal call with distinct
+    ``cu_seqlens`` raising on the card. Each launch is full attention,
+    and each sub-phase's launches are the kernels' counts derived from
+    its layers and steps.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-28) sets the kernels' launch
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-29) sets the kernels' launch
 counts to 0 just before it and reads them just after (phases 27 and 28
 in each rank, the counts summed over the ranks). The line before the
 last is the kernels' JSON summary; the last line is
@@ -385,21 +408,46 @@ def cold_ms(fn, iters=20, warmup=3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
 
 
-def device_ms(fn, iters=20, warmup=3) -> float:
+# the port's kernels as the profiler names them: each wrapper call
+# launches one of these (K-DEC, K-DEC8, K-MQ and K-MQ8 the split kernel,
+# and after it the merge)
+PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                "paged_split_kernel")
+
+
+def device_ms(fn, floor_ms, iters=20, warmup=3, tries=5) -> float:
     """Device time of one ``fn`` call under torch.profiler: the kernels
     it launched, summed, per call. Beside ``time_ms``'s CUDA-event time,
     which also counts the gaps where the card waits on the host, it
-    shows whether a call is bound by its kernel or by its host work."""
+    shows whether a call is bound by its kernel or by its host work.
+    The profiler drops launches: in some traces all of them, in some
+    rows a few of every trace (1 of 20, 2 or 7 of 21). So the time is per
+    launch of ``PORT_KERNELS`` it caught (one per call), and a trace
+    counts only when it caught at least half of its calls and a time of
+    at least ``floor_ms`` (the call's bound); after ``tries`` traces
+    without one the phase fails."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_ms_by_kernel(prof).values()) / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        seen = {ev.key: ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA}
+        caught = sum(n for k, n in seen.items()
+                     if any(p in k for p in PORT_KERNELS))
+        ms = sum(device_ms_by_kernel(prof).values()) / max(caught, 1)
+        if 2 * caught >= iters and ms >= floor_ms:
+            return ms
+        log(f"  device_ms: the profiler caught {caught} of {iters} "
+            f"launches, {ms:.4f} ms against a bound of {floor_ms:.4f} ms; "
+            f"profiling again (device events: {seen})")
+    require(False, f"device_ms: no profile of {iters} calls caught half "
+            f"their launches at or above the bound in {tries} traces")
 
 
 def bound_ms(nbytes: float, flops: float, dtype, peaks) -> tuple:
@@ -496,15 +544,16 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
         nbytes = (2 * b * rows * nh * d * elem + tok * 2 * nh_kv * d * kv_elem
                   + pages * 4 + b * 4 + (pages * 2 * nh_kv * 4 if int8 else 0))
         flops = 4.0 * d * nh * pairs
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
+                                                    peaks)
         res["ms"] = time_ms(lambda: kern(q, kp, vp, pt_t, sl_t, scales=sc))
         res["device_ms"] = device_ms(lambda: kern(q, kp, vp, pt_t, sl_t,
-                                                  scales=sc))
+                                                  scales=sc),
+                                     res["bound_ms"])
         res["cold_ms"] = cold_ms(lambda: kern(q, kp, vp, pt_t, sl_t,
                                               scales=sc))
         res["plain_ms"] = time_ms(lambda: plain(q, kp, vp, pt_t, sl_t,
                                                 scales=sc), iters=20)
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
-                                                    peaks)
         res["library_ms"] = None   # no single PyTorch call pages attention
         res["shape"] = (f"B={b} nh={nh} nh_kv={nh_kv} d={d} page_size={ps} "
                         f"tokens={tok} {what}")
@@ -618,14 +667,15 @@ def check_seg(rng, dtype, t, nh, d, peaks, timed, seg=None,
         pairs = visible_pairs_seg(seg)
         nbytes = 4 * t * nh * d * elem + t * 4 + t * nh * 4
         flops = 4.0 * d * nh * pairs
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
+                                                    peaks)
         res["ms"] = time_ms(lambda: fp.flash_attention_packed_segmented(
             q, k, v, seg_t, nh))
         res["device_ms"] = device_ms(
-            lambda: fp.flash_attention_packed_segmented(q, k, v, seg_t, nh))
+            lambda: fp.flash_attention_packed_segmented(q, k, v, seg_t, nh),
+            res["bound_ms"])
         res["plain_ms"] = time_ms(lambda: fp.segment_attention_ref(
             q, k, v, seg_t, nh), iters=20)
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
-                                                    peaks)
         qh, kh, vh = (x.view(1, t, nh, d).transpose(1, 2).contiguous()
                       for x in (q, k, v))
         idx = torch.arange(t, device=dev)
@@ -661,12 +711,13 @@ def check_bshd(rng, dtype, b, s, h, d, peaks, timed):
         pairs = b * h * s * (s + 1) // 2
         nbytes = 4 * b * s * h * d * elem + b * s * h * 4
         flops = 4.0 * d * pairs
-        res["ms"] = time_ms(lambda: fa.bshd_fwd(q, k, v))
-        res["device_ms"] = device_ms(lambda: fa.bshd_fwd(q, k, v))
-        res["plain_ms"] = time_ms(lambda: fa.causal_attention_ref(q, k, v),
-                                  iters=20)
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, dtype,
                                                     peaks)
+        res["ms"] = time_ms(lambda: fa.bshd_fwd(q, k, v))
+        res["device_ms"] = device_ms(lambda: fa.bshd_fwd(q, k, v),
+                                     res["bound_ms"])
+        res["plain_ms"] = time_ms(lambda: fa.causal_attention_ref(q, k, v),
+                                  iters=20)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         res["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True),
@@ -857,10 +908,10 @@ def time_rows(out, runs, work, lib_ms, dtype, peaks, shape):
     library time (``lib_ms[name]``) and shape."""
     for name, (kern, plain) in runs.items():
         r = out[name]
-        r["ms"] = time_ms(kern)
-        r["device_ms"] = device_ms(kern)
-        r["plain_ms"] = time_ms(plain, iters=10)
         r["bound_ms"], r["bound_by"] = bound_ms(*work[name], dtype, peaks)
+        r["ms"] = time_ms(kern)
+        r["device_ms"] = device_ms(kern, r["bound_ms"])
+        r["plain_ms"] = time_ms(plain, iters=10)
         r["library_ms"] = lib_ms[name]
         r["shape"] = shape
     return out
@@ -936,72 +987,115 @@ def check_train(rng, dtype, b, s, nh, d, peaks, timed, causal=True,
                      shape)
 
 
+def visible_pairs_keys(seg_q, seg_k) -> int:
+    """Pairs of equal query- and key-side ids, summed over the rows of
+    ``(B, Sq)`` and ``(B, Sk)`` arrays (full attention)."""
+    total = 0
+    for rq, rk in zip(seg_q, seg_k):
+        ids_q, n_q = np.unique(rq, return_counts=True)
+        ids_k, n_k = np.unique(rk, return_counts=True)
+        _, iq, ik = np.intersect1d(ids_q, ids_k, return_indices=True)
+        total += int((n_q[iq].astype(np.int64) * n_k[ik]).sum())
+    return total
+
+
+def visible_tokens(seg_q, seg_k) -> tuple:
+    """``(queries, keys)``: the queries that see some key and the keys
+    that some query sees, counted over the rows of ``(B, Sq)`` and
+    ``(B, Sk)`` id arrays (full attention). The result depends on no
+    other row of q, k, v, dO, lse or delta."""
+    return (sum(int(np.isin(rq, rk).sum()) for rq, rk in zip(seg_q, seg_k)),
+            sum(int(np.isin(rk, rq).sum()) for rq, rk in zip(seg_q, seg_k)))
+
+
 def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed, seg=None,
-                    what=None):
+                    what=None, seg_k=None, causal=True):
     """K-SEG, K-SDQ and K-SDKV against their plain
     versions on ``b`` rows packed from documents of 32..1024 tokens
-    (numpy seed 0; pad tails), or on the given ``(b, s)`` ids (untimed),
-    q, k, v column slices of one fused qkv;
-    the backward pair takes the kernel forward's lse and delta. Bounds
-    count only the visible (same segment, causal) pairs; the library
-    time is SDPA's backward with the equivalent boolean mask."""
+    (numpy seed 0; pad tails), or on the given ``(b, s)`` ids, q, k, v
+    column slices of one fused qkv; with ``seg_k`` ``(b, Sk)`` full
+    attention (``causal`` False) over keys with ids of their own, q, k, v
+    separate tensors. The backward pair takes the kernel forward's lse
+    and delta; a row that sees no key must give lse ``EMPTY_LSE`` on both
+    sides, and the other rows' lse are held apart from it. Bounds count
+    only the visible pairs, and reads of only the rows that take part in
+    one (``visible_tokens``; causal self-attention: every row), every
+    output written whole and every id read; the library time is SDPA's
+    backward with the equivalent boolean mask."""
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
     if seg is None:
         (_, _, seg, _), eff = packed_rows(0, b, s, 32, 1024, 50304)
-        pairs = visible_pairs_seg(seg)
-        what = f"packed ({eff:.3f} real, pairs={pairs * nh})"
-    else:
-        require(not timed, "timed rows are packed rows")
+        what = f"packed ({eff:.3f} real)"
+    sk = s if seg_k is None else seg_k.shape[1]
+    pairs = (visible_pairs_seg(seg) if seg_k is None
+             else visible_pairs_keys(seg, seg_k))
     seg_t = torch.from_numpy(seg).to(DEV)
-    q, k, v, do = train_inputs(rng, dtype, b, s, nh, d, s)
-    o, lse = fp.seg_fwd(q, k, v, seg_t, nh)
+    kid = None if seg_k is None else torch.from_numpy(seg_k).to(DEV)
+    kw = dict(segment_ids_k=kid, causal=causal)
+    q, k, v, do = train_inputs(rng, dtype, b, s, nh, d, sk)
+    o, lse = fp.seg_fwd(q, k, v, seg_t, nh, **kw)
     delta = (do.float() * o.float()).reshape(b, s, nh, d).sum(-1)
-    dq = fp.seg_dq(q, k, v, do, lse, delta, seg_t, nh)
-    dk, dv = fp.seg_dkv(q, k, v, do, lse, delta, seg_t, nh)
+    dq = fp.seg_dq(q, k, v, do, lse, delta, seg_t, nh, **kw)
+    dk, dv = fp.seg_dkv(q, k, v, do, lse, delta, seg_t, nh, **kw)
     torch.cuda.synchronize()
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    ro, rlse = fp.segment_attention_ref(qf, kf, vf, seg_t, nh)
-    rdq = fp.segment_dq_ref(qf, kf, vf, dof, lse, delta, seg_t, nh)
-    rdk, rdv = fp.segment_dkv_ref(qf, kf, vf, dof, lse, delta, seg_t, nh)
-    label = f"B={b} S={s} nh={nh} d={d} {what}"
-    out = hold((("K-SEG", ((o, ro), (lse, rlse))),
+    ro, rlse = fp.segment_attention_ref(qf, kf, vf, seg_t, nh, **kw)
+    rdq = fp.segment_dq_ref(qf, kf, vf, dof, lse, delta, seg_t, nh, **kw)
+    rdk, rdv = fp.segment_dkv_ref(qf, kf, vf, dof, lse, delta, seg_t, nh,
+                                  **kw)
+    seen = rlse > fp.EMPTY_LSE / 2
+    require(bool((lse[~seen] == fp.EMPTY_LSE).all()),
+            "K-SEG: a row that sees no key lacks the empty lse")
+    label = (f"B={b} Sq={s} Sk={sk} nh={nh} d={d} "
+             f"{'causal' if causal else 'full'} {what} "
+             f"(pairs={pairs * nh}, {int((~seen).sum())} empty rows)")
+    out = hold((("K-SEG", ((o, ro), (lse[seen], rlse[seen]))),
                 ("K-SDQ", ((dq, rdq),)), ("K-SDKV", ((dk, rdk), (dv, rdv)))),
                dtype, label)
     if not timed:
         return out
-    elem = torch.finfo(dtype).bits // 8
-    act = b * s * nh * d * elem
-    row = b * s * nh * 4
-    work = {"K-SEG": (4 * act + row + b * s * 4, 4.0 * d * nh * pairs),
-            "K-SDQ": (5 * act + 2 * row + b * s * 4, 6.0 * d * nh * pairs),
-            "K-SDKV": (6 * act + 2 * row + b * s * 4, 8.0 * d * nh * pairs)}
+    nq, nk = ((b * s, b * sk) if seg_k is None
+              else visible_tokens(seg, seg_k))
+    tok = nh * d * torch.finfo(dtype).bits // 8   # one token of q, k, ...
+    row = nh * 4                                  # ... of lse or delta
+    ids = (b * s + (0 if seg_k is None else b * sk)) * 4
+    work = {"K-SEG": (tok * (nq + 2 * nk + b * s) + row * b * s + ids,
+                      4.0 * d * nh * pairs),
+            "K-SDQ": (tok * (2 * nq + 2 * nk + b * s) + row * 2 * nq + ids,
+                      6.0 * d * nh * pairs),
+            "K-SDKV": (tok * (2 * nq + 2 * nk + 2 * b * sk) + row * 2 * nq
+                       + ids, 8.0 * d * nh * pairs)}
     runs = {
-        "K-SEG": (lambda: fp.seg_fwd(q, k, v, seg_t, nh),
-                  lambda: fp.segment_attention_ref(q, k, v, seg_t, nh)),
-        "K-SDQ": (lambda: fp.seg_dq(q, k, v, do, lse, delta, seg_t, nh),
+        "K-SEG": (lambda: fp.seg_fwd(q, k, v, seg_t, nh, **kw),
+                  lambda: fp.segment_attention_ref(q, k, v, seg_t, nh, **kw)),
+        "K-SDQ": (lambda: fp.seg_dq(q, k, v, do, lse, delta, seg_t, nh,
+                                    **kw),
                   lambda: fp.segment_dq_ref(q, k, v, do, lse, delta, seg_t,
-                                            nh)),
-        "K-SDKV": (lambda: fp.seg_dkv(q, k, v, do, lse, delta, seg_t, nh),
+                                            nh, **kw)),
+        "K-SDKV": (lambda: fp.seg_dkv(q, k, v, do, lse, delta, seg_t, nh,
+                                      **kw),
                    lambda: fp.segment_dkv_ref(q, k, v, do, lse, delta,
-                                              seg_t, nh)),
+                                              seg_t, nh, **kw)),
     }
-    qh, kh, vh, doh = (x.reshape(b, s, nh, d).transpose(1, 2).contiguous()
-                       for x in (q, k, v, do))
-    idx = torch.arange(s, device=DEV)
-    mask = ((seg_t[:, :, None] == seg_t[:, None, :])
-            & (idx[None, :] <= idx[:, None])[None])[:, None]
-    lib_fwd, lib_bwd = sdpa_ms(qh, kh, vh, doh, attn_mask=mask)
+    qh, kh, vh, doh = (x.reshape(b, x.shape[1], nh, d).transpose(1, 2)
+                       .contiguous() for x in (q, k, v, do))
+    mask = seg_t[:, :, None] == (seg_t if kid is None else kid)[:, None, :]
+    if causal:
+        idx = torch.arange(s, device=DEV)
+        mask = mask & (idx[None, :] <= idx[:, None])[None]
+    lib_fwd, lib_bwd = sdpa_ms(qh, kh, vh, doh, attn_mask=mask[:, None])
     return time_rows(out, runs, work, {"K-SEG": lib_fwd, "K-SDQ": lib_bwd,
                                        "K-SDKV": lib_bwd}, dtype, peaks,
                      f"{label} {str(dtype)[6:]}")
 
 
-def check_bshd_train(rng, dtype, b, s, h, d, peaks, timed):
-    """K-BSHD, K-BDQ and K-BDKV against their plain versions, causal,
-    with q, k, v the ``unbind`` views of one ``(B, S, 3, H, D)`` tensor
-    (``GPTAttention``'s layout, row stride 3*H*D); the backward pair
-    takes the kernel forward's lse and delta."""
+def check_bshd_train(rng, dtype, b, s, h, d, peaks, timed, causal=True):
+    """K-BSHD, K-BDQ and K-BDKV against their plain versions, causal or
+    full, with q, k, v the ``unbind`` views of one ``(B, S, 3, H, D)``
+    tensor (``GPTAttention``'s and ``BertSelfAttention``'s layout, row
+    stride 3*H*D); the backward pair takes the kernel forward's lse and
+    delta."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     def randn(*shape):
@@ -1010,17 +1104,19 @@ def check_bshd_train(rng, dtype, b, s, h, d, peaks, timed):
 
     q, k, v = randn(b, s, 3, h, d).unbind(2)
     do = randn(b, s, h, d)
-    o, lse = fa.bshd_fwd(q, k, v)
+    kw = dict(causal=causal)
+    o, lse = fa.bshd_fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
-    dq = fa.bshd_dq(q, k, v, do, lse, delta)
-    dk, dv = fa.bshd_dkv(q, k, v, do, lse, delta)
+    dq = fa.bshd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.bshd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
-    ro, rlse = fa.causal_attention_ref(qf, kf, vf)
-    rdq = fa.bshd_dq_ref(qf, kf, vf, dof, lse, delta)
-    rdk, rdv = fa.bshd_dkv_ref(qf, kf, vf, dof, lse, delta)
-    pairs = b * h * s * (s + 1) // 2
-    label = f"(B,S,H,D)=({b},{s},{h},{d}) causal, unbind views"
+    ro, rlse = fa.causal_attention_ref(qf, kf, vf, **kw)
+    rdq = fa.bshd_dq_ref(qf, kf, vf, dof, lse, delta, **kw)
+    rdk, rdv = fa.bshd_dkv_ref(qf, kf, vf, dof, lse, delta, **kw)
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    label = (f"(B,S,H,D)=({b},{s},{h},{d}) "
+             f"{'causal' if causal else 'full'}, unbind views")
     out = hold((("K-BSHD", ((o, ro), (lse, rlse))),
                 ("K-BDQ", ((dq, rdq),)), ("K-BDKV", ((dk, rdk), (dv, rdv)))),
                dtype, label)
@@ -1033,15 +1129,15 @@ def check_bshd_train(rng, dtype, b, s, h, d, peaks, timed):
             "K-BDQ": (5 * act + 2 * row, 6.0 * d * pairs),
             "K-BDKV": (6 * act + 2 * row, 8.0 * d * pairs)}
     runs = {
-        "K-BSHD": (lambda: fa.bshd_fwd(q, k, v),
-                   lambda: fa.causal_attention_ref(q, k, v)),
-        "K-BDQ": (lambda: fa.bshd_dq(q, k, v, do, lse, delta),
-                  lambda: fa.bshd_dq_ref(q, k, v, do, lse, delta)),
-        "K-BDKV": (lambda: fa.bshd_dkv(q, k, v, do, lse, delta),
-                   lambda: fa.bshd_dkv_ref(q, k, v, do, lse, delta)),
+        "K-BSHD": (lambda: fa.bshd_fwd(q, k, v, **kw),
+                   lambda: fa.causal_attention_ref(q, k, v, **kw)),
+        "K-BDQ": (lambda: fa.bshd_dq(q, k, v, do, lse, delta, **kw),
+                  lambda: fa.bshd_dq_ref(q, k, v, do, lse, delta, **kw)),
+        "K-BDKV": (lambda: fa.bshd_dkv(q, k, v, do, lse, delta, **kw),
+                   lambda: fa.bshd_dkv_ref(q, k, v, do, lse, delta, **kw)),
     }
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    lib_fwd, lib_bwd = sdpa_ms(qh, kh, vh, doh, is_causal=True)
+    lib_fwd, lib_bwd = sdpa_ms(qh, kh, vh, doh, is_causal=causal)
     return time_rows(out, runs, work, {"K-BSHD": lib_fwd, "K-BDQ": lib_bwd,
                                        "K-BDKV": lib_bwd}, dtype, peaks,
                      f"{label} (pairs={pairs}) {str(dtype)[6:]}")
@@ -1077,6 +1173,111 @@ def llama_rows(peaks, rows=None) -> dict:
                                  timed=True).items():
         add(name, res)
     return out
+
+
+# phase 2's rows at the shapes BERT and varlen attention launch (phase
+# 29): full attention with key-side ids at BERT-large's padded batch
+# (B, S, nh, d), the varlen row (sequences, total_q, total_k, nh, d), and
+# the unpadded BERT-base (bench_all.py's 128 x 128) and BERT-large
+# batches (B, S, H, D)
+BERT_ROWS = {"padded": (16, 512, 16, 64), "varlen": (8, 2048, 3072, 16, 64),
+             "bshd": ((128, 128, 12, 64), (16, 512, 16, 64))}
+
+
+def bert_key_lengths(b, s, seed=29):
+    """Each row's real length, uniform in [128, s] (seed 29): the padded
+    batch of phase 2's K-SEG row and phase 29 (c)."""
+    return np.random.RandomState(seed).randint(min(128, s), s + 1, b)
+
+
+def padding_ids(lengths, s):
+    """BERT's padding mask as segment ids (``BertModel``'s own
+    ``padding_key_ids``): queries 0, keys 0 on the first ``lengths[i]``
+    tokens of row i and -1 after them; ``(B, s)`` int32 each."""
+    from paddle_tpu_torch.models.bert import padding_key_ids
+
+    mask = np.arange(s)[None] < np.asarray(lengths)[:, None]
+    return tuple(t.numpy() for t in padding_key_ids(torch.from_numpy(mask)))
+
+
+def varlen_cu(nseq, total, seed):
+    """``cu_seqlens`` of ``nseq`` sequences of random lengths (each >= 1)
+    filling ``total`` tokens."""
+    rng = np.random.RandomState(seed)
+    lens = rng.multinomial(total - nseq, np.ones(nseq) / nseq) + 1
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+
+def varlen_ids(cu, total):
+    """Per-token sequence ids of ``cu`` over ``total`` tokens (pads -1),
+    as ``(1, total)`` int32: ``flash_attn_unpadded``'s."""
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    return fp.cu_seqlens_to_segment_ids(torch.from_numpy(cu), total
+                                        )[None].numpy()
+
+
+def bert_rows(peaks, rows=None) -> dict:
+    """The full-attention kernels at ``BERT_ROWS``, bf16 and timed, from a
+    seed of their own (29, the key lengths' too): K-SEG, K-SDQ and K-SDKV
+    with key-side ids at the padded shape and at the varlen shape
+    (``Sq != Sk``), K-BSHD, K-BDQ and K-BDKV non-causal at the unpadded
+    shapes. ``{name: [row, ...]}``."""
+    r = rows or BERT_ROWS
+    rng = np.random.RandomState(29)
+    bf = torch.bfloat16
+    out = {}
+
+    def add(res):
+        for name, row in res.items():
+            out.setdefault(name, []).append(
+                {k: row[k] for k in ROW_KEYS if k in row})
+
+    b, s, nh, d = r["padded"]
+    lens = bert_key_lengths(b, s)
+    seg_q, seg_k = padding_ids(lens, s)
+    add(check_seg_train(rng, bf, b, s, nh, d, peaks, True, seg=seg_q,
+                        seg_k=seg_k, causal=False,
+                        what=f"padding, keys {lens.min()}-{lens.max()}"))
+    nseq, tq, tk, nh, d = r["varlen"]
+    seg_q = varlen_ids(varlen_cu(nseq, tq, 30), tq)
+    seg_k = varlen_ids(varlen_cu(nseq, tk, 31), tk)
+    add(check_seg_train(rng, bf, 1, tq, nh, d, peaks, True, seg=seg_q,
+                        seg_k=seg_k, causal=False,
+                        what=f"varlen, {nseq} sequences"))
+    for b, s, h, d in r["bshd"]:
+        add(check_bshd_train(rng, bf, b, s, h, d, peaks, True,
+                             causal=False))
+    return out
+
+
+def check_keyside_edges(dtype=torch.bfloat16, heads=None) -> dict:
+    """K-SEG, K-SDQ and K-SDKV with key-side ids at their tiles' edges,
+    untimed, from a seed of their own: ``seg_edges``' rows as query ids
+    against a shuffled draw of the same ids over 700 keys (Sq 1000 != Sk:
+    ids on one side only, rows that see no key, hash collisions, int32
+    extremes), then the padding mask at S 129 with keys of 1, 64 and 129
+    tokens; each at d 64 and 128. Returns each kernel's worst error."""
+    rng = np.random.RandomState(4)
+    worst = dict.fromkeys(("K-SEG", "K-SDQ", "K-SDKV"), 0.0)
+
+    def keep(res):
+        for name, r in res.items():
+            worst[name] = max(worst[name], r["max_abs_err"])
+
+    for d in (64, 128):
+        nh = heads or 1024 // d
+        seg_q = seg_edges(rng, 1000)
+        seg_k = np.stack([rng.permutation(row)[:700] for row in seg_q])
+        seg_k[1, :50] = 123456789          # an id no query carries
+        keep(check_seg_train(rng, dtype, 3, 1000, nh, d, None, False,
+                             seg=seg_q, seg_k=seg_k, causal=False,
+                             what="edge ids, keys drawn apart"))
+        seg_q, seg_k = padding_ids([1, 64, 129], 129)
+        keep(check_seg_train(rng, dtype, 3, 129, nh, d, None, False,
+                             seg=seg_q, seg_k=seg_k, causal=False,
+                             what="padding, keys 1, 64, 129"))
+    return worst
 
 
 def phase_kernels(peaks) -> dict:
@@ -1170,12 +1371,19 @@ def phase_kernels(peaks) -> dict:
                                            r["max_abs_err"])
     for name, err in check_paged_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    for name, err in check_keyside_edges().items():
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    for name, rows in bert_rows(peaks).items():
+        out[name]["bert"] = rows
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       *(r["max_abs_err"] for r in rows))
     for name, rows in llama_rows(peaks).items():
         out[name]["llama"] = rows
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        *(r["max_abs_err"] for r in rows))
     for name, row in out.items():
-        for r in (row, row.get("also"), *row.get("llama", ())):
+        for r in (row, row.get("also"), *row.get("llama", ()),
+                  *row.get("bert", ())):
             if r:
                 cold = (f", {r['cold_ms']:.4f} with L2 flushed"
                         if "cold_ms" in r else "")
@@ -4401,6 +4609,290 @@ def _pipeline_gates(name, layout, per_rank, m) -> list:
     return fails
 
 
+# -- phase 29: BERT and varlen attention (full attention) ----------------------
+
+def bert_config(kind, **kw):
+    """BERT-base (``bert_base()``: hidden 768, 12 layers, 12 heads of 64,
+    vocab 30522) or BERT-large (``bert_large()``: hidden 1024, 24 layers,
+    16 heads), the published shapes (Devlin et al. 2019, Table 1 and
+    Section 3); ``num_layers`` cuts the depth."""
+    from paddle_tpu_torch.models.bert import bert_base, bert_large
+
+    return dataclasses.replace(
+        (bert_base if kind == "base" else bert_large)(), **kw)
+
+
+def bert_batch(rng, b, s, cfg, lengths=None):
+    """Random token and token-type ids, MLM labels and NSP labels, and
+    with ``lengths`` a 0/1 padding mask whose row i keeps its first
+    ``lengths[i]`` tokens (None: no mask)."""
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)))
+    types = torch.from_numpy(rng.randint(0, 2, (b, s)))
+    mlm_y = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)))
+    nsp_y = torch.from_numpy(rng.randint(0, 2, (b,)))
+    mask = None if lengths is None else torch.from_numpy(
+        (np.arange(s)[None] < np.asarray(lengths)[:, None]).astype(np.int64))
+    return ids, types, mlm_y, nsp_y, mask
+
+
+def _bert_delta(before, kernels):
+    """The launches of ``kernels`` since ``before`` (a ``launch_counts``),
+    as ``{name: n}``."""
+    now = K.launch_counts()
+    return {n: now[n] - before[n] for n in kernels}
+
+
+SEG3, BSHD3 = ("K-SEG", "K-SDQ", "K-SDKV"), ("K-BSHD", "K-BDQ", "K-BDKV")
+
+
+def bert_vs_cpu(layers, shape, pad_to, what) -> dict:
+    """(a): ``BertForPretraining`` at BERT-large's width, ``layers`` deep,
+    fp32, the same weights (drawn on the CPU from seed 0) on the card and
+    on the CPU, one ``shape`` batch (seed 29), padded (row 0 kept to
+    ``pad_to`` tokens) and unpadded: MLM and NSP logits within 2e-3, the
+    loss within 1e-4 and every grad within 1e-4 of its leaf's largest CPU
+    grad; the padded run launches K-SEG, K-SDQ and K-SDKV once a layer,
+    the unpadded one K-BSHD, K-BDQ and K-BDKV, all full attention."""
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    cfg = bert_config("large", num_layers=layers, hidden_dropout=0.0,
+                      attention_dropout=0.0)
+    cpu = BertForPretraining(cfg, device="cpu").train()
+    card = BertForPretraining(cfg, device=DEV).train()
+    card.load_state_dict(cpu.state_dict())
+    b, s = shape
+    out = {}
+    for padded in (True, False):
+        rng = np.random.RandomState(29)
+        lengths = [pad_to] + [s] * (b - 1) if padded else None
+        ids, types, mlm_y, nsp_y, mask = bert_batch(rng, b, s, cfg, lengths)
+        res = {}
+        for side, m in (("card", card), ("cpu", cpu)):
+            dev = next(m.parameters()).device
+            m.zero_grad(set_to_none=True)
+            before = K.launch_counts()
+            mlm, nsp = m(ids.to(dev), types.to(dev),
+                         None if mask is None else mask.to(dev))
+            loss = m.loss(mlm, nsp, mlm_y.to(dev), nsp_y.to(dev),
+                          None if mask is None else mask.to(dev))
+            loss.backward()
+            torch.cuda.synchronize()
+            res[side] = dict(
+                mlm=mlm.detach().cpu(), nsp=nsp.detach().cpu(),
+                loss=float(loss.detach()),
+                grads={n: p.grad.cpu() for n, p in m.named_parameters()},
+                launches=_bert_delta(before, SEG3 + BSHD3))
+        c, h = res["card"], res["cpu"]
+        worst, leaf = worst_grad(c["grads"], h["grads"])
+        tag = "padded" if padded else "unpadded"
+        r = {"mlm_err": max_err(c["mlm"], h["mlm"]),
+             "nsp_err": max_err(c["nsp"], h["nsp"]),
+             "loss_card": c["loss"], "loss_cpu": h["loss"],
+             "grad_worst_ratio": worst, "grad_worst_leaf": leaf,
+             "launches": c["launches"]}
+        log(f"  (a) {what}, {tag}: {json.dumps(r)}")
+        require(r["mlm_err"] <= 2e-3 and r["nsp_err"] <= 2e-3,
+                f"(a) {tag} logits: card vs CPU")
+        require(abs(r["loss_card"] - r["loss_cpu"]) <= 1e-4,
+                f"(a) {tag} loss: card vs CPU")
+        require(worst <= 1e-4, f"(a) {tag} grads of {leaf}: card vs CPU")
+        on, off = (SEG3, BSHD3) if padded else (BSHD3, SEG3)
+        want = {**dict.fromkeys(on, layers), **dict.fromkeys(off, 0)}
+        require(c["launches"] == want, f"(a) {tag} launches "
+                f"{c['launches']}, expected {want}")
+        out[tag] = r
+    return out
+
+
+def bert_bench_step(steps, shape, peaks) -> dict:
+    """(b): ``bench_all.py``'s BERT step as the JAX package defines it
+    (``bench_bert_base``): BERT-base at full depth, fp32 params, ``shape``
+    random ids and MLM labels (seed 0), the mean MLM cross entropy
+    (logsumexp - gold over every position), momentum SGD (lr 0.01,
+    momentum 0.9: ``torch.optim.SGD``, the same update), hidden dropout
+    0.1 kept; attention dropout 0.0 (not ported, the one deviation). One
+    warm-up step, then ``steps`` steps timed with one synchronisation:
+    step ms, tokens/s and MFU by the bench's count (``6 * 110e6 + 12 *
+    12 * 768 * seq`` FLOPs a token) against the fp32 peak; the loss falls,
+    and each step launches K-BSHD, K-BDQ and K-BDKV once a layer."""
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    cfg = bert_config("base", attention_dropout=0.0)
+    model = BertForPretraining(cfg, device=DEV).train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    rs = np.random.RandomState(0)
+    b, s = shape
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+    mlm_y = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s))).to(DEV)
+
+    def step():
+        mlm, _ = model(ids)
+        logits = mlm.float()
+        gold = logits.gather(-1, mlm_y[..., None])[..., 0]
+        loss = (torch.logsumexp(logits, -1) - gold).mean()
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    first = step()
+    torch.cuda.synchronize()
+    before = K.launch_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bert_delta(before, BSHD3 + SEG3)
+    losses = [float(first)] + [float(x) for x in losses]
+    tok_s = b * s * steps / wall
+    flops_tok = 6 * 110e6 + 12 * 12 * 768 * s
+    m = {"batch": b, "seq": s, "steps": steps, "step_ms": wall / steps * 1e3,
+         "tokens_per_s": tok_s, "mfu_fp32": tok_s * flops_tok / peaks["fp32"],
+         "flops_per_token": flops_tok, "losses": losses,
+         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+         "launches": launches}
+    log(f"  (b) bench_all.py's BERT-base step: {json.dumps(m)}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            "(b) BERT-base losses not finite and falling")
+    n = cfg.num_layers * steps
+    require(launches == {**dict.fromkeys(BSHD3, n), **dict.fromkeys(SEG3, 0)},
+            f"(b) launches {launches}, expected {n} of each BSHD kernel")
+    del model, opt
+    return m
+
+
+def bert_large_train(steps, shape) -> dict:
+    """(c): BERT-large at full depth, bf16 params and
+    ``torch.optim.AdamW`` (lr 1e-4) as phase 12 trains, a ``shape`` batch
+    padded to phase 2's key lengths (``bert_key_lengths``, seed 29), MLM
+    loss over the real tokens plus NSP, dropout 0.1 on the hidden states
+    (attention dropout 0). One warm-up step, then ``steps`` timed: step
+    ms, tokens/s, real tokens/s, peak memory; losses finite, and each
+    step launches K-SEG, K-SDQ and K-SDKV once a layer."""
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    cfg = bert_config("large", attention_dropout=0.0)
+    model = BertForPretraining(cfg, device=DEV, dtype=torch.bfloat16).train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+    b, s = shape
+    lengths = bert_key_lengths(b, s)
+    ids, types, mlm_y, nsp_y, mask = (
+        x.to(DEV) for x in bert_batch(np.random.RandomState(29), b, s, cfg,
+                                      lengths))
+
+    def step():
+        mlm, nsp = model(ids, types, mask)
+        loss = model.loss(mlm.float(), nsp.float(), mlm_y, nsp_y, mask)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    first = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = K.launch_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _bert_delta(before, SEG3 + BSHD3)
+    losses = [float(first)] + [float(x) for x in losses]
+    real = int(np.sum(lengths))
+    m = {"batch": b, "seq": s, "steps": steps, "real_tokens": real,
+         "step_ms": wall / steps * 1e3,
+         "tokens_per_s": b * s * steps / wall,
+         "real_tokens_per_s": real * steps / wall, "losses": losses,
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": launches}
+    log(f"  (c) BERT-large bf16, padded: {json.dumps(m)}")
+    require(all(np.isfinite(losses)), "(c) non-finite BERT-large loss")
+    n = cfg.num_layers * steps
+    require(launches == {**dict.fromkeys(SEG3, n), **dict.fromkeys(BSHD3, 0)},
+            f"(c) launches {launches}, expected {n} of each SEG kernel")
+    del model, opt
+    return m
+
+
+def varlen_vs_plain(nseq, tq, tk, nh, d) -> dict:
+    """(d): ``nn.functional.flash_attn_unpadded`` on the card, fp32,
+    ``nseq`` sequences over ``tq`` queries and ``tk`` keys (distinct
+    ``cu_seqlens``, seeds 30 and 31; phase 2's varlen row), non-causal:
+    the output and the grads of q, k, v through autograd against the
+    same call on CPU tensors (the plain versions), ``hold``'s fp32
+    tolerance; one K-SEG, K-SDQ and K-SDKV launch. Then the causal call
+    with distinct ``cu_seqlens``, which no kernel computes, raises on the
+    card."""
+    from paddle_tpu_torch.nn import functional as NF
+
+    cu_q, cu_k = varlen_cu(nseq, tq, 30), varlen_cu(nseq, tk, 31)
+    rng = np.random.RandomState(29)
+    q, k, v = (torch.from_numpy(rng.randn(n, nh, d).astype(np.float32))
+               for n in (tq, tk, tk))
+    do = torch.from_numpy(rng.randn(tq, nh, d).astype(np.float32))
+    res = {}
+    for side, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+        ts = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        before = K.launch_counts()
+        o, _ = NF.flash_attn_unpadded(*ts, torch.from_numpy(cu_q).to(dev),
+                                      torch.from_numpy(cu_k).to(dev),
+                                      int(np.diff(cu_q).max()),
+                                      int(np.diff(cu_k).max()), d ** -0.5)
+        o.backward(do.to(dev))
+        torch.cuda.synchronize()
+        res[side] = ([o.detach().cpu()] + [t.grad.cpu() for t in ts],
+                     _bert_delta(before, SEG3 + BSHD3))
+    (card, launches), (cpu, _) = res["card"], res["cpu"]
+    out = hold((("flash_attn_unpadded", tuple(zip(card, cpu))),),
+               torch.float32, f"total_q={tq} total_k={tk} {nseq} sequences "
+               f"nh={nh} d={d} full, output and dq, dk, dv")
+    require(launches == {**dict.fromkeys(SEG3, 1), **dict.fromkeys(BSHD3, 0)},
+            f"(d) launches {launches}, expected 1 of each SEG kernel")
+    if DEV.type == "cuda":
+        cq, ck = (torch.from_numpy(c).to(DEV) for c in (cu_q, cu_k))
+        try:
+            NF.flash_attn_unpadded(q.to(DEV), k.to(DEV), v.to(DEV), cq, ck,
+                                   1, 1, d ** -0.5, causal=True)
+        except NotImplementedError as e:
+            log(f"  (d) causal with distinct cu_seqlens raises: {e}")
+        else:
+            raise RuntimeError("chip_smoke: (d) causal varlen attention "
+                               "with distinct cu_seqlens ran on the card")
+    return {"max_abs_err": out["flash_attn_unpadded"]["max_abs_err"],
+            "launches": launches}
+
+
+def phase_bert(counts, peaks, acc_layers=2, acc_shape=(2, 512), pad_to=200,
+               bench_shape=(128, 128), bench_steps=8, large_shape=(16, 512),
+               large_steps=3, varlen=(8, 2048, 3072, 16, 64)) -> dict:
+    """Phase 29: BERT pretraining and encoding on full attention, and
+    varlen attention: (a) ``bert_vs_cpu``, (b) ``bert_bench_step``, (c)
+    ``bert_large_train``, (d) ``varlen_vs_plain``; the counts are set to 0
+    before (a) and read after (d)."""
+    log(f"[29] BERT and varlen attention: (a) BERT-large width, "
+        f"{acc_layers} layers, fp32 {acc_shape[0]} x {acc_shape[1]} card vs "
+        f"CPU; (b) bench_all.py's BERT-base step {bench_shape[0]} x "
+        f"{bench_shape[1]}; (c) BERT-large bf16 {large_shape[0]} x "
+        f"{large_shape[1]} padded; (d) flash_attn_unpadded")
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    m = {"a": bert_vs_cpu(acc_layers, acc_shape, pad_to,
+                          f"BERT-large width, {acc_layers} layers")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    m["b"] = bert_bench_step(bench_steps, bench_shape, peaks)
+    torch.cuda.empty_cache()
+    m["c"] = bert_large_train(large_steps, large_shape)
+    torch.cuda.empty_cache()
+    m["d"] = varlen_vs_plain(*varlen)
+    counts["phase29"] = K.launch_counts()
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  phase 29: {m['seconds']:.1f} s; launches {counts['phase29']}")
+    return m
+
+
+
 # device kernel name -> what it is, first match wins; a key of several
 # parts matches when every part is in the name. K-DEC, K-DEC8, K-MQ and
 # K-MQ8 all launch the paged split kernel (and its merge): one kind. The SEG instantiations
@@ -4509,7 +5001,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
-                    "23,24,25,26,27,28",
+                    "23,24,25,26,27,28,29",
                     help="comma-separated; 6, 9, 13, 17 and 18 "
                     "(profiles) are opt-in")
     ap.add_argument("--drill-worker", metavar="SPEC",
@@ -4621,14 +5113,17 @@ def main() -> int:
         e2e["multirank"] = phase_multirank(counts)
     if 28 in phases:
         e2e["pipeline"] = phase_multirank(counts, phase=28)
+    if 29 in phases:
+        e2e["bert"] = phase_bert(counts, peaks)
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
     # (16) serving, the LLaMA phases (19-22), the remat policies (23), the
     # durability drills (24), the telemetry phase (25), the rest of
-    # serving (26), multi-rank training (27) and pipelines (28, every
-    # rank's launches), each phase's runs counted
+    # serving (26), multi-rank training (27), pipelines (28, every rank's
+    # launches) and BERT with varlen attention (29), each phase's runs
+    # counted
     main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24,
-                   25, 26, 27, 28)
+                   25, 26, 27, 28, 29)
 
     def launched(which):
         return {name: sum(c.get(name, 0) for key, c in counts.items()
@@ -4636,6 +5131,7 @@ def main() -> int:
                 for name in K.KERNELS}
 
     main_path, llama_path = launched(main_phases), launched((19, 20, 21, 22))
+    bert_path = launched((29,))
     if set(main_phases) <= phases:
         missing = [n for n, c in main_path.items() if c == 0]
         require(not missing, f"main path never launched {missing}")
@@ -4646,12 +5142,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": main_path[name],
             "launches_llama": llama_path[name],
+            "launches_bert": bert_path[name],
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "device_ms": r.get("device_ms"), "cold_ms": r.get("cold_ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),
-            **{k: r[k] for k in ("also", "llama") if k in r},
+            **{k: r[k] for k in ("also", "llama", "bert") if k in r},
             "pass": name in kern})
     log(json.dumps({"e2e": e2e, "launches_by_phase": counts}))
     log(json.dumps({"kernels": summary}))

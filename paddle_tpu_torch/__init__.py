@@ -18,12 +18,13 @@ parallelism: ``distributed.mesh``, ``distributed.communication``,
 (``io.packing``), remat policies, loss scaling, checkpoints
 (``distributed.checkpoint``) and preemption, training through the nn API
 (``GPTForCausalLM`` with ``GPTPretrainingCriterion``), run telemetry and
-the ops endpoint (``observability``), and their thirteen attention
-kernels (``ops.kernels``). The rest of the Paddle API surface is not
-ported yet.
+the ops endpoint (``observability``), the BERT encoder
+(``models.bert``) with ``nn.functional``'s attention (full and varlen),
+and their thirteen attention kernels (``ops.kernels``). The rest of the
+Paddle API surface is not ported yet.
 """
-from . import (device, distributed, io, models, observability, ops,
+from . import (device, distributed, io, models, nn, observability, ops,
                parallel, serving, utils)
 
-__all__ = ["device", "distributed", "io", "models", "observability", "ops",
-           "parallel", "serving", "utils"]
+__all__ = ["device", "distributed", "io", "models", "nn", "observability",
+           "ops", "parallel", "serving", "utils"]

@@ -19,9 +19,12 @@
 //   K-SDQ `flash_attention_bwd_dq_seg` and K-SDKV
 //         `flash_attention_bwd_dkv_seg` replace `_dq_kernel_seg` and
 //         `_dkv_kernel_seg` (launched by `_dq_call_seg`, `_dkv_call_seg`):
-//         causal self-attention where a pair is visible only when its
-//         query and key carry the same (B, S) int32 segment id (pad -1
-//         attends only to pad).
+//         attention where a pair is visible only when the query's (B, Sq)
+//         int32 segment id equals the key's (B, Sk) one (pad -1 attends
+//         only to pad): causal self-attention (one id array, Sq == Sk), or
+//         full attention with distinct key-side ids and Sq != Sk (varlen
+//         attention, BERT's padding mask). A query row that sees no key
+//         has lse = -1e30 / log2 e from the forward and adds nothing.
 //
 // Per visible (query, key) pair, in natural units:
 //   s = scale * q.k,  p = exp(s - lse),  dp = dO.v,  ds = p * (dp - delta),
@@ -83,7 +86,8 @@
 //     PERF.md): two consumer warpgroups a CTA were slower for both
 //     kernels at the training shape;
 //   * segments: a producer skips a tile before copying it when no id of
-//     the tile is in the CTA's 1024-bit set of its own rows' ids (hashed by
+//     the tile (key-side ids in dQ, query-side in dK/dV) is in the CTA's
+//     1024-bit set of its own rows' ids (hashed by
 //     their low 10 bits, built once per CTA), the forward's method. A miss
 //     proves that no pair of the tile shares a segment, a collision only
 //     costs a tile that the mask zeroes, so the result is exact for any
@@ -200,13 +204,14 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int r0,
   }
 }
 
-// SEG: a pair is visible only within one segment id (needs Sq == Sk).
+// SEG: a pair is visible only where seg_q[query] == seg_k[key].
 template <int D, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, const int* __restrict__ seg,
+                const float* __restrict__ delta,
+                const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                 float* __restrict__ dq, int Sq, int Sk, int H, int qs, int ks,
                 int vs, int dos, float scale, int causal) {
   constexpr int P = pitch<D>();
@@ -247,7 +252,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lse2[tid] = row < Sq ? lse[at] * kLog2e : 0.f;
     dlt[tid] = row < Sq ? delta[at] : 0.f;
   }
-  if (SEG) load_seg(segq, seg, b, q0, Sq);
+  if (SEG) load_seg(segq, seg_q, b, q0, Sq);
 
   float acc[4][DC];
 #pragma unroll
@@ -260,7 +265,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * BK;
     if (SEG) {
-      load_seg(segk, seg, b, k0, Sk);
+      load_seg(segk, seg_k, b, k0, Sk);
       __syncthreads();
       // no pair shares a segment: skip (the vote is also the barrier
       // before the next tile overwrites segk)
@@ -344,7 +349,8 @@ __global__ void __launch_bounds__(NT)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, const int* __restrict__ seg,
+                 const float* __restrict__ delta,
+                 const int* __restrict__ seg_q, const int* __restrict__ seg_k,
                  float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
                  int H, int qs, int ks, int vs, int dos, float scale,
                  int causal) {
@@ -381,7 +387,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile<D>(Ks, kp, k0, Sk, ks, scale2);
   load_tile<D>(Vs, vp, k0, Sk, vs, 1.f);
-  if (SEG) load_seg(segk, seg, b, k0, Sk);
+  if (SEG) load_seg(segk, seg_k, b, k0, Sk);
 
   float adk[4][DC], adv[4][DC];
 #pragma unroll
@@ -394,7 +400,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int qb = qstart; qb < nqb; ++qb) {
     const int q0 = qb * BQ;
     if (SEG) {
-      load_seg(segq, seg, b, q0, Sq);
+      load_seg(segq, seg_q, b, q0, Sq);
       __syncthreads();
       if (!tile_visible(segk, segq, k0, q0, Sq, Sk, causal, true)) continue;
     }
@@ -495,17 +501,18 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, bool SEG>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
-                        const void* seg, void* dq_or_dk, void* dv, int batch,
-                        int Sq, int Sk, int H, int qs, int ks, int vs,
-                        int dos, float scale, int causal,
-                        cudaStream_t stream) {
+                        const void* seg_q, const void* seg_k,
+                        void* dq_or_dk, void* dv, int batch, int Sq, int Sk,
+                        int H, int qs, int ks, int vs, int dos, float scale,
+                        int causal, cudaStream_t stream) {
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   const float* dop = static_cast<const float*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(delta);
-  const int* sp = static_cast<const int*>(seg);
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
   if (dv == nullptr) {
     const size_t smem = dq_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
@@ -514,8 +521,8 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + BQ - 1) / BQ, H, batch);
     flash_dq_kernel<D, SEG><<<grid, NT, smem, stream>>>(
-        qp, kp, vp, dop, lp, dp, sp, static_cast<float*>(dq_or_dk), Sq, Sk,
-        H, qs, ks, vs, dos, scale, causal);
+        qp, kp, vp, dop, lp, dp, sq, sk, static_cast<float*>(dq_or_dk), Sq,
+        Sk, H, qs, ks, vs, dos, scale, causal);
   } else {
     const size_t smem = dkv_smem_bytes<D>();
     cudaError_t err = cudaFuncSetAttribute(
@@ -524,7 +531,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + BK - 1) / BK, H, batch);
     flash_dkv_kernel<D, SEG><<<grid, NT, smem, stream>>>(
-        qp, kp, vp, dop, lp, dp, sp, static_cast<float*>(dq_or_dk),
+        qp, kp, vp, dop, lp, dp, sq, sk, static_cast<float*>(dq_or_dk),
         static_cast<float*>(dv), Sq, Sk, H, qs, ks, vs, dos, scale, causal);
   }
   return cudaGetLastError();
@@ -588,7 +595,8 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     const int* __restrict__ seg,
+                     const int* __restrict__ seg_q,
+                     const int* __restrict__ seg_k,
                      __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H,
                      float scale, int causal) {
   using L = DqSmem<D>;
@@ -640,13 +648,13 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                  q0, b);
       }
     }
-    if (SEG) fill_set<DQ_ROWS>(bloom, seg, b, q0, Sq, lane);
+    if (SEG) fill_set<DQ_ROWS>(bloom, seg_q, b, q0, Sq, lane);
     int stage = 0;
     uint32_t phase = 0;
     for (int kb = 0; kb < nkb; ++kb) {
       const int k0 = kb * KT;
       int ids[KT / 32];
-      if (SEG && !tile_hits<KT>(ids, bloom, seg, b, k0, Sk, lane))
+      if (SEG && !tile_hits<KT>(ids, bloom, seg_k, b, k0, Sk, lane))
         continue;                      // no key shares a segment
       mbar_wait(empty(stage), phase ^ 1);
       if (SEG) {
@@ -688,7 +696,7 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       const size_t at = ((size_t)b * Sq + row) * H + h;
       lse2[hr] = row < Sq ? lse[at] * kLog2e : 0.f;
       dlt[hr] = row < Sq ? delta[at] : 0.f;
-      if (SEG) sq_id[hr] = row < Sq ? seg[(size_t)b * Sq + row] : INT_MIN;
+      if (SEG) sq_id[hr] = row < Sq ? seg_q[(size_t)b * Sq + row] : INT_MIN;
     }
     float acc[NO];
 #pragma unroll
@@ -779,7 +787,8 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      const int* __restrict__ seg,
+                      const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_k,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
                       float scale, int causal) {
@@ -834,13 +843,13 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                  b);
       }
     }
-    if (SEG) fill_set<DKV_KEYS>(bloom, seg, b, k0, Sk, lane);
+    if (SEG) fill_set<DKV_KEYS>(bloom, seg_k, b, k0, Sk, lane);
     int stage = 0;
     uint32_t phase = 0;
     for (int qb = qstart; qb < nqb; ++qb) {
       const int q0 = qb * QT;
       int ids[QT / 32];
-      if (SEG && !tile_hits<QT>(ids, bloom, seg, b, q0, Sq, lane))
+      if (SEG && !tile_hits<QT>(ids, bloom, seg_q, b, q0, Sq, lane))
         continue;                      // no query shares a segment
       // the tile's lse and delta (one fp32 NH apart each) are read before
       // the wait for a free stage, so their latency overlaps it
@@ -891,7 +900,7 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int key = key0 + 8 * hr;
-        sk_id[hr] = key < Sk ? seg[(size_t)b * Sk + key] : INT_MIN;
+        sk_id[hr] = key < Sk ? seg_k[(size_t)b * Sk + key] : INT_MIN;
       }
     }
     float adk[NO], adv[NO];
@@ -991,9 +1000,10 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 template <int D, bool SEG>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
-                   const void* seg, void* dq_or_dk, void* dv, int batch,
-                   int Sq, int Sk, int H, int qs, int ks, int vs, int dos,
-                   float scale, int causal, cudaStream_t stream) {
+                   const void* seg_q, const void* seg_k, void* dq_or_dk,
+                   void* dv, int batch, int Sq, int Sk, int H, int qs, int ks,
+                   int vs, int dos, float scale, int causal,
+                   cudaStream_t stream) {
   const size_t out_bytes =
       (size_t)batch * (dv == nullptr ? Sq : Sk) * H * D * 2;
   if ((dv == nullptr ? Sk : Sq) == 0) {   // nothing to attend: zeros
@@ -1013,7 +1023,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(delta);
-  const int* sp = static_cast<const int*>(seg);
+  const int* sq = static_cast<const int*>(seg_q);
+  const int* sk = static_cast<const int*>(seg_k);
   if (dv == nullptr) {
     constexpr int smem = DqSmem<D>::bytes;
     err = cudaFuncSetAttribute(flash_dq_kernel_sm90<D, SEG>,
@@ -1022,8 +1033,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + DQ_ROWS - 1) / DQ_ROWS, H, batch);
     flash_dq_kernel_sm90<D, SEG><<<grid, NT, smem, stream>>>(
-        mq, mk, mv, mdo, lp, dp, sp, static_cast<__nv_bfloat16*>(dq_or_dk),
-        Sq, Sk, H, scale, causal);
+        mq, mk, mv, mdo, lp, dp, sq, sk,
+        static_cast<__nv_bfloat16*>(dq_or_dk), Sq, Sk, H, scale, causal);
   } else {
     constexpr int smem = DkvSmem<D>::bytes;
     err = cudaFuncSetAttribute(flash_dkv_kernel_sm90<D, SEG>,
@@ -1032,7 +1043,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + DKV_KEYS - 1) / DKV_KEYS, H, batch);
     flash_dkv_kernel_sm90<D, SEG><<<grid, NT, smem, stream>>>(
-        mq, mk, mv, mdo, lp, dp, sp, static_cast<__nv_bfloat16*>(dq_or_dk),
+        mq, mk, mv, mdo, lp, dp, sq, sk,
+        static_cast<__nv_bfloat16*>(dq_or_dk),
         static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, scale, causal);
   }
   return cudaGetLastError();
@@ -1042,19 +1054,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <bool SEG>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
-             const void* lse, const void* delta, const void* seg,
-             void* dq_or_dk, void* dv, int batch, int Sq, int Sk, int H,
-             int D, int qs, int ks, int vs, int dos, float scale, int causal,
-             int dtype, void* stream) {
-  if (batch < 0 || Sq < 0 || Sk < 0 || H < 0 || (causal && Sq != Sk) ||
-      (SEG && Sq != Sk))
+             const void* lse, const void* delta, const void* seg_q,
+             const void* seg_k, void* dq_or_dk, void* dv, int batch, int Sq,
+             int Sk, int H, int D, int qs, int ks, int vs, int dos,
+             float scale, int causal, int dtype, void* stream) {
+  if (batch < 0 || Sq < 0 || Sk < 0 || H < 0 || (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || H == 0 || (dv == nullptr ? Sq : Sk) == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_LAUNCH(FN, DD)                                                 \
-  return (int)FN<DD, SEG>(q, k, v, dout, lse, delta, seg, dq_or_dk, dv,   \
-                          batch, Sq, Sk, H, qs, ks, vs, dos, scale, causal, \
-                          s)
+  return (int)FN<DD, SEG>(q, k, v, dout, lse, delta, seg_q, seg_k,         \
+                          dq_or_dk, dv, batch, Sq, Sk, H, qs, ks, vs, dos,  \
+                          scale, causal, s)
   if (dtype == 0 && D == 64) PTT_LAUNCH(launch_fp32, 64);
   if (dtype == 0 && D == 128) PTT_LAUNCH(launch_fp32, 128);
   if (dtype == 1 && D == 64) PTT_LAUNCH(sm90::launch, 64);
@@ -1076,9 +1087,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int k_rs, int v_rs, int do_rs,
                                       float scale, int causal, int dtype,
                                       void* stream) {
-  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, dq, nullptr,
-                         batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
-                         do_rs, scale, causal, dtype, stream);
+  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, nullptr, dq,
+                         nullptr, batch, sq, sk, heads, head_dim, q_rs, k_rs,
+                         v_rs, do_rs, scale, causal, dtype, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -1090,36 +1101,32 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int do_rs, float scale, int causal,
                                        int dtype, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, batch,
-                         sq, sk, heads, head_dim, q_rs, k_rs, v_rs, do_rs,
-                         scale, causal, dtype, stream);
+  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv,
+                         batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
+                         do_rs, scale, causal, dtype, stream);
 }
 
-// Causal self-attention within segments: seg is (B, S) int32.
-extern "C" int flash_attention_bwd_dq_seg(const void* q, const void* k,
-                                          const void* v, const void* dout,
-                                          const void* lse, const void* delta,
-                                          const void* seg, void* dq,
-                                          int batch, int seqlen, int heads,
-                                          int head_dim, int q_rs, int k_rs,
-                                          int v_rs, int do_rs, float scale,
-                                          int dtype, void* stream) {
-  return dispatch<true>(q, k, v, dout, lse, delta, seg, dq, nullptr, batch,
-                        seqlen, seqlen, heads, head_dim, q_rs, k_rs, v_rs,
-                        do_rs, scale, 1, dtype, stream);
+// Within segments: seg_q (B, sq) and seg_k (B, sk) int32 (the same pointer
+// for self-attention); causal needs sq == sk.
+extern "C" int flash_attention_bwd_dq_seg(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    void* dq, int batch, int sq, int sk, int heads, int head_dim, int q_rs,
+    int k_rs, int v_rs, int do_rs, float scale, int causal, int dtype,
+    void* stream) {
+  return dispatch<true>(q, k, v, dout, lse, delta, seg_q, seg_k, dq, nullptr,
+                        batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
+                        do_rs, scale, causal, dtype, stream);
 }
 
-extern "C" int flash_attention_bwd_dkv_seg(const void* q, const void* k,
-                                           const void* v, const void* dout,
-                                           const void* lse,
-                                           const void* delta, const void* seg,
-                                           void* dk, void* dv, int batch,
-                                           int seqlen, int heads,
-                                           int head_dim, int q_rs, int k_rs,
-                                           int v_rs, int do_rs, float scale,
-                                           int dtype, void* stream) {
+extern "C" int flash_attention_bwd_dkv_seg(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, const void* seg_q, const void* seg_k,
+    void* dk, void* dv, int batch, int sq, int sk, int heads, int head_dim,
+    int q_rs, int k_rs, int v_rs, int do_rs, float scale, int causal,
+    int dtype, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
-  return dispatch<true>(q, k, v, dout, lse, delta, seg, dk, dv, batch,
-                        seqlen, seqlen, heads, head_dim, q_rs, k_rs, v_rs,
-                        do_rs, scale, 1, dtype, stream);
+  return dispatch<true>(q, k, v, dout, lse, delta, seg_q, seg_k, dk, dv,
+                        batch, sq, sk, heads, head_dim, q_rs, k_rs, v_rs,
+                        do_rs, scale, causal, dtype, stream);
 }

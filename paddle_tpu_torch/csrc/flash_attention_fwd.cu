@@ -9,10 +9,15 @@
 //          needs Sq == Sk.
 //   K-SEG  `flash_attention_fwd_packed_seg` replaces
 //          paddle_tpu/ops/pallas/flash_attention_packed.py `_fwd_kernel_seg`
-//          (launched by `_fwd_call_seg`): causal attention over the same
-//          layout where a pair is visible only when its query and key carry
-//          the same (B, S) int32 segment id (pad id -1 attends only to pad);
-//          serving's `prefill_packed` and the packed-sequence trainer.
+//          (launched by `_fwd_call_seg`): attention over the same layout
+//          where a pair is visible only when the query's (B, Sq) int32
+//          segment id equals the key's (B, Sk) one (pad id -1 attends only
+//          to pad). Causal self-attention (one id array, Sq == Sk) is
+//          serving's `prefill_packed` and the packed-sequence trainer; full
+//          attention takes distinct key-side ids and Sq != Sk (varlen
+//          attention over two `cu_seqlens`, BERT's padding mask: query ids
+//          0, key ids 0 or -1). Causal with distinct key ids is refused by
+//          the wrapper, as the TPU kernel refuses it.
 //   K-BSHD replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
 //          (launched by `_flash_call`): causal attention over (B, S, H, D),
 //          serving's `prefill_batch` and the nn-API forward. A (B, S, H, D)
@@ -25,7 +30,7 @@
 // batch is its rows back to back. All entries write a dense `o`
 // (B, Sq, H*D) in q's dtype and a natural-log `lse` (B, Sq, H) fp32,
 // lse = (m + log2 l) / log2 e with m in log2 units; a row that sees no key
-// writes o = 0.
+// writes o = 0 and lse = -1e30 / log2 e, as the Pallas kernel does.
 //
 // What bounds it on the H100: ~4*d FLOPs per visible (query, key) pair
 // (two products of 2*d each) against 2-byte q, k, v, o read or written
@@ -74,7 +79,8 @@
 //   * causal k-tiles above the diagonal are never visited; with segment
 //     ids the producer skips a k-tile before loading it when no key of the
 //     tile has an id that any row of the q-block has (a 1024-bit set of
-//     the q-block's ids, hashed by their low 10 bits, built once per CTA):
+//     the q-block's ids, hashed by their low 10 bits, built once per CTA
+//     from the query-side ids and tested against the key-side ones):
 //     a miss proves that no pair shares a segment, a hash collision only
 //     costs a tile that the mask then zeroes, so the result is exact for
 //     any int32 ids;
@@ -126,12 +132,12 @@ template <int D> constexpr size_t smem_bytes() {
 }
 
 // q, k, v rows are `qs`, `ks`, `vs` elements apart and a batch is its
-// rows back to back; o is dense. SEG needs Sq == Sk.
+// rows back to back; o is dense. SEG: segq (B, Sq) and segk (B, Sk) ids.
 template <int D, bool SEG>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ seg,
-                 float* __restrict__ o, float* __restrict__ lse, int Sq,
+                 const float* __restrict__ v, const int* __restrict__ seg_q,
+                 const int* __restrict__ seg_k, float* __restrict__ o, float* __restrict__ lse, int Sq,
                  int Sk, int H, int qs, int ks, int vs, float scale2,
                  int causal) {
   constexpr int QP = q_pitch<D>();
@@ -167,7 +173,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         row < Sq ? qp[(size_t)row * qs + c] * scale2 : 0.f;
   }
   if (SEG && tid < BQ)
-    segq[tid] = (q0 + tid < Sq) ? seg[(size_t)b * Sq + q0 + tid] : INT_MIN;
+    segq[tid] = (q0 + tid < Sq) ? seg_q[(size_t)b * Sq + q0 + tid] : INT_MIN;
   __syncthreads();
 
   float m_i[4], l_i[4], acc[4][DC];
@@ -185,7 +191,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = kb * BK;
     if (SEG) {
       if (tid < BK)
-        segk[tid] = (k0 + tid < Sk) ? seg[(size_t)b * Sk + k0 + tid] : INT_MIN;
+        segk[tid] = (k0 + tid < Sk) ? seg_k[(size_t)b * Sk + k0 + tid] : INT_MIN;
       __syncthreads();
       int any = 0;
 #pragma unroll
@@ -303,7 +309,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D, bool SEG>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
-                        const void* seg, void* o, void* lse, int batch,
+                        const void* seg_q, const void* seg_k, void* o,
+                        void* lse, int batch,
                         int Sq, int Sk, int H, int qs, int ks, int vs,
                         float scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
@@ -314,8 +321,9 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + BQ - 1) / BQ, H, batch);
   flash_fwd_kernel<D, SEG><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(seg),
-      static_cast<float*>(o), static_cast<float*>(lse), Sq, Sk, H, qs, ks,
+      static_cast<const float*>(v), static_cast<const int*>(seg_q),
+      static_cast<const int*>(seg_k), static_cast<float*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, qs, ks,
       vs, scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -357,7 +365,8 @@ __global__ void __launch_bounds__(NT, 1)
 flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      const int* __restrict__ seg,
+                      const int* __restrict__ seg_q,
+                      const int* __restrict__ seg_k,
                       __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, int Sq, int Sk, int H,
                       float scale2, int causal) {
@@ -406,13 +415,13 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       for (int hf = 0; hf < D / 64; ++hf)
         tma_load(base + hf * BQ * ROWB, &tq, q_full, h * D + 64 * hf, q0, b);
     }
-    if (SEG) fill_set<BQ>(bloom, seg, b, q0, Sq, lane);
+    if (SEG) fill_set<BQ>(bloom, seg_q, b, q0, Sq, lane);
     int stage = 0;
     uint32_t phase = 0;
     for (int kb = 0; kb < nkb; ++kb) {
       const int k0 = kb * BK;
       int ids[BK / 32];
-      if (SEG && !tile_hits<BK>(ids, bloom, seg, b, k0, Sk, lane))
+      if (SEG && !tile_hits<BK>(ids, bloom, seg_k, b, k0, Sk, lane))
         continue;                      // no key shares a segment
       mbar_wait(empty(stage), phase ^ 1);
       if (SEG) {
@@ -451,7 +460,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int row = row0 + 8 * hr;
-        sq_id[hr] = row < Sq ? seg[(size_t)b * Sq + row] : INT_MIN;
+        sq_id[hr] = row < Sq ? seg_q[(size_t)b * Sq + row] : INT_MIN;
       }
     }
     float acc[NO];
@@ -574,7 +583,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
 template <int D, bool SEG>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* seg, void* o, void* lse, int batch, int Sq,
+                   const void* seg_q, const void* seg_k, void* o, void* lse,
+                   int batch, int Sq,
                    int Sk, int H, int qs, int ks, int vs, float scale,
                    int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
@@ -589,8 +599,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, batch);
   flash_fwd_kernel_sm90<D, SEG><<<grid, NT, smem, stream>>>(
-      mq, mk, mv, static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Sq, Sk, H,
+      mq, mk, mv, static_cast<const int*>(seg_q),
+      static_cast<const int*>(seg_k), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Sq, Sk, H,
       scale * kLog2e, causal);
   return cudaGetLastError();
 }
@@ -598,17 +608,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace sm90
 
 template <bool SEG>
-int dispatch(const void* q, const void* k, const void* v, const void* seg,
-             void* o, void* lse, int batch, int Sq, int Sk, int H, int D,
-             int qs, int ks, int vs, float scale, int causal, int dtype,
-             void* stream) {
+int dispatch(const void* q, const void* k, const void* v, const void* seg_q,
+             const void* seg_k, void* o, void* lse, int batch, int Sq,
+             int Sk, int H, int D, int qs, int ks, int vs, float scale,
+             int causal, int dtype, void* stream) {
   if (batch <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (Sk <= 0 || (causal && Sq != Sk) || (SEG && Sq != Sk))
-    return (int)cudaErrorInvalidValue;
+  if (Sk <= 0 || (causal && Sq != Sk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_LAUNCH(FN, DD)                                                 \
-  return (int)FN<DD, SEG>(q, k, v, seg, o, lse, batch, Sq, Sk, H, qs, ks, \
-                          vs, scale, causal, s)
+  return (int)FN<DD, SEG>(q, k, v, seg_q, seg_k, o, lse, batch, Sq, Sk, H, \
+                          qs, ks, vs, scale, causal, s)
   if (dtype == 0 && D == 64) PTT_LAUNCH(launch_fp32, 64);
   if (dtype == 0 && D == 128) PTT_LAUNCH(launch_fp32, 128);
   if (dtype == 1 && D == 64) PTT_LAUNCH(sm90::launch, 64);
@@ -629,19 +638,20 @@ extern "C" int flash_attention_fwd_packed(const void* q, const void* k,
                                           int k_rs, int v_rs, float scale,
                                           int causal, int dtype,
                                           void* stream) {
-  return dispatch<false>(q, k, v, nullptr, o, lse, batch, sq, sk, heads,
-                         head_dim, q_rs, k_rs, v_rs, scale, causal, dtype,
-                         stream);
+  return dispatch<false>(q, k, v, nullptr, nullptr, o, lse, batch, sq, sk,
+                         heads, head_dim, q_rs, k_rs, v_rs, scale, causal,
+                         dtype, stream);
 }
 
-// The K-SEG entry with a row stride per operand; causal self-attention.
-extern "C" int flash_attention_fwd_packed_seg(const void* q, const void* k,
-                                              const void* v, const void* seg,
-                                              void* o, void* lse, int batch,
-                                              int seqlen, int heads,
-                                              int head_dim, int q_rs,
-                                              int k_rs, int v_rs, float scale,
-                                              int dtype, void* stream) {
-  return dispatch<true>(q, k, v, seg, o, lse, batch, seqlen, seqlen, heads,
-                        head_dim, q_rs, k_rs, v_rs, scale, 1, dtype, stream);
+// The K-SEG entry with a row stride per operand: seg_q (B, sq) and seg_k
+// (B, sk) int32 (the same pointer for self-attention); causal needs
+// sq == sk.
+extern "C" int flash_attention_fwd_packed_seg(
+    const void* q, const void* k, const void* v, const void* seg_q,
+    const void* seg_k, void* o, void* lse, int batch, int sq, int sk,
+    int heads, int head_dim, int q_rs, int k_rs, int v_rs, float scale,
+    int causal, int dtype, void* stream) {
+  return dispatch<true>(q, k, v, seg_q, seg_k, o, lse, batch, sq, sk, heads,
+                        head_dim, q_rs, k_rs, v_rs, scale, causal, dtype,
+                        stream);
 }

@@ -1,5 +1,12 @@
-"""Model families (port of ``paddle_tpu.models``): GPT and LLaMA."""
-from . import gpt, llama
+"""Model families (port of ``paddle_tpu.models``): GPT, LLaMA and BERT."""
+from . import bert, gpt, llama
+from .bert import (
+    BertConfig,
+    BertForPretraining,
+    BertModel,
+    bert_base,
+    bert_large,
+)
 from .gpt import (
     GPTConfig,
     GPTForCausalLM,
@@ -17,7 +24,8 @@ from .llama import (
     llama_tiny,
 )
 
-__all__ = ["gpt", "llama", "GPTConfig", "GPTModel", "GPTForCausalLM",
+__all__ = ["bert", "gpt", "llama", "BertConfig", "BertModel",
+           "BertForPretraining", "bert_base", "bert_large", "GPTConfig", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_345m", "gpt_1p3b",
            "LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_7b"]

@@ -8,15 +8,17 @@ there.
 """
 from __future__ import annotations
 
+import torch
+
 from .kernels.flash_attention import attention_bshd
 from .kernels.flash_attention_packed import (flash_attention_packed,
-                                             flash_attention_packed_seg,
-                                             flash_attention_packed_segmented)
+                                             flash_attention_packed_seg)
+from .kernels import flash_attention_packed as _fp
 from .kernels import paged_attention as _paged
 
 __all__ = ["paged_attention", "paged_multiquery_attention",
-           "segment_attention_packed", "causal_attention",
-           "causal_attention_packed", "ring_is_zigzag"]
+           "segment_attention_packed", "dense_segment_attention",
+           "causal_attention", "causal_attention_packed", "ring_is_zigzag"]
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, scale=None,
@@ -44,19 +46,52 @@ def paged_multiquery_attention(q, k_pages, v_pages, page_table, seq_lens,
                                              scale=scale, scales=scales)
 
 
+def dense_segment_attention(q, k, v, nh, seg_q, seg_k, scale=None):
+    """Plain PyTorch causal attention with distinct key-side ids over the
+    packed ``(B, S, NH*D)`` layout (``xla_segment_attention``'s causal
+    case), one dense fp32 softmax: query i attends key j only where
+    ``seg_q[i] == seg_k[j]`` and, bottom-right aligned per sequence,
+    ``jk <= iq + Lk - Lq`` (``iq`` and ``jk`` their local indices in a
+    sequence of ``Lq`` queries and ``Lk`` keys). A row that sees no key
+    outputs 0. Taken on the CPU only: no kernel computes this case, and
+    :func:`segment_attention_packed` raises on CUDA."""
+    logits, ok = _fp._scores(q, k, nh, False, _fp._scale_of(q, nh, scale),
+                             seg_q, seg_k)             # ok (B, 1, Sq, Sk)
+    seg_q, seg_k = seg_q.long(), seg_k.long()
+    iq = torch.arange(q.shape[1], device=q.device)
+    ik = torch.arange(k.shape[1], device=q.device)
+    eq_qq = seg_q[:, :, None] == seg_q[:, None, :]
+    eq_kk = seg_k[:, :, None] == seg_k[:, None, :]
+    pos_q = (eq_qq & (iq[None, None, :] < iq[None, :, None])).sum(-1)
+    pos_k = (eq_kk & (ik[None, None, :] < ik[None, :, None])).sum(-1)
+    bound = pos_q + ok[:, 0].sum(-1) - eq_qq.sum(-1)       # (B, Sq)
+    ok = ok & (pos_k[:, None, :] <= bound[:, :, None])[:, None]
+    p = torch.softmax(logits.masked_fill(~ok, _fp._NEG_INF), dim=-1)
+    p = p.masked_fill(~ok, 0.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), _fp._unpack(v, nh))
+    return o.reshape(q.shape)
+
+
 def segment_attention_packed(q, k, v, nh, seg_q, seg_k=None, causal=True,
                              scale=None):
-    """Segment-masked causal self-attention over the packed
-    ``(B, S, NH*D)`` layout (serving's ``prefill_packed``). K-SEG on
-    CUDA. Distinct k-side ids (cross-attention varlen) and non-causal
-    segments are not ported yet and raise."""
-    if seg_k is not None or not causal:
-        raise NotImplementedError(
-            "segment_attention_packed: only causal self-attention "
-            "(seg_k=None) is ported")
-    o, _ = flash_attention_packed_segmented(q, k, v, seg_q, nh,
-                                            scale=scale)
-    return o
+    """Differentiable segment-masked attention over the packed
+    ``(B, S, NH*D)`` layout, causal or not: query i attends key j only
+    where ``seg_q[i] == seg_k[j]`` (``seg_k`` None: the query ids). K-SEG
+    forward, K-SDQ and K-SDKV backward on CUDA (serving's
+    ``prefill_packed``, ``nn.functional``'s segmented and varlen
+    attention, BERT's padded batches). Causal attention with distinct
+    key-side ids has no kernel (its causality is aligned per sequence):
+    the CPU takes :func:`dense_segment_attention`, CUDA raises."""
+    if causal and seg_k is not None:
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "segment_attention_packed: causal attention with distinct "
+                "key-side segment ids is not ported to the GPU "
+                "(ROADMAP.md B.2); the JAX package runs it dense")
+        return dense_segment_attention(q, k, v, nh, seg_q, seg_k,
+                                       scale=scale)
+    return flash_attention_packed_seg(q, k, v, seg_q, nh, scale=scale,
+                                      segment_ids_k=seg_k, causal=causal)
 
 
 def causal_attention(q, k, v, scale=None):

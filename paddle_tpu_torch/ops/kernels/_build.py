@@ -59,14 +59,12 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": [_P] * 7 + [_I] * 9 + [_F, _I, _I, _P],
     # q, k, v, do, lse, delta, dk, dv, then as dq
     "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
-    # q, k, v, seg, o, lse, batch, seqlen, heads, head_dim, q_rs, k_rs,
-    # v_rs, scale, dtype, stream (causal)
-    "flash_attention_fwd_packed_seg": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-    # q, k, v, do, lse, delta, seg, dq, batch, seqlen, heads, head_dim,
-    # q_rs, k_rs, v_rs, do_rs, scale, dtype, stream (causal)
-    "flash_attention_bwd_dq_seg": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
-    # q, k, v, do, lse, delta, seg, dk, dv, then as dq_seg
-    "flash_attention_bwd_dkv_seg": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, seg_q, seg_k, o, lse, then as the packed entry
+    "flash_attention_fwd_packed_seg": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, delta, seg_q, seg_k, dq, then as the dq entry
+    "flash_attention_bwd_dq_seg": [_P] * 9 + [_I] * 9 + [_F, _I, _I, _P],
+    # q, k, v, do, lse, delta, seg_q, seg_k, dk, dv, then as dq_seg
+    "flash_attention_bwd_dkv_seg": [_P] * 10 + [_I] * 9 + [_F, _I, _I, _P],
 }
 
 

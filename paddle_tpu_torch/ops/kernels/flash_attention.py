@@ -15,7 +15,10 @@ K-BDKV   ``bshd_dkv``                ``_dkv_kernel`` (``_flash_bwd_call``)
 The three together are ``FlashAttentionBSHD`` (``attention_bshd``), the
 attention of the model's no-cache forward: serving's ``prefill_batch``
 (``generate()``, no gradient: K-BSHD alone) and the nn-API training path
-(``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` -> ``backward()``).
+(``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` -> ``backward()``),
+causal; and, full (``causal=False``), ``nn.functional``'s
+``scaled_dot_product_attention`` without a mask, which BERT's unpadded
+batches run.
 A ``(B, S, H, D)`` tensor whose last two dims are dense has the bytes of
 ``(B, S, H*D)`` with a row stride, so the kernels are the packed
 layout's: K-BSHD launches K-PACK's strided entry
@@ -27,7 +30,8 @@ qkv projection: they are read in place.
 
 Layouts: q, k, v, o and the gradients ``(B, S, H, D)``; ``lse`` (the
 forward's natural-log row normaliser) and ``delta`` ``(B, S, H)`` fp32.
-The kernels' causal mask is top-left with ``Sq == Sk``.
+The kernels' causal mask is top-left with ``Sq == Sk``; full attention
+takes ``Sq != Sk``.
 
 What bounds them on the H100: ~4*d (forward), ~6*d (dQ) and ~8*d (dK/dV)
 FLOPs per visible (query, key) pair, operations rather than bytes. In
@@ -99,10 +103,15 @@ def bshd_dkv_ref(q, k, v, do, lse, delta, causal=True, scale=None):
     return dk.view(k.shape), dv.view(v.shape)
 
 
-def _same_shape(what, q, k, v):
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"{what}: q, k, v must share one (B, S, H, D) "
-                         "shape (the causal mask is top-left, Sq == Sk)")
+def _same_shape(what, q, k, v, causal):
+    """q ``(B, Sq, H, D)`` and k, v ``(B, Sk, H, D)``; causal attention
+    (top-left) needs ``Sq == Sk``."""
+    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
+            or (q.shape[0], *q.shape[2:]) != (k.shape[0], *k.shape[2:])
+            or (causal and q.shape[1] != k.shape[1])):
+        raise ValueError(f"{what}: q (B, Sq, H, D) and k, v (B, Sk, H, D) "
+                         "expected, Sq == Sk when causal (the mask is "
+                         "top-left)")
 
 
 def bshd_fwd(q, k, v, causal=True, scale=None):
@@ -111,7 +120,7 @@ def bshd_fwd(q, k, v, causal=True, scale=None):
     tensors, K-BSHD for CUDA tensors. Returns ``(o, lse)``."""
     if q.device.type == "cpu":
         return causal_attention_ref(q, k, v, causal=causal, scale=scale)
-    _same_shape("bshd_fwd", q, k, v)
+    _same_shape("bshd_fwd", q, k, v, causal)
     o, lse = fp._launch_fwd("bshd_fwd", *_flat(q, k, v), q.shape[2],
                             causal, scale)
     LAUNCHES["K-BSHD"] += 1
@@ -128,7 +137,7 @@ def bshd_dq(q, k, v, do, lse, delta, causal=True, scale=None):
     if q.device.type == "cpu":
         return bshd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                            scale=scale)
-    _same_shape("bshd_dq", q, k, v)
+    _same_shape("bshd_dq", q, k, v, causal)
     dq = fp._launch_bwd("bshd_dq", "dq", *_flat(q, k, v, do), lse, delta,
                         q.shape[2], causal, scale)
     LAUNCHES["K-BDQ"] += 1
@@ -141,7 +150,7 @@ def bshd_dkv(q, k, v, do, lse, delta, causal=True, scale=None):
     if q.device.type == "cpu":
         return bshd_dkv_ref(q, k, v, do, lse, delta, causal=causal,
                             scale=scale)
-    _same_shape("bshd_dkv", q, k, v)
+    _same_shape("bshd_dkv", q, k, v, causal)
     dk, dv = fp._launch_bwd("bshd_dkv", "dkv", *_flat(q, k, v, do), lse,
                             delta, q.shape[2], causal, scale)
     LAUNCHES["K-BDKV"] += 1

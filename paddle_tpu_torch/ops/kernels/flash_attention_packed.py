@@ -16,8 +16,16 @@ K-SDKV   ``seg_dkv``                     ``_dkv_kernel_seg``
                                          (``_dkv_call_seg``)
 =======  ==============================  =====================================
 
-Segment ids: position i attends j only where ``seg[i] == seg[j]`` and
-``j <= i``, and pad id -1 attends only to pad. K-SEG is serving's
+Segment ids: query i attends key j only where ``seg_q[i] == seg_k[j]``
+(and ``j <= i`` when causal), and pad id -1 attends only to pad; without
+``segment_ids_k`` the keys carry the queries' ids. Causal attention takes
+one id array (self-attention, ``Sq == Sk``); full attention also takes
+distinct key-side ids and ``Sq != Sk`` (varlen attention over two
+``cu_seqlens``; BERT's padding mask, query ids 0 and key ids 0 or -1).
+Causal attention with distinct key-side ids raises, as the TPU kernel
+does. A query row that sees no key gives ``o = 0`` and
+``lse = EMPTY_LSE`` (``-1e30 / log2 e``, the Pallas kernel's value).
+K-SEG is serving's
 ``prefill_packed`` (every admitted request packed into one
 ``(1, T, NH*D)`` row) and the packed-sequence trainer's forward, which
 hands q, k, v over as column slices of the fused qkv. K-PACK, K-DQ and
@@ -37,9 +45,10 @@ K-BDQ and K-BDKV).
 
 Layouts are the JAX package's: q, k, v, o and the gradients are
 ``(B, S, NH*D)``; ``lse`` (the forward's natural-log row normaliser) and
-``delta`` are ``(B, Sq, NH)`` fp32. Causal attention is top-left with
-``Sq == Sk``; full attention takes ``Sq != Sk`` (ring attention's
-off-diagonal blocks). q, k and v may be column slices of the fused qkv
+``delta`` are ``(B, Sq, NH)`` fp32; segment ids ``(B, Sq)`` and
+``(B, Sk)`` int32. Causal attention is top-left with ``Sq == Sk``; full
+attention takes ``Sq != Sk`` (ring attention's off-diagonal blocks,
+varlen attention). q, k and v may be column slices of the fused qkv
 projection: the kernels take a row stride per operand, so those slices
 are read in place; only a tensor whose last dim is not contiguous, or
 whose batches are not its rows back to back, is copied first.
@@ -67,6 +76,7 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_packed_segmented", "segment_attention_ref",
+           "cu_seqlens_to_segment_ids", "EMPTY_LSE",
            "packed_attention_ref", "packed_dq_ref", "packed_dkv_ref",
            "segment_dq_ref", "segment_dkv_ref", "packed_fwd", "packed_dq",
            "packed_dkv", "seg_fwd", "seg_dq", "seg_dkv",
@@ -79,31 +89,41 @@ __all__ = ["flash_attention_packed_segmented", "segment_attention_ref",
 LAUNCHES = {"K-SEG": 0, "K-PACK": 0, "K-DQ": 0, "K-DKV": 0, "K-SDQ": 0,
             "K-SDKV": 0}
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# the lse of a row that sees no key: the kernels' (and the Pallas
+# kernel's) -1e30 sentinel in log2 units, over log2 e in fp32
+EMPTY_LSE = float(torch.tensor(-1e30) / torch.tensor(1.4426950408889634))
 
 
-def segment_attention_ref(q, k, v, segment_ids, nh, scale=None):
-    """Plain PyTorch version (mirrors ``xla_segment_attention`` for
-    causal self-attention): one dense segment-masked fp32 softmax over
-    the packed ``(B, S, NH*D)`` layout. Returns ``(o, lse)``; ``lse`` is
-    the natural-log row normaliser ``(B, S, NH)``."""
-    b, s, hp = q.shape
-    d = hp // nh
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+def cu_seqlens_to_segment_ids(cu_seqlens, total_len: int):
+    """Cumulative sequence starts -> per-token segment ids (the JAX
+    package's function of the same name). ``cu_seqlens`` int ``(nseq +
+    1,)`` with ``cu[0] == 0``; token t belongs to sequence i iff
+    ``cu[i] <= t < cu[i+1]``; tokens at or past ``cu[-1]`` get the pad
+    id -1. Returns ``(total_len,)`` int32 on ``cu_seqlens``' device."""
+    cu = torch.as_tensor(cu_seqlens).to(torch.int32)
+    pos = torch.arange(total_len, dtype=torch.int32, device=cu.device)
+    ids = torch.searchsorted(cu[1:].contiguous(), pos, right=True)
+    return torch.where(pos < cu[-1], ids.to(torch.int32),
+                       torch.full_like(pos, -1))
 
-    def unpack(x):
-        return x.reshape(b, s, nh, d)
 
-    qf = (unpack(q) * scale).float()
-    logits = torch.einsum("bqhd,bkhd->bhqk", qf, unpack(k).float())
-    seg = segment_ids.long()
-    idx = torch.arange(s, device=q.device)
-    ok = ((seg[:, :, None] == seg[:, None, :])
-          & (idx[None, :] <= idx[:, None])[None])[:, None]
-    logits = logits.masked_fill(~ok, _NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)                  # (B, nh, S)
+def segment_attention_ref(q, k, v, segment_ids, nh, scale=None,
+                          segment_ids_k=None, causal=True):
+    """Plain PyTorch K-SEG (mirrors ``_fwd_call_seg``): one dense
+    segment-masked fp32 softmax over the packed ``(B, S, NH*D)`` layout,
+    query ids ``segment_ids`` ``(B, Sq)`` against key ids
+    ``segment_ids_k`` ``(B, Sk)`` (default: the query ids). Returns
+    ``(o, lse)``; ``lse`` is the natural-log row normaliser
+    ``(B, Sq, NH)``, ``EMPTY_LSE`` on a row that sees no key (whose o is
+    0)."""
+    scale = _scale_of(q, nh, scale)
+    logits, ok = _scores(q, k, nh, causal, scale, segment_ids,
+                         segment_ids_k)
+    lse = torch.logsumexp(logits, dim=-1)                  # (B, nh, Sq)
+    lse = lse.masked_fill(~ok.any(-1), EMPTY_LSE)
     p = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0)
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), unpack(v))
-    return o.reshape(b, s, hp), lse.transpose(1, 2).contiguous()
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), _unpack(v, nh))
+    return o.reshape(q.shape), lse.transpose(1, 2).contiguous()
 
 
 # -- training: K-PACK, K-DQ, K-DKV and K-SEG, K-SDQ, K-SDKV ------------------
@@ -113,10 +133,11 @@ def _unpack(x, nh):
     return x.reshape(b, s, nh, hp // nh)
 
 
-def _scores(q, k, nh, causal, scale, seg=None):
+def _scores(q, k, nh, causal, scale, seg=None, seg_k=None):
     """fp32 ``scale * q.k`` as ``(B, NH, Sq, Sk)`` and the visibility
-    mask: top-left causal or all-true, and with ``seg`` ``(B, S)`` only
-    pairs of one segment id."""
+    mask: top-left causal or all-true, and with ``seg`` ``(B, Sq)`` only
+    pairs whose query id equals the key's (``seg_k`` ``(B, Sk)``, default
+    ``seg``)."""
     logits = torch.einsum("bqhd,bkhd->bhqk", _unpack(q, nh).float() * scale,
                           _unpack(k, nh).float())
     sq, sk = q.shape[1], k.shape[1]
@@ -127,8 +148,9 @@ def _scores(q, k, nh, causal, scale, seg=None):
     else:
         ok = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if seg is not None:
-        seg = seg.long()
-        ok = (ok[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
+        seg_k = (seg if seg_k is None else seg_k).long()
+        ok = (ok[None] & (seg.long()[:, :, None] == seg_k[:, None, :])
+              )[:, None]
     return logits.masked_fill(~ok, _NEG_INF), ok
 
 
@@ -149,8 +171,9 @@ def packed_attention_ref(q, k, v, nh, causal=True, scale=None):
             lse.transpose(1, 2).contiguous())
 
 
-def _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg):
-    logits, ok = _scores(q, k, nh, causal, scale, seg)
+def _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg,
+                  seg_k=None):
+    logits, ok = _scores(q, k, nh, causal, scale, seg, seg_k)
     p = torch.exp(logits - lse.float().transpose(1, 2)[..., None])
     p = p.masked_fill(~ok, 0.0)       # exactly 0 on masked entries
     dp = torch.einsum("bqhd,bkhd->bhqk", _unpack(do, nh).float(),
@@ -159,16 +182,18 @@ def _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg):
     return p, ds
 
 
-def _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, seg):
+def _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, seg, seg_k=None):
     scale = _scale_of(q, nh, scale)
-    _, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg)
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg,
+                          seg_k)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, _unpack(k, nh).float()) * scale
     return dq.reshape(q.shape).to(q.dtype)
 
 
-def _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, seg):
+def _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, seg, seg_k=None):
     scale = _scale_of(q, nh, scale)
-    p, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg,
+                          seg_k)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, _unpack(q, nh).float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, _unpack(do, nh).float())
     return (dk.reshape(k.shape).to(q.dtype),
@@ -189,17 +214,22 @@ def packed_dkv_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None):
     return _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, None)
 
 
-def segment_dq_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
-    """Plain PyTorch K-SDQ (mirrors ``_dq_call_seg`` for causal
-    self-attention): ``packed_dq_ref`` where a pair is visible only
-    within one segment id, with p exactly 0 on every masked entry."""
-    return _dq_ref(q, k, v, do, lse, delta, nh, True, scale, segment_ids)
+def segment_dq_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
+                   segment_ids_k=None, causal=True):
+    """Plain PyTorch K-SDQ (mirrors ``_dq_call_seg``): ``packed_dq_ref``
+    where a pair is visible only where the query's id equals the key's
+    (``segment_ids_k``, default the query ids), with p exactly 0 on every
+    masked entry."""
+    return _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, segment_ids,
+                   segment_ids_k)
 
 
-def segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
+def segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
+                    segment_ids_k=None, causal=True):
     """Plain PyTorch K-SDKV (mirrors ``_dkv_call_seg``, with lse and
-    delta untransposed ``(B, S, NH)``). Returns ``(dk, dv)``."""
-    return _dkv_ref(q, k, v, do, lse, delta, nh, True, scale, segment_ids)
+    delta untransposed ``(B, Sq, NH)``). Returns ``(dk, dv)``."""
+    return _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, segment_ids,
+                    segment_ids_k)
 
 
 def _kernel_device(what, q):
@@ -244,40 +274,64 @@ def packed_dkv(q, k, v, do, lse, delta, nh, causal=True, scale=None):
     return dkv
 
 
-def seg_fwd(q, k, v, segment_ids, nh, scale=None):
-    """Segment-masked causal forward over ``(B, S, NH*D)`` whose q, k, v
-    may be column slices of the fused qkv: the plain version for CPU
-    tensors, K-SEG for CUDA tensors. Returns ``(o, lse)``, the outputs of
-    the op ``paddle_tpu_torch::seg_fwd``."""
+def _key_ids(what, segment_ids, segment_ids_k, causal):
+    """The key-side ids (the query ids when none are given); causal
+    attention with distinct key ids raises, as the TPU kernel does: its
+    triangle compares global positions, where varlen causality is
+    aligned per sequence."""
+    if segment_ids_k is None:
+        return segment_ids
+    if causal:
+        raise ValueError(
+            f"{what}: causal attention with distinct key-side segment ids "
+            "is not supported (per-sequence bottom-right alignment); the "
+            "CPU takes ops.attention_dispatch.dense_segment_attention")
+    return segment_ids_k
+
+
+def seg_fwd(q, k, v, segment_ids, nh, scale=None, segment_ids_k=None,
+            causal=True):
+    """Segment-masked forward over ``(B, S, NH*D)`` whose q, k, v may be
+    column slices of the fused qkv: the plain version for CPU tensors,
+    K-SEG for CUDA tensors. Returns ``(o, lse)``, the outputs of the op
+    ``paddle_tpu_torch::seg_fwd``."""
     _kernel_device("seg_fwd", q)
+    seg_k = _key_ids("seg_fwd", segment_ids, segment_ids_k, causal)
     return torch.ops.paddle_tpu_torch.seg_fwd(
-        q, k, v, segment_ids, nh, float(_scale_of(q, nh, scale)))
+        q, k, v, segment_ids, seg_k, nh, bool(causal),
+        float(_scale_of(q, nh, scale)))
 
 
 # the JAX package's name for the forward
 flash_attention_packed_segmented = seg_fwd
 
 
-def seg_dq(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
+def seg_dq(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
+           segment_ids_k=None, causal=True):
     """Segmented dQ: the plain version for CPU tensors, K-SDQ for CUDA
     tensors."""
+    seg_k = _key_ids("seg_dq", segment_ids, segment_ids_k, causal)
     if q.device.type == "cpu":
         return segment_dq_ref(q, k, v, do, lse, delta, segment_ids, nh,
-                              scale=scale)
-    dq = _launch_bwd("seg_dq", "dq", q, k, v, do, lse, delta, nh, True,
-                     scale, segment_ids)
+                              scale=scale, segment_ids_k=seg_k,
+                              causal=causal)
+    dq = _launch_bwd("seg_dq", "dq", q, k, v, do, lse, delta, nh, causal,
+                     scale, (segment_ids, seg_k))
     LAUNCHES["K-SDQ"] += 1
     return dq
 
 
-def seg_dkv(q, k, v, do, lse, delta, segment_ids, nh, scale=None):
+def seg_dkv(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
+            segment_ids_k=None, causal=True):
     """Segmented dK, dV: the plain version for CPU tensors, K-SDKV for
     CUDA tensors. Returns ``(dk, dv)``."""
+    seg_k = _key_ids("seg_dkv", segment_ids, segment_ids_k, causal)
     if q.device.type == "cpu":
         return segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh,
-                               scale=scale)
-    dkv = _launch_bwd("seg_dkv", "dkv", q, k, v, do, lse, delta, nh, True,
-                      scale, segment_ids)
+                               scale=scale, segment_ids_k=seg_k,
+                               causal=causal)
+    dkv = _launch_bwd("seg_dkv", "dkv", q, k, v, do, lse, delta, nh, causal,
+                      scale, (segment_ids, seg_k))
     LAUNCHES["K-SDKV"] += 1
     return dkv
 
@@ -321,19 +375,20 @@ def _check(what, q, k, v, nh, causal, extra=(), seg=None):
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"{what}: q, k, v dtypes differ")
     if seg is not None:
-        if (seg.dtype != torch.int32 or tuple(seg.shape) != (b, sq)
-                or not seg.is_contiguous()):
-            raise ValueError(f"{what}: segment_ids must be contiguous "
-                             f"(B, S) = {(b, sq)} int32")
-        extra = (*extra, seg)
+        for ids, n, side in ((seg[0], sq, "q"), (seg[1], k.shape[1], "k")):
+            if (ids.dtype != torch.int32 or tuple(ids.shape) != (b, n)
+                    or not ids.is_contiguous()):
+                raise ValueError(f"{what}: {side}-side segment ids must be "
+                                 f"contiguous (B, S{side}) = {(b, n)} int32")
+        extra = (*extra, *seg)
     if any(t.device != q.device for t in (k, v, *extra)):
         raise ValueError(f"{what}: tensors on different devices")
     return d
 
 
 def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None):
-    """One forward launch (K-PACK, or K-SEG with ``seg``); the caller
-    counts it. Returns ``(o, lse)``."""
+    """One forward launch (K-PACK, or K-SEG with ``seg`` = the query- and
+    key-side ids); the caller counts it. Returns ``(o, lse)``."""
     d = _check(what, q, k, v, nh, causal, seg=seg)
     b, sq, hp = q.shape
     sk = k.shape[1]
@@ -354,9 +409,10 @@ def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None):
         else:
             entry = "flash_attention_fwd_packed_seg"
             rc = lib.flash_attention_fwd_packed_seg(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), b, sq, nh, d, q_rs, k_rs, v_rs,
-                float(scale), code, stream)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg[0].data_ptr(),
+                seg[1].data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, sk,
+                nh, d, q_rs, k_rs, v_rs, float(scale), int(bool(causal)),
+                code, stream)
     _build.check(rc, entry)
     return o, lse
 
@@ -365,7 +421,8 @@ def _launch_bwd(what, kind, q, k, v, do, lse, delta, nh, causal, scale,
                 seg=None):
     """One backward launch; the caller counts it. ``kind`` ``"dq"``
     launches a dQ kernel and returns dq, ``"dkv"`` a dK/dV kernel and
-    returns ``(dk, dv)``; ``seg`` selects the segmented entries."""
+    returns ``(dk, dv)``; ``seg`` (the query- and key-side ids) selects
+    the segmented entries."""
     d = _check(what, q, k, v, nh, causal, extra=(do, lse, delta), seg=seg)
     b, sq, hp = q.shape
     sk = k.shape[1]
@@ -388,13 +445,11 @@ def _launch_bwd(what, kind, q, k, v, do, lse, delta, nh, causal, scale,
     entry = "flash_attention_bwd_" + kind
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr()]
-    if seg is None:
-        dims = (b, sq, sk, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale),
-                int(bool(causal)))
-    else:
+    if seg is not None:
         entry += "_seg"
-        ptrs.append(seg.data_ptr())
-        dims = (b, sq, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale))
+        ptrs += [ids.data_ptr() for ids in seg]
+    dims = (b, sq, sk, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale),
+            int(bool(causal)))
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -437,7 +492,8 @@ _LIB = torch.library.Library("paddle_tpu_torch", "DEF")
 _LIB.define("packed_fwd(Tensor q, Tensor k, Tensor v, int nh, bool causal, "
             "float scale) -> (Tensor, Tensor)")
 _LIB.define("seg_fwd(Tensor q, Tensor k, Tensor v, Tensor segment_ids, "
-            "int nh, float scale) -> (Tensor, Tensor)")
+            "Tensor segment_ids_k, int nh, bool causal, float scale) -> "
+            "(Tensor, Tensor)")
 
 
 def _packed_fwd_cpu(q, k, v, nh, causal, scale):
@@ -451,13 +507,15 @@ def _packed_fwd_cuda(q, k, v, nh, causal, scale):
     return out
 
 
-def _seg_fwd_cpu(q, k, v, segment_ids, nh, scale):
+def _seg_fwd_cpu(q, k, v, segment_ids, segment_ids_k, nh, causal, scale):
     PLAIN_CALLS["K-SEG"] += 1
-    return segment_attention_ref(q, k, v, segment_ids, nh, scale=scale)
+    return segment_attention_ref(q, k, v, segment_ids, nh, scale=scale,
+                                 segment_ids_k=segment_ids_k, causal=causal)
 
 
-def _seg_fwd_cuda(q, k, v, segment_ids, nh, scale):
-    out = _launch_fwd("seg_fwd", q, k, v, nh, True, scale, segment_ids)
+def _seg_fwd_cuda(q, k, v, segment_ids, segment_ids_k, nh, causal, scale):
+    out = _launch_fwd("seg_fwd", q, k, v, nh, causal, scale,
+                      (segment_ids, segment_ids_k))
     LAUNCHES["K-SEG"] += 1
     return out
 
@@ -472,7 +530,8 @@ for _name, _cpu, _cuda, _meta in (
         ("packed_fwd", _packed_fwd_cpu, _packed_fwd_cuda,
          lambda q, k, v, nh, causal, scale: _fwd_meta(q, nh)),
         ("seg_fwd", _seg_fwd_cpu, _seg_fwd_cuda,
-         lambda q, k, v, segment_ids, nh, scale: _fwd_meta(q, nh))):
+         lambda q, k, v, segment_ids, segment_ids_k, nh, causal, scale:
+         _fwd_meta(q, nh))):
     _LIB.impl(_name, _cpu, "CPU")
     _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _meta, "Meta")
@@ -522,44 +581,58 @@ def flash_attention_packed(q, k, v, nh, causal=True, scale=None):
 
 
 class FlashAttentionPackedSeg(torch.autograd.Function):
-    """Segment-masked causal flash attention with its backward (mirrors
-    the JAX package's ``_flash_packed_seg`` custom_vjp for self-attention):
-    the forward is the op ``paddle_tpu_torch::seg_fwd`` (K-SEG) and saves
-    ``(q, k, v, seg, o, lse)``; the backward computes ``delta`` per head
-    in fp32 and runs K-SDQ and K-SDKV. The ids take no gradient. On CPU
-    tensors each step is its plain version."""
+    """Segment-masked flash attention with its backward (mirrors the JAX
+    package's ``_flash_packed_seg`` custom_vjp): the forward is the op
+    ``paddle_tpu_torch::seg_fwd`` (K-SEG) and saves
+    ``(q, k, v, seg_q, seg_k, o, lse)``; the backward computes ``delta``
+    per head in fp32 and runs K-SDQ and K-SDKV. The ids take no gradient.
+    On CPU tensors each step is its plain version."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, nh, scale):
-        o, lse = torch.ops.paddle_tpu_torch.seg_fwd(q, k, v, segment_ids, nh,
-                                                    scale)
-        ctx.save_for_backward(q, k, v, segment_ids, o, lse)
-        ctx.attn = (nh, scale)
+    def forward(ctx, q, k, v, seg_q, seg_k, nh, causal, scale):
+        o, lse = torch.ops.paddle_tpu_torch.seg_fwd(q, k, v, seg_q, seg_k,
+                                                    nh, causal, scale)
+        ctx.save_for_backward(q, k, v, seg_q, seg_k, o, lse)
+        ctx.attn = (nh, causal, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, seg, o, lse = ctx.saved_tensors
-        nh, scale = ctx.attn
+        q, k, v, seg_q, seg_k, o, lse = ctx.saved_tensors
+        nh, causal, scale = ctx.attn
         delta = _delta(do, o, nh)
-        dq = seg_dq(q, k, v, do, lse, delta, seg, nh, scale=scale)
-        dk, dv = seg_dkv(q, k, v, do, lse, delta, seg, nh, scale=scale)
-        return dq, dk, dv, None, None, None
+        # the ids the forward checked: seg_k is seg_q's own tensor when the
+        # caller gave no key-side ids, so causal passes it as None
+        kw = dict(scale=scale, causal=causal,
+                  segment_ids_k=None if causal else seg_k)
+        dq = seg_dq(q, k, v, do, lse, delta, seg_q, nh, **kw)
+        dk, dv = seg_dkv(q, k, v, do, lse, delta, seg_q, nh, **kw)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention_packed_seg(q, k, v, segment_ids, nh, scale=None):
-    """Differentiable segment-masked causal self-attention over
-    ``(B, S, NH*D)`` (the JAX package's
-    ``flash_attention_packed_segmented`` with ``segment_ids_k=None``,
-    causal): returns ``o``. q, k, v may be column slices of the fused
-    qkv; ``segment_ids`` ``(B, S)`` is taken as int32."""
+def flash_attention_packed_seg(q, k, v, segment_ids, nh, scale=None,
+                               segment_ids_k=None, causal=True):
+    """Differentiable segment-masked attention over ``(B, S, NH*D)`` (the
+    JAX package's ``flash_attention_packed_segmented``): returns ``o``.
+    q, k, v may be column slices of the fused qkv; ``segment_ids``
+    ``(B, Sq)`` and ``segment_ids_k`` ``(B, Sk)`` (default: the query
+    ids; only with ``causal=False``) are taken as int32."""
     if q.shape[-1] % nh:
         raise ValueError(f"hidden {q.shape[-1]} not divisible by num_heads "
                          f"{nh}")
     if tuple(segment_ids.shape) != tuple(q.shape[:2]):
         raise ValueError(f"segment_ids shape {tuple(segment_ids.shape)} != "
                          f"batch/seq {tuple(q.shape[:2])}")
+    if (segment_ids_k is not None
+            and tuple(segment_ids_k.shape) != tuple(k.shape[:2])):
+        raise ValueError(f"segment_ids_k shape "
+                         f"{tuple(segment_ids_k.shape)} != batch/seq "
+                         f"{tuple(k.shape[:2])}")
     _kernel_device("flash_attention_packed_seg", q)
-    seg = segment_ids.to(torch.int32).contiguous()
+    seg_q = segment_ids.to(torch.int32).contiguous()
+    seg_k = _key_ids("flash_attention_packed_seg", seg_q,
+                     None if segment_ids_k is None
+                     else segment_ids_k.to(torch.int32).contiguous(), causal)
     scale = float(_scale_of(q, nh, scale))
-    return FlashAttentionPackedSeg.apply(q, k, v, seg, nh, scale)
+    return FlashAttentionPackedSeg.apply(q, k, v, seg_q, seg_k, nh,
+                                         bool(causal), scale)

@@ -53,6 +53,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..device import resolve_device
 from ..ops import attention_dispatch as disp
 
 __all__ = ["PagesExhausted", "PagePool", "PagedKVCache",
@@ -405,9 +406,10 @@ def _requant_pages(k_store, v_store, s_store, k, v, plan):
 
 class PagedKVCache:
     """The pool pair per layer plus its allocator, sized once at engine
-    construction on ``device``. ``kv_dtype="fp32"``: unquantized pools in
-    ``dtype`` (float32, the default, or bfloat16); ``kv_dtype="int8"``:
-    int8 pools plus the per-page scale pools (``dtype`` is ignored)."""
+    construction on ``device`` (CUDA unless the caller passes ``"cpu"``).
+    ``kv_dtype="fp32"``: unquantized pools in ``dtype`` (float32, the
+    default, or bfloat16); ``kv_dtype="int8"``: int8 pools plus the
+    per-page scale pools (``dtype`` is ignored)."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, dtype=None, device=None,
@@ -423,6 +425,7 @@ class PagedKVCache:
             if dtype not in (torch.float32, torch.bfloat16):
                 raise TypeError(f"KV pools are float32 or bfloat16, got "
                                 f"{dtype}")
+        device = resolve_device(device)
         self.num_layers = int(num_layers)
         self.page_size = int(page_size)
         self.num_kv_heads = int(num_kv_heads)

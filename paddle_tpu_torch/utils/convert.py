@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's GPT and LLaMA to the port's.
+"""Carry weights from the JAX package's GPT, LLaMA and BERT to the port's.
 
 ``from_gpt_params`` maps the JAX trainer's stacked-parameter pytree
 (``paddle_tpu.parallel.transformer_core.gpt_init``, as numpy) onto the
@@ -19,7 +19,10 @@ match leaf for leaf; the layouts that differ:
 ``from_llama_state`` and ``from_llama_params`` do the same for LLaMA:
 ``LlamaForCausalLM.state_dict()`` (every linear weight transposed, the
 untied ``lm_head`` included) and ``llama_core.llama_init``'s pytree
-(same names, same ``(in, out)`` layout).
+(same names, same ``(in, out)`` layout). ``from_bert_state`` maps
+``BertForPretraining.state_dict()`` (the encoder's, pooler's and heads'
+linear weights transposed; the MLM decoder is tied to
+``word_embeddings``, so it has no leaf).
 
 Every leaf must be accounted for: an unknown or a missing name raises.
 
@@ -46,7 +49,8 @@ import torch
 
 from .tree import flatten, unflatten
 
-__all__ = ["from_paddle_tpu_state", "expected_leaves", "from_gpt_params",
+__all__ = ["from_paddle_tpu_state", "expected_leaves", "from_bert_state",
+           "expected_bert_leaves", "from_gpt_params",
            "expected_gpt_params", "from_llama_state", "expected_llama_leaves",
            "from_llama_params", "expected_llama_params", "qkv_order",
            "head_aligned", "from_head_aligned", "shard_slices",
@@ -56,6 +60,9 @@ __all__ = ["from_paddle_tpu_state", "expected_leaves", "from_gpt_params",
 _LINEAR = re.compile(
     r"^(gpt\.h\.\d+\.(attn\.(qkv_proj|out_proj)|mlp\.(fc_in|fc_out))"
     r"|lm_head)\.weight$")
+_BERT_LINEAR = re.compile(
+    r"^(bert\.encoder\.\d+\.(attn\.(qkv_proj|out_proj)|fc_in|fc_out)"
+    r"|bert\.pooler|mlm_transform|nsp_head)\.weight$")
 _LLAMA_LINEAR = re.compile(
     r"^(model\.layers\.\d+\.(self_attn\.[qkvo]_proj|mlp\.(gate|up|down)_proj)"
     r"|lm_head)\.weight$")
@@ -95,6 +102,47 @@ def from_paddle_tpu_state(state: Dict[str, np.ndarray], cfg
     ``load_state_dict``)."""
     return _map_state(state, expected_leaves(cfg), _LINEAR,
                       "from_paddle_tpu_state")
+
+
+def expected_bert_leaves(cfg) -> Dict[str, tuple]:
+    """``{name: torch shape}`` of the port's BertForPretraining for
+    ``cfg``."""
+    h, f, v = cfg.hidden_size, cfg.ffn_size, cfg.vocab_size
+    e = "bert.embeddings."
+    out = {
+        e + "word_embeddings.weight": (v, h),
+        e + "position_embeddings.weight": (cfg.max_position_embeddings, h),
+        e + "token_type_embeddings.weight": (cfg.type_vocab_size, h),
+        e + "layer_norm.weight": (h,), e + "layer_norm.bias": (h,),
+    }
+    for i in range(cfg.num_layers):
+        p = f"bert.encoder.{i}."
+        out.update({
+            p + "attn.qkv_proj.weight": (3 * h, h),
+            p + "attn.qkv_proj.bias": (3 * h,),
+            p + "attn.out_proj.weight": (h, h),
+            p + "attn.out_proj.bias": (h,),
+            p + "ln_1.weight": (h,), p + "ln_1.bias": (h,),
+            p + "fc_in.weight": (f, h), p + "fc_in.bias": (f,),
+            p + "fc_out.weight": (h, f), p + "fc_out.bias": (h,),
+            p + "ln_2.weight": (h,), p + "ln_2.bias": (h,),
+        })
+    out.update({
+        "bert.pooler.weight": (h, h), "bert.pooler.bias": (h,),
+        "mlm_transform.weight": (h, h), "mlm_transform.bias": (h,),
+        "mlm_ln.weight": (h,), "mlm_ln.bias": (h,),
+        "nsp_head.weight": (2, h), "nsp_head.bias": (2,),
+    })
+    return out
+
+
+def from_bert_state(state: Dict[str, np.ndarray], cfg
+                    ) -> Dict[str, torch.Tensor]:
+    """The JAX ``BertForPretraining``'s ``state_dict()`` as numpy -> the
+    port's ``state_dict()`` (CPU float tensors, load with
+    ``load_state_dict``)."""
+    return _map_state(state, expected_bert_leaves(cfg), _BERT_LINEAR,
+                      "from_bert_state")
 
 
 def _map_state(state, want, linear, what) -> Dict[str, torch.Tensor]:

@@ -3,9 +3,9 @@ card, its kernel checks (comparison, bound, JSON keys) work at tiny
 shapes with the plain versions standing in for the kernels, and its
 training phases (7, 8, 10-12), speculative and int8 serving phases
 (14-16), LLaMA phases (19-22), remat policies (23), durability drills
-(24), run telemetry (25), the rest of serving (26) and multi-rank
-training (27, four gloo rank processes) run end to end at tiny
-widths."""
+(24), run telemetry (25), the rest of serving (26), multi-rank
+training (27, four gloo rank processes) and BERT with varlen attention
+(29) run end to end at tiny widths."""
 import numpy as np
 import pytest
 import torch
@@ -25,8 +25,8 @@ def on_cpu(monkeypatch):
     monkeypatch.setattr(cs, "DEV", torch.device("cpu"))
     monkeypatch.setattr(cs, "time_ms", lambda fn, iters=30, warmup=5:
                         (fn(), 0.0)[1])
-    monkeypatch.setattr(cs, "device_ms", lambda fn, iters=20, warmup=3:
-                        (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", lambda fn, floor_ms, iters=20,
+                        warmup=3: (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "cold_ms", lambda fn, iters=20, warmup=3:
                         (fn(), 0.0)[1])
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
@@ -290,6 +290,47 @@ def test_profile_skips_user_annotations():
                      self_device_time_total=7e3,
                      is_user_annotation=span.is_user_annotation))
     assert cs.device_ms_by_kernel(prof) == {"gemm": 3.0}
+
+
+def test_device_ms_profiles_again_until_it_caught_half_the_launches(
+        monkeypatch):
+    """A profile that caught fewer than half its calls' launches, or a
+    time per caught launch under the call's bound, is taken again; with
+    none good the phase fails."""
+    import contextlib
+    from types import SimpleNamespace as NS
+
+    import torch.profiler
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = "void flash_dq_kernel_sm90<64, false>(CUtensorMap)"
+    runs = [[], [NS(key=kern, device_type=cuda, count=1,
+                    self_device_time_total=30.0)],
+            [NS(key=kern, device_type=cuda, count=3,
+                self_device_time_total=1.0)],
+            [NS(key=kern, device_type=cuda, count=3,
+                self_device_time_total=30.0),
+             NS(key="Memset (Device)", device_type=cuda, count=3,
+                self_device_time_total=3.0)]]
+    seen = []
+
+    @contextlib.contextmanager
+    def profile(**_):
+        events = runs[len(seen)]
+        seen.append(events)
+        yield NS(key_averages=lambda: events)
+
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    ms = cs.device_ms(lambda: calls.append(1), 0.005, iters=4, warmup=1)
+    # 3 of 4 launches caught: the time is per caught launch
+    assert ms == pytest.approx(33.0 / 1e3 / 3) and len(seen) == 4
+    assert len(calls) == 1 + 4 * 4
+    seen.clear()
+    runs[3] = runs[0]
+    with pytest.raises(RuntimeError, match="device_ms"):
+        cs.device_ms(lambda: None, 0.005, iters=4, warmup=1, tries=4)
 
 
 @pytest.fixture
@@ -807,3 +848,95 @@ def test_pipeline_phase_rehearses_on_cpu(tiny_llama):
     assert ["K-PACK", 16, 32, False] in m["d"]["ring_blocks"]
     assert m["e"]["ideal_bubble"] == 3 / 11 and m["e"]["step_ms"] > 0
     assert set(m["e"]["stage0_peak_gb"]) == {"1f1b", "gpipe"}
+
+
+@pytest.fixture
+def tiny_bert(on_cpu, monkeypatch):
+    """Phase 29 at a tiny BERT on the CPU (hidden 64, 4 heads of 16,
+    vocab 512; full depth 2): each full-attention plain version counts
+    itself as its kernel would, and fails if it is called causal."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    tiny = dict(hidden_size=64, num_heads=4, vocab_size=512,
+                max_position_embeddings=64, num_layers=2)
+    monkeypatch.setattr(cs, "bert_config",
+                        lambda kind, **kw: BertConfig(**{**tiny, **kw}))
+    for fn in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    for mod, name, ref in (
+            (fp, "K-SEG", "segment_attention_ref"),
+            (fp, "K-SDQ", "segment_dq_ref"),
+            (fp, "K-SDKV", "segment_dkv_ref"),
+            (fa, "K-BSHD", "causal_attention_ref"),
+            (fa, "K-BDQ", "bshd_dq_ref"), (fa, "K-BDKV", "bshd_dkv_ref")):
+        orig = getattr(mod, ref)
+
+        def counted(*a, _orig=orig, _name=name, _mod=mod, **kw):
+            assert not kw.get("causal", True), f"{_name} ran causal"
+            _mod.LAUNCHES[_name] += 1
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(mod, ref, counted)
+    return on_cpu
+
+
+def test_bert_phase_rehearses_on_cpu(tiny_bert):
+    """Phase 29 at tiny widths through the plain versions: (a) the padded
+    run on the segmented kernels and the unpadded one on the BSHD ones,
+    every launch full attention, (b) the bench step's loss falling, (c)
+    one padded bf16-shaped step, (d) varlen attention held to its plain
+    version; each sub-phase's launches as derived."""
+    counts = {}
+    m = cs.phase_bert(counts, tiny_bert, acc_shape=(2, 32), pad_to=12,
+                      bench_shape=(4, 16), bench_steps=2,
+                      large_shape=(2, 32), large_steps=1,
+                      varlen=(3, 40, 56, 2, 16))
+    seg3 = ("K-SEG", "K-SDQ", "K-SDKV")
+    bshd3 = ("K-BSHD", "K-BDQ", "K-BDKV")
+
+    def want(on, n):
+        return {**dict.fromkeys(seg3 + bshd3, 0), **dict.fromkeys(on, n)}
+
+    assert m["a"]["padded"]["launches"] == want(seg3, 2)
+    assert m["a"]["unpadded"]["launches"] == want(bshd3, 2)
+    for tag in ("padded", "unpadded"):
+        assert m["a"][tag]["grad_worst_ratio"] == 0.0
+        assert m["a"][tag]["mlm_err"] == 0.0
+    assert m["b"]["launches"] == want(bshd3, 2 * 2)
+    assert m["b"]["losses"][-1] < m["b"]["losses"][0]
+    assert m["b"]["flops_per_token"] == 6 * 110e6 + 12 * 12 * 768 * 16
+    assert m["c"]["launches"] == want(seg3, 2)
+    assert m["c"]["real_tokens"] == int(cs.bert_key_lengths(2, 32).sum())
+    assert m["d"]["launches"] == want(seg3, 1)
+    assert m["d"]["max_abs_err"] == 0.0
+    # both sides of (a) and (d) count here
+    for name in seg3 + bshd3:
+        assert counts["phase29"][name] > 0
+
+
+def test_bert_rows_and_keyside_edges_rehearse_on_cpu(on_cpu):
+    """Phase 2's full-attention rows at tiny shapes (every key reported),
+    and its key-side edge checks in fp32 at 2 heads: rows that see no key
+    on both sides, the padding mask's one-key rows."""
+    rows = cs.bert_rows(on_cpu, {"padded": (2, 160, 2, 64),
+                                 "varlen": (3, 128, 200, 2, 64),
+                                 "bshd": ((2, 70, 2, 64),)})
+    assert {k: len(v) for k, v in rows.items()} == {
+        "K-SEG": 2, "K-SDQ": 2, "K-SDKV": 2, "K-BSHD": 1, "K-BDQ": 1,
+        "K-BDKV": 1}
+    for name, rs in rows.items():
+        for r in rs:
+            assert _KEYS <= set(r), name
+            assert r["bound_ms"] > 0 and r["max_abs_err"] <= 1e-2
+    assert cs.check_keyside_edges(torch.float32, heads=2) == dict.fromkeys(
+        ("K-SEG", "K-SDQ", "K-SDKV"), 0.0)
+    q, k = cs.padding_ids([1, 3], 4)
+    assert q.tolist() == [[0] * 4] * 2
+    assert k.tolist() == [[0, -1, -1, -1], [0, 0, 0, -1]]
+    ids = np.array([[3, 3, 1, 7]]), np.array([[1, 3, 3, 3, 9]])
+    assert cs.visible_pairs_keys(*ids) == 2 * 3 + 1 * 1
+    # queries 3, 3, 1 and keys 1, 3, 3, 3 take part; 7 and 9 do not
+    assert cs.visible_tokens(*ids) == (3, 4)

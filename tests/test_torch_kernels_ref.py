@@ -86,8 +86,18 @@ def test_segment_ref_matches_pallas_seg_kernel_interpret():
                                rtol=1e-5, atol=1e-5)
     oo = disp.segment_attention_packed(_t(q), _t(k), _t(v), nh, _t(seg))
     assert torch.equal(oo, o)
+    # causal with distinct key-side ids has no kernel: the CPU takes the
+    # dense plain version (the JAX package's dense path), CUDA raises
+    want_dense = np.asarray(xla_segment_attention(
+        *(jnp.asarray(x).reshape(1, s, nh, d) for x in (q, k, v)),
+        jnp.asarray(seg), jnp.asarray(seg)))
+    od = disp.segment_attention_packed(_t(q), _t(k), _t(v), nh, _t(seg),
+                                       seg_k=_t(seg))
+    np.testing.assert_allclose(od.numpy().reshape(1, s, nh, d), want_dense,
+                               rtol=1e-5, atol=1e-5)
+    meta = torch.empty(1, s, nh * d, device="meta")
     with pytest.raises(NotImplementedError):
-        disp.segment_attention_packed(_t(q), _t(k), _t(v), nh, _t(seg),
+        disp.segment_attention_packed(meta, meta, meta, nh, _t(seg),
                                       seg_k=_t(seg))
 
 

@@ -63,6 +63,10 @@ _MUST_IMPORT = {
     "paddle_tpu_torch.distributed.communication",
     "paddle_tpu_torch.ops.ring_attention",
     "paddle_tpu_torch.parallel.pipeline",
+    "paddle_tpu_torch.nn",
+    "paddle_tpu_torch.nn.functional",
+    "paddle_tpu_torch.nn.functional.attention",
+    "paddle_tpu_torch.models.bert",
 }
 
 
@@ -123,6 +127,29 @@ def test_entry_points_default_to_cuda():
         GPTForCausalLM(gpt_tiny())
     m = GPTForCausalLM(gpt_tiny(), device="cpu")
     assert next(m.parameters()).device.type == "cpu"
+
+
+def test_bert_and_kv_pools_default_to_cuda():
+    """``BertForPretraining`` and ``PagedKVCache`` (whose pools were
+    allocated on the CPU when no device was given) run on CUDA unless the
+    caller asks for the CPU."""
+    from paddle_tpu_torch.models.bert import BertForPretraining, bert_base
+    from paddle_tpu_torch.serving.kv_cache import PagedKVCache
+
+    cfg = bert_base(num_layers=1, hidden_size=64, num_heads=4,
+                    vocab_size=128)
+    geo = dict(num_layers=1, num_pages=2, page_size=4, num_kv_heads=1,
+               head_dim=8)
+    if torch.cuda.is_available():
+        assert PagedKVCache(**geo).k_pools[0].device.type == "cuda"
+        return
+    for build in (lambda: BertForPretraining(cfg),
+                  lambda: PagedKVCache(**geo)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert next(BertForPretraining(cfg, device="cpu").parameters()
+                ).device.type == "cpu"
+    assert PagedKVCache(**geo, device="cpu").k_pools[0].device.type == "cpu"
 
 
 def test_kernel_library_hash_covers_headers(monkeypatch, tmp_path):

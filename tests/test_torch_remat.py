@@ -185,7 +185,7 @@ def test_forward_ops_give_shapes_on_meta(op):
     x = torch.empty(2, 40, 4 * 32, device="meta")
     seg = torch.empty(2, 40, dtype=torch.int32, device="meta")
     args = (x, x, x, 4, True, 0.5) if op == "packed_fwd" else (
-        x, x, x, seg, 4, 0.5)
+        x, x, x, seg, seg, 4, True, 0.5)
     o, lse = getattr(torch.ops.paddle_tpu_torch, op)(*args)
     assert o.shape == x.shape and o.dtype == x.dtype
     assert lse.shape == (2, 40, 4) and lse.dtype == torch.float32
