@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 0,1,27  # multi-rank training (4 ranks)
     python3 chip_smoke.py --phases 0,1,28  # pipeline parallelism (4 ranks)
     python3 chip_smoke.py --phases 0,1,2,29  # BERT, varlen attention
+    python3 chip_smoke.py --phases 0,1,30  # launched ranks, durability
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
@@ -37,7 +38,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ``BERT_ROWS`` (BERT-large's padded 16 x 512, the varlen row's 2048
    queries over 3072 keys), K-BSHD, K-BDQ and K-BDKV non-causal at
    BERT-base's 128 x 128 and BERT-large's 16 x 512;
-3. serving accuracy, fp32: GPT-345M (random weights from seed 0)
+3. serving accuracy, fp32: GPT-345M's width at ``ACC_LAYERS`` (2) of
+   its layers (a depth cut for the run's time; random weights, seed 0)
    answers 3 requests through the continuous-batching scheduler, and
    ``generate()`` completes 2 prompts; the card's logits at every
    generated position are held against a teacher-forced full forward of
@@ -48,7 +50,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    kernel launches equal steps x layers; prints throughput and latency;
 5. ``generate()``, bf16: batch 4, 256-token prompts, 64 new tokens;
 6. (opt-in) profile of 20 decode ticks;
-7. training accuracy, fp32: GPT-345M's width at ``ACC_LAYERS`` (4) of
+7. training accuracy, fp32: GPT-345M's width at ``ACC_LAYERS`` (2) of
    its 24 layers (params from the port's ``gpt_init``, generator seed
    0) on a 2 x 256 batch; the grads of
    ``gpt_loss`` on the card against the same grads on the CPU, every
@@ -60,7 +62,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ms, tokens/s, MFU, peak memory; losses finite and falling, and per
    step 48 K-PACK (forward + remat recompute), 24 K-DQ and 24 K-DKV;
 9. (opt-in) profile of 3 training steps at phase 8's shape;
-10. packed training accuracy, fp32: phase 7 (also at 4 layers) with
+10. packed training accuracy, fp32: phase 7 (also at 2 layers) with
     ``TrainerConfig(packed_sequences=True)`` on 2 x 256 rows packed by
     ``io.packing.pack_documents`` (each >= 3 documents and a pad tail),
     ``gpt_loss`` with segment ids and positions;
@@ -70,8 +72,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     peak memory; losses finite, and per step 48 K-SEG, 24 K-SDQ, 24
     K-SDKV and no K-PACK, K-DQ or K-DKV;
 12. nn-API training: ``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` ->
-    ``loss.backward()``; fp32 at 2 x 256, every parameter's grad on the
-    card within 1e-4 of its largest CPU grad (``qkv_proj`` included: its
+    ``loss.backward()``; fp32 at 2 x 256 and ``ACC_LAYERS`` layers (a
+    depth cut for the run's time), every parameter's grad on the card
+    within 1e-4
+    of its largest CPU grad (``qkv_proj`` included: its
     grad flows only through K-BSHD's backward); then bf16
     ``torch.optim.AdamW`` steps at 4 x 1024: losses finite, and per step
     24 K-BSHD, 24 K-BDQ and 24 K-BDKV;
@@ -120,7 +124,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 22. LLaMA training, bf16: ``HybridParallelTrainer`` at ``llama_7b()``
     width, 8 of 32 layers, on a fixed 4 x 2048 batch, as phase 8: losses
     finite and falling, per step 16 K-PACK, 8 K-DQ and 8 K-DKV;
-23. remat policies, GPT-345M: fp32 at 2 x 256 and 4 layers, for remat
+23. remat policies, GPT-345M: fp32 at 2 x 256 and 2 layers, for remat
     False,
     ``"full"``, ``"dots"`` and ``"names:attn_out_kernel,attn_lse"``, the
     trainer's loss and grads on the card against the CPU's under the same
@@ -131,12 +135,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     product saved), 1 warm-up and 5 timed steps each: step ms, tokens/s,
     MFU, peak memory, launches per step (K-PACK 24 under both ``names:``
     policies, 48 under True and ``"dots"``);
-24. durability drills: (a) GPT-345M bf16 with ``loss_scaling=True``,
+24. durability drills: (a) GPT-345M's width at 12 of 24 layers
+    (``CUT_LAYERS``), bf16 with ``loss_scaling=True``,
     ``scale_incr_every=2`` and a NaN at step 3: the scale follows its
     schedule and the losses equal, bitwise, a clean run that skips that
     batch, and the grads autograd returns under the scale are the plain
-    grads times it (<= 1e-6 of each leaf's largest); (b) a sync and an async checkpoint of the full GPT-345M train
-    state (bytes, save, snapshot, commit and load ms), and a fresh
+    grads times it (<= 1e-6 of each leaf's largest); (b) a sync and an
+    async checkpoint of that model's full train state (bytes, save,
+    snapshot, commit and load ms), and a fresh
     trainer that loads it gives the next 3 losses bitwise; (c) a worker
     process (2 layers at GPT-345M width, async saves every 2 steps) is
     preempted by ``PADDLE_FI_PREEMPT_AT_STEP=3``, exits 118 with a
@@ -146,7 +152,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     raise ``NumericalDivergenceError`` rolled back to the last checkpoint,
     whose params the trainer then holds;
 25. run telemetry, with the JSONL sink in a temp dir: (a) phase 8's
-    trainer with ``http_port=0``, 12 steps (the second measured by
+    trainer at 12 of 24 layers (``CUT_LAYERS``) with
+    ``http_port=0``, 12 steps (the second measured by
     ``memory_plan(compute_executable=True)``): the accounted tokens/s of
     steps 4-12 within 3% of a synchronised wall of the same steps, 12
     JSONL step records, ``flops_source == "analytic_6NT"``, MFU
@@ -204,11 +211,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 27. multi-rank training: 4 ranks (``chip_smoke.py --rank-worker SPEC``
     processes) share this card over gloo, which stages their sends and
     receives through pinned host buffers; first each rank checks the
-    world's collectives on CUDA tensors; then (a) GPT-345M's width at 4
-    of 24 layers, ``mp=2, sep=2``, 2 x 1024, the zigzag ring (L = 256);
+    world's collectives on CUDA tensors; then (a) GPT-345M's width at 2
+    of 24 layers, ``mp=2, sep=2``, 2 x 1024, the zigzag
+    ring (L = 256);
     (b) the same model at ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c)
-    LLaMA-7B's width at 2 of 32 layers, ``sep=2, sharding=2``, ZeRO 3,
-    2 x 2048: 3 fp32 steps each, the losses and each step's grad norm
+    LLaMA-7B's width at 1 of 32 layers, ``sep=2,
+    sharding=2``, ZeRO 3, 2 x 2048: 3 fp32 steps each, the losses and each step's grad norm
     (1e-4 relative) and the gathered params (1e-4 of each leaf's
     largest) held to a single-rank trainer on the card from the same
     weights and batch (whose launches stay out of the main path's
@@ -220,7 +228,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     every rank's live state bytes equal ``plan_state_memory``'s.
 
 28. pipeline parallelism: phase 27's world of 4 ranks on the card, over
-    the ``"pipe"`` axis: (a) GPT-345M's width at 8 of 24 layers, ``pp=4``,
+    the ``"pipe"`` axis: (a) GPT-345M's width at 4 of 24 layers,
+    ``pp=4``,
     1F1B, M=8, remat, 8 x 1024; (b) ``pp=2, mp=2``, GPipe, M=4, 4 x
     1024; (c) ``pp=2, vpp=2, dp=2``, interleaved 1F1B, M=4, remat off, 8 x
     1024; (d) LLaMA-7B's width at 2 of 32 layers, ``pp=2, sep=2``, 1F1B,
@@ -253,9 +262,35 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     and each sub-phase's launches are the kernels' counts derived from
     its layers and steps.
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-29) sets the kernels' launch
-counts to 0 just before it and reads them just after (phases 27 and 28
-in each rank, the counts summed over the ranks). The line before the
+30. launched, durable multi-rank training: ``python -m
+    paddle_tpu_torch.distributed.launch`` starts 4 ranks (``chip_smoke.py
+    --launch-worker SPEC``) on this card over gloo, GPT-345M's width at 2
+    of 24 layers, fp32, ``mp=2, sharding=2`` ZeRO 3, 2 x 1024, async
+    checkpoints every 2 steps, 7 steps; an uninterrupted run (beside
+    (c)) is the reference of one run under ``--elastic --max_restarts
+    1`` (ab): (b) a preemption notice at step 3 (every rank's
+    just-in-time checkpoint, exit 118, the immediate relaunch at no
+    budget, zero lost steps), then (a) a SIGKILL of rank 2 after step 6,
+    its async save in flight (the watcher's crash and the relaunch on the
+    budget's one restart, generation 2 from the newest step every rank
+    completed, at least step 4), bitwise in losses and final params;
+    (c) 2 ranks at ``dp=2`` with the
+    consistency check every 2 steps and a desync planted on rank 0 at
+    step 3 exit 119 at step 4, classified ``desync``; (d) (ab)'s
+    checkpoint resumes on one rank, its next two losses (the second
+    after an update that reads the loaded moments) within 1e-5 of the
+    reference's. Checkpoint bytes per rank, snapshot, commit and load ms,
+    the seconds from the preemption and from the kill to the relaunched
+    generation's first step, and the reference's ``guard_probe`` (step
+    ms with the preemption guard off and on) are printed; every rank's
+    launches equal ``ring_launches``.
+31. (opt-in) phase 30's world alone on the card, twice: 2 steps, then
+    ``guard_probe`` (step ms with the preemption guard off and on, with
+    no other run sharing the card).
+
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-30) sets the kernels' launch
+counts to 0 just before it and reads them just after (phases 27, 28 and
+30 in each rank, the counts summed over the ranks). The line before the
 last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -346,8 +381,27 @@ SOURCES = {
 }
 
 
+# when each phase's header line was logged (phase -> perf_counter)
+PHASE_STARTS: dict = {}
+
+
+T_START = time.perf_counter()
+
+
 def log(*a):
+    head = re.match(r"\[(\d+)\] ", str(a[0])) if a else None
+    if head:
+        PHASE_STARTS[int(head.group(1))] = now = time.perf_counter()
+        a = (f"{a[0]} (at {now - T_START:.1f} s)",) + a[1:]
     print(*a, flush=True)
+
+
+def phase_seconds(end) -> dict:
+    """Each logged phase's seconds, to the next phase's header (the
+    last to ``end``)."""
+    marks = sorted(PHASE_STARTS.items(), key=lambda kv: kv[1])
+    return {p: round((marks[i + 1][1] if i + 1 < len(marks) else end) - t,
+                     1) for i, (p, t) in enumerate(marks)}
 
 
 def require(cond, what) -> None:
@@ -1404,8 +1458,10 @@ SPEC_TRACE = dict(phrase_lens=(16, 64), repeats=(4, 12),
                   out_tokens=(32, 128))
 
 
-def build_model(device, dtype):
-    return GPTForCausalLM(model_config(), device=device, dtype=dtype,
+def build_model(device, dtype, layers=None):
+    """GPT-345M (at ``layers`` of its depth where given), random weights
+    from seed 0."""
+    return GPTForCausalLM(_acc_model(layers), device=device, dtype=dtype,
                           generator=torch.Generator().manual_seed(0)).eval()
 
 
@@ -1472,9 +1528,10 @@ def teacher_forced_check(cpu_model, prompt, generated, card_rows, what):
 
 
 def phase_accuracy(counts):
-    log("[3] serving accuracy, fp32: card vs teacher-forced CPU forward")
-    model = build_model(DEV, torch.float32)
-    cpu = build_model("cpu", torch.float32)
+    log(f"[3] serving accuracy, fp32: card vs teacher-forced CPU forward, "
+        f"{ACC_LAYERS} layers")
+    model = build_model(DEV, torch.float32, ACC_LAYERS)
+    cpu = build_model("cpu", torch.float32, ACC_LAYERS)
     cpu.load_state_dict(model.state_dict())
     rng = np.random.RandomState(3)
     vocab = model.cfg.vocab_size
@@ -1989,9 +2046,10 @@ def card_vs_cpu(tcfg, batch, what, mcfg=None, steps=None) -> dict:
             "loss_card": loss_c, "loss_cpu": loss_h, "steps": log_steps}
 
 
-# the depth of phases 7, 10 and 23 (a) in the default run: the layers
-# are identical, and at GPT-345M's 24 each phase's CPU side took ~55 s
-ACC_LAYERS = 4
+# the depth of phases 3, 7, 10, 12 (fp32) and 23 (a) in the default
+# run: the layers are identical, and at GPT-345M's 24 each phase's CPU
+# side took ~55 s
+ACC_LAYERS = 2
 
 
 def _acc_model(layers):
@@ -2198,17 +2256,18 @@ def phase_nn_train(counts, peaks, steps=3, acc_shape=(2, 256),
         f"AdamW at {shape[0]} x {shape[1]}")
     rng = np.random.RandomState(12)
     vocab = model_config().vocab_size
-    card = build_model(DEV, torch.float32).train()
-    cpu = build_model("cpu", torch.float32).train()
+    card = build_model(DEV, torch.float32, ACC_LAYERS).train()
+    cpu = build_model("cpu", torch.float32, ACC_LAYERS).train()
     cpu.load_state_dict(card.state_dict())
     ids, labels = train_batch(rng, *acc_shape, vocab)
     K.reset_launch_counts()
     acc = nn_grads_vs_cpu(card, cpu, ids, labels, ("qkv_proj",), "nn API")
+    depth = card.cfg.num_layers
     del card, cpu
     torch.cuda.empty_cache()
     for name in ("K-BSHD", "K-BDQ", "K-BDKV"):
-        require(acc["launches"][name] == LAYERS, f"nn-API backward launched "
-                f"{name} {acc['launches'][name]} times, not {LAYERS}")
+        require(acc["launches"][name] == depth, f"nn-API backward launched "
+                f"{name} {acc['launches'][name]} times, not {depth}")
 
     model, opt, step = nn_setup(rng, shape)
     first = step()                                         # warm-up
@@ -2603,6 +2662,12 @@ def phase_remat(counts, peaks, acc=(2, 256), speed=(56, 1024),
     return out
 
 
+# the depth of phases 24 (a), (b) and 25 (a): 12 of GPT-345M's 24
+# layers, so the default run, phase 30's launched runs included, stays
+# inside its time limit
+CUT_LAYERS = 12
+
+
 class DrillLoader:
     """A dataloader for the drills: batch ``i`` is drawn from seed
     ``seed + i``; ``state_dict`` is its cursor, as the trainer's
@@ -2676,12 +2741,13 @@ def scaled_grads_gap(trainer, tokens, labels) -> tuple:
     return worst, all(torch.equal(a, b * s) for a, b in pairs), s
 
 
-def drill_loss_scaling(counts, batch=4, seq=1024, steps=6, nan_step=3):
+def drill_loss_scaling(counts, batch=4, seq=1024, steps=6, nan_step=3,
+                       layers=None):
     """(a) ``loss_scaling=True``, ``scale_incr_every=2``, a NaN at
     ``nan_step``: the scale follows ``scale_schedule``, and every loss
     equals, bitwise, a clean run's that skips that batch; the grads
     autograd returns under the scale are the plain grads times it."""
-    mcfg = model_config()
+    mcfg = _acc_model(layers or CUT_LAYERS)
     tcfg = drill_config(loss_scaling=True, scale_incr_every=2)
     rng = np.random.RandomState(24)
     batches = [train_batch(rng, batch, seq, mcfg.vocab_size)
@@ -2722,12 +2788,13 @@ def drill_loss_scaling(counts, batch=4, seq=1024, steps=6, nan_step=3):
     return m
 
 
-def drill_checkpoint(counts, batch=4, seq=1024, before=2, after=3):
+def drill_checkpoint(counts, batch=4, seq=1024, before=2, after=3,
+                     layers=None):
     """(b) A sync save after ``before`` steps, one more step, an async
     save (two checkpoints of the full train state on disk), then a fresh
     trainer loads the newest: its next ``after`` losses equal the
     uninterrupted run's bitwise."""
-    mcfg = model_config()
+    mcfg = _acc_model(layers or CUT_LAYERS)
     tcfg = drill_config()
     loader = DrillLoader(240, batch, seq, mcfg.vocab_size)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2936,8 +3003,9 @@ def phase_durability(counts, scale_shape=(4, 1024), ckpt_shape=(4, 1024),
     """Phase 24: loss scaling, a checkpoint round trip of the full train
     state, a preemption drill across two processes, and a divergence
     rollback, each bitwise against its uninterrupted run."""
-    log("[24] durability drills: GPT-345M loss scaling and checkpoints, "
-        "preemption and rollback at 2 layers")
+    log(f"[24] durability drills: GPT-345M width, loss scaling and "
+        f"checkpoints at {CUT_LAYERS} layers, preemption and rollback "
+        f"at 2")
     t0 = time.perf_counter()
     m = {"loss_scaling": drill_loss_scaling(counts, *scale_shape),
          "checkpoint": drill_checkpoint(counts, *ckpt_shape),
@@ -3026,7 +3094,7 @@ def telemetry_train(counts, peaks, obs_dir, steps=12, batch=8, seq=1024,
     steps)."""
     from paddle_tpu_torch import observability as obs
 
-    mcfg = model_config()
+    mcfg = _acc_model(CUT_LAYERS)
     tcfg = dict(learning_rate=3e-4, warmup_steps=2, total_steps=100)
     trainer = hybrid.HybridParallelTrainer(
         mcfg, hybrid.TrainerConfig(http_port=0, **tcfg))
@@ -4070,21 +4138,21 @@ def phase_fleet(counts, load=None, plans=None, n_disagg=16) -> dict:
 RANKS = 4
 # sub-phase -> (family, layers, mesh layout, batch (B, S), dtype, steps)
 MULTIRANK = {
-    "a": ("gpt", 4, dict(mp=2, sep=2), (2, 1024), "float32", 3),
-    "b": ("gpt", 4, dict(dp=2, sharding=2, zero_stage=3), (4, 1024),
+    "a": ("gpt", 2, dict(mp=2, sep=2), (2, 1024), "float32", 3),
+    "b": ("gpt", 2, dict(dp=2, sharding=2, zero_stage=3), (4, 1024),
           "float32", 3),
-    "c": ("llama", 2, dict(sep=2, sharding=2, zero_stage=3), (2, 2048),
+    "c": ("llama", 1, dict(sep=2, sharding=2, zero_stage=3), (2, 2048),
           "float32", 3),
-    "d": ("gpt", 4, dict(mp=2, sep=2), (2, 1024), "bfloat16", 8),
+    "d": ("gpt", 2, dict(mp=2, sep=2), (2, 1024), "bfloat16", 8),
 }
 
 
 # phase 28's sub-phases, in the same form: the pipelined layouts
 PIPELINE = {
-    "a": ("gpt", 8, dict(pp=4, micro_batches=8), (8, 1024), "float32", 3),
-    "b": ("gpt", 8, dict(pp=2, mp=2, pp_schedule="gpipe", micro_batches=4),
+    "a": ("gpt", 4, dict(pp=4, micro_batches=8), (8, 1024), "float32", 3),
+    "b": ("gpt", 4, dict(pp=2, mp=2, pp_schedule="gpipe", micro_batches=4),
           (4, 1024), "float32", 3),
-    "c": ("gpt", 8, dict(pp=2, vpp=2, dp=2, micro_batches=4, remat=False),
+    "c": ("gpt", 4, dict(pp=2, vpp=2, dp=2, micro_batches=4, remat=False),
           (8, 1024), "float32", 3),
     "d": ("llama", 2, dict(pp=2, sep=2, micro_batches=2), (2, 2048),
           "float32", 3),
@@ -4431,9 +4499,9 @@ def _param_gaps(got, want) -> list:
 def phase_multirank(counts, runs=None, world=RANKS, threads=2,
                     phase=27) -> dict:
     """Phase 27 (``runs`` default ``MULTIRANK``): ``world`` ranks sharing
-    this card over gloo train (a) GPT-345M's width at 4 of 24 layers,
+    this card over gloo train (a) GPT-345M's width at 2 of 24 layers,
     ``mp=2, sep=2``, 2 x 1024, the zigzag ring; (b) the same model at
-    ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c) LLaMA-7B's width at 2 of
+    ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c) LLaMA-7B's width at 1 of
     32 layers, ``sep=2, sharding=2``, ZeRO 3, 2 x 2048; each 3 fp32 steps
     held to a single-rank trainer on the card (losses and each step's
     grad norm 1e-4 relative, params 1e-4 of each leaf's largest); (d) (a)
@@ -4893,6 +4961,548 @@ def phase_bert(counts, peaks, acc_layers=2, acc_shape=(2, 512), pad_to=200,
 
 
 
+# -- phase 30: launched, durable multi-rank training --------------------------
+#
+# Ranks started by the port's launcher (``python -m
+# paddle_tpu_torch.distributed.launch ... chip_smoke.py --launch-worker
+# SPEC``), 4 of them sharing this card over gloo (the backend rule of
+# ``init_parallel_env``), as phase 27's world. Each rank writes
+# ``gen<G>-rank<R>.json`` after every step, so a killed rank's record
+# survives it.
+
+# the world's trainer: GPT-345M width at ``layers``, fp32, batch (B, S)
+LAUNCH = {"layers": 2, "world": 4, "batch": (2, 1024), "steps": 7,
+          "layout": dict(mp=2, sharding=2, zero_stage=3), "save_every": 2,
+          "preempt_at": 3, "kill_at": 6, "kill_rank": 2}
+# (c): 2 ranks at dp=2, the consistency check every 2 steps
+DESYNC = {"world": 2, "layout": dict(dp=2), "every": 2, "desync_at": 3,
+          "steps": 4}
+
+
+def _atomic_json(path, obj) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _ckpt_bytes(step_dir, rank) -> int:
+    """The bytes one rank wrote into a checkpoint step."""
+    mine = {f"shard-{rank}.pkl", f"manifest-{rank}.json"}
+    if rank == 0:
+        mine.add("meta.json")
+    return sum(os.path.getsize(os.path.join(step_dir, f))
+               for f in os.listdir(step_dir) if f in mine)
+
+
+def launch_worker(spec_json: str) -> int:
+    """``chip_smoke.py --launch-worker SPEC``: one rank of phase 30,
+    started by the port's launcher. It joins the world through
+    ``init_parallel_env``, trains ``spec["steps"]`` steps of the spec's
+    GPT (batch i from seed ``spec["seed"] + i`` on every rank) and, with
+    a checkpoint root, arms the preemption guard there, resumes from it
+    and saves asynchronously every ``save_every`` steps; the fault points
+    are the launcher's (``PADDLE_FI_*``). It records each step's loss,
+    its launches and the checkpoint timings, and (rank 0) the gathered
+    params at ``params_at`` to ``params-<label>.pt``; with ``probe``
+    (the reference), :func:`guard_probe` after the last step. Exits 119
+    on a desync, 118 when preempted."""
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.distributed.consistency import DesyncError
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.utils import fault_injection as fi
+
+    spec = json.loads(spec_json)
+    ts = {"enter": time.time()}
+    torch.set_num_threads(1)
+    dev = init_parallel_env(device="cpu" if spec["device"] == "cpu"
+                            else None)
+    ts["world"] = time.time()
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    gen = int(os.environ["PADDLE_RESTART_GENERATION"])
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _build.load_library()      # built by phase 1; the lock if not
+    else:
+        _count_plain_versions()
+    ts["lib"] = time.time()
+    mcfg = GPTConfig(**spec["model"])
+    tcfg = multirank_config("float32", consistency_check_every=spec["every"],
+                            **spec["layout"])
+    mesh = build_mesh(dp=tcfg.dp, pp=tcfg.pp, sharding=tcfg.sharding,
+                      mp=tcfg.mp, sep=tcfg.sep, device=dev)
+    ts["mesh"] = time.time()
+    t = hybrid.HybridParallelTrainer(mcfg, tcfg, device=dev, mesh=mesh)
+    ts["trainer"] = time.time()
+    loader = DrillLoader(spec["seed"], *spec["batch"], mcfg.vocab_size)
+    root = spec["root"]
+    out = {"rank": rank, "gen": gen, "losses": {}, "launches": {},
+           "snapshot_ms": [], "commit_ms": [], "resumed_at": 0,
+           "ts": ts, "step_s": []}
+    path = os.path.join(spec["dir"], f"{spec['label']}-gen{gen}-rank{rank}"
+                                     ".json")
+    mgr = None
+    if root:
+        t.enable_preemption_guard(root, dataloader=loader)
+        if rank == 0:
+            # what a resume must take: the newest step every rank completed
+            out["verified"] = [s for s in ckpt.CheckpointManager(
+                root).steps() if ckpt.verify_checkpoint(
+                    os.path.join(root, f"step-{s}"))[0]]
+        _sync(dev)
+        t0 = time.perf_counter()
+        out["resumed_at"] = t.load_checkpoint(root, dataloader=loader) or 0
+        _sync(dev)
+        out["load_ms"] = (time.perf_counter() - t0) * 1e3
+    K.reset_launch_counts()
+    out["first_step_ts"] = ts["first_step"] = time.time()
+    while t.global_step < spec["steps"]:
+        step = t.global_step + 1
+        t0 = time.perf_counter()
+        try:
+            loss = float(t.step(*loader.next()))
+        except hybrid.TrainingPreempted as e:
+            out["losses"][str(step)] = float(e.loss)
+            out.update(preempted_at=step, launches=K.launch_counts(),
+                       last_ts=time.time())
+            _atomic_json(path, out)
+            raise
+        except DesyncError as e:
+            out["desync"] = {"step": t.global_step, "error": str(e)}
+            _atomic_json(path, out)
+            return hybrid.DESYNC_EXIT_CODE
+        out["losses"][str(step)] = loss
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"] = K.launch_counts()
+        if root and step % spec["save_every"] == 0:
+            if mgr is not None:
+                mgr.wait()
+                out["commit_ms"].append(mgr.last_commit_s * 1e3)
+            _sync(dev)
+            t0 = time.perf_counter()
+            t.save_checkpoint(root, step, dataloader=loader,
+                              async_save=True)
+            out["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+            mgr = t._async_mgrs[root]
+        if step == spec.get("params_at"):
+            full = t.full_params()
+            if rank == 0:
+                torch.save(dict(flatten(full)), os.path.join(
+                    spec["dir"], f"params-{spec['label']}.pt"))
+        out["last_ts"] = time.time()    # a SIGKILL comes right after
+        _atomic_json(path, out)
+        fi.at_step(step)
+    if mgr is not None:
+        t.flush_checkpoints()
+        out["commit_ms"].append(mgr.last_commit_s * 1e3)
+        last = max(ckpt.CheckpointManager(root).steps())
+        out["ckpt_bytes"] = _ckpt_bytes(os.path.join(root, f"step-{last}"),
+                                        rank)
+    if spec.get("probe"):
+        out["probe"] = guard_probe(t, loader, dev)
+    _atomic_json(path, out)
+    return 0
+
+
+def guard_probe(t, loader, dev, steps=2) -> dict:
+    """What the preemption guard and the collective spans cost a step
+    over the mesh: ms a step with the guard disarmed and armed (its
+    notice all-reduced and read on the host at every boundary), in the
+    order off, on, on, off (a steady drift of the card's load cancels),
+    ``steps`` steps each with no host read between them; the host us of
+    one ``collective_span`` and the spans a step. Every rank runs it at
+    the same steps."""
+    from paddle_tpu_torch.distributed import collective_runtime as cr
+
+    root = tempfile.mkdtemp(prefix="guard_probe_")   # no notice: unused
+    ms = {"off": [], "on": []}
+    seq0 = cr.flight_recorder()._seq
+    for arm in ("off", "on", "on", "off"):
+        if arm == "on":
+            t.enable_preemption_guard(root)
+        else:
+            t._preempt_guard = None     # disarm: no API does it
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t.step(*loader.next())
+        _sync(dev)
+        ms[arm].append(round((time.perf_counter() - t0) * 1e3 / steps, 2))
+    t._preempt_guard = None
+    spans = (cr.flight_recorder()._seq - seq0) / (4 * steps)
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with cr.collective_span("probe"):
+            pass
+    span_us = (time.perf_counter() - t0) * 1e6 / n
+    shutil.rmtree(root, ignore_errors=True)
+    return {"step_ms": ms, "spans_a_step": spans,
+            "span_us": round(span_us, 2)}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def launch_start(label, spec, world, work, args=(), env=None) -> dict:
+    """Start one run of ``spec`` through the port's launcher, ``world``
+    ranks (their logs under ``work/logs-<label>``, the launcher's stderr
+    in ``work/launcher-<label>.err``); :func:`launch_finish` waits."""
+    logs = os.path.join(work, f"logs-{label}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = dict(spec, label=label)
+    full_env = {k: v for k, v in os.environ.items()
+                if not k.startswith("PADDLE_")}
+    full_env.update(OMP_NUM_THREADS="1",
+                    PYTHONPATH=root + os.pathsep + os.environ.get(
+                        "PYTHONPATH", ""),
+                    PADDLE_FI_DIR=os.path.join(work, f"fi-{label}"),
+                    **(env or {}))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(world), "--log_dir", logs,
+           "--grace_secs", "10", "--restart_backoff", "0.1", *args,
+           os.path.abspath(__file__), "--launch-worker", json.dumps(spec)]
+    err = open(os.path.join(work, f"launcher-{label}.err"), "w+")
+    return {"label": label, "world": world, "work": work, "logs": logs,
+            "err": err, "t0": time.perf_counter(),
+            "proc": subprocess.Popen(cmd, env=full_env, cwd=root,
+                                     stdout=subprocess.DEVNULL, stderr=err)}
+
+
+def launch_finish(run, timeout=600):
+    """Wait for a started run: ``(launcher exit code, its stderr, {gen:
+    [each rank's record]}, seconds)``; raises with the ranks' log tails
+    when a generation lacks a rank's record."""
+    p, label, work, world = run["proc"], run["label"], run["work"], \
+        run["world"]
+    try:
+        rc = p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        rc = p.wait()
+    secs = time.perf_counter() - run["t0"]
+    run["err"].seek(0)
+    err = run["err"].read()
+    run["err"].close()
+    gens = {}
+    for name in sorted(os.listdir(work)):
+        if name.startswith(f"{label}-gen") and name.endswith(".json"):
+            with open(os.path.join(work, name)) as f:
+                rec = json.load(f)
+            gens.setdefault(rec["gen"], []).append(rec)
+    for recs in gens.values():
+        recs.sort(key=lambda r: r["rank"])
+    if not gens or any(len(r) != world for r in gens.values()):
+        logs, tails = run["logs"], []
+        for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+            with open(os.path.join(logs, name)) as f:
+                tails.append(f"{name}: {f.read()[-1500:]}")
+        raise RuntimeError(f"chip_smoke: phase 30 ({label}) rc {rc}: "
+                           f"{err[-1500:]} {' | '.join(tails)}")
+    return rc, err, gens, secs
+
+
+def phase_launch(counts, cfg=None) -> dict:
+    """Phase 30: launched, durable multi-rank training through
+    ``python -m paddle_tpu_torch.distributed.launch``, ``cfg`` (default
+    ``LAUNCH``): 4 gloo ranks on this card at GPT-345M's width and
+    ``layers`` of its 24 layers, fp32, ``mp=2, sharding=2`` ZeRO 3, 2 x
+    1024, async checkpoints every 2 steps, ``steps`` steps. An
+    uninterrupted run (two steps more, the params gathered after
+    ``steps``, then :func:`guard_probe`) is the reference of (ab), one
+    run
+    under ``--elastic --max_restarts 1``: (b) a preemption notice at
+    ``preempt_at``: every rank's just-in-time checkpoint at that step,
+    exit 118, the immediate relaunch at no budget, generation 1 from
+    that step (zero lost steps); then (a) rank 2 SIGKILLed after
+    ``kill_at``, its async save in flight: the watcher's crash and the
+    relaunch on the one restart of the budget (the preemption took
+    none), generation 2 from the newest step every rank completed (at
+    least the save before, whose commit the last save waited for);
+    losses and final params bitwise. (c) ``desync``: 2 ranks at
+    ``dp=2``, the consistency check every 2 steps and a desync planted
+    on rank 0 at step 3: both ranks raise ``DesyncError`` at step 4
+    naming ``params_hash`` and rank 0, exit 119, and the launcher says
+    desync; (d) (ab)'s newest checkpoint resumes on one rank in this
+    process: its next two losses (the second after an update that reads
+    the loaded moments) within 1e-5 of the reference's. Every rank's
+    launches equal ``ring_launches`` of the steps it ran; the counts of
+    every run are summed. The reference, (c) and (ab) share nothing and
+    start together (10 ranks on the card; (ab)'s generations 1 and 2 run
+    alone)."""
+    cfg, desync = cfg or LAUNCH, DESYNC
+    L, world = cfg["layers"], cfg["world"]
+    mcfg = dataclasses.replace(model_config(), num_layers=L)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip() if DEV.type == "cuda" else "cpu"
+    log(f"[30] launched multi-rank training: python -m paddle_tpu_torch."
+        f"distributed.launch, {world} ranks on {DEV} (gloo), GPT-345M width "
+        f"at {L} of 24 layers, {cfg['layout']}, fp32 {cfg['batch'][0]} x "
+        f"{cfg['batch'][1]}; {smi}")
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    base = {"device": DEV.type, "dir": work,
+            "model": dataclasses.asdict(mcfg), "layout": cfg["layout"],
+            "batch": list(cfg["batch"]), "seed": 3000, "every": 0,
+            "save_every": cfg["save_every"], "root": None,
+            "steps": cfg["steps"]}
+    n = cfg["steps"]
+    fails, out = [], {}
+
+    def per_rank_launches(label, recs_by_gen):
+        """Sum the ranks' launches into ``counts``; check each rank's
+        against the derivation of the steps it ran."""
+        total = dict.fromkeys(K.KERNELS, 0)
+        for gen, recs in recs_by_gen.items():
+            for r in recs:
+                ran = len(r["losses"])
+                want = ring_launches(L, 1, ran)
+                got = {k: r["launches"].get(k, 0) for k in want}
+                if got != want:
+                    fails.append(f"({label}) gen {gen} rank {r['rank']}: "
+                                 f"launches {got}, derived {want}")
+                for k, v in r["launches"].items():
+                    total[k] += v
+        counts[f"phase30_{label}"] = total
+
+    def losses(recs_by_gen):
+        """{step: loss} stitched over the generations (a later one's
+        replay of a step must equal the earlier's), after checking every
+        rank of a generation reports the same losses."""
+        got = {}
+        for gen in sorted(recs_by_gen):
+            recs = recs_by_gen[gen]
+            if any(r["losses"] != recs[0]["losses"] for r in recs):
+                fails.append(f"gen {gen}: the ranks' losses differ")
+            for s, v in recs[0]["losses"].items():
+                if int(s) in got and got[int(s)] != v:
+                    fails.append(f"gen {gen} replayed step {s}: {v} != "
+                                 f"{got[int(s)]}")
+                got[int(s)] = v
+        return got
+
+    try:
+        K.reset_launch_counts()
+        started = {
+            "ref": launch_start(
+                "ref", dict(base, steps=n + 2, params_at=n, probe=True),
+                world, work),
+            "c": launch_start(
+                "c", dict(base, layout=desync["layout"],
+                          every=desync["every"], steps=desync["steps"]),
+                desync["world"], work,
+                env={"PADDLE_FI_DESYNC_AT_STEP": str(desync["desync_at"])}),
+            "ab": launch_start(
+                "ab", dict(base, root=os.path.join(work, "ckpt-ab"),
+                           params_at=n), world, work,
+                args=("--elastic", "--max_restarts", "1"),
+                env={"PADDLE_FI_PREEMPT_AT_STEP": str(cfg["preempt_at"]),
+                     "PADDLE_FI_KILL_AT_STEP": str(cfg["kill_at"]),
+                     "PADDLE_FI_KILL_RANK": str(cfg["kill_rank"])})}
+        done = {k: launch_finish(run) for k, run in started.items()}
+        rc, err, ref, secs = done["ref"]
+        ref_losses = losses(ref)
+        ref_params = torch.load(os.path.join(work, "params-ref.pt"))
+        per_rank_launches("ref", ref)
+        out["reference"] = {"rc": rc, "s": secs, "losses": ref_losses,
+                            "probe": [r.get("probe") for r in ref[0]]}
+        log(f"  reference: {n + 2} steps, losses {ref_losses}, {secs:.1f} "
+            f"s; guard probe {json.dumps(out['reference']['probe'])}")
+        if rc:
+            fails.append(f"reference run exited {rc}: {err[-500:]}")
+        out["ab"] = _launch_faults(done["ab"], cfg, world, work, ref_losses,
+                                   ref_params, losses, per_rank_launches,
+                                   fails)
+        out["c"] = _launch_desync(done["c"], desync, per_rank_launches,
+                                  fails)
+        out["d"] = _launch_reshard(mcfg, cfg, work, ref_losses, counts,
+                                   fails)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(not fails, "phase 30: " + "; ".join(fails))
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase 30: {out['s']:.1f} s")
+    return out
+
+
+def phase_guard_probe(runs=2) -> list:
+    """Phase 31: phase 30's world alone on this card, ``runs`` times: 2
+    steps, then :func:`guard_probe`."""
+    mcfg = dataclasses.replace(model_config(), num_layers=LAUNCH["layers"])
+    log(f"[31] guard probe: phase 30's world alone, {runs} runs")
+    out = []
+    for i in range(runs):
+        work = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+        spec = {"device": DEV.type, "dir": work,
+                "model": dataclasses.asdict(mcfg), "layout": LAUNCH["layout"],
+                "batch": list(LAUNCH["batch"]), "seed": 3000, "every": 0,
+                "save_every": LAUNCH["save_every"], "root": None, "steps": 2,
+                "probe": True}
+        try:
+            rc, err, gens, secs = launch_finish(launch_start(
+                f"probe{i}", spec, LAUNCH["world"], work))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        require(rc == 0, f"phase 31: run {i} exited {rc}: {err[-800:]}")
+        m = {"s": secs, "probe": [r["probe"] for r in gens[0]]}
+        log(f"  run {i}: " + json.dumps(m))
+        out.append(m)
+    return out
+
+
+def _final_params_equal(work, label, ref_params) -> bool:
+    got = torch.load(os.path.join(work, f"params-{label}.pt"))
+    return got.keys() == ref_params.keys() and all(
+        torch.equal(got[k], ref_params[k]) for k in ref_params)
+
+
+def _launch_faults(finished, cfg, world, work, ref_losses, ref_params,
+                   losses, per_rank_launches, fails) -> dict:
+    """(ab): a preemption, then a SIGKILL, in one launched run
+    (``finished``: its :func:`launch_finish`)."""
+    n, at, kill_at = cfg["steps"], cfg["preempt_at"], cfg["kill_at"]
+    rank_k = cfg["kill_rank"]
+    rc, err, gens, secs = finished
+    got = losses(gens)
+    per_rank_launches("ab", gens)
+    g0, g1, g2 = (gens.get(g, []) for g in (0, 1, 2))
+    killed = next((r for r in g1 if r["rank"] == rank_k), {})
+    kill_ts = killed.get("last_ts")
+
+    def startup(recs, t0):
+        """Each rank's restart: ``t0`` to the rank's first line (the
+        watcher, the pod's end, the spawn, imports), then its world, the
+        kernels' library, the mesh, the trainer, and the load (to its
+        first step)."""
+        return [[round(r["ts"]["enter"] - t0, 2)] + [
+            round(r["ts"][b] - r["ts"][a], 2) for a, b in (
+                ("enter", "world"), ("world", "lib"), ("lib", "mesh"),
+                ("mesh", "trainer"), ("trainer", "first_step"))]
+            for r in recs]
+
+    steps = [sorted(int(s) for s in r["losses"]) for r in
+             (g0[:1] + g1[:1] + g2[:1])]
+    preempt_ts = max(r["last_ts"] for r in g0) if g0 else None
+    m = {"rc": rc, "s": secs, "generations": len(gens),
+         "launcher": [x[:160] for x in err.splitlines()
+                      if x.startswith("[launch]")],
+         "steps": steps,
+         "preempted_at": [r.get("preempted_at") for r in g0],
+         "resumed_at": [[r["resumed_at"] for r in g] for g in (g1, g2)],
+         "verified_at_kill_resume": g2[0].get("verified") if g2 else None,
+         "losses": got,
+         "ckpt_bytes_per_rank": [r.get("ckpt_bytes") for r in g2],
+         "snapshot_ms": [r["snapshot_ms"] for r in g1 + g2],
+         "commit_ms": [r["commit_ms"] for r in g1 + g2],
+         "load_ms": [[r.get("load_ms") for r in g] for g in (g1, g2)],
+         "preempt_to_gen1_first_step_s": (
+             max(r["first_step_ts"] for r in g1) - preempt_ts
+             if g1 and preempt_ts else None),
+         "kill_to_gen2_first_step_s": (
+             max(r["first_step_ts"] for r in g2) - kill_ts
+             if g2 and kill_ts else None),
+         "gen1_startup_s": startup(g1, preempt_ts) if g1 else None,
+         "gen2_startup_s": startup(g2, kill_ts) if g2 and kill_ts else None,
+         "step_s": [round(float(np.median(r["step_s"])), 3)
+                    for r in g0 + g1 + g2 if r["step_s"]],
+         "params_bitwise": _final_params_equal(work, "ab", ref_params)}
+    log("  (ab) preemption, then kill and resume: " + json.dumps(m))
+    if rc != 0:
+        fails.append(f"(ab) launcher exited {rc}: {err[-800:]}")
+    if ("[launch] preemption:" not in err
+            or "no restart budget consumed" not in err):
+        fails.append(f"(b) no immediate relaunch: {err[-800:]}")
+    # the peers may fail in their collective inside the settle window
+    # and be named beside the killed rank
+    if ("[launch] crash: " not in err
+            or f"rank {rank_k}: killed by SIGKILL" not in err
+            or "relaunch 1/1 (generation 2)" not in err):
+        fails.append(f"(a) no crash and relaunch in the launcher's log: "
+                     f"{err[-800:]}")
+    if m["preempted_at"] != [at] * world or m["resumed_at"][0] != (
+            [at] * world):
+        fails.append(f"(b) preempted at {m['preempted_at']}, generation 1 "
+                     f"resumed at {m['resumed_at'][0]}")
+    if steps[:2] != [list(range(1, at + 1)), list(range(at + 1,
+                                                        kill_at + 1))]:
+        fails.append(f"(b) steps per generation {steps}: a step lost or "
+                     "replayed across the preemption")
+    # the kill comes after step kill_at's save, which waited for the
+    # commit before it: at least that step is complete on every rank
+    r2 = m["resumed_at"][1]
+    want = max(m["verified_at_kill_resume"] or [0])
+    if r2 != [want] * world or want < kill_at - cfg["save_every"]:
+        fails.append(f"(a) generation 2 resumed at {r2}, the verified "
+                     f"steps were {m['verified_at_kill_resume']}")
+    if got != {s: ref_losses[s] for s in range(1, n + 1)}:
+        fails.append(f"(ab) losses {got} != the uninterrupted "
+                     f"{ref_losses}")
+    if not m["params_bitwise"]:
+        fails.append("(ab) final params differ from the uninterrupted "
+                     "run's")
+    return m
+
+
+def _launch_desync(finished, desync, per_rank_launches, fails) -> dict:
+    """(c) a desync planted on rank 0 (``finished``: the run's
+    :func:`launch_finish`)."""
+    every, at = desync["every"], desync["desync_at"]
+    rc, err, gens, secs = finished
+    per_rank_launches("c", gens)
+    expect = (at + every - 1) // every * every
+    recs = gens.get(0, [])
+    m = {"rc": rc, "s": secs,
+         "desync": [r.get("desync", {}).get("step") for r in recs],
+         "classified": "[launch] desync:" in err,
+         "error": (recs[0].get("desync") or {}).get("error", "")[:400]}
+    log("  (c) desync: " + json.dumps(m))
+    if rc == 0 or not m["classified"] or (
+            "cross-rank desync (DesyncError, exit 119" not in err):
+        fails.append(f"(c) launcher rc {rc}, not classified desync: "
+                     f"{err[-800:]}")
+    for r in recs:
+        e = (r.get("desync") or {}).get("error", "")
+        if r.get("desync", {}).get("step") != expect or not (
+                "params_hash" in e and "rank 0" in e):
+            fails.append(f"(c) rank {r['rank']}: {r.get('desync')}")
+    return m
+
+
+def _launch_reshard(mcfg, cfg, work, ref_losses, counts, fails) -> dict:
+    """(d) (ab)'s 4-rank checkpoint (its newest step, the last multiple
+    of ``save_every``) on one rank of this process, against the
+    reference's next two steps: the second follows an update that reads
+    the loaded moments."""
+    newest = cfg["steps"] // cfg["save_every"] * cfg["save_every"]
+    want = [ref_losses[newest + 1], ref_losses[newest + 2]]
+    loader = DrillLoader(3000, *cfg["batch"], mcfg.vocab_size)
+    K.reset_launch_counts()
+    t = hybrid.HybridParallelTrainer(
+        mcfg, multirank_config("float32", zero_stage=3), device=DEV)
+    t0 = time.perf_counter()
+    step = t.load_checkpoint(os.path.join(work, "ckpt-ab"),
+                             dataloader=loader)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got = [float(t.step(*loader.next())) for _ in want]
+    counts["phase30_d"] = K.launch_counts()
+    m = {"resumed_at": step, "cursor": loader.cursor, "losses": got,
+         "want": want, "rel_gap": max(abs(g - w) / abs(w)
+                                      for g, w in zip(got, want)),
+         "load_ms": load_ms}
+    log("  (d) reshard to one rank: " + json.dumps(m))
+    if step != newest or m["rel_gap"] > 1e-5:
+        fails.append(f"(d) {m}")
+    del t
+    if DEV.type == "cuda":
+        torch.cuda.empty_cache()
+    return m
+
+
 # device kernel name -> what it is, first match wins; a key of several
 # parts matches when every part is in the name. K-DEC, K-DEC8, K-MQ and
 # K-MQ8 all launch the paged split kernel (and its merge): one kind. The SEG instantiations
@@ -5001,20 +5611,26 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
-                    "23,24,25,26,27,28,29",
+                    "23,24,25,26,27,28,29,30",
                     help="comma-separated; 6, 9, 13, 17 and 18 "
-                    "(profiles) are opt-in")
+                    "(profiles) and 31 (phase 30's guard probe alone) "
+                    "are opt-in")
     ap.add_argument("--drill-worker", metavar="SPEC",
                     help="run one generation of phase 24's preemption drill "
                     "(JSON spec; used by phase 24 itself)")
     ap.add_argument("--rank-worker", metavar="SPEC",
                     help="run one rank of phase 27's or 28's world (JSON "
                     "spec; used by those phases themselves)")
+    ap.add_argument("--launch-worker", metavar="SPEC",
+                    help="run one launched rank of phase 30 (JSON spec; "
+                    "the port's launcher starts it)")
     args = ap.parse_args()
     if args.drill_worker:
         return drill_worker(args.drill_worker)
     if args.rank_worker:
         return multirank_worker(args.rank_worker)
+    if args.launch_worker:
+        return launch_worker(args.launch_worker)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5115,15 +5731,20 @@ def main() -> int:
         e2e["pipeline"] = phase_multirank(counts, phase=28)
     if 29 in phases:
         e2e["bert"] = phase_bert(counts, peaks)
+    if 30 in phases:
+        e2e["launch"] = phase_launch(counts)
+    if 31 in phases:
+        e2e["guard_probe"] = phase_guard_probe()
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
     # (16) serving, the LLaMA phases (19-22), the remat policies (23), the
     # durability drills (24), the telemetry phase (25), the rest of
     # serving (26), multi-rank training (27), pipelines (28, every rank's
-    # launches) and BERT with varlen attention (29), each phase's runs
-    # counted
+    # launches), BERT with varlen attention (29) and launched, durable
+    # multi-rank training (30, every rank of every generation), each
+    # phase's runs counted
     main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24,
-                   25, 26, 27, 28, 29)
+                   25, 26, 27, 28, 29, 30)
 
     def launched(which):
         return {name: sum(c.get(name, 0) for key, c in counts.items()
@@ -5150,6 +5771,7 @@ def main() -> int:
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),
             **{k: r[k] for k in ("also", "llama", "bert") if k in r},
             "pass": name in kern})
+    log(json.dumps({"phase_seconds": phase_seconds(time.perf_counter())}))
     log(json.dumps({"e2e": e2e, "launches_by_phase": counts}))
     log(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

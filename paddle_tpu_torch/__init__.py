@@ -14,9 +14,11 @@ Ported so far: GPT and LLaMA paged serving (``models``, ``serving``),
 the training step (``parallel``) on one device or over a mesh of
 ``torch.distributed`` ranks (data, ZeRO, tensor and sequence
 parallelism: ``distributed.mesh``, ``distributed.communication``,
-``ops.ring_attention``), with packed sequences
-(``io.packing``), remat policies, loss scaling, checkpoints
-(``distributed.checkpoint``) and preemption, training through the nn API
+``ops.ring_attention``), launched and made durable over ranks
+(``distributed.launch``, ``distributed.env``, ``distributed.consistency``,
+multi-rank ``distributed.checkpoint``), with packed sequences
+(``io.packing``), remat policies, loss scaling, checkpoints and
+preemption, training through the nn API
 (``GPTForCausalLM`` with ``GPTPretrainingCriterion``), run telemetry and
 the ops endpoint (``observability``), the BERT encoder
 (``models.bert``) with ``nn.functional``'s attention (full and varlen),

@@ -1,14 +1,16 @@
 """Checkpoint save/load with a crash-durable (atomic) on-disk layout (port
-of ``paddle_tpu.distributed.checkpoint``), one process.
+of ``paddle_tpu.distributed.checkpoint``), from one process or from every
+rank of a ``torch.distributed`` world.
 
 The layout is the JAX package's, byte for byte in structure, so a
 checkpoint written by either package loads in the other:
 
-    path/meta.json            -- names, shapes, dtypes, ``nprocs``
-    path/shard-0.pkl          -- a pickled ``{name: [{"index", "data"}]}``,
-                                 each piece a numpy array and its index
-                                 (one slice triple per dim)
-    path/manifest-0.json      -- CRC32 and size of every other file
+    path/meta.json            -- names, global shapes, dtypes, ``nprocs``
+                                 (written by process 0)
+    path/shard-<proc>.pkl     -- a pickled ``{name: [{"index", "data"}]}``,
+                                 each piece a numpy array and its GLOBAL
+                                 index (one slice triple per dim)
+    path/manifest-<proc>.json -- CRC32 and size of the files <proc> wrote
 
 Every save is a SNAPSHOT phase (device tensors copied to owned host
 numpy arrays, inline) followed by a COMMIT phase (pickle, staging into
@@ -32,11 +34,21 @@ renames; the manifests' CRCs catch torn and bit-flipped files at load;
 :class:`CheckpointManager` keeps a rotating ``step-<N>/`` series whose
 ``latest()`` skips corrupt steps loudly.
 
-The port runs one process, so every checkpoint it writes has
-``nprocs`` 1 and one piece per tensor covering all of it; it loads the
-JAX package's multi-piece checkpoints all the same. numpy has no
-bfloat16, so bf16 tensors are refused (the trainer's state is fp32 and
-int).
+``proc`` is the rank and ``nprocs`` the world (0 and 1 outside an
+initialised world). One process stages every file in ``<path>.tmp`` and
+commits the directory with one rename. In a world of ranks each rank
+writes its own files into ``<path>`` with per-file atomic renames and
+process 0 writes ``meta.json`` (the JAX package's multi-process commit):
+a step directory is complete when every rank's manifest is there, which
+:func:`verify_checkpoint` demands, so ``CheckpointManager.latest()`` is
+the newest step every rank completed. Process 0 alone sweeps residue and
+rotates the series. A rank passes its part of a sharded value as
+:class:`Sharded` (the global shape and its pieces with their global
+indexes, each piece held by several ranks given by one of them); a plain
+value is replicated and written once, by process 0. Loading reassembles
+the global values from every rank's pieces, so a checkpoint resumes on a
+different layout or world. numpy has no bfloat16, so bf16 tensors are
+refused (the trainer's state is fp32 and int).
 
 Telemetry is the JAX package's: ``checkpoint_save`` / ``checkpoint_load``
 spans, ``checkpoint_bytes_total{direction="save"}``,
@@ -62,6 +74,7 @@ import torch
 from .. import observability as obs
 
 __all__ = [
+    "Sharded",
     "save_state_dict",
     "load_state_dict",
     "verify_checkpoint",
@@ -100,18 +113,37 @@ def _is_protected(path: str) -> bool:
 
 
 def _touch_heartbeat() -> None:
-    """Refresh this worker's launcher heartbeat file, named by
-    ``PADDLE_HEARTBEAT_FILE`` (no-op when unset); a failed beat never
-    fails the save. ``utime``, not a write: the step payload a launcher
-    keeps in it survives."""
-    path = os.environ.get("PADDLE_HEARTBEAT_FILE")
-    if not path:
-        return
+    """Refresh this worker's launcher heartbeat file (a no-op outside a
+    launch); a failed beat never fails the save. A plain touch: the step
+    payload the trainer keeps in it survives."""
+    from .launch.watcher import touch_heartbeat
+
     try:
-        with open(path, "a"):
-            os.utime(path, None)
+        touch_heartbeat()
     except OSError:
         pass
+
+
+def _rank_world() -> tuple:
+    """``(proc, nprocs)``: the ``torch.distributed`` rank and world, or
+    ``(0, 1)`` outside an initialised world."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class Sharded:
+    """One rank's part of a global value: its global ``shape``, its numpy
+    ``dtype`` name, and ``pieces``, each ``(index, data)`` with ``index``
+    a tuple of slices into the global value (none when another rank
+    writes them)."""
+
+    def __init__(self, shape, dtype: str, pieces):
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = str(dtype)
+        self.pieces = list(pieces)
 
 
 class CheckpointError(ValueError):
@@ -160,10 +192,13 @@ def _write_file_durable(directory: str, name: str, data: bytes) -> dict:
 
 
 def save_state_dict(state_dict: dict, path: str) -> None:
-    """Write a state dict (name -> tensor, numpy array or scalar)
-    atomically: everything is staged in ``path.tmp`` and committed with
-    one directory rename, so a crash at any point leaves either the
-    previous checkpoint or a ``.tmp`` residue -- never a torn ``path``."""
+    """Write a state dict (name -> tensor, numpy array, scalar or
+    :class:`Sharded`) atomically. One process stages everything in
+    ``path.tmp`` and commits it with one directory rename, so a crash at
+    any point leaves either the previous checkpoint or a ``.tmp`` residue
+    -- never a torn ``path``. In a world of ranks every rank calls it:
+    each writes its own files into ``path`` (per-file atomic renames),
+    process 0 the ``meta.json``, and the manifests mark it complete."""
     with obs.span("checkpoint_save", event_type="PythonUserDefined"):
         nbytes = _commit_snapshot(_snapshot_state_dict(state_dict), path)
     obs.counter("checkpoint_bytes_total", direction="save").inc(nbytes)
@@ -187,70 +222,98 @@ def _host_array(v, copy: bool) -> np.ndarray:
     return np.array(arr, copy=True) if copy else arr
 
 
+def _index_to_json(index, shape) -> list:
+    """One slice triple per dim, each its own list as the JAX package
+    writes them: ``[None, None, None]`` for a whole dim."""
+    out = []
+    for sl, n in zip(index, shape):
+        start, stop = sl.start or 0, n if sl.stop is None else sl.stop
+        out.append([None, None, None] if (start, stop) == (0, n)
+                   else [start, stop, None])
+    return out
+
+
 def _snapshot_state_dict(state_dict: dict, copy: bool = False) -> dict:
-    """Phase 1 of a save: every value to a host numpy array (the only
-    part that touches the device). ``copy=True`` (the async path) makes
-    each array OWNED, so the caller may overwrite its tensors while the
-    background thread is still pickling; a synchronous save pickles
-    before returning and skips the extra copy of CPU state."""
+    """Phase 1 of a save: every value to host numpy arrays (the only
+    part that touches the device or ``torch.distributed``), with the
+    process topology captured so the commit never needs either.
+    ``copy=True`` (the async path) makes each array OWNED, so the caller
+    may overwrite its tensors while the background thread is still
+    pickling; a synchronous save pickles before returning and skips the
+    extra copy of CPU state."""
+    proc, nprocs = _rank_world()
     meta, shards = {}, {}
     for name, v in state_dict.items():
-        arr = _host_array(v, copy)
-        meta[name] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
-        # one slice triple per dim, each its own list as the JAX package
-        # writes them (so either package pickles the same bytes)
-        shards[name] = [{"index": [[None, None, None]
-                                   for _ in range(arr.ndim)], "data": arr}]
-    return {"proc": 0, "nprocs": 1, "meta": meta, "shards": shards}
+        if isinstance(v, Sharded):
+            meta[name] = {"shape": list(v.shape), "dtype": v.dtype}
+            pieces = [{"index": _index_to_json(idx, v.shape),
+                       "data": _host_array(d, copy)} for idx, d in v.pieces]
+        else:
+            arr = _host_array(v, copy)
+            meta[name] = {"shape": list(arr.shape), "dtype": str(arr.dtype)}
+            # replicated: one piece covering all of it, from process 0
+            pieces = [{"index": [[None, None, None]
+                                 for _ in range(arr.ndim)], "data": arr}
+                      ] if proc == 0 else []
+        if pieces:
+            shards[name] = pieces
+    return {"proc": proc, "nprocs": nprocs, "meta": meta, "shards": shards}
 
 
 def _commit_snapshot(snapshot: dict, path: str) -> int:
     """Phase 2 of a save: serialize + stage + fsync + atomic rename. Pure
     host I/O on an owned snapshot -- safe to run off-thread. Returns the
-    shard's bytes."""
-    staging = path + _STAGING_SUFFIX
+    shard's bytes. In a world of ranks the files land in ``path`` itself
+    (``path`` is the staging directory; there is no directory rename)."""
+    proc = snapshot["proc"]
+    single = snapshot["nprocs"] == 1
+    staging = path + _STAGING_SUFFIX if single else path
     _protect_paths(staging, path)
     try:
-        if os.path.isdir(staging):
-            # residue of a previous save that died mid-write
-            shutil.rmtree(staging)
-        # force: this commit holds path's protection, but a PREVIOUS
-        # save's crashed swap (.old present, path gone) must still be
-        # recovered here, or its .old would be stranded
-        _recover_interrupted_swap(path, force=True)
+        if single:
+            if os.path.isdir(staging):
+                # residue of a previous save that died mid-write
+                shutil.rmtree(staging)
+            # force: this commit holds path's protection, but a PREVIOUS
+            # save's crashed swap (.old present, path gone) must still be
+            # recovered here, or its .old would be stranded
+            _recover_interrupted_swap(path, force=True)
         os.makedirs(staging, exist_ok=True)
         _mark_dir_live(staging)
 
         manifest = {}
-        shard_name = f"shard-{snapshot['proc']}.pkl"
+        shard_name = f"shard-{proc}.pkl"
         manifest[shard_name] = _write_file_durable(
             staging, shard_name, pickle.dumps(snapshot["shards"]))
         nbytes = manifest[shard_name]["size"]
-        meta_bytes = json.dumps(
-            {"tensors": snapshot["meta"], "nprocs": snapshot["nprocs"]}
-        ).encode()
-        manifest["meta.json"] = _write_file_durable(staging, "meta.json",
-                                                    meta_bytes)
+        if proc == 0:
+            meta_bytes = json.dumps(
+                {"tensors": snapshot["meta"], "nprocs": snapshot["nprocs"]}
+            ).encode()
+            manifest["meta.json"] = _write_file_durable(
+                staging, "meta.json", meta_bytes)
         # the manifest is the last file in: its presence means every
         # file it names was fully written and fsync'd
         _write_file_durable(
-            staging, f"manifest-{snapshot['proc']}.json",
+            staging, f"manifest-{proc}.json",
             json.dumps({"files": manifest}, indent=1,
                        sort_keys=True).encode())
         _fsync_dir(staging)
-        old = path + ".old"
-        if os.path.isdir(path):
-            # overwrite: move the old copy aside so the commit rename is
-            # atomic, then drop it; a crash between the two renames
-            # leaves only `.old`, which every read path recovers
-            if os.path.isdir(old):
+        if single:
+            old = path + ".old"
+            if os.path.isdir(path):
+                # overwrite: move the old copy aside so the commit rename
+                # is atomic, then drop it; a crash between the two
+                # renames leaves only `.old`, which every read path
+                # recovers
+                if os.path.isdir(old):
+                    shutil.rmtree(old)
+                os.rename(path, old)
+                os.rename(staging, path)
                 shutil.rmtree(old)
-            os.rename(path, old)
-            os.rename(staging, path)
-            shutil.rmtree(old)
-        else:
-            os.rename(staging, path)
-        _fsync_dir(os.path.dirname(os.path.abspath(path)))
+            else:
+                os.rename(staging, path)
+            _fsync_dir(os.path.dirname(os.path.abspath(path)))
         return nbytes
     finally:
         _unprotect_paths(staging, path)
@@ -410,6 +473,9 @@ class CheckpointManager:
             raise ValueError(f"keep_last_n must be >= 1, got {keep_last_n}")
         self.root = root
         self.keep_last_n = keep_last_n
+        # process 0 alone sweeps and rotates; resolved here, on the
+        # caller's thread (a background commit never asks the world)
+        self.proc = _rank_world()[0]
         os.makedirs(root, exist_ok=True)
         # a worker killed mid-staging leaves `.tmp` residue; sweeping at
         # construction means a resuming process starts from a clean
@@ -456,7 +522,10 @@ class CheckpointManager:
 
     def _sweep_stale_staging(self, min_age_s: float = 0.0) -> None:
         """Remove crash residue (``.tmp`` staging, completed-``.old``
-        swaps) older than ``min_age_s``; never a protected path."""
+        swaps) older than ``min_age_s``; never a protected path. Process
+        0 only."""
+        if self.proc != 0:
+            return
         now = time.time()
         for name in os.listdir(self.root):
             full = os.path.join(self.root, name)
@@ -482,6 +551,8 @@ class CheckpointManager:
                 shutil.rmtree(full, ignore_errors=True)
 
     def _rotate(self) -> None:
+        if self.proc != 0:
+            return
         for s in self.steps()[:-self.keep_last_n]:
             path = self.step_dir(s)
             if _is_protected(path):

@@ -20,6 +20,12 @@ gather (``group`` None there is a group of one rank: the identity):
 - :func:`gather_dim`: all-gather along a dim forward, reduce-scatter
   (sum) backward.
 
+Every collective and point-to-point batch runs inside
+``collective_runtime.collective_span`` (its op's calls and bytes
+counters, a ``collective:<op>`` host span, a flight-recorder record), as
+the JAX package's do; the autograd forms count as the collective they
+run (``all_reduce``, ``all_gather``, ``reduce_scatter``).
+
 Host staging: gloo runs all-reduce, broadcast, all-gather and
 reduce-scatter on CUDA tensors, but a send or receive of one aborts the
 process. The point-to-point calls (``send``, ``recv``,
@@ -36,6 +42,8 @@ from typing import List
 
 import torch
 import torch.distributed as dist
+
+from ..collective_runtime import collective_span
 
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "reduce_scatter",
            "broadcast", "barrier", "send", "recv", "P2POp",
@@ -89,7 +97,8 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     """Reduce ``tensor`` over ``group`` in place; returns it."""
     if not _live():
         return tensor
-    dist.all_reduce(tensor, op=_TORCH_OPS[op], group=group)
+    with collective_span("all_reduce", tensor):
+        dist.all_reduce(tensor, op=_TORCH_OPS[op], group=group)
     if op == ReduceOp.AVG:
         tensor.div_(_size(group))
     return tensor
@@ -101,7 +110,8 @@ def _gather0(tensor, group):
     src = tensor.contiguous()[None]        # concatenated along dim 0
     out = torch.empty((n,) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.all_gather_into_tensor(out, src, group=group)
+    with collective_span("all_gather", src):
+        dist.all_gather_into_tensor(out, src, group=group)
     return out
 
 
@@ -120,7 +130,8 @@ def _reduce_scatter0(stacked, group):
     src = stacked.contiguous()
     out = torch.empty((1,) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
-    dist.reduce_scatter_tensor(out, src, group=group)
+    with collective_span("reduce_scatter", src):
+        dist.reduce_scatter_tensor(out, src, group=group)
     return out[0]
 
 
@@ -144,13 +155,15 @@ def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
 def broadcast(tensor, src=0, group=None, sync_op=True):
     """``tensor`` := global rank ``src``'s, in place."""
     if _live():
-        dist.broadcast(tensor, src=src, group=group)
+        with collective_span("broadcast", tensor):
+            dist.broadcast(tensor, src=src, group=group)
     return tensor
 
 
 def barrier(group=None):
     if _live():
-        dist.barrier(group=group)
+        with collective_span("barrier"):
+            dist.barrier(group=group)
 
 
 class _Staged:
@@ -184,13 +197,17 @@ def _p2p(kind: str, tensor, peer, group, tag=0, host_staged=False):
 
 def send(tensor, dst=0, group=None, sync_op=True, host_staged=False):
     if _live():
-        _p2p("send", tensor, dst, group, host_staged=host_staged).wait()
+        with collective_span("send", tensor):
+            _p2p("send", tensor, dst, group,
+                 host_staged=host_staged).wait()
     return tensor
 
 
 def recv(tensor, src=0, group=None, sync_op=True, host_staged=False):
     if _live():
-        _p2p("recv", tensor, src, group, host_staged=host_staged).wait()
+        with collective_span("recv"):
+            _p2p("recv", tensor, src, group,
+                 host_staged=host_staged).wait()
     return tensor
 
 
@@ -220,6 +237,16 @@ def batch_isend_irecv(p2p_op_list: List[P2POp], host_staged=False):
     (receives are complete on return). Returns ``[]``."""
     if not _live():
         return []
+    # the volume is the sends' (the receives' would count every byte
+    # twice)
+    with collective_span("batch_isend_irecv",
+                         [op.tensor for op in p2p_op_list
+                          if _kind(op.op) == "send"]):
+        _batch(p2p_op_list, host_staged)
+    return []
+
+
+def _batch(p2p_op_list, host_staged):
     works = []
     plain = []
     for op in p2p_op_list:
@@ -235,7 +262,6 @@ def batch_isend_irecv(p2p_op_list: List[P2POp], host_staged=False):
         works += dist.batch_isend_irecv(plain)
     for w in works:
         w.wait()
-    return []
 
 
 def ring_shift(tensors, group, nxt: int, prv: int,
@@ -284,7 +310,8 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.group)
+        with collective_span("all_reduce", g):
+            dist.all_reduce(g, group=ctx.group)
         return g, None
 
 
@@ -292,7 +319,8 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
+        with collective_span("all_reduce", out):
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod

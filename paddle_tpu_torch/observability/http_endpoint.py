@@ -56,7 +56,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional
 
 from .metrics import registry
-from .step_stats import read_heartbeat
 
 __all__ = ["ObsHTTPEndpoint"]
 
@@ -272,6 +271,8 @@ def _heartbeat(path: str, now: float) -> Dict[str, Any]:
     except OSError:
         return {"present": False}
     out: Dict[str, Any] = {"present": True, "age_s": age_s}
+    from ..distributed.launch.watcher import read_heartbeat
+
     beat = read_heartbeat(path)
     if beat:
         out.update({k: beat[k] for k in ("step", "step_ms") if k in beat})

@@ -5,8 +5,9 @@
   (nested dicts of tensors or arrays) into global and per-device bytes;
   :func:`plan_state_memory` plans a whole trainer's state (params +
   AdamW moments) at a mesh layout without allocating anything: the
-  arch's init runs on the ``meta`` device, PyTorch's counterpart of
-  ``jax.eval_shape``, and the trainer's specs give each rank's bytes.
+  params' shapes as ``meta`` tensors (``hybrid.param_shapes``, where the
+  JAX package runs ``jax.eval_shape``), and the trainer's specs give
+  each rank's bytes.
 - **watermark** — :func:`all_devices_memory_stats` samples
   :func:`~.step_stats.device_memory_stats` across devices (max + sum)
   and degrades to None where no device has stats (the CPU).
@@ -103,13 +104,11 @@ def plan_state_memory(model_cfg, trainer_cfg=None,
                       ) -> Dict[str, Any]:
     """Allocation-free state-memory plan of a ``HybridParallelTrainer``
     layout for ``model_cfg`` (GPT or LLaMA, through the trainer's
-    ``_arch_for``): the arch's init runs on the ``meta`` device, the
+    ``_arch_for``): the params' shapes as ``meta`` tensors, the
     trainer's param specs (``sanitize_specs``) and moment specs
     (``_opt_specs``) are derived for the axis sizes, and the params plus
     AdamW's two fp32 moments and its int32 step fold to global and
     per-rank bytes, key for key the JAX package's plan."""
-    import torch
-
     from ..parallel import hybrid
 
     cfg = trainer_cfg if trainer_cfg is not None else hybrid.TrainerConfig()
@@ -124,9 +123,8 @@ def plan_state_memory(model_cfg, trainer_cfg=None,
         # stands in for a Mesh: the spec derivation reads mesh.shape only
         shape = axis_sizes
 
-    init_fn, specs_fn, _, arch = hybrid._arch_for(model_cfg)
-    with torch.device("meta"):
-        shapes = init_fn(model_cfg)
+    _, specs_fn, _, arch = hybrid._arch_for(model_cfg)
+    shapes = hybrid.param_shapes(model_cfg)
     pspecs = hybrid.sanitize_specs(
         shapes, specs_fn(model_cfg, cfg.zero_stage, cfg.pp), _AxisSizes)
     ospecs = hybrid._opt_specs(pspecs, cfg.zero_stage, shapes, _AxisSizes)

@@ -25,8 +25,6 @@ Methodology:
 """
 from __future__ import annotations
 
-import json
-import os
 import time
 from typing import Any, Dict, Optional
 
@@ -34,8 +32,7 @@ from . import sink
 from .hw import peak_flops
 from .metrics import registry
 
-__all__ = ["StepAccounting", "device_memory_stats", "read_heartbeat",
-           "touch_heartbeat"]
+__all__ = ["StepAccounting", "device_memory_stats"]
 
 
 def device_memory_stats(device=None) -> Optional[Dict[str, int]]:
@@ -189,6 +186,8 @@ class StepAccounting:
                 rolling_ms = span_s / len(self._recent) * 1e3
             else:
                 rolling_ms = dur_ms  # first (compile) step: best known
+            from ..distributed.launch.watcher import touch_heartbeat
+
             touch_heartbeat(step=global_step, step_ms=rolling_ms)
         return rec
 
@@ -201,34 +200,3 @@ class StepAccounting:
                "flops_per_step": self.flops_per_step,
                "flops_source": self.flops_source}
         return out
-
-
-def touch_heartbeat(path: Optional[str] = None, step: Optional[int] = None,
-                    step_ms: Optional[float] = None) -> None:
-    """Refresh this worker's launcher heartbeat file (default
-    ``$PADDLE_HEARTBEAT_FILE``; a no-op when unset), in the JAX
-    launcher's format: with ``step`` the file holds
-    ``{"step", "ts"[, "step_ms"]}``, without it is only touched."""
-    path = path or os.environ.get("PADDLE_HEARTBEAT_FILE")
-    if not path:
-        return
-    if step is None:
-        with open(path, "a"):
-            os.utime(path, None)
-        return
-    beat = {"step": int(step), "ts": round(time.time(), 3)}
-    if step_ms is not None:
-        beat["step_ms"] = round(float(step_ms), 3)
-    with open(path, "w") as f:
-        f.write(json.dumps(beat))
-
-
-def read_heartbeat(path: str) -> Optional[dict]:
-    """An enriched heartbeat file's content; None for plain-touch beats,
-    missing files and torn writes."""
-    try:
-        with open(path) as f:
-            data = json.loads(f.read())
-        return data if isinstance(data, dict) else None
-    except (OSError, ValueError):
-        return None

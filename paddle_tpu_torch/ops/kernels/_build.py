@@ -9,13 +9,17 @@ build takes seconds, not minutes.
 The library lands in ``build/paddle_tpu_torch/`` at the repository root
 (listed in ``.gitignore``), named by a hash of the sources, the headers
 they include (``csrc/*.cuh``) and the flags: a changed source or header
-builds a new library, an unchanged one is reused. A
+builds a new library, an unchanged one is reused. The check and the
+build hold an ``fcntl`` lock on ``build_dir()/.build.lock``, so the ranks
+of a launched pod that find no library build it once: the first builds,
+the others wait and load it. A
 failed build raises with ``nvcc``'s stderr; nothing falls back to the
 plain PyTorch versions.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -153,11 +157,12 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(f"no CUDA sources under {_CSRC}")
         out = build_dir() / f"libpaddle_tpu_torch_{digest()}.so"
         t0 = time.perf_counter()
-        built = not out.exists()
-        log = ""
-        if built:
-            out.parent.mkdir(parents=True, exist_ok=True)
-            log = _build(srcs, out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        # across processes: one builds, the others wait here and load
+        with open(out.parent / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            built = not out.exists()
+            log = _build(srcs, out) if built else ""
         lib = ctypes.CDLL(str(out))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -24,12 +24,29 @@ key names (``_flat_state``: ``['params'][...]``, ``['opt'][...]``,
 ``guard/*``, ``meta/global_step``, ``data/cursor_json``), written
 atomically by ``distributed.checkpoint`` (``save_checkpoint``, sync or
 async) and restored by ``load_checkpoint``; a checkpoint of either
-package resumes in the other. ``enable_preemption_guard`` turns SIGTERM
-or SIGUSR1 into a just-in-time checkpoint and :class:`TrainingPreempted`
-(exit 118) at the next step boundary, and a divergence abort rolls the
-state back to the newest valid checkpoint before it raises. The port
-has no framework RNG stream yet, so it writes no ``rng/key`` and
-ignores one it loads (neither loss draws random numbers).
+package resumes in the other. Over a mesh every rank saves at the same
+step: its shards of the params and the moments as pieces of the global
+values (``utils.convert.shard_pieces``: global indexes in the JAX
+layout, a piece several ranks hold written by the lowest), the
+replicated values from rank 0; loading reassembles the global values of
+the newest step every rank completed (the ranks agree on it) and cuts
+this trainer's shards of them, on whatever mesh it runs.
+``enable_preemption_guard`` turns SIGTERM or SIGUSR1 into a just-in-time
+checkpoint and :class:`TrainingPreempted` (exit 118) at the next step
+boundary; over a mesh the notice is all-reduced (MAX) at every step
+boundary, so every rank writes its shard at the same step and exits (a
+rank that stopped while its peers stepped on would deadlock them). A
+divergence abort rolls the state back to the newest valid checkpoint
+before it raises, on every rank to the same step. The port has no
+framework RNG stream yet, so it writes no ``rng/key`` and ignores one it
+loads (neither loss draws random numbers).
+
+The cross-rank consistency check (``consistency_check_every`` or
+:meth:`enable_consistency_check`) digests the full params, the loss
+bits, the loss scale and the data cursor every K steps and all-gathers
+the digests (``distributed.consistency``); ranks that disagree raise
+``DesyncError`` (exit 119). The ``PADDLE_FI_DESYNC_AT_STEP`` and
+``PADDLE_FI_STALL_AT_STEP`` drills run at the same step boundary.
 
 Run telemetry (``telemetry=True``, the default) is the JAX package's:
 per-step accounting (:attr:`telemetry`, a ``StepAccounting``: step
@@ -81,14 +98,13 @@ dividing dim). A step:
   ``"sharding"`` back to the param layout.
 
 The telemetry counts the global batch's tokens and the global params,
-with ``n_devices`` the world, as the JAX package does. Loss scaling and
-packed sequences with ``pp > 1`` raise ``ValueError``, as in the JAX
-package. Not ported for a world above one rank, and raising
-``NotImplementedError`` naming the slice that brings them: checkpoints,
-the preemption guard and rollback, ``http_port``, the consistency
-check; everywhere: ``sep > 1`` without ring attention (the JAX
-package's GSPMD sequence sharding), and packed sequences over a
-mesh. ``TrainerConfig`` keeps every field and default of the JAX
+with ``n_devices`` the world, as the JAX package does; with ``http_port``
+every rank serves its own endpoint. Loss scaling and packed sequences
+with ``pp > 1`` raise ``ValueError``, as in the JAX package. Not ported,
+and raising ``NotImplementedError`` naming the slice that brings them:
+``sep > 1`` without ring attention (the JAX package's GSPMD sequence
+sharding), and packed sequences over a mesh. ``TrainerConfig`` keeps
+every field and default of the JAX
 package's; ``compile_ledger`` is accepted and records nothing (PyTorch
 runs eagerly, there is no compile to ledger).
 """
@@ -98,6 +114,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import sys
 import time
 from collections import deque
@@ -109,14 +126,20 @@ import torch
 from .. import observability as obs
 from ..device import resolve_device
 from ..distributed import communication as comm
+from ..distributed import consistency as cns
 from ..distributed.checkpoint import (AsyncCheckpointManager,
-                                      CheckpointError, CheckpointManager)
+                                      CheckpointError, CheckpointManager,
+                                      Sharded, load_state_dict)
+from ..distributed.collective_runtime import flight_recorder
+from ..distributed.consistency import DESYNC_EXIT_CODE, DesyncError
 from ..distributed.mesh import P, build_mesh
 from ..io.packing import positions_from_segment_ids
 from ..models.llama import LlamaConfig
 from ..ops.ring_attention import to_zigzag
 from ..utils import fault_injection as fi
-from ..utils.convert import from_head_aligned, shard_params
+from ..utils.convert import (expected_gpt_params, expected_llama_params,
+                             from_head_aligned, qkv_col_order, shard_params,
+                             shard_pieces)
 from ..utils.preemption import (PREEMPTED_EXIT_CODE, PreemptionGuard,
                                 TrainingPreempted)
 from ..utils.tree import flatten, tree_map, unflatten
@@ -125,12 +148,11 @@ from . import transformer_core as core
 
 __all__ = ["DIVERGENCE_EXIT_CODE", "NumericalDivergenceError",
            "PREEMPTED_EXIT_CODE", "PreemptionGuard", "TrainingPreempted",
+           "DESYNC_EXIT_CODE", "DesyncError",
            "TrainerConfig", "HybridParallelTrainer", "global_norm",
            "adamw_init", "adamw_update", "sanitize_specs"]
 
 # what the next multi-device slice brings (ROADMAP A.6)
-_NEXT_CKPT = ("the multi-rank checkpoint slice (ROADMAP A.6: launch/, "
-              "consistency, multi-rank checkpoints)")
 _NEXT_A6 = "a later multi-device slice (ROADMAP A.6)"
 
 # exit code for a script that lets NumericalDivergenceError end it (the
@@ -336,6 +358,17 @@ def _arch_for(model_cfg):
     return core.gpt_init, core.gpt_param_specs, core.gpt_loss, "gpt"
 
 
+def param_shapes(model_cfg):
+    """The family's param tree as ``meta`` tensors of its shapes. No init
+    runs: under a ``torch.device("meta")`` context the first init of a
+    process imports PyTorch's compiler stack (~800 modules; 7 s a rank on
+    the H100's host)."""
+    expected = (expected_llama_params if isinstance(model_cfg, LlamaConfig)
+                else expected_gpt_params)(model_cfg)
+    return tree_map(lambda shape: torch.empty(shape, device="meta"),
+                    expected)
+
+
 _LOSS_AXES = ("data", "sharding", "sep")
 
 
@@ -348,9 +381,8 @@ class _Layout:
     for the global norm) and whether every pipeline stage holds the leaf
     (``pipe_rep``: its grads are summed over ``"pipe"``)."""
 
-    def __init__(self, model_cfg, cfg, mesh, init_fn, specs_fn):
-        with torch.device("meta"):
-            self.shapes = init_fn(model_cfg)
+    def __init__(self, model_cfg, cfg, mesh, specs_fn):
+        self.shapes = param_shapes(model_cfg)
         self.pspecs = sanitize_specs(
             self.shapes, specs_fn(model_cfg, cfg.zero_stage, cfg.pp), mesh)
         self.ospecs = _opt_specs(self.pspecs, cfg.zero_stage, self.shapes,
@@ -418,8 +450,7 @@ class HybridParallelTrainer:
                 sep=cfg.sep, device=device)
             self._validate_mesh()
             self.device = self.mesh.device
-            self._layout = _Layout(model_cfg, cfg, self.mesh, self._init_fn,
-                                   self._specs_fn)
+            self._layout = _Layout(model_cfg, cfg, self.mesh, self._specs_fn)
         else:
             self.device = resolve_device(device)
         if params is None:
@@ -439,6 +470,14 @@ class HybridParallelTrainer:
         self._async_mgrs = {}         # root -> AsyncCheckpointManager
         self._preempt_guard = None    # PreemptionGuard when enabled
         self._preempt_ckpt = None     # (root, dataloader, keep_last_n)
+        self._consistency = None      # ConsistencyChecker when enabled
+        self._consistency_dl = None   # dataloader whose cursor is digested
+        if cfg.consistency_check_every:
+            self.enable_consistency_check(cfg.consistency_check_every)
+        # the flight recorder now: its thread starts when a flight dir or
+        # a watchdog timeout is set, so a rank wedged before its first
+        # collective still answers its peers' dump requests
+        flight_recorder()
         # -- run telemetry (built lazily on the first recorded step) -------
         self._accounting = None
         self._flops_published = False
@@ -452,7 +491,6 @@ class HybridParallelTrainer:
         # -- live ops endpoint (opt-in: cfg.http_port) ---------------------
         self.http = None
         if cfg.http_port is not None:
-            self._single_rank("the ops endpoint (http_port)")
             self.http = obs.ObsHTTPEndpoint(
                 port=cfg.http_port, host=cfg.http_host,
                 health=self._health_snapshot).start()
@@ -460,10 +498,6 @@ class HybridParallelTrainer:
     @property
     def world(self) -> int:
         return 1 if self.mesh is None else self.mesh.world
-
-    def _single_rank(self, what: str) -> None:
-        if self.world > 1:
-            _not_ported(f"{what} over {self.world} ranks", _NEXT_CKPT)
 
     def _validate_mesh(self):
         cfg, mesh, mcfg = self.cfg, self.mesh, self.model_cfg
@@ -521,8 +555,6 @@ class HybridParallelTrainer:
         if cfg.sep > 1 and not cfg.ring_attention:
             _not_ported("sep > 1 without ring attention (the JAX package's "
                         "GSPMD sequence sharding)", _NEXT_A6)
-        if cfg.consistency_check_every:
-            _not_ported("the cross-rank consistency check", _NEXT_CKPT)
         core._remat_wrap(None, cfg.remat)   # an unknown policy raises now
 
     # -- the step -----------------------------------------------------------
@@ -748,9 +780,15 @@ class HybridParallelTrainer:
         call it)."""
         if self.mesh is None:
             return tree_map(lambda t: t.detach().cpu(), self.params)
-        spec_of = dict(flatten(self._layout.pspecs))
+        return self._gather_full(self.params, self._layout.pspecs)
+
+    def _gather_full(self, tree, specs):
+        """``tree`` (the params, or a moment under ``_layout.ospecs``) as
+        its FULL CPU values in the JAX layout: every rank's shards
+        all-gathered (every rank must call it)."""
+        spec_of = dict(flatten(specs))
         out = []
-        for path, p in flatten(self.params):
+        for path, p in flatten(tree):
             for dim, e in enumerate(spec_of[path]):
                 if e is not None:
                     p = comm.all_gather_dim(p, dim, self.mesh.group(e))
@@ -868,10 +906,86 @@ class HybridParallelTrainer:
         # preemption is consumed at the END of the step boundary: after
         # step N is dispatched, before the caller pulls batch N+1, so the
         # just-in-time checkpoint's data cursor is the last trained step's
-        if (self._preempt_guard is not None
-                and self._preempt_guard.preemption_noticed(self.global_step)):
+        if self._preempt_guard is not None and self._preempt_noticed():
             self._handle_preemption(loss)
+        self._cross_rank_hooks(loss)
         return loss
+
+    def _preempt_noticed(self) -> bool:
+        """This step boundary's preemption notice; over a mesh the MAX of
+        every rank's, so all of them stop at the same step."""
+        noticed = self._preempt_guard.preemption_noticed(self.global_step)
+        if self.world == 1:
+            return noticed
+        flag = torch.tensor([float(noticed)], device=self.device)
+        comm.all_reduce(flag, comm.ReduceOp.MAX, group=self.mesh.world_group)
+        return bool(flag.item())
+
+    def _cross_rank_hooks(self, loss) -> None:
+        """End-of-step cross-rank work: the desync and stall drills, then
+        the periodic consistency check."""
+        if fi.armed("desync_at_step") and fi.desync_at_step(self.global_step):
+            self._inject_desync()
+        if fi.armed("stall_at_step"):
+            secs = fi.stall_at_step(self.global_step)
+            if secs > 0:
+                time.sleep(secs)
+        if self._consistency is not None:
+            self._consistency.maybe_check(
+                self.global_step, lambda: self._consistency_digest(loss))
+
+    def _inject_desync(self) -> None:
+        """Drill only: add 1.0 to the first element of this rank's local
+        copy of the first param leaf, so its next digest disagrees."""
+        items = flatten(self.params)
+        path, leaf = items[0]
+        bad = leaf.detach().clone()
+        flat = bad.view(-1)
+        flat[0] = (flat[0].float() + 1.0).to(bad.dtype)
+        self.params = unflatten([(path, bad)] + items[1:])
+
+    def enable_consistency_check(self, every: int, dataloader=None,
+                                 exchange_dir=None, timeout_s=None):
+        """Arm the periodic cross-rank consistency check: every ``every``
+        steps all ranks all-gather a digest of their replicated state
+        (the global step, a 64-bit hash of the full params, the loss
+        bits, the loss scale and, given ``dataloader``, its cursor) and
+        diff it; a mismatch raises :class:`DesyncError` (exit
+        :data:`DESYNC_EXIT_CODE`, which the launcher restarts in full).
+        The exchange directory defaults to ``PADDLE_CONSISTENCY_DIR``
+        (the launcher sets it); one rank falls back to a private temp
+        dir. Returns the checker."""
+        d = exchange_dir or cns.default_exchange_dir()
+        if d is None:
+            if self.world > 1:
+                raise ValueError(
+                    "consistency check needs a shared exchange dir: "
+                    "launch with paddle_tpu_torch.distributed.launch "
+                    "(which sets PADDLE_CONSISTENCY_DIR) or pass "
+                    "exchange_dir=")
+            import tempfile
+
+            d = tempfile.mkdtemp(prefix="paddle_consistency_")
+        ranks = ({} if self.mesh is None else
+                 {"rank": self.mesh.rank, "world": self.world})
+        self._consistency = cns.ConsistencyChecker(
+            every=every, exchange=cns.DigestExchange(d, **ranks),
+            timeout_s=timeout_s)
+        self._consistency_dl = dataloader
+        return self._consistency
+
+    def _consistency_digest(self, loss) -> dict:
+        """This rank's view of the replicated state as scalars: one host
+        sync (the full params, all-gathered over a mesh) per K steps."""
+        dl = self._consistency_dl
+        return {
+            "step": int(self.global_step),
+            "params_hash": cns.tree_digest64(self.full_params()),
+            "loss_bits": cns.float_bits(loss),
+            "loss_scale": cns.float_bits(self.guard["loss_scale"]),
+            "data_cursor": (cns.json_digest64(dl.state_dict())
+                            if dl is not None else None),
+        }
 
     def _guard_snapshot(self, skipped):
         """(host flags, event): skipped, skip_count and loss_scale copied
@@ -974,9 +1088,38 @@ class HybridParallelTrainer:
     # Keys and layout are the JAX package's, so either package resumes the
     # other's checkpoints.
 
+    def _leaf_layout(self, path):
+        """``(full shape, spec)`` of a state leaf over the mesh: a param
+        under its spec, a moment under the moments' spec, the step
+        replicated."""
+        if path == ("opt", "step"):
+            return (), P()
+        if path[0] == "params":
+            ppath, specs = path[1:], self._layout.pspecs
+        else:
+            ppath, specs = path[2:], self._layout.ospecs
+        spec = dict(flatten(specs))[ppath]
+        return self._layout.leaf[ppath]["shape"], spec
+
+    def _sharded(self, path, leaf):
+        """This rank's part of a state leaf for the checkpoint: its
+        pieces of the global value in the JAX layout (none when a lower
+        rank holds the same shard)."""
+        shape, spec = self._leaf_layout(path)
+        mesh = self.mesh
+        order = (qkv_col_order(path, self.model_cfg, mesh.shape["model"])
+                 if self.arch == "gpt" else None)
+        dtype = str(torch.empty((), dtype=leaf.dtype).numpy().dtype)
+        return Sharded(shape, dtype, shard_pieces(
+            leaf.detach(), shape, spec, mesh.shape, mesh.rank, order))
+
     def _flat_state(self, dataloader=None) -> dict:
-        flat = {_keystr(path): leaf for path, leaf in
-                flatten({"params": self.params, "opt": self.opt})}
+        items = flatten({"params": self.params, "opt": self.opt})
+        if self.mesh is None:
+            flat = {_keystr(path): leaf for path, leaf in items}
+        else:
+            flat = {_keystr(path): self._sharded(path, leaf)
+                    for path, leaf in items}
         for k, v in self.guard.items():
             flat[f"guard/{k}"] = v
         flat["meta/global_step"] = np.int64(self.global_step)
@@ -997,8 +1140,8 @@ class HybridParallelTrainer:
         thread. At most one save is in flight per root; a background
         write error re-raises at the next save or
         :meth:`flush_checkpoints`. Call :meth:`flush_checkpoints` before
-        the process exits."""
-        self._single_rank("save_checkpoint")
+        the process exits. Over a mesh every rank calls it at the same
+        step, each writing its own shard files."""
         self._ckpt_root = root
         state = self._flat_state(dataloader=dataloader)
         if async_save:
@@ -1030,16 +1173,44 @@ class HybridParallelTrainer:
         if first_err is not None:
             raise first_err
 
+    def _latest(self, root: str):
+        """``(step, state)`` of the newest valid checkpoint under
+        ``root``, or None. Over a mesh the ranks agree on the step (the
+        newest every rank verified; the oldest of their answers if they
+        differ), and every rank reads the global values."""
+        if self.world > 1:
+            # every rank's commits land before any rank lists the steps
+            self.flush_checkpoints()
+            comm.barrier(self.mesh.world_group)
+        mgr = CheckpointManager(root)
+        found = mgr.latest()
+        if self.world == 1:
+            return None if found is None else (
+                found[0], load_state_dict(found[1], verify=False))
+        mine = -1 if found is None else found[0]
+        agree = torch.tensor([mine, -mine], dtype=torch.int64,
+                             device=self.device)
+        comm.all_reduce(agree, comm.ReduceOp.MIN,
+                        group=self.mesh.world_group)
+        lo, hi = int(agree[0]), -int(agree[1])
+        if lo != hi:
+            print(f"[checkpoint] ranks found steps {lo}..{hi} under "
+                  f"{root!r}; resuming every rank from {lo}",
+                  file=sys.stderr, flush=True)
+        if lo < 0:
+            return None
+        return lo, load_state_dict(mgr.step_dir(lo), verify=lo != mine)
+
     def load_checkpoint(self, root: str, dataloader=None):
         """Resume from the newest *valid* checkpoint under ``root`` (torn
         or corrupt steps are skipped loudly): params and optimizer, and,
         where present, the guard, the global step and the dataloader
         cursor; each missing group warns and takes its fresh default.
-        Returns the restored step, or None when no valid checkpoint
-        exists."""
-        self._single_rank("load_checkpoint")
+        Over a mesh every rank calls it and takes its shards of the
+        global values, whatever layout or world wrote them. Returns the
+        restored step, or None when no valid checkpoint exists."""
         self._ckpt_root = root
-        found = CheckpointManager(root).load_latest()
+        found = self._latest(root)
         if found is None:
             return None
         step, state = found
@@ -1051,16 +1222,20 @@ class HybridParallelTrainer:
                 f"checkpoint under {root!r} does not match this trainer's "
                 f"state tree; missing keys: {missing[:5]} (model/optimizer "
                 "config changed since the checkpoint was written?)")
-        for (_, leaf), k in zip(items, keys):
-            if tuple(state[k].shape) != tuple(leaf.shape):
+        for (path, leaf), k in zip(items, keys):
+            want = (tuple(leaf.shape) if self.mesh is None
+                    else tuple(self._leaf_layout(path)[0]))
+            if tuple(state[k].shape) != want:
                 raise CheckpointError(
                     f"checkpoint under {root!r}: {k} has shape "
-                    f"{tuple(state[k].shape)}, this trainer "
-                    f"{tuple(leaf.shape)}")
-        restored = unflatten(
-            (path, torch.from_numpy(state[k]).to(device=leaf.device,
-                                                  dtype=leaf.dtype))
-            for (path, leaf), k in zip(items, keys))
+                    f"{tuple(state[k].shape)}, this trainer {want}")
+        if self.mesh is None:
+            restored = unflatten(
+                (path, torch.from_numpy(state[k]).to(device=leaf.device,
+                                                      dtype=leaf.dtype))
+                for (path, leaf), k in zip(items, keys))
+        else:
+            restored = self._shards_of(items, keys, state)
         self.params, self.opt = restored["params"], restored["opt"]
         self._restore_extras(root, step, state, dataloader)
         acct = self.telemetry
@@ -1068,6 +1243,25 @@ class HybridParallelTrainer:
             # telemetry continues the GLOBAL step count after a resume
             acct.step_offset = int(step)
         return step
+
+    def _shards_of(self, items, keys, state):
+        """This rank's shards of the checkpoint's global params and
+        moments (``shard_params``: the qkv head-aligned, each dim cut by
+        its spec)."""
+        full = unflatten((path, state[k]) for (path, _), k in
+                         zip(items, keys))
+        mesh, cfg = self.mesh, self.model_cfg
+        cut = {"params": shard_params(full["params"], cfg,
+                                      self._layout.pspecs, mesh.shape,
+                                      mesh.rank)}
+        cut["opt"] = {m: shard_params(full["opt"][m], cfg,
+                                      self._layout.ospecs, mesh.shape,
+                                      mesh.rank) for m in ("m", "v")}
+        cut["opt"]["step"] = torch.as_tensor(full["opt"]["step"])
+        dst = dict(items)
+        return unflatten((path, x.to(device=dst[path].device,
+                                     dtype=dst[path].dtype))
+                         for path, x in flatten(cut))
 
     def _restore_extras(self, root, step, state, dataloader) -> None:
         """Restore the train state beyond params and optimizer; each
@@ -1120,8 +1314,9 @@ class HybridParallelTrainer:
         the next step boundary -- any in-flight async save is flushed, a
         just-in-time full-state checkpoint is written under ``root``, and
         :class:`TrainingPreempted` (a ``SystemExit`` with
-        :data:`PREEMPTED_EXIT_CODE`) is raised. Returns the guard."""
-        self._single_rank("the preemption guard")
+        :data:`PREEMPTED_EXIT_CODE`) is raised. Over a mesh every rank
+        arms it: the notice is all-reduced at each step boundary, so every
+        rank checkpoints the same step. Returns the guard."""
         self._preempt_guard = (guard if guard is not None
                                else PreemptionGuard())
         self._preempt_ckpt = (root, dataloader, keep_last_n)
@@ -1131,7 +1326,8 @@ class HybridParallelTrainer:
     def _handle_preemption(self, loss=None):
         root, dataloader, keep_last_n = self._preempt_ckpt
         step = self.global_step
-        why = self._preempt_guard.why or "notice"
+        why = self._preempt_guard.why or (
+            "a peer rank's notice" if self.world > 1 else "notice")
         print(f"[preemption] {why}: flushing in-flight saves and writing "
               f"just-in-time checkpoint at step {step}", file=sys.stderr,
               flush=True)
@@ -1194,13 +1390,17 @@ class HybridParallelTrainer:
 
     def _health_snapshot(self) -> dict:
         """The trainer's /healthz payload: last dispatched step, OOM
-        proximity and the guard's state (heartbeat age is added by the
-        endpoint itself from $PADDLE_HEARTBEAT_FILE)."""
+        proximity, the guard's state and the consistency check's
+        (heartbeat age is added by the endpoint itself from
+        $PADDLE_HEARTBEAT_FILE)."""
         return {
             "role": "trainer",
             "step": self.global_step,
             "oom_proximity_warned": self._oom_latched,
             "anomaly": dict(self.anomaly),
+            "consistency_check": self._consistency is not None,
+            "collective_watchdog_timeout_s": float(
+                os.environ.get("PADDLE_COLLECTIVE_TIMEOUT_S", "0") or 0),
         }
 
     def memory_plan(self, compute_executable: bool = False):
@@ -1366,8 +1566,3 @@ class HybridParallelTrainer:
             # PADDLE_HBM_BYTES_PER_CHIP) the check still runs against a
             # zero watermark
             self._check_oom_proximity(mem)
-
-    # -- not ported in this slice --------------------------------------------
-    def enable_consistency_check(self, every, dataloader=None,
-                                 exchange_dir=None, timeout_s=None):
-        _not_ported("the cross-rank consistency check", _NEXT_CKPT)

@@ -38,6 +38,10 @@ first reordered head-aligned (``head_aligned``): the JAX package's
 columns on one rank (GSPMD keeps the math right whatever the cut), but
 an explicit tensor-parallel block needs each rank's q, k and v heads, so
 rank m's columns are ``[q heads of m | k heads of m | v heads of m]``.
+``shard_pieces`` goes the other way for a checkpoint: a rank's shard of
+one leaf as pieces of the JAX layout's global value, each with its
+global index (three column runs for a head-aligned qkv shard), and none
+when a lower rank holds the same shard.
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ __all__ = ["from_paddle_tpu_state", "expected_leaves", "from_bert_state",
            "expected_gpt_params", "from_llama_state", "expected_llama_leaves",
            "from_llama_params", "expected_llama_params", "qkv_order",
            "head_aligned", "from_head_aligned", "shard_slices",
-           "shard_params", "unshard_params"]
+           "shard_params", "unshard_params", "shard_pieces",
+           "qkv_col_order"]
 
 # leaves stored (in, out) by Paddle's Linear and transposed here
 _LINEAR = re.compile(
@@ -347,6 +352,40 @@ def shard_slices(shape, spec, mesh_shape, rank) -> tuple:
                              "sanitize the specs first")
         out.append(slice(c * (dim // n), (c + 1) * (dim // n)))
     return tuple(out)
+
+
+def shard_pieces(local, shape, spec, mesh_shape, rank,
+                 col_order=None) -> list:
+    """Rank ``rank``'s shard ``local`` of a ``shape`` leaf under ``spec``
+    as ``[(index, data)]`` pieces of the global value: empty when a lower
+    rank holds the same shard (it writes it), else one
+    piece, or with ``col_order`` (a head-aligned qkv leaf: its column c
+    is the global column ``col_order[c]``) one piece per run of
+    consecutive global columns."""
+    mine = shard_slices(shape, spec, mesh_shape, rank)
+    if any(shard_slices(shape, spec, mesh_shape, r) == mine
+           for r in range(rank)):
+        return []
+    if col_order is None:
+        return [(mine, local)]
+    a, b = mine[-1].start, mine[-1].stop
+    out, c0 = [], a
+    for c in range(a + 1, b + 1):
+        if c == b or col_order[c] != col_order[c - 1] + 1:
+            g0 = int(col_order[c0])
+            out.append((mine[:-1] + (slice(g0, g0 + c - c0),),
+                        local[..., c0 - a:c - a]))
+            c0 = c
+    return out
+
+
+def qkv_col_order(path, cfg, mp: int):
+    """``qkv_order`` for a GPT qkv leaf's path (``(..., "blocks",
+    "qkv_w")``) at ``mp`` > 1, else None."""
+    if mp == 1 or len(path) < 2 or path[-2:] not in (
+            ("blocks", "qkv_w"), ("blocks", "qkv_b")):
+        return None
+    return qkv_order(cfg, mp)
 
 
 def shard_params(params, cfg, specs, mesh_shape, rank) -> Dict[str, object]:

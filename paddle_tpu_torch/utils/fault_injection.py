@@ -15,6 +15,19 @@ It needs ``PADDLE_FI_DIR``, where a marker file remembers the firing
 across the relaunch (which inherits the environment); without it the
 point is ignored, loudly.
 
+The launcher's points, each firing on the rank ``PADDLE_FI_KILL_RANK``
+names (default 0; the rank is ``PADDLE_TRAINER_ID``) and once per drill
+through a marker in ``PADDLE_FI_DIR``, so a relaunched generation does
+not fire it again: ``PADDLE_FI_KILL_AT_STEP`` (``at_step`` SIGKILLs the
+process), ``PADDLE_FI_DESYNC_AT_STEP`` (``desync_at_step``: the trainer
+perturbs this rank's params) and ``PADDLE_FI_STALL_AT_STEP``
+(``stall_at_step``: the trainer sleeps ``PADDLE_FI_STALL_SECS``, default
+30, mid-step); the preemption point is rank-filtered the same way.
+``PADDLE_FI_DELAY_HEARTBEAT_S`` stalls the elastic manager's heartbeat
+(``heartbeat_delay``), and ``PADDLE_FI_FAIL_RENDEZVOUS_N`` fails the
+launcher's first N rendezvous attempts (``rendezvous``, counted in
+``PADDLE_FI_DIR``).
+
 The serving points (``PADDLE_FI_SERVE_NAN_AT_TICK``,
 ``PADDLE_FI_SERVE_SLOW_TICK``, ``PADDLE_FI_SERVE_POOL_PRESSURE``) poison
 one request's decode logits, stretch a decode tick or reserve KV pages;
@@ -32,9 +45,13 @@ armed at all, so hot loops resolve it once.
 from __future__ import annotations
 
 import os
+import signal
 import sys
+import time
 
-__all__ = ["armed", "nan_at_step", "preempt_at_step", "serve_nan_at_tick",
+__all__ = ["armed", "nan_at_step", "preempt_at_step", "at_step",
+           "desync_at_step", "stall_at_step", "heartbeat_delay",
+           "rendezvous", "serve_nan_at_tick",
            "serve_slow_tick", "serve_pool_pressure", "router_kill_replica",
            "router_wedge_replica", "handoff_drop", "handoff_partial",
            "handoff_stall"]
@@ -42,6 +59,11 @@ __all__ = ["armed", "nan_at_step", "preempt_at_step", "serve_nan_at_tick",
 _ENV = {
     "nan_at_step": "PADDLE_FI_NAN_AT_STEP",
     "preempt_at_step": "PADDLE_FI_PREEMPT_AT_STEP",
+    "at_step": "PADDLE_FI_KILL_AT_STEP",
+    "desync_at_step": "PADDLE_FI_DESYNC_AT_STEP",
+    "stall_at_step": "PADDLE_FI_STALL_AT_STEP",
+    "heartbeat_delay": "PADDLE_FI_DELAY_HEARTBEAT_S",
+    "rendezvous": "PADDLE_FI_FAIL_RENDEZVOUS_N",
     "serve_nan_at_tick": "PADDLE_FI_SERVE_NAN_AT_TICK",
     "serve_slow_tick": "PADDLE_FI_SERVE_SLOW_TICK",
     "serve_pool_pressure": "PADDLE_FI_SERVE_POOL_PRESSURE",
@@ -121,7 +143,7 @@ def preempt_at_step(step: int) -> bool:
                            f"PADDLE_FI_PREEMPT_AT_STEP={target!r} (expected "
                            "a single integer step)")
         return False
-    if target_step != int(step):
+    if target_step != int(step) or not _rank_targeted():
         return False
     if _fi_dir() is None:
         # without the marker dir every relaunched generation would
@@ -130,11 +152,94 @@ def preempt_at_step(step: int) -> bool:
                            "PADDLE_FI_PREEMPT_AT_STEP: PADDLE_FI_DIR is "
                            "required for its fire-once marker")
         return False
-    if not _fire_once(f"preempt_at_step-{target}"):
+    rank = _rank()
+    if not _fire_once(f"preempt_at_step-{target}-rank{rank}"):
         return False
-    print(f"[fault-injection] SIGTERM (preemption notice) at step {step}",
-          file=sys.stderr, flush=True)
+    print(f"[fault-injection] SIGTERM (preemption notice) rank {rank} "
+          f"at step {step}", file=sys.stderr, flush=True)
     return True
+
+
+def _rank() -> str:
+    return os.environ.get("PADDLE_TRAINER_ID", "0")
+
+
+def _rank_targeted() -> bool:
+    """Is this process the rank ``PADDLE_FI_KILL_RANK`` names (default
+    0)?"""
+    return _rank() == os.environ.get("PADDLE_FI_KILL_RANK", "0")
+
+
+def at_step(step: int) -> None:
+    """A training loop's point: SIGKILL this process when the armed step
+    is reached (once per drill, on the targeted rank)."""
+    target = os.environ.get("PADDLE_FI_KILL_AT_STEP")
+    if not target or int(target) != int(step) or not _rank_targeted():
+        return
+    rank = _rank()
+    if not _fire_once(f"kill_at_step-{target}-rank{rank}"):
+        return
+    print(f"[fault-injection] SIGKILL rank {rank} at step {step}",
+          file=sys.stderr, flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def desync_at_step(step: int) -> bool:
+    """Should this rank's params be perturbed after ``step``? Once, on
+    the targeted rank only: its peers keep the clean state, so the next
+    consistency digest disagrees and names this rank."""
+    target = os.environ.get("PADDLE_FI_DESYNC_AT_STEP")
+    if not target or int(target) != int(step) or not _rank_targeted():
+        return False
+    rank = _rank()
+    if not _fire_once(f"desync_at_step-{target}-rank{rank}"):
+        return False
+    print(f"[fault-injection] perturbing params on rank {rank} at step "
+          f"{step} (desync drill)", file=sys.stderr, flush=True)
+    return True
+
+
+def stall_at_step(step: int) -> float:
+    """Seconds this rank should sleep mid-step (0.0 when not armed, not
+    this step or not this rank); once. Its peers then block in their next
+    collective: the watchdog and flight-recorder drill."""
+    target = os.environ.get("PADDLE_FI_STALL_AT_STEP")
+    if not target or int(target) != int(step) or not _rank_targeted():
+        return 0.0
+    rank = _rank()
+    if not _fire_once(f"stall_at_step-{target}-rank{rank}"):
+        return 0.0
+    secs = float(os.environ.get("PADDLE_FI_STALL_SECS", "30") or 30)
+    print(f"[fault-injection] stalling rank {rank} for {secs:.1f}s at "
+          f"step {step}", file=sys.stderr, flush=True)
+    return secs
+
+
+def heartbeat_delay() -> None:
+    """The elastic heartbeat's point: stall the beat (a hung node)."""
+    s = os.environ.get("PADDLE_FI_DELAY_HEARTBEAT_S")
+    if s:
+        time.sleep(float(s))
+
+
+def rendezvous() -> None:
+    """The launcher's rendezvous point: raise ``ConnectionError`` on the
+    first N consultations (``PADDLE_FI_FAIL_RENDEZVOUS_N``, counted by
+    marker files so retries across processes share the budget)."""
+    n = os.environ.get("PADDLE_FI_FAIL_RENDEZVOUS_N")
+    if not n:
+        return
+    if _fi_dir() is None:
+        # ValueError: a misconfigured drill must not be retried away
+        raise ValueError(
+            "PADDLE_FI_FAIL_RENDEZVOUS_N requires PADDLE_FI_DIR for the "
+            "attempt counter")
+    for attempt in range(int(n)):
+        if _fire_once(f"rendezvous_fail-{attempt}"):
+            print(f"[fault-injection] failing rendezvous attempt "
+                  f"{attempt + 1}/{n}", file=sys.stderr, flush=True)
+            raise ConnectionError(
+                f"injected rendezvous failure {attempt + 1}/{n}")
 
 
 def _scoped(spec: str, scope: str | None) -> str | None:

@@ -4,8 +4,9 @@ shapes with the plain versions standing in for the kernels, and its
 training phases (7, 8, 10-12), speculative and int8 serving phases
 (14-16), LLaMA phases (19-22), remat policies (23), durability drills
 (24), run telemetry (25), the rest of serving (26), multi-rank
-training (27, four gloo rank processes) and BERT with varlen attention
-(29) run end to end at tiny widths."""
+training (27, four gloo rank processes), BERT with varlen attention
+(29) and launched, durable multi-rank training (30, through the port's
+launcher) run end to end at tiny widths."""
 import numpy as np
 import pytest
 import torch
@@ -345,6 +346,7 @@ def tiny_training(on_cpu, monkeypatch):
     cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0)
     monkeypatch.setattr(cs, "model_config", lambda: cfg)
     monkeypatch.setattr(cs, "LAYERS", cfg.num_layers)
+    monkeypatch.setattr(cs, "CUT_LAYERS", cfg.num_layers)
     monkeypatch.setattr(cs.hybrid, "resolve_device",
                         lambda device=None: torch.device(device or "cpu"))
     for fn in ("reset_peak_memory_stats", "empty_cache"):
@@ -784,6 +786,41 @@ def test_multirank_phase_rehearses_on_cpu(tiny_llama):
     assert m["d"]["losses"][-1] < m["d"]["losses"][0]
     assert m["d"]["step_ms"] > 0
     assert len(set(m["c"]["live_state_bytes"])) == 1
+
+
+# phase 30 at tiny widths: LAUNCH and DESYNC sized for the CPU
+_TINY_LAUNCH = dict(cs.LAUNCH, batch=(2, 64))
+
+
+def test_launch_phase_rehearses_on_cpu(tiny_training):
+    """Phase 30 over gloo on the CPU at gpt_tiny, through the port's
+    launcher (4 ranks, ``mp=2, sharding=2`` ZeRO 3, async saves every 2
+    steps), its three runs started together as on the card: the
+    reference run and its guard probe; (ab) a preemption at step 3 and a
+    SIGKILL of rank 2 after step 6, each relaunched and resumed bit for
+    bit; (c) the desync at 2 ranks exiting 119 at step 4; (d) (ab)'s
+    checkpoint on one rank, two steps. Every rank's launches equal
+    ``ring_launches`` (the plain versions counted as the kernels)."""
+    counts = {}
+    m = cs.phase_launch(counts, cfg=_TINY_LAUNCH)
+    ab = m["ab"]
+    assert ab["rc"] == 0 and ab["generations"] == 3 and ab["params_bitwise"]
+    assert ab["steps"][:2] == [[1, 2, 3], [4, 5, 6]]
+    assert ab["resumed_at"][0] == [3] * 4
+    assert ab["resumed_at"][1] in ([4] * 4, [6] * 4)
+    assert all(b > 0 for b in ab["ckpt_bytes_per_rank"])
+    assert ab["kill_to_gen2_first_step_s"] > 0
+    assert all(len(r) == 6 for r in ab["gen2_startup_s"])
+    assert m["c"]["desync"] == [4, 4] and m["c"]["classified"]
+    assert m["d"]["resumed_at"] == 6 and m["d"]["rel_gap"] <= 1e-5
+    assert len(m["d"]["losses"]) == 2
+    for probe in m["reference"]["probe"]:
+        assert [len(v) for v in probe["step_ms"].values()] == [2, 2]
+        assert probe["spans_a_step"] > 0 and probe["span_us"] > 0
+    # the reference: 4 ranks x 9 steps x 2 layers x 2 forwards (remat),
+    # the probe's steps apart
+    assert counts["phase30_ref"]["K-PACK"] == 4 * 9 * 2 * 2
+    assert counts["phase30_d"]["K-DQ"] == 2 * 2
 
 
 # phase 28 at tiny widths, as PIPELINE but sized for the CPU

@@ -140,30 +140,46 @@ def _naive_vs_serial(mcfg, full):
 
 
 def _unported_over_ranks(mcfg, d):
-    """What a world of ranks cannot do yet: each raises
-    ``NotImplementedError`` naming the multi-rank checkpoint slice."""
+    """What a world of ranks refused before the launcher slice and runs
+    now (a checkpoint saved and loaded at the same step, the preemption
+    guard, the consistency check, ``http_port``: each True), and what it
+    still refuses (``sep > 1`` without the ring raises
+    ``NotImplementedError`` naming the slice that brings it)."""
     from paddle_tpu_torch.parallel import hybrid
 
     cfg = hybrid.TrainerConfig(sep=2, mp=2)
     t = hybrid.HybridParallelTrainer(mcfg, cfg, device="cpu")
-    root = os.path.join(d, "never")
-    calls = {"save_checkpoint": lambda: t.save_checkpoint(root, 1),
-             "load_checkpoint": lambda: t.load_checkpoint(root),
+    root = os.path.join(d, f"ckpt-{type(mcfg).__name__}")
+
+    def http():
+        h = hybrid.HybridParallelTrainer(
+            mcfg, hybrid.TrainerConfig(sep=2, mp=2, http_port=0),
+            device="cpu").http
+        h.stop()
+        return h.port > 0
+
+    calls = {"save_checkpoint": lambda: t.save_checkpoint(root, 1).endswith(
+                 "step-1"),
+             "load_checkpoint": lambda: t.load_checkpoint(root) == 1,
              "enable_preemption_guard": lambda: t.enable_preemption_guard(
-                 root),
+                 root) is not None,
              "enable_consistency_check": lambda: t.enable_consistency_check(
-                 1),
-             "http_port": lambda: hybrid.HybridParallelTrainer(
-                 mcfg, hybrid.TrainerConfig(sep=2, mp=2, http_port=0),
-                 device="cpu")}
+                 1, exchange_dir=os.path.join(d, "cc")).every == 1,
+             "http_port": http}
     out = {}
     for name, call in calls.items():
         try:
-            call()
-            out[name] = "no error"
+            out[name] = bool(call())
         except NotImplementedError as e:
-            out[name] = "multi-rank checkpoint slice" in str(e)
-    out["nothing_written"] = not os.path.exists(root)
+            out[name] = f"raised: {e}"
+    t._preempt_guard.uninstall()
+    try:
+        hybrid.HybridParallelTrainer(
+            mcfg, hybrid.TrainerConfig(sep=2, mp=2, ring_attention=False),
+            device="cpu")
+        out["sep_without_ring"] = "no error"
+    except NotImplementedError as e:
+        out["sep_without_ring"] = "slice" in str(e)
     return out
 
 

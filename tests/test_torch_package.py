@@ -32,7 +32,8 @@ print(len(names), bad, " ".join(names))
 assert not bad, bad
 """
 
-# modules the walk must reach (the training and LLaMA slices' among them)
+# modules the walk must reach (the training, LLaMA and launcher slices'
+# among them)
 _MUST_IMPORT = {
     "paddle_tpu_torch.models.llama",
     "paddle_tpu_torch.parallel.llama_core",
@@ -67,6 +68,14 @@ _MUST_IMPORT = {
     "paddle_tpu_torch.nn.functional",
     "paddle_tpu_torch.nn.functional.attention",
     "paddle_tpu_torch.models.bert",
+    "paddle_tpu_torch.distributed.env",
+    "paddle_tpu_torch.distributed.launch",
+    "paddle_tpu_torch.distributed.launch.main",
+    "paddle_tpu_torch.distributed.launch.watcher",
+    "paddle_tpu_torch.distributed.launch.__main__",
+    "paddle_tpu_torch.distributed.fleet.elastic",
+    "paddle_tpu_torch.distributed.consistency",
+    "paddle_tpu_torch.distributed.collective_runtime",
 }
 
 

@@ -149,7 +149,7 @@ def _two_stage_mesh():
     mesh = build_mesh(pp=2, device="cpu")
     mcfg = _port_cfg("gpt")
     lay = hybrid._Layout(mcfg, hybrid.TrainerConfig(pp=2), mesh,
-                         core.gpt_init, core.gpt_param_specs)
+                         core.gpt_param_specs)
     return mesh, mcfg, lay.pspecs
 
 

@@ -280,15 +280,31 @@ def test_from_gpt_params_rejects_unknown_missing_and_misshapen(jax_params):
 @pytest.mark.parametrize("kw", [
     {"sep": 2, "ring_attention": False},
     {"pp": 2, "sep": 2, "ring_attention": False},
-    {"consistency_check_every": 4}])
+    {"mp": 2, "sep": 2, "ring_attention": False}])
 def test_trainer_rejects_what_is_not_ported(kw):
-    """sep > 1 without the ring (in a pipeline stage too) and the
-    consistency check raise, naming the slice that brings them (dp,
-    pp, sharding, mp and sep with the ring are ported:
-    ``tests/test_torch_hybrid.py``, ``tests/test_torch_pipeline.py``)."""
+    """sep > 1 without the ring (in a pipeline stage, beside tensor
+    parallelism) raises, naming the slice that brings it (dp, pp,
+    sharding, mp and sep with the ring are ported:
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_pipeline.py``; the
+    consistency check too: ``tests/test_torch_consistency.py``)."""
     with pytest.raises(NotImplementedError, match="slice"):
         thybrid.HybridParallelTrainer(gpt_tiny(), thybrid.TrainerConfig(**kw),
                                       device="cpu")
+
+
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_param_shapes_equal_the_inits(family):
+    """``param_shapes`` (the layout's and the memory plan's shapes,
+    without running an init) holds the init's tree, leaf for leaf."""
+    from paddle_tpu_torch.models.llama import llama_tiny
+    from paddle_tpu_torch.utils.tree import flatten
+
+    cfg = gpt_tiny() if family == "gpt" else llama_tiny()
+    init = thybrid._arch_for(cfg)[0](cfg, torch.Generator().manual_seed(0))
+    got = [(p, tuple(x.shape), x.dtype, x.device.type)
+           for p, x in flatten(thybrid.param_shapes(cfg))]
+    assert got == [(p, tuple(x.shape), x.dtype, "meta")
+                   for p, x in flatten(init)]
 
 
 def test_vpp_without_pp_trains_as_pp_1():
