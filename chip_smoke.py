@@ -12,14 +12,16 @@
     python3 chip_smoke.py --phases 0,1,28  # pipeline parallelism (4 ranks)
     python3 chip_smoke.py --phases 0,1,2,29  # BERT, varlen attention
     python3 chip_smoke.py --phases 0,1,30  # launched ranks, durability
+    python3 chip_smoke.py --phases 0,1,2,32  # dropout, masks, Transformer
 
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
 0. device: require CUDA, print the card's name and power limit;
 1. build: compile ``paddle_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
 2. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, at the widths of the paths that launch it, timed with
-   CUDA events (median of >= 20 runs after warm-up) beside its plain
+   on the card (operands drawn there, from torch generators seeded by
+   numpy), at the widths of the paths that launch it, timed with
+   CUDA events (median of >= 10 runs after warm-up) beside its plain
    version, the one PyTorch library call that computes the same function
    (where one exists), its device time under the profiler (which leaves
    out the card's waits on the host) and its bound (bytes over HBM
@@ -37,7 +39,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    Sq != Sk, ids on one side only, rows that see no key) and timed at
    ``BERT_ROWS`` (BERT-large's padded 16 x 512, the varlen row's 2048
    queries over 3072 keys), K-BSHD, K-BDQ and K-BDKV non-causal at
-   BERT-base's 128 x 128 and BERT-large's 16 x 512;
+   BERT-base's 128 x 128 and BERT-large's 16 x 512; and the flash
+   kernels' DROP and BIAS variants (attention dropout, an additive mask):
+   K-BSHD, K-BDQ and K-BDKV with a causal (S, S) -inf mask, a (B, 1, 1,
+   S) -1e9 padding mask, a random (B, H, Sq, Sk) bias, dropout 0.1, and
+   a mask with dropout, dropout under the kernels' causal flag, K-SEG,
+   K-SDQ and K-SDKV with dropout, in fp32 and
+   bf16 at ``FEATURE_EDGES`` (S 1 to 1000, Sq != Sk, ``unbind`` views, d
+   128; ``check_feature_edges``) against the plain versions, which rebuild
+   the same Philox bits, each dropout row's keep fraction within 4 sigma
+   of 0.9, the same output on the same key and another on the next; timed
+   at ``FEATURE_ROWS`` (Transformer-base's 32 x 256, GPT-345M's causal 4
+   x 1024, BERT-large's padded 16 x 512) beside SDPA with the same mask
+   and dropout;
 3. serving accuracy, fp32: GPT-345M's width at ``ACC_LAYERS`` (2) of
    its layers (a depth cut for the run's time; random weights, seed 0)
    answers 3 requests through the continuous-batching scheduler, and
@@ -80,8 +94,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     ``torch.optim.AdamW`` steps at 4 x 1024: losses finite, and per step
     24 K-BSHD, 24 K-BDQ and 24 K-BDKV;
 13. (opt-in) profile of 3 packed training steps at phase 11's shape;
-14. speculative and int8 serving accuracy, fp32: (a) 3 repetitious
-    requests (prompts of 100-300 tokens, 16 new tokens) through the
+14. speculative and int8 serving accuracy, fp32, GPT-345M's width at
+    ``ACC_LAYERS`` (2) of its layers (phase 3's depth cut): (a) 3
+    repetitious requests (prompts of 100-300 tokens, 16 new tokens) through the
     scheduler with ``SpecDecodeConfig(k=4)``, the card's logits at every
     committed position held against a teacher-forced CPU forward; (b)
     int8 KV pools: the card's engine and the port's engine on the CPU
@@ -99,7 +114,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 17. (opt-in) profile of 20 verify ticks (phase 6 with k=4 on repetitious
     prompts);
 18. (opt-in) profile of 3 nn-API training steps at phase 12's shape;
-19. LLaMA serving accuracy, fp32: ``llama_7b()`` width, 2 layers, MHA
+19. LLaMA serving accuracy, fp32: ``llama_7b()`` width, 1 layer, MHA
     and GQA-8 (random weights drawn on the card, copied to the CPU): 3
     requests through the scheduler held against a teacher-forced CPU
     forward (2e-3), the no-cache forward (K-BSHD) against the CPU's
@@ -114,7 +129,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     tokens/s, tick and TTFT percentiles, prefill tokens/s, weight and
     pool bytes, peak memory;
 21. LLaMA training accuracy, fp32: ``llama_7b()`` width, 1 layer,
-    GQA-8, 1 x 256: ``llama_loss`` grads and 3 trainer steps card vs CPU
+    GQA-8, 1 x 128: ``llama_loss`` grads and 1 trainer step card vs CPU
     (phase 7's gates), one trainer step's loss and grads under
     ``remat="names:attn_out_kernel,attn_lse,ffn_in"`` card vs CPU at the
     same gates with K-PACK launched once a layer, then
@@ -122,21 +137,22 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     CPU (phase 12's gate; ``k_proj``/``v_proj`` grads only through
     K-BDKV);
 22. LLaMA training, bf16: ``HybridParallelTrainer`` at ``llama_7b()``
-    width, 8 of 32 layers, on a fixed 4 x 2048 batch, as phase 8: losses
-    finite and falling, per step 16 K-PACK, 8 K-DQ and 8 K-DKV;
+    width, 4 of 32 layers, on a fixed 4 x 2048 batch, as phase 8: losses
+    finite and falling, per step 8 K-PACK, 4 K-DQ and 4 K-DKV;
 23. remat policies, GPT-345M: fp32 at 2 x 256 and 2 layers, for remat
     False,
     ``"full"``, ``"dots"`` and ``"names:attn_out_kernel,attn_lse"``, the
     trainer's loss and grads on the card against the CPU's under the same
     policy (phase 7's gates) and against the card's ``remat=False`` grads
     (<= 1e-6 of each leaf's largest); then ``bench.py``'s configuration
-    (bf16, lr 1e-4, warmup 10, total 1000, 56 x 1024) under True,
+    at 12 of its 24 layers (``CUT_LAYERS``; bf16, lr 1e-4, warmup 10,
+    total 1000, 56 x 1024) under True,
     ``"dots"``, ``names:`` and ``names:`` with ``ffn_in`` (the fc_in
-    product saved), 1 warm-up and 5 timed steps each: step ms, tokens/s,
-    MFU, peak memory, launches per step (K-PACK 24 under both ``names:``
-    policies, 48 under True and ``"dots"``);
-24. durability drills: (a) GPT-345M's width at 12 of 24 layers
-    (``CUT_LAYERS``), bf16 with ``loss_scaling=True``,
+    product saved), 1 warm-up and 3 timed steps each: step ms, tokens/s,
+    MFU, peak memory, launches per step (K-PACK 12 under both ``names:``
+    policies, 24 under True and ``"dots"``);
+24. durability drills: (a) GPT-345M's width at 4 of 24 layers
+    (``DRILL_LAYERS``), bf16 with ``loss_scaling=True``,
     ``scale_incr_every=2`` and a NaN at step 3: the scale follows its
     schedule and the losses equal, bitwise, a clean run that skips that
     batch, and the grads autograd returns under the scale are the plain
@@ -148,8 +164,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     preempted by ``PADDLE_FI_PREEMPT_AT_STEP=3``, exits 118 with a
     just-in-time checkpoint that verifies, and its relaunch resumes at
     step 3 and ends with the params of an uninterrupted 6-step run,
-    bitwise; (d) two NaN steps in a row under ``max_consecutive_skips=2``
-    raise ``NumericalDivergenceError`` rolled back to the last checkpoint,
+    bitwise, the two processes running beside (a), (b) and (d); (d) two
+    NaN steps in a row under ``max_consecutive_skips=2`` raise
+    ``NumericalDivergenceError`` rolled back to the last checkpoint,
     whose params the trainer then holds;
 25. run telemetry, with the JSONL sink in a temp dir: (a) phase 8's
     trainer at 12 of 24 layers (``CUT_LAYERS``) with
@@ -163,7 +180,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     with the role and step, the memory plan's state bytes equal to the
     live tensors', ``peak_bytes_in_use`` = ``max_memory_allocated()``,
     K-PACK 48, K-DQ 24, K-DKV 24 a step; then the telemetry overhead
-    ratio (OFF vs ON with the sink, interleaved, best of 5 x 16 steps,
+    ratio (OFF vs ON with the sink, interleaved, best of 3 x 8 steps,
     printed); (b) phase 4's trace with a ``ServingTracer``, an
     ``SLOTracker`` and ``start_http(0)``, scraped from a thread, with a
     1 s ``/debug/profile`` capture opened once the trace decodes: the
@@ -172,9 +189,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     decode tick inside its window, ``/healthz`` 200, then 503 ``wedged`` with the
     tick loop held past ``stall_threshold_s`` and 200 with ``?live``; the
     median per-tick host split and the trace overhead ratio (tracer and
-    sink ON vs OFF, best of 3, printed); (c) an async checkpoint save
-    and load of phase 24 (c)'s state: the checkpoint counters, histograms
-    and in-flight gauge as the JAX package records them;
+    sink ON vs OFF on its first 16 requests, best of 2, printed); (c) an
+    async checkpoint save and load of phase 24 (c)'s state: the
+    checkpoint counters, histograms and in-flight gauge as the JAX
+    package records them;
 26. the rest of serving, GPT-345M: (a) phase 4's trace (bf16) through
     ``loadgen.run_continuous`` (a scheduler with a tracer) and
     ``run_static_baseline``: every request finishes, the report's tokens
@@ -189,7 +207,7 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     and without ``limit``: bitwise, scales included, no other page or
     drop page touched, and a CPU cache refused; (d) a prefill-role and a
     decode-role replica (fp32 pools of 1,024 pages) under
-    ``ReplicaRouter`` and ``DisaggCoordinator``, 16 requests of
+    ``ReplicaRouter`` and ``DisaggCoordinator``, 8 requests of
     ``synthetic_trace``: every stream equals one fused replica's except
     at a near-tie (top-2 gap under 1e-3), both pools end with nothing in
     use or leased, the prefill replica launches K-SEG and no K-DEC and
@@ -211,17 +229,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 27. multi-rank training: 4 ranks (``chip_smoke.py --rank-worker SPEC``
     processes) share this card over gloo, which stages their sends and
     receives through pinned host buffers; first each rank checks the
-    world's collectives on CUDA tensors; then (a) GPT-345M's width at 2
+    world's collectives on CUDA tensors; then (a) GPT-345M's width at 1
     of 24 layers, ``mp=2, sep=2``, 2 x 1024, the zigzag
     ring (L = 256);
-    (b) the same model at ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c)
+    (b) that width at 2 layers, ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c)
     LLaMA-7B's width at 1 of 32 layers, ``sep=2,
-    sharding=2``, ZeRO 3, 2 x 2048: 3 fp32 steps each, the losses and each step's grad norm
+    sharding=2``, ZeRO 3, 2 x 2048: 2 fp32 steps each, the losses and each step's grad norm
     (1e-4 relative) and the gathered params (1e-4 of each leaf's
     largest) held to a single-rank trainer on the card from the same
     weights and batch (whose launches stay out of the main path's
-    counts); (d) (a) in bf16
-    for 8 steps: the loss falls, step ms printed (4 ranks on one card,
+    counts) and running beside the world; (d) (a) in bf16
+    for 5 steps: the loss falls, step ms printed (4 ranks on one card,
     not a multi-card rate). Every rank's K-PACK, K-DQ and K-DKV launches
     equal ``ring_launches`` (derived from the rings' loops, printed
     first), the zigzag ring runs its L x 2L and 2L x L full blocks, and
@@ -230,14 +248,14 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 28. pipeline parallelism: phase 27's world of 4 ranks on the card, over
     the ``"pipe"`` axis: (a) GPT-345M's width at 4 of 24 layers,
     ``pp=4``,
-    1F1B, M=8, remat, 8 x 1024; (b) ``pp=2, mp=2``, GPipe, M=4, 4 x
+    1F1B, M=4, remat, 4 x 1024; (b) ``pp=2, mp=2``, GPipe, M=2, 2 x
     1024; (c) ``pp=2, vpp=2, dp=2``, interleaved 1F1B, M=4, remat off, 8 x
     1024; (d) LLaMA-7B's width at 2 of 32 layers, ``pp=2, sep=2``, 1F1B,
-    M=2, 2 x 2048 (the zigzag ring in each stage): 3 fp32 steps each, the
+    M=2, 2 x 2048 (the zigzag ring in each stage): 2 fp32 steps each, the
     losses (1e-6 relative), each step's grad norm (1e-4) and the gathered
     params (1e-4 of each leaf's largest) held to a single-rank trainer
     on the card; (e) GPT-345M at full depth, ``pp=4``, 1F1B, M=8, remat
-    off, 8 x 1024 bf16, 6 steps: step ms, tokens/s and every rank's peak
+    off, 8 x 1024 bf16, 4 steps: step ms, tokens/s and every rank's peak
     memory (4 ranks on one card, not a pipeline's speed on four cards),
     the ideal bubble ``(pp-1)/(M+pp-1)``, and the same configuration
     under GPipe for 2 steps, whose stage-0 peak must be higher. Every
@@ -251,8 +269,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     200 tokens (the K-SEG kernels) and once unpadded (the K-BSHD ones):
     MLM and NSP logits 2e-3, loss 1e-4, every grad 1e-4 of its leaf's
     largest; (b) ``bench_all.py``'s BERT-base step (full depth, 128 x
-    128, fp32, MLM loss, momentum SGD lr 0.01, hidden dropout 0.1,
-    attention dropout 0): step ms, tokens/s, MFU by the bench's count
+    128, fp32, MLM loss, momentum SGD lr 0.01, hidden and attention
+    dropout 0.1): step ms, tokens/s, MFU by the bench's count
     against the fp32 peak; (c) BERT-large at full depth, bf16 AdamW,
     16 x 512 padded to phase 2's key lengths: step ms, tokens/s, real
     tokens/s, peak memory; (d) ``nn.functional.flash_attn_unpadded``,
@@ -287,11 +305,27 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 31. (opt-in) phase 30's world alone on the card, twice: 2 steps, then
     ``guard_probe`` (step ms with the preemption guard off and on, with
     no other run sharing the card).
+32. the transformer layers, attention dropout and masks inside the
+    kernels: (a) ``nn.Transformer`` at Transformer-base width (512, 8
+    heads), 1 + 1 layers, fp32, batch 2, src 96 / tgt 80, source padding
+    masks and the causal target mask made on the card, attention dropout
+    0.1 from one key and hidden dropout 0, card vs CPU: output 2e-3, loss
+    1e-4, every grad 1e-4 of its leaf's largest; (b) Transformer-base at
+    full depth (6 + 6), bf16, dropout 0.1 everywhere, 32 sentence pairs
+    padded to 256 / 256 (real lengths 32-256, seed 32) over a shared
+    vocabulary of 37,000 (the harness's embedding and tied projection),
+    AdamW, 20 steps: the loss falls, step ms, tokens/s, real tokens/s,
+    peak memory, K-BSHD, K-BDQ and K-BDKV 18 a step each; (c) GPT-345M
+    through the nn API at its default dropouts (0.1 / 0.1), 3 bf16 steps
+    at 4 x 1024, and BERT's padding row with no real token card vs CPU
+    (logits 2e-3, loss 1e-4, grads 1e-4: the BIAS variants' backward).
 
-Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-30) sets the kernels' launch
-counts to 0 just before it and reads them just after (phases 27, 28 and
-30 in each rank, the counts summed over the ranks). The line before the
-last is the kernels' JSON summary; the last line is
+Each main-path phase (3-5, 7, 8, 10-12, 14-16, 19-30, 32) sets the
+kernels' launch counts to 0 just before it and reads them just after
+(phases 27, 28 and 30 in each rank, the counts summed over the ranks;
+phases 29 and 32 also the DROP and BIAS variants'). The line before the
+last is the kernels' JSON summary, the variants beside the kernels; the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -308,6 +342,20 @@ import sys
 import tempfile
 import time
 from unittest import mock
+
+if __name__ == "__main__":
+    # Where the interpreter finds no bytecode for torch's modules (a
+    # read-only site-packages), every process compiles them from source:
+    # a rank or worker process of this script spent ~5 s on it at import
+    # and ~13 s more in its first training step, whose
+    # ``torch.utils.checkpoint`` imports ``torch._dynamo``. Their bytecode
+    # goes to the checkout's build directory instead, for this process and
+    # the ones it starts.
+    PYCACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "pycache")
+    sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 
 import numpy as np
 import torch
@@ -360,23 +408,23 @@ SOURCES = {
              "paddle_tpu/ops/pallas/paged_attention.py:309"),
     "K-MQ8": ("paddle_tpu_torch/csrc/paged_attention.cu",
               "paddle_tpu/ops/pallas/paged_attention.py:309"),
-    "K-SEG": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+    "K-SEG": ("paddle_tpu_torch/csrc/flash_fwd.cuh",
               "paddle_tpu/ops/pallas/flash_attention_packed.py:467"),
-    "K-BSHD": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+    "K-BSHD": ("paddle_tpu_torch/csrc/flash_fwd.cuh",
                "paddle_tpu/ops/pallas/flash_attention.py:63"),
-    "K-PACK": ("paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+    "K-PACK": ("paddle_tpu_torch/csrc/flash_fwd.cuh",
                "paddle_tpu/ops/pallas/flash_attention_packed.py:49"),
-    "K-DQ": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "K-DQ": ("paddle_tpu_torch/csrc/flash_bwd.cuh",
              "paddle_tpu/ops/pallas/flash_attention_packed.py:106"),
-    "K-DKV": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "K-DKV": ("paddle_tpu_torch/csrc/flash_bwd.cuh",
               "paddle_tpu/ops/pallas/flash_attention_packed.py:159"),
-    "K-SDQ": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "K-SDQ": ("paddle_tpu_torch/csrc/flash_bwd.cuh",
               "paddle_tpu/ops/pallas/flash_attention_packed.py:523"),
-    "K-SDKV": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "K-SDKV": ("paddle_tpu_torch/csrc/flash_bwd.cuh",
                "paddle_tpu/ops/pallas/flash_attention_packed.py:575"),
-    "K-BDQ": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "K-BDQ": ("paddle_tpu_torch/csrc/flash_bwd.cuh",
               "paddle_tpu/ops/pallas/flash_attention.py:134"),
-    "K-BDKV": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+    "K-BDKV": ("paddle_tpu_torch/csrc/flash_bwd.cuh",
                "paddle_tpu/ops/pallas/flash_attention.py:188"),
 }
 
@@ -393,7 +441,16 @@ def log(*a):
     if head:
         PHASE_STARTS[int(head.group(1))] = now = time.perf_counter()
         a = (f"{a[0]} (at {now - T_START:.1f} s)",) + a[1:]
+        # the header on stderr too: a run stopped at its time limit shows
+        # there which phase it was in
+        print(f"chip_smoke: phase {head.group(1)} at {now - T_START:.1f} s",
+              file=sys.stderr, flush=True)
     print(*a, flush=True)
+
+
+def lap(what, t0) -> None:
+    """Log a step of a phase with its seconds since ``t0``."""
+    log(f"  -- {what}: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_seconds(end) -> dict:
@@ -420,7 +477,7 @@ def peaks_for(name: str) -> dict:
     return peaks
 
 
-def time_ms(fn, iters=30, warmup=5) -> float:
+def time_ms(fn, iters=20, warmup=3) -> float:
     """Median CUDA-event time of ``fn`` over ``iters`` runs."""
     for _ in range(warmup):
         fn()
@@ -437,7 +494,7 @@ def time_ms(fn, iters=30, warmup=5) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
 
 
-def cold_ms(fn, iters=20, warmup=3) -> float:
+def cold_ms(fn, iters=10, warmup=3) -> float:
     """Median CUDA-event time of ``fn`` with the L2 cache flushed before
     each run by writing a 128 MB buffer (the H100's L2 holds 50 MB): a
     decode tick reads each layer's own pools cold. The flush is outside
@@ -469,7 +526,7 @@ PORT_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                 "paged_split_kernel")
 
 
-def device_ms(fn, floor_ms, iters=20, warmup=3, tries=5) -> float:
+def device_ms(fn, floor_ms, iters=10, warmup=3, tries=5) -> float:
     """Device time of one ``fn`` call under torch.profiler: the kernels
     it launched, summed, per call. Beside ``time_ms``'s CUDA-event time,
     which also counts the gaps where the card waits on the host, it
@@ -516,6 +573,22 @@ def max_err(a, b) -> float:
 
 # -- phase 2: kernels against their plain versions --------------------------
 
+def device_gen(rng, dev=None) -> torch.Generator:
+    """A torch generator on ``dev`` (default the card) seeded by one draw
+    of the numpy ``rng``: phase 2's operands are drawn on the device, as
+    numpy's ``randn`` of a K/V pool took seconds of the host."""
+    dev = torch.device(dev or DEV)
+    return torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+
+
+def normal(rng, *shape, dtype=torch.float32, dev=None) -> torch.Tensor:
+    """Standard normal fp32 draws of ``shape`` on ``dev`` (default the
+    card) from :func:`device_gen`, cast to ``dtype``."""
+    dev = torch.device(dev or DEV)
+    return torch.randn(shape, generator=device_gen(rng, dev),
+                       device=dev).to(dtype)
+
+
 def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
               int8=False, lens=None, page_size=16, max_pages=64,
               poison=False):
@@ -553,17 +626,17 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
     dev = DEV
     rows = 1 if qlen is None else qlen
     qshape = (b, nh, d) if qlen is None else (b, qlen, nh, d)
-    q = torch.from_numpy(rng.randn(*qshape).astype(np.float32)).to(dev, dtype)
+    q = normal(rng, *qshape, dtype=dtype)
     if int8:
-        kp, vp = (torch.from_numpy(rng.randint(
-            -127, 128, (n_pages, ps, nh_kv * d)).astype(np.int8)).to(dev)
-            for _ in range(2))
+        kp, vp = (torch.randint(-127, 128, (n_pages, ps, nh_kv * d),
+                                generator=device_gen(rng), device=dev,
+                                dtype=torch.int8) for _ in range(2))
         # dequantized values within ~[-3.8, 3.8], as N(0, 1) K/V would be
         sc = torch.from_numpy(rng.uniform(0.01, 0.03, (n_pages, 2, nh_kv))
                               .astype(np.float32)).to(dev)
     else:
-        kp, vp = (torch.from_numpy(rng.randn(n_pages, ps, nh_kv * d).astype(
-            np.float32)).to(dev, dtype) for _ in range(2))
+        kp, vp = (normal(rng, n_pages, ps, nh_kv * d, dtype=dtype)
+                  for _ in range(2))
         sc = None
     pt_t = torch.from_numpy(pt).to(dev)
     kpt_t = torch.from_numpy(kern_pt).to(dev)
@@ -607,7 +680,7 @@ def check_dec(rng, dtype, nh, nh_kv, d, peaks, timed, qlen=None,
         res["cold_ms"] = cold_ms(lambda: kern(q, kp, vp, pt_t, sl_t,
                                               scales=sc))
         res["plain_ms"] = time_ms(lambda: plain(q, kp, vp, pt_t, sl_t,
-                                                scales=sc), iters=20)
+                                                scales=sc), iters=10)
         res["library_ms"] = None   # no single PyTorch call pages attention
         res["shape"] = (f"B={b} nh={nh} nh_kv={nh_kv} d={d} page_size={ps} "
                         f"tokens={tok} {what}")
@@ -700,8 +773,8 @@ def check_seg(rng, dtype, t, nh, d, peaks, timed, seg=None,
 
     dev = DEV
     seg = segments(rng, t, 8) if seg is None else seg
-    q, k, v = (torch.from_numpy(rng.randn(len(seg), t, nh * d).astype(
-        np.float32)).to(dev, dtype) for _ in range(3))
+    q, k, v = (normal(rng, len(seg), t, nh * d, dtype=dtype)
+               for _ in range(3))
     seg_t = torch.from_numpy(seg).to(dev)
     o, lse = fp.flash_attention_packed_segmented(q, k, v, seg_t, nh)
     torch.cuda.synchronize()
@@ -729,7 +802,7 @@ def check_seg(rng, dtype, t, nh, d, peaks, timed, seg=None,
             lambda: fp.flash_attention_packed_segmented(q, k, v, seg_t, nh),
             res["bound_ms"])
         res["plain_ms"] = time_ms(lambda: fp.segment_attention_ref(
-            q, k, v, seg_t, nh), iters=20)
+            q, k, v, seg_t, nh), iters=10)
         qh, kh, vh = (x.view(1, t, nh, d).transpose(1, 2).contiguous()
                       for x in (q, k, v))
         idx = torch.arange(t, device=dev)
@@ -737,7 +810,7 @@ def check_seg(rng, dtype, t, nh, d, peaks, timed, seg=None,
                 & (idx[None, :] <= idx[:, None]))[None, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         res["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask),
-                                    iters=20)
+                                    iters=10)
         res["shape"] = (f"T={t} nh={nh} d={d} 8 segments + pad "
                         f"(pairs={pairs}) {str(dtype)[6:]}")
     return res
@@ -747,8 +820,7 @@ def check_bshd(rng, dtype, b, s, h, d, peaks, timed):
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     dev = DEV
-    q, k, v = (torch.from_numpy(rng.randn(b, s, h, d).astype(
-        np.float32)).to(dev, dtype) for _ in range(3))
+    q, k, v = (normal(rng, b, s, h, d, dtype=dtype) for _ in range(3))
     o, lse = fa.bshd_fwd(q, k, v, causal=True)
     torch.cuda.synchronize()
     ro, rlse = fa.causal_attention_ref(q.float(), k.float(), v.float())
@@ -771,11 +843,11 @@ def check_bshd(rng, dtype, b, s, h, d, peaks, timed):
         res["device_ms"] = device_ms(lambda: fa.bshd_fwd(q, k, v),
                                      res["bound_ms"])
         res["plain_ms"] = time_ms(lambda: fa.causal_attention_ref(q, k, v),
-                                  iters=20)
+                                  iters=10)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         res["library_ms"] = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True),
-                                    iters=20)
+                                    iters=10)
         res["shape"] = f"(B,S,H,D)=({b},{s},{h},{d}) {str(dtype)[6:]}"
     return res
 
@@ -903,8 +975,8 @@ def check_bwd_edges(dtype=torch.bfloat16, heads=None) -> dict:
     b, s, d = 2, 129, 64
     hp = nh(d) * d
     q, k, v, do = (torch.empty(b * s * hp + 1, dtype=dtype, device=DEV)[1:]
-                   .view(b, s, hp).copy_(torch.from_numpy(rng.randn(
-                       b, s, hp).astype(np.float32))) for _ in range(4))
+                   .view(b, s, hp).copy_(normal(rng, b, s, hp))
+                   for _ in range(4))
     o, lse = fp.packed_fwd(q, k, v, nh(d))
     delta = (do.float() * o.float()).reshape(b, s, nh(d), d).sum(-1)
     dq = fp.packed_dq(q, k, v, do, lse, delta, nh(d))
@@ -926,8 +998,7 @@ def train_inputs(rng, dtype, b, s, nh, d, sk):
     hp = nh * d
 
     def randn(*shape):
-        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
-            DEV, dtype)
+        return normal(rng, *shape, dtype=dtype)
 
     if sk == s:
         qkv = randn(b, s, 3 * hp)
@@ -965,7 +1036,7 @@ def time_rows(out, runs, work, lib_ms, dtype, peaks, shape):
         r["bound_ms"], r["bound_by"] = bound_ms(*work[name], dtype, peaks)
         r["ms"] = time_ms(kern)
         r["device_ms"] = device_ms(kern, r["bound_ms"])
-        r["plain_ms"] = time_ms(plain, iters=10)
+        r["plain_ms"] = time_ms(plain, iters=5)
         r["library_ms"] = lib_ms[name]
         r["shape"] = shape
     return out
@@ -976,10 +1047,10 @@ def sdpa_ms(qh, kh, vh, doh, **kw):
     one call), ms, on ``(B, H, S, D)`` copies."""
     qh, kh, vh = (x.detach().requires_grad_() for x in (qh, kh, vh))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fwd = time_ms(lambda: sdpa(qh, kh, vh, **kw), iters=20)
+    fwd = time_ms(lambda: sdpa(qh, kh, vh, **kw), iters=10)
     oh = sdpa(qh, kh, vh, **kw)
     bwd = time_ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh,
-                                              retain_graph=True), iters=20)
+                                              retain_graph=True), iters=10)
     return fwd, bwd
 
 
@@ -1063,7 +1134,8 @@ def visible_tokens(seg_q, seg_k) -> tuple:
 
 
 def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed, seg=None,
-                    what=None, seg_k=None, causal=True):
+                    what=None, seg_k=None, causal=True, dropout_p=0.0,
+                    key=None):
     """K-SEG, K-SDQ and K-SDKV against their plain
     versions on ``b`` rows packed from documents of 32..1024 tokens
     (numpy seed 0; pad tails), or on the given ``(b, s)`` ids, q, k, v
@@ -1075,7 +1147,10 @@ def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed, seg=None,
     only the visible pairs, and reads of only the rows that take part in
     one (``visible_tokens``; causal self-attention: every row), every
     output written whole and every id read; the library time is SDPA's
-    backward with the equivalent boolean mask."""
+    backward with the equivalent boolean mask. With ``dropout_p`` (and the
+    Philox ``key``) the kernels' DROP variants, held to the plain
+    versions that rebuild the same bits (``drop_checks``), their rows
+    named ``K-SEG+drop`` and so on."""
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
     if seg is None:
@@ -1087,6 +1162,8 @@ def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed, seg=None,
     seg_t = torch.from_numpy(seg).to(DEV)
     kid = None if seg_k is None else torch.from_numpy(seg_k).to(DEV)
     kw = dict(segment_ids_k=kid, causal=causal)
+    if dropout_p:
+        kw.update(dropout_p=dropout_p, rng=key)
     q, k, v, do = train_inputs(rng, dtype, b, s, nh, d, sk)
     o, lse = fp.seg_fwd(q, k, v, seg_t, nh, **kw)
     delta = (do.float() * o.float()).reshape(b, s, nh, d).sum(-1)
@@ -1103,10 +1180,15 @@ def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed, seg=None,
             "K-SEG: a row that sees no key lacks the empty lse")
     label = (f"B={b} Sq={s} Sk={sk} nh={nh} d={d} "
              f"{'causal' if causal else 'full'} {what} "
-             f"(pairs={pairs * nh}, {int((~seen).sum())} empty rows)")
-    out = hold((("K-SEG", ((o, ro), (lse[seen], rlse[seen]))),
-                ("K-SDQ", ((dq, rdq),)), ("K-SDKV", ((dk, rdk), (dv, rdv)))),
-               dtype, label)
+             f"(pairs={pairs * nh}, {int((~seen).sum())} empty rows"
+             f"{f', dropout {dropout_p}' if dropout_p else ''})")
+    tag = "+drop" if dropout_p else ""
+    out = hold((("K-SEG" + tag, ((o, ro), (lse[seen], rlse[seen]))),
+                ("K-SDQ" + tag, ((dq, rdq),)),
+                ("K-SDKV" + tag, ((dk, rdk), (dv, rdv)))), dtype, label)
+    if dropout_p:
+        drop_checks(lambda r: fp.seg_fwd(q, k, v, seg_t, nh, **{
+            **kw, "rng": r})[0], o, key, dropout_p, (b, nh, s, sk), label)
     if not timed:
         return out
     nq, nk = ((b * s, b * sk) if seg_k is None
@@ -1138,10 +1220,14 @@ def check_seg_train(rng, dtype, b, s, nh, d, peaks, timed, seg=None,
     if causal:
         idx = torch.arange(s, device=DEV)
         mask = mask & (idx[None, :] <= idx[:, None])[None]
-    lib_fwd, lib_bwd = sdpa_ms(qh, kh, vh, doh, attn_mask=mask[:, None])
-    return time_rows(out, runs, work, {"K-SEG": lib_fwd, "K-SDQ": lib_bwd,
-                                       "K-SDKV": lib_bwd}, dtype, peaks,
-                     f"{label} {str(dtype)[6:]}")
+    lib_fwd, lib_bwd = sdpa_ms(qh, kh, vh, doh, attn_mask=mask[:, None],
+                               dropout_p=dropout_p)
+    runs = {name + tag: run for name, run in runs.items()}
+    work = {name + tag: w for name, w in work.items()}
+    return time_rows(out, runs, work, {"K-SEG" + tag: lib_fwd,
+                                       "K-SDQ" + tag: lib_bwd,
+                                       "K-SDKV" + tag: lib_bwd}, dtype,
+                     peaks, f"{label} {str(dtype)[6:]}")
 
 
 def check_bshd_train(rng, dtype, b, s, h, d, peaks, timed, causal=True):
@@ -1153,8 +1239,7 @@ def check_bshd_train(rng, dtype, b, s, h, d, peaks, timed, causal=True):
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     def randn(*shape):
-        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
-            DEV, dtype)
+        return normal(rng, *shape, dtype=dtype)
 
     q, k, v = randn(b, s, 3, h, d).unbind(2)
     do = randn(b, s, h, d)
@@ -1334,11 +1419,232 @@ def check_keyside_edges(dtype=torch.bfloat16, heads=None) -> dict:
     return worst
 
 
+# -- phase 2: the flash kernels' DROP and BIAS variants ---------------------
+
+# (B, Sq, Sk, H, D) at the edges check_bwd_edges uses (S 1 to 1000, Sq !=
+# Sk, d 128), q, k, v the ``unbind`` views of one (B, S, 3, H, D) tensor
+# when Sq == Sk; each with every entry of FEATURES, fp32 and bf16
+FEATURE_EDGES = [(2, 1, 1, 16, 64), (2, 129, 129, 16, 64),
+                 (2, 1000, 1000, 16, 64), (2, 300, 700, 16, 64),
+                 (2, 129, 129, 8, 128)]
+# (mask kind, dropout_p, kernel causal): a causal (Sq, Sk) -inf mask
+# (end-aligned), a padding mask (B, 1, 1, Sk) of -1e9, a random full (B,
+# H, Sq, Sk) bias, dropout alone, both together, and dropout under the
+# kernels' own causal flag (GPT's no-cache training; Sq == Sk rows only)
+FEATURES = (("causal", 0.0, False), ("padding", 0.0, False),
+            ("full", 0.0, False), (None, 0.1, False), ("causal", 0.1, False),
+            ("padding", 0.1, False), (None, 0.1, True))
+# the timed rows: K-BSHD, K-BDQ, K-BDKV at Transformer-base's phase 32 (b)
+# shape (B, S, H, D), +bias with its encoder's padding mask and
+# +bias+drop with its decoder's causal mask; +drop causal at GPT-345M's
+# phase 32 (c) shape; K-SEG, K-SDQ, K-SDKV +drop at BERT-large's padded
+# batch (B, S, nh, d) (phase 29 (c), phase 32 (c))
+FEATURE_ROWS = {"bshd": (32, 256, 8, 64), "gpt": (4, 1024, 16, 64),
+                "seg": (16, 512, 16, 64)}
+# what each variant replaces: the JAX package runs active dropout and a
+# mask densely (no TPU kernel computes either)
+VARIANT_REPLACES = {
+    "K-BSHD": "paddle_tpu/nn/functional/attention.py:20",
+    "K-BDQ": "paddle_tpu/nn/functional/attention.py:20",
+    "K-BDKV": "paddle_tpu/nn/functional/attention.py:20",
+    "K-SEG": "paddle_tpu/ops/attention_dispatch.py:42",
+    "K-SDQ": "paddle_tpu/ops/attention_dispatch.py:42",
+    "K-SDKV": "paddle_tpu/ops/attention_dispatch.py:42",
+}
+VARIANTS = tuple(f"{n}{t}" for n in ("K-BSHD", "K-BDQ", "K-BDKV")
+                 for t in ("+bias", "+drop", "+bias+drop")) + tuple(
+    f"{n}+drop" for n in ("K-SEG", "K-SDQ", "K-SDKV"))
+
+
+def variant_tag(kind, dropout_p) -> str:
+    return ("+bias" if kind else "") + ("+drop" if dropout_p else "")
+
+
+def feature_bias(rng, kind, b, h, sq, sk, dev=None):
+    """A mask of ``kind`` (``FEATURES``) from ``rng``, fp32 on ``dev``."""
+    dev = dev or DEV
+    if kind == "causal":         # generate_square_subsequent_mask's
+        i = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        j = torch.arange(sk, device=dev)[None]
+        return torch.zeros(sq, sk, device=dev).masked_fill(j > i,
+                                                           float("-inf"))
+    if kind == "padding":        # BERT's (m - 1) * 1e9, keys 1 to Sk long
+        lens = rng.randint(1, sk + 1, b)
+        m = (np.arange(sk)[None] < lens[:, None]).astype(np.float32)
+        return torch.from_numpy((m - 1.0) * 1e9).to(dev)[:, None, None, :]
+    return normal(rng, b, h, sq, sk, dev=dev)
+
+
+def drop_key(rng) -> tuple:
+    """A Philox ``(seed, offset)`` drawn from ``rng``."""
+    return tuple(int(x) for x in rng.randint(0, 2 ** 62, 2))
+
+
+def drop_checks(fwd, o, key, dropout_p, shape, label) -> None:
+    """A DROP variant's keep bits: their fraction within 4 sigma of
+    ``1 - dropout_p`` (the bits the plain version rebuilt and the kernel
+    just matched), and the kernel's output ``fwd(key)`` the same on the
+    same key and another on the next key (``(seed, offset + 1)``)."""
+    from paddle_tpu_torch.ops.kernels import philox
+
+    n = int(np.prod(shape))
+    frac = float(philox.keep_mask(key, dropout_p, shape, o.device)
+                 .float().mean())
+    sigma = (dropout_p * (1.0 - dropout_p) / n) ** 0.5
+    same = bool(torch.equal(fwd(key), o))
+    other = not bool(torch.equal(fwd((key[0], key[1] + 1)), o))
+    ok = abs(frac - (1.0 - dropout_p)) <= 4 * sigma and same and (
+        other or n < 256)
+    log(f"  keep bits {label}: fraction {frac:.5f} (1 - p = "
+        f"{1 - dropout_p}, 4 sigma {4 * sigma:.5f}), same key same output "
+        f"{same}, next key another {other} {'ok' if ok else 'FAIL'}")
+    require(ok, f"dropout keep bits fail their checks at {label}")
+
+
+def check_bshd_features(rng, dtype, b, sq, sk, h, d, kind, dropout_p,
+                        peaks, timed, causal=False):
+    """K-BSHD, K-BDQ and K-BDKV with BIAS (a ``kind`` mask) and DROP
+    (``dropout_p``, a key from ``rng``), under the kernels' ``causal``
+    flag or not, against their plain versions, which add the same mask
+    and rebuild the same Philox bits; the backward pair takes the kernel
+    forward's lse and delta. Bounds count the pairs the mask and the flag
+    leave visible (-1e9 and -inf entries excluded) and the mask's own
+    bytes; the library time is SDPA with the same ``attn_mask``,
+    ``is_causal`` and ``dropout_p``, forward and backward."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    def randn(*shape):
+        return normal(rng, *shape, dtype=dtype)
+
+    if sq == sk:
+        q, k, v = randn(b, sq, 3, h, d).unbind(2)
+    else:
+        q, k, v = randn(b, sq, h, d), randn(b, sk, h, d), randn(b, sk, h, d)
+    do = randn(b, sq, h, d)
+    bias = feature_bias(rng, kind, b, h, sq, sk) if kind else None
+    key = drop_key(rng) if dropout_p else None
+    kw = dict(causal=causal, bias=bias, dropout_p=dropout_p, rng=key)
+    o, lse = fa.bshd_fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.bshd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.bshd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    ro, rlse = fa.causal_attention_ref(qf, kf, vf, **kw)
+    rdq = fa.bshd_dq_ref(qf, kf, vf, dof, lse, delta, **kw)
+    rdk, rdv = fa.bshd_dkv_ref(qf, kf, vf, dof, lse, delta, **kw)
+    tag = variant_tag(kind, dropout_p)
+    label = (f"(B,Sq,Sk,H,D)=({b},{sq},{sk},{h},{d}) mask {kind}, "
+             f"dropout {dropout_p}{', causal' if causal else ''}")
+    out = hold(((f"K-BSHD{tag}", ((o, ro), (lse, rlse))),
+                (f"K-BDQ{tag}", ((dq, rdq),)),
+                (f"K-BDKV{tag}", ((dk, rdk), (dv, rdv)))), dtype, label)
+    if dropout_p:
+        drop_checks(lambda r: fa.bshd_fwd(q, k, v, **{**kw, "rng": r})[0],
+                    o, key, dropout_p, (b, h, sq, sk), label)
+    if not timed:
+        return out
+    elem = torch.finfo(dtype).bits // 8
+    seen = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        seen = seen.tril()
+    pairs = (b * h * int(seen.sum()) if bias is None else
+             int(((fp.bias_view(bias, b, h, sq, sk) > -1e8) & seen).sum()))
+    aq, ak = b * sq * h * d * elem, b * sk * h * d * elem
+    row = b * sq * h * 4
+    mb = 0 if bias is None else bias.numel() * 4
+    work = {f"K-BSHD{tag}": (2 * aq + 2 * ak + row + mb, 4.0 * d * pairs),
+            f"K-BDQ{tag}": (3 * aq + 2 * ak + 2 * row + mb, 6.0 * d * pairs),
+            f"K-BDKV{tag}": (2 * aq + 4 * ak + 2 * row + mb,
+                             8.0 * d * pairs)}
+    runs = {
+        f"K-BSHD{tag}": (lambda: fa.bshd_fwd(q, k, v, **kw),
+                         lambda: fa.causal_attention_ref(q, k, v, **kw)),
+        f"K-BDQ{tag}": (lambda: fa.bshd_dq(q, k, v, do, lse, delta, **kw),
+                        lambda: fa.bshd_dq_ref(q, k, v, do, lse, delta,
+                                               **kw)),
+        f"K-BDKV{tag}": (lambda: fa.bshd_dkv(q, k, v, do, lse, delta, **kw),
+                         lambda: fa.bshd_dkv_ref(q, k, v, do, lse, delta,
+                                                 **kw)),
+    }
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lib_fwd, lib_bwd = sdpa_ms(
+        qh, kh, vh, doh, dropout_p=dropout_p, is_causal=causal,
+        attn_mask=None if bias is None else bias.to(dtype))
+    return time_rows(out, runs, work, {f"K-BSHD{tag}": lib_fwd,
+                                       f"K-BDQ{tag}": lib_bwd,
+                                       f"K-BDKV{tag}": lib_bwd}, dtype,
+                     peaks, f"{label} (pairs={pairs}) {str(dtype)[6:]}")
+
+
+def check_feature_edges(heads=None) -> dict:
+    """The DROP and BIAS variants at their edges, untimed, from a seed of
+    their own: K-BSHD, K-BDQ and K-BDKV at ``FEATURE_EDGES`` with every
+    entry of ``FEATURES`` (the kernels' causal flag at Sq == Sk); K-SEG, K-SDQ and K-SDKV with dropout 0.1 on
+    ``seg_edges``' rows (causal) and on the padding mask's key-side ids
+    (S 129, keys of 1, 64 and 129 tokens); each in fp32 and bf16.
+    ``heads`` sets every head count (the CPU rehearsal). Returns each
+    variant's worst error."""
+    rng = np.random.RandomState(16)
+    worst = dict.fromkeys(VARIANTS, 0.0)
+
+    def keep(res):
+        for name, r in res.items():
+            worst[name] = max(worst[name], r["max_abs_err"])
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, sq, sk, h, d in FEATURE_EDGES:
+            for kind, p, causal in FEATURES:
+                if causal and sq != sk:
+                    continue
+                keep(check_bshd_features(rng, dtype, b, sq, sk, heads or h,
+                                         d, kind, p, None, False,
+                                         causal=causal))
+        for d in (64, 128):
+            nh = heads or 1024 // d
+            keep(check_seg_train(rng, dtype, 3, 1000, nh, d, None, False,
+                                 seg=seg_edges(rng, 1000),
+                                 what="edge ids", dropout_p=0.1,
+                                 key=drop_key(rng)))
+            seg_q, seg_k = padding_ids([1, 64, 129], 129)
+            keep(check_seg_train(rng, dtype, 3, 129, nh, d, None, False,
+                                 seg=seg_q, seg_k=seg_k, causal=False,
+                                 what="padding, keys 1, 64, 129",
+                                 dropout_p=0.1, key=drop_key(rng)))
+    return worst
+
+
+def feature_rows(peaks, rows=None) -> dict:
+    """The variants timed at ``FEATURE_ROWS``, bf16, from a seed of their
+    own: ``{variant: row}``."""
+    r = rows or FEATURE_ROWS
+    rng = np.random.RandomState(32)
+    bf = torch.bfloat16
+    out = {}
+    for shape, kind, p, causal in (("bshd", "padding", 0.0, False),
+                                   ("gpt", None, 0.1, True),
+                                   ("bshd", "causal", 0.1, False)):
+        b, s, h, d = r[shape]
+        out.update(check_bshd_features(rng, bf, b, s, s, h, d, kind, p,
+                                       peaks, True, causal=causal))
+    b, s, nh, d = r["seg"]
+    lens = bert_key_lengths(b, s)
+    seg_q, seg_k = padding_ids(lens, s)
+    out.update(check_seg_train(rng, bf, b, s, nh, d, peaks, True, seg=seg_q,
+                               seg_k=seg_k, causal=False,
+                               what=f"padding, keys {lens.min()}-"
+                               f"{lens.max()}", dropout_p=0.1,
+                               key=drop_key(rng)))
+    return out
+
+
 def phase_kernels(peaks) -> dict:
     rng = np.random.RandomState(0)
     bf, f32 = torch.bfloat16, torch.float32
     out = {}
     log("[2] kernels against their plain versions")
+    t2 = time.perf_counter()
     out["K-DEC"] = check_dec(rng, bf, 16, 16, 64, peaks, timed=True)
     # the GQA case (nh 16, nh_kv 4) is timed as K-DEC's "also" row
     dec_gqa = None
@@ -1367,6 +1673,7 @@ def phase_kernels(peaks) -> dict:
             (bf, 8, 8, 128, 3, True)]:
         check_dec(rng_mq, dt, nh, nh_kv, d, peaks, timed=False, qlen=qlen,
                   int8=i8)
+    lap("paged kernels", t2)
     out["K-SEG"] = check_seg(rng, bf, 2048, 16, 64, peaks, timed=True)
     for dt, t, d in [(f32, 2048, 64), (bf, 1000, 64), (f32, 1000, 64),
                      (bf, 1000, 128)]:
@@ -1378,6 +1685,7 @@ def phase_kernels(peaks) -> dict:
                         (bf, 300, 16, 64), (f32, 300, 16, 64),
                         (bf, 300, 8, 128)]:
         check_bshd(rng, dt, 4, s, h, d, peaks, timed=False)
+    lap("K-SEG, K-BSHD", t2)
     # training: the main path's shape (batch 8 x 1024, GPT-345M heads)
     out.update(check_train(rng, bf, 8, 1024, 16, 64, peaks, timed=True))
     for dt, b, s, nh, d, causal, sk in [
@@ -1390,6 +1698,7 @@ def phase_kernels(peaks) -> dict:
             (bf, 2, 256, 16, 64, False, None)]:
         check_train(rng, dt, b, s, nh, d, peaks, timed=False, causal=causal,
                     sk=sk)
+    lap("K-PACK, K-DQ, K-DKV", t2)
     # packed-sequence training (K-SDQ, K-SDKV) and the nn API (K-BSHD,
     # K-BDQ, K-BDKV) at the main path's shapes (phases 11 and 12)
     packed_train = check_seg_train(rng, bf, 8, 1024, 16, 64, peaks,
@@ -1400,6 +1709,7 @@ def phase_kernels(peaks) -> dict:
     for dt, b, s, h, d in [(f32, 4, 1024, 16, 64), (bf, 8, 1024, 16, 64),
                            (bf, 4, 300, 8, 128), (f32, 4, 300, 8, 128)]:
         check_bshd_train(rng, dt, b, s, h, d, peaks, timed=False)
+    lap("K-SDQ, K-SDKV, K-BDQ, K-BDKV", t2)
     for name, err in check_fwd_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     # K-SEG's row is serving's prefill_packed (phase 4, most launches);
@@ -1412,8 +1722,10 @@ def phase_kernels(peaks) -> dict:
             "shape", "ms", "device_ms", "cold_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms") if k in other}
     out.update(packed_train)
+    lap("forward edges", t2)
     for name, err in check_bwd_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    lap("backward edges", t2)
     # the rings' blocks at phases 27 and 28's shapes (full attention with
     # Sq != Sk among them), from a seed of their own
     ring_rng = np.random.RandomState(27)
@@ -1423,18 +1735,30 @@ def phase_kernels(peaks) -> dict:
                                    sk=sk).items():
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                            r["max_abs_err"])
+    lap("ring blocks", t2)
     for name, err in check_paged_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    lap("paged edges", t2)
     for name, err in check_keyside_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+    lap("key-side edges", t2)
     for name, rows in bert_rows(peaks).items():
         out[name]["bert"] = rows
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        *(r["max_abs_err"] for r in rows))
+    lap("BERT rows", t2)
     for name, rows in llama_rows(peaks).items():
         out[name]["llama"] = rows
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                        *(r["max_abs_err"] for r in rows))
+    lap("LLaMA rows", t2)
+    # the DROP and BIAS variants: at their edges, then timed
+    edges = check_feature_edges()
+    lap("feature edges", t2)
+    for name, row in feature_rows(peaks).items():
+        row["max_abs_err"] = max(row["max_abs_err"], edges[name])
+        out[name] = row
+    lap("feature rows", t2)
     for name, row in out.items():
         for r in (row, row.get("also"), *row.get("llama", ()),
                   *row.get("bert", ())):
@@ -1794,11 +2118,13 @@ def phase_spec_accuracy(counts, serving=None, n_req=3,
     """(a) speculative decoding on fp32 pools against a teacher-forced CPU
     forward at every committed position; (b) int8 pools, the card's
     engine against the port's engine on the CPU fed the same tokens."""
-    log("[14] speculative and int8 serving accuracy, fp32")
+    log(f"[14] speculative and int8 serving accuracy, fp32, {ACC_LAYERS} "
+        "layers")
     serving = serving or dict(page_size=16, max_model_len=1024,
                               max_batch=8, max_prefill_tokens=2048)
-    model = build_model(DEV, torch.float32)
-    cpu = build_model("cpu", torch.float32)
+    model = build_model(DEV, torch.float32, ACC_LAYERS)
+    cpu = build_model("cpu", torch.float32, ACC_LAYERS)
+    layers = model.cfg.num_layers
     cpu.load_state_dict(model.state_dict())
     vocab = model.cfg.vocab_size
     plo, phi, rlo, rhi, new = trace     # prompts of plo*rlo..phi*rhi tokens
@@ -1824,7 +2150,7 @@ def phase_spec_accuracy(counts, serving=None, n_req=3,
                              committed_rows(r, calls[r.rid]),
                              f"spec rid {r.rid} (prompt {len(r.prompt)})")
     counts["phase14"] = K.launch_counts()
-    require(counts["phase14"]["K-MQ"] == len(sched.verify_ticks) * LAYERS,
+    require(counts["phase14"]["K-MQ"] == len(sched.verify_ticks) * layers,
             counts["phase14"])
     m = {"verify_ticks": len(sched.verify_ticks), "accepted": accepted,
          "proposed": sum(r.spec_proposed for r in reqs)}
@@ -1848,8 +2174,8 @@ def phase_spec_accuracy(counts, serving=None, n_req=3,
         f"steps and a verify of 5: card vs CPU logits max_abs_err "
         f"{err:.3e} (tol 1e-2); int8 vs fp32 pools on the card {gap:.3e}")
     require(finite and err <= 1e-2, "int8 card logits disagree with the CPU")
-    require(counts["phase14_int8"]["K-DEC8"] == decode_steps * LAYERS
-            and counts["phase14_int8"]["K-MQ8"] == LAYERS,
+    require(counts["phase14_int8"]["K-DEC8"] == decode_steps * layers
+            and counts["phase14_int8"]["K-MQ8"] == layers,
             counts["phase14_int8"])
     m.update(int8_card_vs_cpu=err, int8_vs_fp32_gap=gap)
     log("  " + json.dumps(m))
@@ -1993,12 +2319,19 @@ def _loss_grads(trainer, tokens, labels, extras=()):
                          for path, g in flatten(grads)}
 
 
-def worst_grad(g_card, g_cpu):
+def worst_grad(g_card, g_cpu, rounding=0.0):
     """The leaf whose card grad is furthest from the CPU's, as a share of
-    the largest CPU grad of that leaf: ``(ratio, name)``."""
+    the largest CPU grad of that leaf: ``(ratio, name)``. A leaf whose
+    largest CPU grad is at most ``rounding`` times the largest of any
+    leaf holds rounding only (its true grad is 0) and is measured against
+    that global largest instead."""
+    top = max(float(g.abs().max()) for g in g_cpu.values())
     worst, worst_leaf = 0.0, None
     for name, want in g_cpu.items():
-        ratio = max_err(g_card[name], want) / float(want.abs().max())
+        scale = float(want.abs().max())
+        if scale <= rounding * top:
+            scale = top
+        ratio = max_err(g_card[name], want) / scale
         if ratio > worst:
             worst, worst_leaf = ratio, name
     return worst, worst_leaf
@@ -2046,7 +2379,7 @@ def card_vs_cpu(tcfg, batch, what, mcfg=None, steps=None) -> dict:
             "loss_card": loss_c, "loss_cpu": loss_h, "steps": log_steps}
 
 
-# the depth of phases 3, 7, 10, 12 (fp32) and 23 (a) in the default
+# the depth of phases 3, 7, 10, 12, 14 (fp32) and 23 (a) in the default
 # run: the layers are identical, and at GPT-345M's 24 each phase's CPU
 # side took ~55 s
 ACC_LAYERS = 2
@@ -2497,9 +2830,9 @@ def llama_names_step(mcfg, tcfg, batch, layers) -> dict:
 
 
 def phase_llama_train_accuracy(counts, layers=2, kv_heads=8, batch=1,
-                               seq=256) -> dict:
+                               seq=128, steps=3) -> dict:
     """LLaMA training accuracy, fp32, at ``llama_7b()`` width, ``layers``
-    layers, GQA: (a) ``llama_loss`` grads and 3 trainer steps, card vs
+    layers, GQA: (a) ``llama_loss`` grads and ``steps`` trainer steps, card vs
     CPU (``card_vs_cpu``); (b) the nn API, ``LlamaForCausalLM`` + mean
     next-token CE + ``backward()``, card vs CPU (``nn_grads_vs_cpu``):
     ``k_proj``/``v_proj`` get their grads only through the GQA repeat and
@@ -2517,7 +2850,7 @@ def phase_llama_train_accuracy(counts, layers=2, kv_heads=8, batch=1,
     # equal fp32 numbers, which the two devices round apart past the
     # grad-norm gate
     batches = [train_batch(rng, batch, seq, mcfg.vocab_size)
-               for _ in range(4)]
+               for _ in range(steps + 1)]
     K.reset_launch_counts()
     t0 = time.perf_counter()
     m = card_vs_cpu(tcfg, batches[0], "llama_loss", mcfg, steps=batches[1:])
@@ -2554,10 +2887,11 @@ def policy_tag(remat) -> str:
             SPEED_POLICIES[-1]: "names_ffn_in"}.get(remat, "names")
 
 
-def bench_setup(remat, shape=(56, 1024)):
-    """A bf16 trainer at ``bench.py``'s config under ``remat`` and its
-    batch on the card: random tokens and labels of ``shape`` (seed 0)."""
-    mcfg = model_config()
+def bench_setup(remat, shape=(56, 1024), layers=None):
+    """A bf16 trainer at ``bench.py``'s config (at ``layers`` of its
+    depth where given) under ``remat`` and its batch on the card: random
+    tokens and labels of ``shape`` (seed 0)."""
+    mcfg = _acc_model(layers)
     trainer = hybrid.HybridParallelTrainer(
         mcfg, hybrid.TrainerConfig(remat=remat, **BENCH_TRAINER))
     rng = np.random.RandomState(0)
@@ -2567,7 +2901,7 @@ def bench_setup(remat, shape=(56, 1024)):
 
 
 def phase_remat(counts, peaks, acc=(2, 256), speed=(56, 1024),
-                steps=5, acc_layers=None) -> dict:
+                steps=3, acc_layers=None, speed_layers=None) -> dict:
     """Phase 23: the remat policies at GPT-345M. (a) fp32 at ``acc`` (and
     ``acc_layers`` of its depth where given): per
     policy the trainer's loss and grads on the card against the CPU's
@@ -2618,11 +2952,11 @@ def phase_remat(counts, peaks, acc=(2, 256), speed=(56, 1024),
         torch.cuda.empty_cache()
     counts["phase23_acc"] = K.launch_counts()
     batch, seq = speed
-    mcfg = model_config()        # (b) at bench.py's full depth
+    mcfg = _acc_model(speed_layers)     # (b) at bench.py's config
     layers = mcfg.num_layers
     for remat in SPEED_POLICIES:
         tag = f"phase23_{policy_tag(remat)}"
-        trainer, (t_dev, l_dev) = bench_setup(remat, speed)
+        trainer, (t_dev, l_dev) = bench_setup(remat, speed, speed_layers)
         first = trainer.step_presharded(t_dev, l_dev)       # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2662,10 +2996,13 @@ def phase_remat(counts, peaks, acc=(2, 256), speed=(56, 1024),
     return out
 
 
-# the depth of phases 24 (a), (b) and 25 (a): 12 of GPT-345M's 24
-# layers, so the default run, phase 30's launched runs included, stays
-# inside its time limit
+# the depth of phases 23 (b) and 25 (a): 12 of GPT-345M's 24 layers, and
+# of phase 24 (a) and (b): 4 (their checks are bitwise whatever the
+# depth, and a checkpoint of 12 layers took 20 s to write and read), so
+# the default run, phase 30's launched runs included, stays inside its
+# time limit on a card whose host is slow
 CUT_LAYERS = 12
+DRILL_LAYERS = 4
 
 
 class DrillLoader:
@@ -2747,7 +3084,7 @@ def drill_loss_scaling(counts, batch=4, seq=1024, steps=6, nan_step=3,
     ``nan_step``: the scale follows ``scale_schedule``, and every loss
     equals, bitwise, a clean run's that skips that batch; the grads
     autograd returns under the scale are the plain grads times it."""
-    mcfg = _acc_model(layers or CUT_LAYERS)
+    mcfg = _acc_model(layers or DRILL_LAYERS)
     tcfg = drill_config(loss_scaling=True, scale_incr_every=2)
     rng = np.random.RandomState(24)
     batches = [train_batch(rng, batch, seq, mcfg.vocab_size)
@@ -2794,7 +3131,7 @@ def drill_checkpoint(counts, batch=4, seq=1024, before=2, after=3,
     save (two checkpoints of the full train state on disk), then a fresh
     trainer loads the newest: its next ``after`` losses equal the
     uninterrupted run's bitwise."""
-    mcfg = _acc_model(layers or CUT_LAYERS)
+    mcfg = _acc_model(layers or DRILL_LAYERS)
     tcfg = drill_config()
     loader = DrillLoader(240, batch, seq, mcfg.vocab_size)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -2898,61 +3235,95 @@ def drill_worker(spec_json: str) -> int:
     return 0
 
 
-def drill_preemption(counts, layers=2, batch=2, seq=512, steps=6,
-                     preempt_at=3, save_every=2) -> dict:
+class PreemptionDrill:
     """(c) A worker process trains ``layers`` layers at GPT-345M width
     with async saves every ``save_every`` steps and
     ``PADDLE_FI_PREEMPT_AT_STEP``: it exits 118 with a just-in-time
     checkpoint that verifies; the relaunch resumes there, and its params
-    after ``steps`` steps equal an uninterrupted run's bitwise."""
-    work = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
-    cfg = dataclasses.replace(model_config(), num_layers=layers)
-    spec = {"model": dataclasses.asdict(cfg), "device": DEV.type,
-            "batch": batch, "seq": seq, "steps": steps,
-            "save_every": save_every, "root": os.path.join(work, "ckpt"),
-            "out": os.path.join(work, "params.npz")}
-    env = dict(os.environ, PADDLE_FI_PREEMPT_AT_STEP=str(preempt_at),
-               PADDLE_FI_DIR=os.path.join(work, "fi"))
-    cmd = [sys.executable, os.path.abspath(__file__), "--drill-worker",
-           json.dumps(spec)]
-    try:
-        runs = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            p = subprocess.run(cmd, env=env, capture_output=True, text=True,
-                               timeout=600)
-            runs.append({"rc": p.returncode,
-                         "s": time.perf_counter() - t0,
-                         "stdout": p.stdout.strip()[-300:],
-                         "stderr": p.stderr.strip()[-600:]})
-        jit = os.path.join(spec["root"], f"step-{preempt_at}")
-        jit_ok = ckpt.verify_checkpoint(jit)
-        got = dict(np.load(spec["out"]))
+    after ``steps`` steps equal an uninterrupted run's bitwise. The
+    workers run beside the phase's other drills: the first starts here,
+    :meth:`relaunch` waits for it and starts the second, :meth:`finish`
+    runs the uninterrupted run in this process, waits for the second and
+    checks; :meth:`close` ends a worker still running."""
+
+    def __init__(self, layers=2, batch=2, seq=512, steps=6, preempt_at=3,
+                 save_every=2):
+        self.work = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+        cfg = dataclasses.replace(model_config(), num_layers=layers)
+        self.preempt_at = preempt_at
+        self.spec = {"model": dataclasses.asdict(cfg), "device": DEV.type,
+                     "batch": batch, "seq": seq, "steps": steps,
+                     "save_every": save_every,
+                     "root": os.path.join(self.work, "ckpt"),
+                     "out": os.path.join(self.work, "params.npz")}
+        self.env = dict(os.environ,
+                        PADDLE_FI_PREEMPT_AT_STEP=str(preempt_at),
+                        PADDLE_FI_DIR=os.path.join(self.work, "fi"))
+        self.runs, self.proc = [], None
+        self._start()
+
+    def _start(self):
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--drill-worker",
+             json.dumps(self.spec)], env=self.env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def _wait(self):
+        try:
+            out, err = self.proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, err = self.proc.communicate()
+        self.runs.append({"rc": self.proc.returncode,
+                          "s": time.perf_counter() - self.t0,
+                          "stdout": out.strip()[-300:],
+                          "stderr": err.strip()[-600:]})
+        self.proc = None
+
+    def relaunch(self):
+        self._wait()
+        self._start()
+
+    def close(self):
+        if self.proc is not None:
+            self.proc.kill()
+            self.proc.communicate()
+            self.proc = None
+        shutil.rmtree(self.work, ignore_errors=True)
+
+    def finish(self, counts) -> dict:
+        spec, runs, preempt_at = self.spec, self.runs, self.preempt_at
         K.reset_launch_counts()
         ref, _ = drill_train(spec)
+        counts["phase24_preempt"] = K.launch_counts()
         want = {"/".join(path): p.cpu().numpy()
                 for path, p in flatten(ref.params)}
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    counts["phase24_preempt"] = K.launch_counts()
-    resumed = json.loads(runs[1]["stdout"].splitlines()[-1]) \
-        if runs[1]["rc"] == 0 else None
-    m = {"runs": runs, "jit_checkpoint": jit_ok, "relaunch": resumed,
-         "params_bitwise": got.keys() == want.keys() and all(
-             np.array_equal(got[k], want[k]) for k in want)}
-    log("  (c) preemption: " + json.dumps(m))
-    require(runs[0]["rc"] == hybrid.PREEMPTED_EXIT_CODE,
-            f"phase 24 (c): the preempted worker exited {runs[0]['rc']}, "
-            f"not {hybrid.PREEMPTED_EXIT_CODE}: {runs[0]['stderr']}")
-    require(jit_ok[0], f"phase 24 (c): just-in-time checkpoint {jit_ok}")
-    require(runs[1]["rc"] == 0 and resumed["resumed_at"] == preempt_at,
-            f"phase 24 (c): the relaunch did not resume at {preempt_at}: "
-            f"{runs[1]}")
-    require(m["params_bitwise"], "phase 24 (c): params after the relaunch "
-            "differ from the uninterrupted run's")
-    del ref
-    torch.cuda.empty_cache()
-    return m
+        del ref
+        torch.cuda.empty_cache()
+        self._wait()
+        jit = os.path.join(spec["root"], f"step-{preempt_at}")
+        jit_ok = ckpt.verify_checkpoint(jit)
+        got = dict(np.load(spec["out"])) if runs[1]["rc"] == 0 else {}
+        self.close()
+        resumed = json.loads(runs[1]["stdout"].splitlines()[-1]) \
+            if runs[1]["rc"] == 0 else None
+        m = {"runs": runs, "jit_checkpoint": jit_ok, "relaunch": resumed,
+             "params_bitwise": got.keys() == want.keys() and all(
+                 np.array_equal(got[k], want[k]) for k in want)}
+        log("  (c) preemption: " + json.dumps(m))
+        require(runs[0]["rc"] == hybrid.PREEMPTED_EXIT_CODE,
+                f"phase 24 (c): the preempted worker exited "
+                f"{runs[0]['rc']}, not {hybrid.PREEMPTED_EXIT_CODE}: "
+                f"{runs[0]['stderr']}")
+        require(jit_ok[0], f"phase 24 (c): just-in-time checkpoint "
+                f"{jit_ok}")
+        require(runs[1]["rc"] == 0 and resumed["resumed_at"] == preempt_at,
+                f"phase 24 (c): the relaunch did not resume at "
+                f"{preempt_at}: {runs[1]}")
+        require(m["params_bitwise"], "phase 24 (c): params after the "
+                "relaunch differ from the uninterrupted run's")
+        return m
 
 
 def drill_rollback(counts, layers=2, batch=2, seq=512, saved=2) -> dict:
@@ -3001,18 +3372,23 @@ def drill_rollback(counts, layers=2, batch=2, seq=512, saved=2) -> dict:
 def phase_durability(counts, scale_shape=(4, 1024), ckpt_shape=(4, 1024),
                      drill_shape=(2, 512)) -> dict:
     """Phase 24: loss scaling, a checkpoint round trip of the full train
-    state, a preemption drill across two processes, and a divergence
-    rollback, each bitwise against its uninterrupted run."""
+    state, a preemption drill across two processes (beside the others),
+    and a divergence rollback, each bitwise against its uninterrupted
+    run."""
     log(f"[24] durability drills: GPT-345M width, loss scaling and "
-        f"checkpoints at {CUT_LAYERS} layers, preemption and rollback "
+        f"checkpoints at {DRILL_LAYERS} layers, preemption and rollback "
         f"at 2")
     t0 = time.perf_counter()
-    m = {"loss_scaling": drill_loss_scaling(counts, *scale_shape),
-         "checkpoint": drill_checkpoint(counts, *ckpt_shape),
-         "preemption": drill_preemption(counts, batch=drill_shape[0],
-                                        seq=drill_shape[1]),
-         "rollback": drill_rollback(counts, batch=drill_shape[0],
-                                    seq=drill_shape[1])}
+    drill = PreemptionDrill(batch=drill_shape[0], seq=drill_shape[1])
+    try:
+        m = {"loss_scaling": drill_loss_scaling(counts, *scale_shape),
+             "checkpoint": drill_checkpoint(counts, *ckpt_shape)}
+        drill.relaunch()
+        m["rollback"] = drill_rollback(counts, batch=drill_shape[0],
+                                       seq=drill_shape[1])
+        m["preemption"] = drill.finish(counts)
+    finally:
+        drill.close()
     m["s"] = time.perf_counter() - t0
     log(f"  {m['s']:.1f} s")
     return m
@@ -3082,7 +3458,7 @@ def state_nbytes(*trees) -> int:
 
 
 def telemetry_train(counts, peaks, obs_dir, steps=12, batch=8, seq=1024,
-                    trials=5, trial_steps=16, warmup=3) -> dict:
+                    trials=3, trial_steps=8, warmup=3) -> dict:
     """(a) Phase 8's trainer with telemetry, the sink and ``http_port=0``:
     ``steps`` steps (the second measured by ``memory_plan(
     compute_executable=True)``), the accounting against a synchronised
@@ -3243,7 +3619,7 @@ def kernel_events(trace_path, key) -> int:
                and key in e.get("name", ""))
 
 
-def telemetry_serve(counts, obs_dir, n_req=64, trials=3, ratio_req=32,
+def telemetry_serve(counts, obs_dir, n_req=64, trials=2, ratio_req=16,
                     serving=None, trace=None, stall_s=3.0) -> dict:
     """(b) Phase 4's trace through a scheduler with a ``ServingTracer``,
     an ``SLOTracker`` (``DEFAULT_SLOS``) and ``start_http(0)``, scraped
@@ -4098,7 +4474,7 @@ def fleet_tenancy(counts, model, n_per_tenant=16) -> dict:
     return out
 
 
-def phase_fleet(counts, load=None, plans=None, n_disagg=16) -> dict:
+def phase_fleet(counts, load=None, plans=None, n_disagg=8) -> dict:
     """Phase 26: the rest of serving on the card (loadgen, pool plans,
     page copies, disaggregated prefill/decode, the replica fleet under
     chaos, tenancy); every model is GPT-345M (``model_config()``)."""
@@ -4138,26 +4514,26 @@ def phase_fleet(counts, load=None, plans=None, n_disagg=16) -> dict:
 RANKS = 4
 # sub-phase -> (family, layers, mesh layout, batch (B, S), dtype, steps)
 MULTIRANK = {
-    "a": ("gpt", 2, dict(mp=2, sep=2), (2, 1024), "float32", 3),
+    "a": ("gpt", 1, dict(mp=2, sep=2), (2, 1024), "float32", 2),
     "b": ("gpt", 2, dict(dp=2, sharding=2, zero_stage=3), (4, 1024),
-          "float32", 3),
+          "float32", 2),
     "c": ("llama", 1, dict(sep=2, sharding=2, zero_stage=3), (2, 2048),
-          "float32", 3),
-    "d": ("gpt", 2, dict(mp=2, sep=2), (2, 1024), "bfloat16", 8),
+          "float32", 2),
+    "d": ("gpt", 1, dict(mp=2, sep=2), (2, 1024), "bfloat16", 5),
 }
 
 
 # phase 28's sub-phases, in the same form: the pipelined layouts
 PIPELINE = {
-    "a": ("gpt", 4, dict(pp=4, micro_batches=8), (8, 1024), "float32", 3),
-    "b": ("gpt", 4, dict(pp=2, mp=2, pp_schedule="gpipe", micro_batches=4),
-          (4, 1024), "float32", 3),
+    "a": ("gpt", 4, dict(pp=4, micro_batches=4), (4, 1024), "float32", 2),
+    "b": ("gpt", 4, dict(pp=2, mp=2, pp_schedule="gpipe", micro_batches=2),
+          (2, 1024), "float32", 2),
     "c": ("gpt", 4, dict(pp=2, vpp=2, dp=2, micro_batches=4, remat=False),
-          (8, 1024), "float32", 3),
+          (8, 1024), "float32", 2),
     "d": ("llama", 2, dict(pp=2, sep=2, micro_batches=2), (2, 2048),
-          "float32", 3),
+          "float32", 2),
     "e": ("gpt", 24, dict(pp=4, micro_batches=8, remat=False), (8, 1024),
-          "bfloat16", 6),
+          "bfloat16", 4),
     "e-gpipe": ("gpt", 24, dict(pp=4, micro_batches=8, remat=False,
                                 pp_schedule="gpipe"), (8, 1024), "bfloat16",
                 2),
@@ -4272,24 +4648,32 @@ def _init_path(work, family, layers) -> str:
     return os.path.join(work, f"init-{family}-{layers}.pt")
 
 
-def multirank_reference(spec, work, seed=27) -> dict:
-    """A sub-phase on one rank of the card: the single-device trainer
-    from the seed's weights (written to ``work/init-<family>-<layers>.pt``
-    for the world's ranks to start from, once a model), under the
-    sub-phase's remat policy, on the same batch (numpy ``seed``): losses,
-    grad norms and the final params (on the CPU)."""
-    family, layers, layout, (b, s), dtype, steps = spec
-    mcfg = _model_of(family, layers)
-    t0 = time.perf_counter()
+def multirank_trainer(spec, work):
+    """A sub-phase's single-device trainer on the card, its weights
+    written to ``work/init-<family>-<layers>.pt`` (once a model) for the
+    world's ranks to start from."""
+    family, layers, layout, _, dtype, _ = spec
     t = hybrid.HybridParallelTrainer(
-        mcfg, multirank_config(dtype, zero_stage=layout.get("zero_stage", 1),
-                               remat=layout.get("remat", True)),
+        _model_of(family, layers),
+        multirank_config(dtype, zero_stage=layout.get("zero_stage", 1),
+                         remat=layout.get("remat", True)),
         device=DEV)
     init = _init_path(work, family, layers)
     if not os.path.exists(init):
         torch.save(dict(flatten(t.full_params())), init)
+    return t
+
+
+def multirank_reference(spec, work, seed=27) -> dict:
+    """A sub-phase on one rank of the card: the single-device trainer
+    from the seed's weights (:func:`multirank_trainer`), under the
+    sub-phase's remat policy, on the same batch (numpy ``seed``): losses,
+    grad norms and the final params (on the CPU)."""
+    family, layers, layout, (b, s), dtype, steps = spec
+    t0 = time.perf_counter()
+    t = multirank_trainer(spec, work)
     tokens, labels = train_batch(np.random.RandomState(seed), b, s,
-                                 mcfg.vocab_size)
+                                 t.model_cfg.vocab_size)
     losses, gnorms = [], []
     for _ in range(steps):
         losses.append(float(t.step(tokens, labels)))
@@ -4454,16 +4838,42 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_world(spec, world, timeout=600) -> list:
-    """Start ``world`` rank workers of ``spec`` and wait for them; a
-    worker that fails ends the others. Returns each rank's result."""
+def start_world(spec, world) -> dict:
+    """Start ``world`` rank workers of ``spec``, their output in files
+    of ``spec["dir"]`` (a pipe nobody reads until the end would stall a
+    rank that fills it); :func:`wait_world` waits for them."""
     spec = dict(spec, init=f"tcp://127.0.0.1:{_free_port()}", world=world)
     env = dict(os.environ, OMP_NUM_THREADS=str(spec["threads"]))
+    outs = [open(os.path.join(spec["dir"], f"rank{r}.log"), "w+")
+            for r in range(world)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank-worker",
-         json.dumps(dict(spec, rank=r))], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(world)]
-    t0 = time.perf_counter()
+         json.dumps(dict(spec, rank=r))], env=env, stdout=outs[r],
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    return {"spec": spec, "procs": procs, "outs": outs,
+            "t0": time.perf_counter()}
+
+
+def stop_world(started) -> list:
+    """Kill the started world's workers still running; the tail of each
+    one's output (read once)."""
+    if "logs" not in started:
+        for p in started["procs"]:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        started["logs"] = []
+        for f in started["outs"]:
+            f.seek(0)
+            started["logs"].append(f.read()[-3000:])
+            f.close()
+    return started["logs"]
+
+
+def wait_world(started, timeout=300) -> tuple:
+    """Wait for a started world; a worker that fails ends the others.
+    Returns each rank's result and the world's seconds."""
+    spec, procs, t0 = started["spec"], started["procs"], started["t0"]
     failed = None
     try:
         while any(p.poll() is None for p in procs):
@@ -4473,21 +4883,19 @@ def run_world(spec, world, timeout=600) -> list:
                 break
             time.sleep(0.2)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-        logs = [p.communicate() for p in procs]
+        logs = stop_world(started)
+    secs = time.perf_counter() - t0
     if failed is not None or any(p.returncode for p in procs):
         r = procs.index(failed) if failed is not None else next(
             i for i, p in enumerate(procs) if p.returncode)
         raise RuntimeError(f"chip_smoke: {spec['label']} rank {r} failed "
                            f"(rc {procs[r].returncode}): "
-                           f"{logs[r][1][-3000:]}")
+                           f"{logs[r]}")
     out = []
-    for r in range(world):
+    for r in range(len(procs)):
         with open(os.path.join(spec["dir"], f"rank{r}.json")) as f:
             out.append(json.load(f))
-    return out
+    return out, secs
 
 
 def _param_gaps(got, want) -> list:
@@ -4499,13 +4907,13 @@ def _param_gaps(got, want) -> list:
 def phase_multirank(counts, runs=None, world=RANKS, threads=2,
                     phase=27) -> dict:
     """Phase 27 (``runs`` default ``MULTIRANK``): ``world`` ranks sharing
-    this card over gloo train (a) GPT-345M's width at 2 of 24 layers,
-    ``mp=2, sep=2``, 2 x 1024, the zigzag ring; (b) the same model at
-    ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c) LLaMA-7B's width at 1 of
-    32 layers, ``sep=2, sharding=2``, ZeRO 3, 2 x 2048; each 3 fp32 steps
+    this card over gloo train (a) GPT-345M's width at 1 of 24 layers,
+    ``mp=2, sep=2``, 2 x 1024, the zigzag ring; (b) that width at 2
+    layers, ``dp=2, sharding=2``, ZeRO 3, 4 x 1024; (c) LLaMA-7B's width at 1 of
+    32 layers, ``sep=2, sharding=2``, ZeRO 3, 2 x 2048; each 2 fp32 steps
     held to a single-rank trainer on the card (losses and each step's
     grad norm 1e-4 relative, params 1e-4 of each leaf's largest); (d) (a)
-    in bf16 for 8 steps.
+    in bf16 for 5 steps.
 
     Phase 28 (``PIPELINE``): the same world over the ``"pipe"`` axis
     (the module docstring's sub-phases), the losses held to 1e-6
@@ -4534,17 +4942,25 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
             "compare": compare, "runs": runs, "seed": phase, "label": label,
             "models": {"gpt": dataclasses.asdict(model_config()),
                        "llama": dataclasses.asdict(llama_config())}}
+    started = None
     try:
+        # the ranks start from the references' weights; the references
+        # then run on the card beside the world
+        for k in compare:
+            if not os.path.exists(_init_path(work, *runs[k][:2])):
+                multirank_trainer(runs[k], work)
+        torch.cuda.empty_cache()
+        started = start_world(spec, world)
         K.reset_launch_counts()
         refs = {k: multirank_reference(runs[k], work, seed=phase)
                 for k in compare}
         ref_launches = K.launch_counts()
-        t1 = time.perf_counter()
-        ranks = run_world(spec, world)
-        world_s = time.perf_counter() - t1
+        ranks, world_s = wait_world(started)
         got = {k: torch.load(os.path.join(work, f"params-{k}.pt"))
                for k in compare}
     finally:
+        if started is not None:
+            stop_world(started)
         shutil.rmtree(work, ignore_errors=True)
     log(f"  {ranks[0]['mesh']}")
     log(f"  collectives: {ranks[0]['collectives']}")
@@ -4572,6 +4988,8 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
              "planned_bytes": per_rank[0]["planned_bytes"],
              "build_s": max(r["build_s"] for r in per_rank),
              "steps_s": max(sum(r["step_s"]) for r in per_rank),
+             "step_s": [max(r["step_s"][i] for r in per_rank)
+                        for i in range(steps)],
              "gather_save_s": max(r.get("gather_save_s", 0.0)
                                   for r in per_rank),
              "max_memory_allocated_gb": max(r["max_memory_allocated_gb"]
@@ -4777,15 +5195,16 @@ def bert_bench_step(steps, shape, peaks) -> dict:
     (``bench_bert_base``): BERT-base at full depth, fp32 params, ``shape``
     random ids and MLM labels (seed 0), the mean MLM cross entropy
     (logsumexp - gold over every position), momentum SGD (lr 0.01,
-    momentum 0.9: ``torch.optim.SGD``, the same update), hidden dropout
-    0.1 kept; attention dropout 0.0 (not ported, the one deviation). One
-    warm-up step, then ``steps`` steps timed with one synchronisation:
-    step ms, tokens/s and MFU by the bench's count (``6 * 110e6 + 12 *
-    12 * 768 * seq`` FLOPs a token) against the fp32 peak; the loss falls,
-    and each step launches K-BSHD, K-BDQ and K-BDKV once a layer."""
+    momentum 0.9: ``torch.optim.SGD``, the same update), hidden and
+    attention dropout 0.1 (the config's defaults, the attention's inside
+    the kernels). One warm-up step, then ``steps`` steps timed with one
+    synchronisation: step ms, tokens/s and MFU by the bench's count
+    (``6 * 110e6 + 12 * 12 * 768 * seq`` FLOPs a token) against the fp32
+    peak; the loss falls, and each step launches K-BSHD, K-BDQ and K-BDKV
+    once a layer, each its DROP variant."""
     from paddle_tpu_torch.models.bert import BertForPretraining
 
-    cfg = bert_config("base", attention_dropout=0.0)
+    cfg = bert_config("base")
     model = BertForPretraining(cfg, device=DEV).train()
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
     rs = np.random.RandomState(0)
@@ -4835,12 +5254,13 @@ def bert_large_train(steps, shape) -> dict:
     ``torch.optim.AdamW`` (lr 1e-4) as phase 12 trains, a ``shape`` batch
     padded to phase 2's key lengths (``bert_key_lengths``, seed 29), MLM
     loss over the real tokens plus NSP, dropout 0.1 on the hidden states
-    (attention dropout 0). One warm-up step, then ``steps`` timed: step
-    ms, tokens/s, real tokens/s, peak memory; losses finite, and each
-    step launches K-SEG, K-SDQ and K-SDKV once a layer."""
+    and in the attention (the config's defaults). One warm-up step, then
+    ``steps`` timed: step ms, tokens/s, real tokens/s, peak memory; losses
+    finite, and each step launches K-SEG, K-SDQ and K-SDKV once a layer,
+    each its DROP variant."""
     from paddle_tpu_torch.models.bert import BertForPretraining
 
-    cfg = bert_config("large", attention_dropout=0.0)
+    cfg = bert_config("large")
     model = BertForPretraining(cfg, device=DEV, dtype=torch.bfloat16).train()
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
     b, s = shape
@@ -4954,11 +5374,352 @@ def phase_bert(counts, peaks, acc_layers=2, acc_shape=(2, 512), pad_to=200,
     m["c"] = bert_large_train(large_steps, large_shape)
     torch.cuda.empty_cache()
     m["d"] = varlen_vs_plain(*varlen)
-    counts["phase29"] = K.launch_counts()
+    counts["phase29"] = {**K.launch_counts(), **K.variant_counts()}
     m["seconds"] = time.perf_counter() - t0
     log(f"  phase 29: {m['seconds']:.1f} s; launches {counts['phase29']}")
     return m
 
+
+
+# -- phase 32: the transformer layers at Transformer-base width -------------
+
+# ``paddle.nn.Transformer()`` at its defaults, Transformer-base (Vaswani et
+# al. 2017, Table 3): d_model 512, 8 heads of 64, 6 + 6 layers, FFN 2048,
+# dropout 0.1; (b) over a shared vocabulary of 37,000 (the paper's WMT
+# 2014 English-German byte-pair vocabulary)
+TRANSFORMER_BASE = dict(d_model=512, nhead=8, num_encoder_layers=6,
+                        num_decoder_layers=6, dim_feedforward=2048,
+                        dropout=0.1)
+TRANSFORMER_VOCAB = 37000
+
+
+def variant_delta(before) -> dict:
+    """The variants' launches since ``before`` (a ``variant_counts``),
+    those with any."""
+    return {n: c - before.get(n, 0) for n, c in K.variant_counts().items()
+            if c != before.get(n, 0)}
+
+
+def pair_batch(seed, b, s_src, s_tgt, lo, hi, vocab):
+    """``b`` sentence pairs of random token ids (1 to vocab - 1), source
+    and target real lengths uniform in [lo, hi] (numpy seed ``seed``), pad
+    id 0 after them: ``(src, tgt, src_len, tgt_len)``."""
+    rng = np.random.RandomState(seed)
+    src_len = rng.randint(lo, min(hi, s_src) + 1, b)
+    tgt_len = rng.randint(lo, min(hi, s_tgt) + 1, b)
+    src = rng.randint(1, vocab, (b, s_src))
+    tgt = rng.randint(1, vocab, (b, s_tgt))
+    src[np.arange(s_src)[None] >= src_len[:, None]] = 0
+    tgt[np.arange(s_tgt)[None] >= tgt_len[:, None]] = 0
+    return (torch.from_numpy(src), torch.from_numpy(tgt), src_len, tgt_len)
+
+
+def src_padding_mask(src_len, s, dev):
+    """The source padding mask on ``dev``: ``(B, 1, 1, S)`` fp32, -1e9 on
+    the keys past each row's length (the encoder's ``src_mask`` and the
+    decoder's ``memory_mask``)."""
+    pos = torch.arange(s, device=dev)[None]
+    lens = torch.as_tensor(np.asarray(src_len), device=dev)[:, None]
+    return torch.where(pos < lens, 0.0, -1e9)[:, None, None, :]
+
+
+def sinusoid(s, d, dev, dtype):
+    """The paper's fixed positional encodings, ``(S, d)``."""
+    pos = torch.arange(s, dtype=torch.float64)[:, None]
+    inv = 10000.0 ** (-torch.arange(0, d, 2, dtype=torch.float64) / d)
+    pe = torch.zeros(s, d, dtype=torch.float64)
+    pe[:, 0::2], pe[:, 1::2] = torch.sin(pos * inv), torch.cos(pos * inv)
+    return pe.to(dev, dtype)
+
+
+# a leaf whose largest CPU grad is at most this share of the largest of
+# any leaf holds rounding only (``worst_grad``)
+GRAD_ROUNDING = 1e-5
+
+
+def transformer_vs_cpu(layers=1, b=2, s_src=96, s_tgt=80, seed=32) -> dict:
+    """(a): ``nn.Transformer`` at Transformer-base width, ``layers`` +
+    ``layers`` deep, fp32, the same weights on the card and on the CPU,
+    attention dropout 0.1 from one key (``rng_context``: every call's
+    Philox key is the same on both sides, hence the same bits) and hidden
+    dropout 0 (PyTorch's CPU and CUDA RNGs differ), the source padding
+    masks and the causal target mask made on the card (copied to the CPU
+    for its side): the decoder's output within 2e-3, a squared-error loss
+    within 1e-4 and every grad within 1e-4 of its leaf's largest CPU
+    grad (a leaf whose CPU grad is at most 1e-5 of the largest of any
+    leaf, such as a key projection's bias, whose true grad is 0, within
+    1e-4 of that largest: ``worst_grad``'s ``rounding``); each attention
+    call
+    one launch of K-BSHD, K-BDQ and K-BDKV, all with a mask and
+    dropout."""
+    from paddle_tpu_torch.framework.random import rng_context
+    from paddle_tpu_torch.nn import Transformer
+
+    kw = {**TRANSFORMER_BASE, "num_encoder_layers": layers,
+          "num_decoder_layers": layers, "dropout": 0.0, "attn_dropout": 0.1}
+    torch.manual_seed(seed)
+    card = Transformer(device=DEV, **kw).train()
+    cpu = Transformer(device="cpu", **kw).train()
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.RandomState(seed)
+    d = kw["d_model"]
+    src, tgt, target = (torch.from_numpy(rng.randn(b, n, d).astype(
+        np.float32)) for n in (s_src, s_tgt, s_tgt))
+    src_mask = src_padding_mask([s_src, s_src * 2 // 3], s_src, DEV)
+    tgt_mask = Transformer.generate_square_subsequent_mask(s_tgt, device=DEV)
+    res = {}
+    for side, m in (("card", card), ("cpu", cpu)):
+        dev = next(m.parameters()).device
+        before, vbefore = K.launch_counts(), K.variant_counts()
+        with rng_context((seed, 16)):
+            out = m(src.to(dev), tgt.to(dev), src_mask.to(dev),
+                    tgt_mask.to(dev), src_mask.to(dev))
+        loss = ((out - target.to(dev)) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        res[side] = dict(
+            out=out.detach().cpu(), loss=float(loss.detach()),
+            grads={n: p.grad.cpu() for n, p in m.named_parameters()},
+            launches={n: c - before[n] for n, c in K.launch_counts().items()
+                      if n in BSHD3},
+            variants=variant_delta(vbefore))
+    c, h = res["card"], res["cpu"]
+    # a key projection's bias shifts every score of a query's row by the
+    # same q.b_k, which the softmax cancels: its true grad is exactly 0,
+    # and both sides hold rounding only
+    top = max(float(g.abs().max()) for g in h["grads"].values())
+    zero = sorted(n for n, g in h["grads"].items()
+                  if float(g.abs().max()) <= GRAD_ROUNDING * top)
+    worst, leaf = worst_grad(c["grads"], h["grads"], GRAD_ROUNDING)
+    calls = 3 * layers
+    r = {"out_err": max_err(c["out"], h["out"]), "loss_card": c["loss"],
+         "loss_cpu": h["loss"], "grad_worst_ratio": worst,
+         "grad_worst_leaf": leaf, "rounding_leaves": zero,
+         "launches": c["launches"], "variants": c["variants"]}
+    log(f"  (a) Transformer-base width, {layers} + {layers} layers, fp32, "
+        f"attention dropout 0.1: {json.dumps(r)}")
+    require(r["out_err"] <= 2e-3, "(a) Transformer output: card vs CPU")
+    require(abs(r["loss_card"] - r["loss_cpu"]) <= 1e-4,
+            "(a) Transformer loss: card vs CPU")
+    require(worst <= 1e-4, f"(a) Transformer grads of {leaf}: card vs CPU")
+    want = {f"{n}+bias+drop": calls for n in BSHD3}
+    require(r["launches"] == dict.fromkeys(BSHD3, calls)
+            and r["variants"] == want,
+            f"(a) launches {r['launches']} {r['variants']}, expected "
+            f"{calls} of each kernel's +bias+drop")
+    del card, cpu
+    return r
+
+
+def transformer_base_train(steps=20, b=32, s=256, lo=32, seed=32,
+                           lr=3e-4) -> dict:
+    """(b): Transformer-base at full depth in bf16, dropout 0.1 everywhere
+    (the attention's inside the kernels), ``b`` sentence pairs padded to
+    ``s`` / ``s`` (real lengths ``lo`` to ``s``, seed 32) over a shared
+    vocabulary of ``TRANSFORMER_VOCAB``; the harness embeds them (one
+    embedding scaled by sqrt(d_model) plus the sinusoids) and projects
+    the decoder's output onto the same embedding (tied), cross entropy on
+    the next target token over the real ones; ``torch.optim.AdamW``.
+    One warm-up step, then ``steps`` timed: step ms, tokens/s, real
+    tokens/s, peak memory; the loss falls, and each step launches K-BSHD,
+    K-BDQ and K-BDKV 18 times (6 encoder self-attentions, 6 decoder
+    self-attentions, 6 cross-attentions), each with a mask and
+    dropout."""
+    from paddle_tpu_torch.nn import Transformer
+
+    bf = torch.bfloat16
+    torch.manual_seed(seed)
+    model = Transformer(device=DEV, dtype=bf, **TRANSFORMER_BASE).train()
+    d = TRANSFORMER_BASE["d_model"]
+    emb = torch.nn.Parameter(torch.randn(TRANSFORMER_VOCAB, d, device=DEV,
+                                         dtype=bf) * d ** -0.5)
+    opt = torch.optim.AdamW([*model.parameters(), emb], lr=lr)
+    src, tgt, src_len, tgt_len = (
+        x.to(DEV) if torch.is_tensor(x) else x
+        for x in pair_batch(seed, b, s, s, min(lo, s), s,
+                            TRANSFORMER_VOCAB))
+    src_mask = src_padding_mask(src_len, s, DEV)
+    tgt_mask = Transformer.generate_square_subsequent_mask(s, device=DEV)
+    pe = sinusoid(s, d, DEV, bf)
+    # decoder input: the target shifted right behind a start id (0); the
+    # label at each real position is that position's token
+    dec_in = torch.cat([torch.zeros_like(tgt[:, :1]), tgt[:, :-1]], 1)
+    labels = tgt.masked_fill(tgt == 0, -100)
+    drop = torch.nn.Dropout(TRANSFORMER_BASE["dropout"])
+
+    def embed(ids):
+        return drop(torch.nn.functional.embedding(ids, emb) * d ** 0.5 + pe)
+
+    def step():
+        out = model(embed(src), embed(dec_in), src_mask, tgt_mask, src_mask)
+        logits = (out @ emb.T).float()
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, TRANSFORMER_VOCAB), labels.reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    first = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, vbefore = K.launch_counts(), K.variant_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: K.launch_counts()[n] - before[n] for n in BSHD3}
+    variants = variant_delta(vbefore)
+    losses = [float(first)] + [float(x) for x in losses]
+    real = int(np.sum(src_len) + np.sum(tgt_len))
+    m = {"batch": b, "src": s, "tgt": s, "steps": steps,
+         "real_tokens": real, "step_ms": wall / steps * 1e3,
+         "tokens_per_s": 2 * b * s * steps / wall,
+         "real_tokens_per_s": real * steps / wall, "losses": losses,
+         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": launches, "variants": variants}
+    log(f"  (b) Transformer-base, 6 + 6 layers, bf16, dropout 0.1: "
+        f"{json.dumps(m)}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            "(b) Transformer-base losses not finite and falling")
+    n = 18 * steps
+    require(launches == dict.fromkeys(BSHD3, n)
+            and variants == {f"{k}+bias+drop": n for k in BSHD3},
+            f"(b) launches {launches} {variants}, expected {n} of each "
+            "kernel's +bias+drop")
+    del model, opt, emb
+    return m
+
+
+def gpt_default_dropout_train(steps=3, shape=(4, 1024)) -> dict:
+    """(c) GPT-345M through the nn API at its default dropouts (hidden
+    and attention 0.1), bf16, ``torch.optim.AdamW`` as phase 12 trains:
+    one warm-up step, then ``steps`` timed; finite losses, and each step
+    launches K-BSHD, K-BDQ and K-BDKV once a layer, each its DROP
+    variant."""
+    cfg = gpt_345m()
+    model = GPTForCausalLM(cfg, device=DEV, dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0)).train()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+    crit = GPTPretrainingCriterion()
+    ids, labels = (torch.from_numpy(x).to(DEV) for x in train_batch(
+        np.random.RandomState(32), *shape, cfg.vocab_size))
+
+    def step():
+        loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    first = step()
+    torch.cuda.synchronize()
+    before, vbefore = K.launch_counts(), K.variant_counts()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: K.launch_counts()[n] - before[n] for n in BSHD3}
+    variants = variant_delta(vbefore)
+    losses = [float(first)] + [float(x) for x in losses]
+    m = {"batch": shape[0], "seq": shape[1], "step_ms": wall / steps * 1e3,
+         "tokens_per_s": shape[0] * shape[1] * steps / wall,
+         "losses": losses, "launches": launches, "variants": variants,
+         "hidden_dropout": cfg.hidden_dropout,
+         "attention_dropout": cfg.attention_dropout}
+    log(f"  (c) GPT-345M, default dropouts, bf16: {json.dumps(m)}")
+    n = cfg.num_layers * steps
+    require(all(np.isfinite(losses)), "(c) GPT-345M losses not finite")
+    require(launches == dict.fromkeys(BSHD3, n)
+            and variants == {f"{k}+drop": n for k in BSHD3},
+            f"(c) launches {launches} {variants}, expected {n} of each "
+            "kernel's +drop")
+    del model, opt
+    return m
+
+
+def bert_empty_row(layers=2, shape=(2, 128)) -> dict:
+    """(c) BERT's padding row with no real token: ``BertForPretraining``
+    at BERT-base width, ``layers`` deep, fp32, dropouts 0, the same
+    weights on the card and the CPU, row 1 of the 0/1 mask all zero: the
+    model takes the JAX model's additive mask for the batch (K-BSHD's,
+    K-BDQ's and K-BDKV's BIAS variants, once a layer each), MLM and NSP
+    logits within 2e-3 of the CPU's, the loss within 1e-4 and every grad
+    within 1e-4 of its leaf's largest CPU grad."""
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    cfg = bert_config("base", num_layers=layers, hidden_dropout=0.0,
+                      attention_dropout=0.0)
+    cpu = BertForPretraining(cfg, device="cpu").train()
+    card = BertForPretraining(cfg, device=DEV).train()
+    card.load_state_dict(cpu.state_dict())
+    b, s = shape
+    batch = bert_batch(np.random.RandomState(32), b, s, cfg,
+                       [s // 2] + [0] * (b - 1))
+    res = {}
+    for side, m in (("card", card), ("cpu", cpu)):
+        dev = next(m.parameters()).device
+        ids, types, mlm_y, nsp_y, mask = (x.to(dev) for x in batch)
+        vbefore = K.variant_counts()
+        mlm, nsp = m(ids, types, mask)
+        loss = m.loss(mlm, nsp, mlm_y, nsp_y)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[side] = dict(mlm=mlm.detach().cpu(), nsp=nsp.detach().cpu(),
+                         loss=float(loss.detach()),
+                         grads={n: p.grad.cpu()
+                                for n, p in m.named_parameters()},
+                         variants=variant_delta(vbefore))
+    c, h = res["card"], res["cpu"]
+    worst, leaf = worst_grad(c["grads"], h["grads"])
+    r = {"mlm_err": max_err(c["mlm"], h["mlm"]),
+         "nsp_err": max_err(c["nsp"], h["nsp"]), "loss_card": c["loss"],
+         "loss_cpu": h["loss"], "grad_worst_ratio": worst,
+         "grad_worst_leaf": leaf, "variants": c["variants"]}
+    log(f"  (c) BERT-base width, {layers} layers, a row with no real token: "
+        f"{json.dumps(r)}")
+    require(r["mlm_err"] <= 2e-3 and r["nsp_err"] <= 2e-3,
+            "(c) BERT empty row logits: card vs CPU")
+    require(abs(r["loss_card"] - r["loss_cpu"]) <= 1e-4,
+            "(c) BERT empty row loss: card vs CPU")
+    require(worst <= 1e-4, f"(c) BERT empty row grads of {leaf}: card vs "
+            "CPU")
+    require(r["variants"] == {f"{n}+bias": layers for n in BSHD3},
+            f"(c) BERT empty row launched {r['variants']}")
+    del card, cpu
+    return r
+
+
+def phase_transformer(counts, acc_shape=(2, 96, 80), train_shape=(32, 256),
+                      steps=20, gpt_shape=(4, 1024),
+                      bert_shape=(2, 128)) -> dict:
+    """Phase 32: (a) ``transformer_vs_cpu`` (batch, src, tgt
+    ``acc_shape``), (b) ``transformer_base_train`` (pairs, length
+    ``train_shape``), (c) ``gpt_default_dropout_train`` and
+    ``bert_empty_row``; the counts are set to 0 before (a) and read after
+    (c)."""
+    log(f"[32] transformer layers: (a) Transformer-base width 1 + 1 layers "
+        f"fp32 card vs CPU, attention dropout 0.1; (b) Transformer-base "
+        f"6 + 6 bf16, {train_shape[0]} pairs of {train_shape[1]} / "
+        f"{train_shape[1]}, {steps} AdamW steps; (c) GPT-345M and BERT at "
+        f"their default dropouts, BERT's empty row")
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    b, s_src, s_tgt = acc_shape
+    m = {"a": transformer_vs_cpu(b=b, s_src=s_src, s_tgt=s_tgt)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    m["b"] = transformer_base_train(steps, *train_shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m["c"] = {"gpt": gpt_default_dropout_train(shape=gpt_shape),
+              "bert": bert_empty_row(shape=bert_shape)}
+    counts["phase32"] = {**K.launch_counts(), **K.variant_counts()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    m["seconds"] = time.perf_counter() - t0
+    log(f"  phase 32: {m['seconds']:.1f} s; launches {counts['phase32']}")
+    return m
 
 
 # -- phase 30: launched, durable multi-rank training --------------------------
@@ -5172,7 +5933,7 @@ def launch_start(label, spec, world, work, args=(), env=None) -> dict:
                                      stdout=subprocess.DEVNULL, stderr=err)}
 
 
-def launch_finish(run, timeout=600):
+def launch_finish(run, timeout=400):
     """Wait for a started run: ``(launcher exit code, its stderr, {gen:
     [each rank's record]}, seconds)``; raises with the ranks' log tails
     when a generation lacks a rank's record."""
@@ -5611,7 +6372,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="0,1,2,3,4,5,7,8,10,11,12,14,15,16,19,20,21,22,"
-                    "23,24,25,26,27,28,29,30",
+                    "23,24,25,26,27,28,29,30,32",
                     help="comma-separated; 6, 9, 13, 17 and 18 "
                     "(profiles) and 31 (phase 30's guard probe alone) "
                     "are opt-in")
@@ -5707,18 +6468,21 @@ def main() -> int:
     if 18 in phases:
         e2e["nn_profile"] = phase_nn_profile()
     if 19 in phases:
-        e2e["llama_accuracy"] = phase_llama_accuracy(counts)
+        e2e["llama_accuracy"] = phase_llama_accuracy(counts, layers=1)
     if 20 in phases:
         e2e["llama_load"] = phase_llama_load(counts)
     if 21 in phases:
-        e2e["llama_train_accuracy"] = phase_llama_train_accuracy(counts,
-                                                                 layers=1)
+        # one trainer step: on the CPU an AdamW step over the 616M
+        # parameters costs more than the step's products
+        e2e["llama_train_accuracy"] = phase_llama_train_accuracy(
+            counts, layers=1, steps=1)
     if 22 in phases:
         e2e["llama_train"] = phase_train(
-            counts, peaks, batch=4, seq=2048, mcfg=llama_config(num_layers=8),
-            tag="phase22", label="LLaMA-7B width, 8 of 32 layers")
+            counts, peaks, batch=4, seq=2048, mcfg=llama_config(num_layers=4),
+            tag="phase22", label="LLaMA-7B width, 4 of 32 layers")
     if 23 in phases:
-        e2e["remat"] = phase_remat(counts, peaks, acc_layers=ACC_LAYERS)
+        e2e["remat"] = phase_remat(counts, peaks, acc_layers=ACC_LAYERS,
+                                   speed_layers=CUT_LAYERS)
     if 24 in phases:
         e2e["durability"] = phase_durability(counts)
     if 25 in phases:
@@ -5735,26 +6499,30 @@ def main() -> int:
         e2e["launch"] = phase_launch(counts)
     if 31 in phases:
         e2e["guard_probe"] = phase_guard_probe()
+    if 32 in phases:
+        e2e["transformer"] = phase_transformer(counts)
     # the main path: serving (phases 4, 5), training (7, 8), packed
     # training (10, 11), nn-API training (12), speculative (15) and int8
     # (16) serving, the LLaMA phases (19-22), the remat policies (23), the
     # durability drills (24), the telemetry phase (25), the rest of
     # serving (26), multi-rank training (27), pipelines (28, every rank's
-    # launches), BERT with varlen attention (29) and launched, durable
-    # multi-rank training (30, every rank of every generation), each
-    # phase's runs counted
+    # launches), BERT with varlen attention (29), launched, durable
+    # multi-rank training (30, every rank of every generation) and the
+    # transformer layers (32), each phase's runs counted
     main_phases = (4, 5, 7, 8, 10, 11, 12, 15, 16, 19, 20, 21, 22, 23, 24,
-                   25, 26, 27, 28, 29, 30)
+                   25, 26, 27, 28, 29, 30, 32)
 
-    def launched(which):
+    def launched(which, names=tuple(K.KERNELS)):
         return {name: sum(c.get(name, 0) for key, c in counts.items()
                           if int(key[5:].split("_")[0]) in which)
-                for name in K.KERNELS}
+                for name in names}
 
     main_path, llama_path = launched(main_phases), launched((19, 20, 21, 22))
     bert_path = launched((29,))
+    variant_path = launched(main_phases, VARIANTS)
     if set(main_phases) <= phases:
-        missing = [n for n, c in main_path.items() if c == 0]
+        missing = [n for n, c in {**main_path, **variant_path}.items()
+                   if c == 0]
         require(not missing, f"main path never launched {missing}")
     summary = []
     for name in K.KERNELS:
@@ -5770,6 +6538,18 @@ def main() -> int:
             "bound_by": r.get("bound_by"),
             "library_ms": r.get("library_ms"), "shape": r.get("shape"),
             **{k: r[k] for k in ("also", "llama", "bert") if k in r},
+            "pass": name in kern})
+    # the flash kernels' DROP and BIAS variants, each in its base kernel's
+    # source, in place of the JAX package's dense path
+    for name in VARIANTS:
+        r, base = kern.get(name, {}), name.split("+")[0]
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCES[base][0],
+            "replaces": VARIANT_REPLACES[base],
+            "launches": variant_path[name],
+            **{k: r.get(k) for k in ("max_abs_err", "ms", "device_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "shape")},
             "pass": name in kern})
     log(json.dumps({"phase_seconds": phase_seconds(time.perf_counter())}))
     log(json.dumps({"e2e": e2e, "launches_by_phase": counts}))

@@ -22,11 +22,17 @@ preemption, training through the nn API
 (``GPTForCausalLM`` with ``GPTPretrainingCriterion``), run telemetry and
 the ops endpoint (``observability``), the BERT encoder
 (``models.bert``) with ``nn.functional``'s attention (full and varlen),
-and their thirteen attention kernels (``ops.kernels``). The rest of the
-Paddle API surface is not ported yet.
+and their thirteen attention kernels (``ops.kernels``), which take
+attention dropout and additive masks; the transformer layers
+(``nn.layer.transformer``, ``incubate.nn``) and the random stream
+(``framework.random``; ``seed``, ``get_rng_state`` and ``set_rng_state``
+here, as in the JAX package). The rest of the Paddle API surface is not
+ported yet.
 """
-from . import (device, distributed, io, models, nn, observability, ops,
-               parallel, serving, utils)
+from . import (device, distributed, framework, incubate, io, models, nn,
+               observability, ops, parallel, serving, utils)
+from .framework.random import get_rng_state, seed, set_rng_state
 
-__all__ = ["device", "distributed", "io", "models", "nn", "observability",
-           "ops", "parallel", "serving", "utils"]
+__all__ = ["device", "distributed", "framework", "incubate", "io", "models",
+           "nn", "observability", "ops", "parallel", "serving", "utils",
+           "seed", "get_rng_state", "set_rng_state"]

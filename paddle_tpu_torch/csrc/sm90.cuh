@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu): mbarriers, TMA tile
+// (flash_fwd.cuh, flash_bwd.cuh): mbarriers, TMA tile
 // copies and their tensor maps, and warpgroup matrix products (wgmma) with
 // bf16 operands and fp32 accumulators.
 //

@@ -16,18 +16,21 @@ Attention is bidirectional and goes through the port's ``nn.functional``:
   layer runs ``flash_attention(segment_ids=..., segment_ids_k=...,
   causal=False)``: K-SEG forward, K-SDQ and K-SDKV backward. The JAX
   package adds ``(m - 1) * 1e9`` to the scores, whose softmax gives the
-  masked keys exactly 0 in fp32: the same result. A row with no real
-  token raises ``ValueError``, where the JAX package's additive mask
-  leaves an fp32 rounding artefact, not a defined result;
-- a 4-D additive mask: ``scaled_dot_product_attention(attn_mask=...)``,
-  the plain dense version on the CPU; CUDA raises (no kernel).
+  masked keys exactly 0 in fp32: the same result. A batch with a row
+  that has no real token takes the JAX package's own additive ``(B, 1,
+  1, S)`` mask instead (``padding_bias``), so that row attends uniformly
+  to every key, as there;
+- a 4-D additive mask (and that one): ``scaled_dot_product_attention(
+  attn_mask=...)``, K-BSHD, K-BDQ and K-BDKV with the mask added in the
+  kernels (their BIAS variants).
 
 GELU is the exact erf form (the JAX package's ``F.gelu``), LayerNorm
 eps 1e-12, the MLM decoder is tied to ``word_embeddings``, and the
 embeddings add ``token_type_embeddings`` only when ``token_type_ids`` is
-given, as the JAX model does. Hidden dropout is ``nn.Dropout``; attention
-dropout is not ported: a model in training mode with
-``attention_dropout > 0`` raises in the attention call.
+given, as the JAX model does. Hidden dropout is ``nn.Dropout``;
+attention dropout (training mode) drops the probabilities inside the
+kernels (their DROP variants, a Philox key a layer from
+``framework.random.next_rng_key``).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from ..nn import functional as NF
 
 __all__ = ["BertConfig", "bert_base", "bert_large", "BertSelfAttention",
            "BertLayer", "BertEmbeddings", "BertModel", "BertForPretraining",
-           "padding_key_ids"]
+           "padding_key_ids", "padding_bias"]
 
 
 @dataclasses.dataclass
@@ -80,13 +83,17 @@ def bert_large(**kw) -> BertConfig:
 def padding_key_ids(attention_mask):
     """A ``(B, S)`` 0/1 padding mask -> ``(query ids, key ids)``, both
     ``(B, S)`` int32: queries 0, keys 0 where the mask is 1 and -1 where
-    it is 0. A row with no 1 raises ``ValueError``."""
-    real = attention_mask != 0
-    if not bool(real.any(-1).all()):
-        raise ValueError("BertModel: a row of attention_mask has no "
-                         "unmasked token, so its attention is undefined")
-    key_ids = torch.where(real, 0, -1).to(torch.int32)
+    it is 0. A row with no 1 would see no key: ``BertModel`` gives such a
+    batch ``padding_bias`` instead."""
+    key_ids = torch.where(attention_mask != 0, 0, -1).to(torch.int32)
     return torch.zeros_like(key_ids), key_ids
+
+
+def padding_bias(attention_mask):
+    """The JAX model's additive form of a ``(B, S)`` padding mask:
+    ``(m - 1) * 1e9`` as ``(B, 1, 1, S)`` fp32."""
+    m = attention_mask.to(torch.float32)
+    return ((m - 1.0) * 1e9)[:, None, None, :]
 
 
 class BertSelfAttention(nn.Module):
@@ -169,12 +176,16 @@ class BertModel(nn.Module):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 position_ids=None):
         """Returns ``(hidden (B, S, H), pooled (B, H))``. A 2-D
-        ``attention_mask`` is a 0/1 padding mask (key-side segment ids);
-        a 4-D one is additive."""
+        ``attention_mask`` is a 0/1 padding mask (key-side segment ids;
+        the JAX model's additive mask when a row has no 1); a 4-D one is
+        additive."""
         segment_ids = None
         if attention_mask is not None and attention_mask.dim() == 2:
-            segment_ids = padding_key_ids(attention_mask)
-            attention_mask = None
+            if bool((attention_mask != 0).any(-1).all()):
+                segment_ids = padding_key_ids(attention_mask)
+                attention_mask = None
+            else:
+                attention_mask = padding_bias(attention_mask)
         x = self.embeddings(input_ids, token_type_ids, position_ids)
         for blk in self.encoder:
             x = blk(x, attention_mask, segment_ids)

@@ -12,8 +12,10 @@ threads through ``GPTModel.forward(caches=...)``; the full forward with
 no cache runs ``ops.attention_dispatch.causal_attention``, which is
 differentiable (K-BSHD forward, K-BDQ and K-BDKV backward on CUDA), so
 the nn API trains: ``GPTForCausalLM`` -> ``GPTPretrainingCriterion`` ->
-``loss.backward()``. Attention dropout is not ported: a model in training
-mode with ``attention_dropout > 0`` raises.
+``loss.backward()``. In training mode ``attention_dropout`` drops the
+probabilities inside those kernels (their DROP variants, a Philox key a
+layer from ``framework.random.next_rng_key``, where the JAX model draws
+its key in ``scaled_dot_product_attention``).
 """
 from __future__ import annotations
 
@@ -94,12 +96,10 @@ class GPTAttention(nn.Module):
             cache.update(k, v)
             out = cache.attend(q, k, v)
         else:
-            if self.training and cfg.attention_dropout > 0:
-                raise NotImplementedError(
-                    "attention dropout is not ported: call eval() or set "
-                    "attention_dropout=0")
             # the unbind views go to the kernels with their row stride
-            out = causal_attention(q, k, v)
+            out = causal_attention(
+                q, k, v,
+                dropout_p=cfg.attention_dropout if self.training else 0.0)
         out = out.reshape(b, s, cfg.hidden_size)
         return self.resid_dropout(self.out_proj(out))
 

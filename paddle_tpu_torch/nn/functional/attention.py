@@ -3,22 +3,29 @@
 Plain functions on torch tensors with the JAX package's signatures and
 return conventions, over the port's flash kernels:
 
-- ``scaled_dot_product_attention`` without a mask: K-BSHD forward, K-BDQ
-  and K-BDKV backward (``ops.kernels.flash_attention.attention_bshd``),
-  causal or full;
+- ``scaled_dot_product_attention``: K-BSHD forward, K-BDQ and K-BDKV
+  backward (``ops.kernels.flash_attention.attention_bshd``), causal or
+  full; an ``attn_mask`` is added to the scores inside the kernels (their
+  BIAS variants, the mask broadcast to ``(B, H, Sq, Sk)`` by strides, no
+  gradient), a bool mask as 1.0 / 0.0 (the JAX package's
+  ``qt + mask.astype(qt.dtype)``); rectangular causal attention
+  (``Sq != Sk``, aligned to the end) is an end-aligned -1e30 bias built in
+  the call;
 - ``flash_attention(..., segment_ids=...)`` and ``flash_attn_unpadded``
   (varlen attention over ``cu_seqlens``): K-SEG forward, K-SDQ and K-SDKV
   backward (``ops.attention_dispatch.segment_attention_packed``), full
   attention with distinct key-side ids and ``Sq != Sk`` included.
 
-What no kernel computes takes its plain version on the CPU and raises on
-CUDA: a general ``attn_mask`` (``_sdpa_ref``), rectangular causal
-attention (end-aligned, ``_sdpa_ref``), and varlen causal attention with
-distinct ``cu_seqlens`` (``ops.attention_dispatch.
-dense_segment_attention``). Attention dropout is not ported: active
-dropout raises on every device, as ``models.gpt`` does, and
-``return_softmax=True`` raises as in the JAX package (the kernels never
-form the softmax matrix).
+Active attention dropout (``dropout_p > 0`` and ``training``) runs the
+same kernels' DROP variants with a key from
+``framework.random.next_rng_key()``, where the JAX package draws its
+key; the keep bits are Philox's (``ops.kernels.philox``), so the two
+packages drop different entries at the same rate. Varlen causal attention
+with distinct ``cu_seqlens`` has no kernel: its plain version
+(``ops.attention_dispatch.dense_segment_attention``) on the CPU, a raise
+on CUDA. ``return_softmax=True`` raises as in the JAX package (the
+kernels never form the softmax matrix). ``_sdpa_ref`` is the JAX
+package's dense function in plain PyTorch, the tests' oracle.
 """
 from __future__ import annotations
 
@@ -26,33 +33,28 @@ import math
 
 import torch
 
+from ...framework.random import next_rng_key
 from ...ops.attention_dispatch import segment_attention_packed
 from ...ops.kernels.flash_attention import attention_bshd
-from ...ops.kernels.flash_attention_packed import cu_seqlens_to_segment_ids
+from ...ops.kernels.flash_attention_packed import (_dropped,
+                                                   cu_seqlens_to_segment_ids,
+                                                   keep_of)
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "sequence_mask"]
 
 
-def _no_dropout(what, p, training):
-    if p > 0.0 and training:
-        raise NotImplementedError(
-            f"{what}: attention dropout is not ported (ROADMAP.md B.2): "
-            "pass training=False or a dropout of 0")
+def _active(p, training) -> float:
+    return float(p) if training and p > 0.0 else 0.0
 
 
-def _on_card(what, x, why):
-    if x.device.type != "cpu":
-        raise NotImplementedError(f"{what}: {why} has no kernel on "
-                                  f"{x.device.type}; the JAX package runs "
-                                  "it dense")
-
-
-def _sdpa_ref(q, k, v, mask=None, causal=False, scale=None):
+def _sdpa_ref(q, k, v, mask=None, causal=False, scale=None, dropout_p=0.0,
+              rng=None, keep=None):
     """Plain PyTorch dense attention over ``(B, S, H, D)`` (mirrors the
-    JAX package's ``_sdpa_ref`` without dropout): an fp32 softmax of
-    ``scale * q.k`` plus ``mask``, causal end-aligned when ``Sk > Sq``
-    (query i sits at position ``Sk - Sq + i``)."""
+    JAX package's ``_sdpa_ref``): an fp32 softmax of ``scale * q.k`` plus
+    ``mask``, causal end-aligned when ``Sk > Sq`` (query i sits at
+    position ``Sk - Sq + i``), the probabilities dropped by ``keep`` (the
+    tests' bits, ``(B, H, Sq, Sk)``) or the Philox bits of ``rng``."""
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     qt = torch.einsum("bshd,bthd->bhst", q, k) * s
     if causal:
@@ -63,27 +65,39 @@ def _sdpa_ref(q, k, v, mask=None, causal=False, scale=None):
     if mask is not None:
         qt = qt + mask.to(qt.dtype)
     p = torch.softmax(qt.float(), dim=-1).to(q.dtype)
+    p = _dropped(p, keep_of(keep, dropout_p, rng, p.shape, q.device),
+                 dropout_p)
     return torch.einsum("bhst,bthd->bshd", p, v)
+
+
+def _end_aligned_causal_bias(sq, sk, device):
+    """``(Sq, Sk)`` fp32: 0 where key j <= query i's position ``Sk - Sq +
+    i``, -1e30 elsewhere (the JAX package's rectangular causal mask)."""
+    ok = torch.ones(sq, sk, dtype=torch.bool, device=device).tril(
+        diagonal=sk - sq)
+    return torch.zeros(sq, sk, device=device).masked_fill(~ok, -1e30)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None):
     """``paddle.nn.functional.scaled_dot_product_attention`` over the
-    ``(B, S, H, D)`` layout. Without a mask: K-BSHD (K-BDQ, K-BDKV in
-    the backward), causal (``Sq == Sk``) or full (any ``Sk``); the CPU
-    takes the kernels' plain versions. An additive ``attn_mask``
-    (broadcast to ``(B, H, Sq, Sk)``) and rectangular causal attention
-    take ``_sdpa_ref`` on the CPU and raise on CUDA."""
-    _no_dropout("scaled_dot_product_attention", dropout_p, training)
+    ``(B, S, H, D)`` layout: K-BSHD (K-BDQ, K-BDKV in the backward),
+    causal (``Sq == Sk``) or full (any ``Sk``); the CPU takes the
+    kernels' plain versions. ``attn_mask`` (additive, broadcast to
+    ``(B, H, Sq, Sk)``; bool adds 1.0 where true) takes the kernels'
+    BIAS variants, and so does rectangular causal attention, as an
+    end-aligned bias; active dropout their DROP variants."""
     q, k, v = query, key, value
-    rect = is_causal and q.shape[1] != k.shape[1]
-    if attn_mask is not None or rect:
-        _on_card("scaled_dot_product_attention", q,
-                 "an attn_mask" if attn_mask is not None
-                 else "rectangular causal attention")
-        return _sdpa_ref(q, k, v, attn_mask, is_causal)
-    return attention_bshd(q, k, v, causal=is_causal)
+    p = _active(dropout_p, training)
+    bias, causal = attn_mask, is_causal
+    if is_causal and q.shape[1] != k.shape[1]:
+        bias = _end_aligned_causal_bias(q.shape[1], k.shape[1], q.device)
+        if attn_mask is not None:
+            bias = bias + attn_mask.to(bias.dtype)
+        causal = False
+    return attention_bshd(q, k, v, causal=causal, bias=bias, dropout_p=p,
+                          rng=next_rng_key() if p else None)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
@@ -101,7 +115,6 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
         raise NotImplementedError(
             "flash_attention(return_softmax=True) is not supported: the "
             "flash kernels never materialize the softmax matrix")
-    _no_dropout("flash_attention", dropout, training)
     if segment_ids is None:
         if segment_ids_k is not None:
             raise ValueError("flash_attention: segment_ids_k needs "
@@ -111,7 +124,7 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     b, s, h, d = query.shape
     o = segment_attention_packed(
         query.flatten(2), key.flatten(2), value.flatten(2), h, segment_ids,
-        segment_ids_k, causal=causal)
+        segment_ids_k, causal=causal, dropout_p=_active(dropout, training))
     return o.reshape(b, s, h, d), None
 
 
@@ -137,7 +150,6 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
             "the flash kernels never materialize the softmax matrix")
     if int(max_seqlen_q) <= 0 or int(max_seqlen_k) <= 0:
         raise ValueError("max_seqlen_q/max_seqlen_k must be positive")
-    _no_dropout("flash_attn_unpadded", dropout, training)
     tq, nh, d = query.shape
     tk = key.shape[0]
     cu_q = torch.as_tensor(cu_seqlens_q, device=query.device)
@@ -151,19 +163,24 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     o = segment_attention_packed(
         query.reshape(1, tq, nh * d), key.reshape(1, tk, nh * d),
         value.reshape(1, tk, nh * d), nh, seg_q, seg_k, causal=causal,
-        scale=scale)
+        scale=scale, dropout_p=_active(dropout, training))
     return o.reshape(tq, nh, d), None
 
 
-_DTYPES = {"int64": torch.int64, "int32": torch.int32, "bool": torch.bool,
-           "float32": torch.float32, "float64": torch.float64}
+# every dtype name the JAX package's ``framework.dtype`` knows
+_DTYPES = {name: getattr(torch, name) for name in (
+    "float16", "bfloat16", "float32", "float64", "int8", "int16", "int32",
+    "int64", "uint8", "bool", "complex64", "complex128", "float8_e4m3fn",
+    "float8_e5m2")}
+_DTYPES["bool_"] = torch.bool
 
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     """``out[..., j] = j < x[...]`` of width ``maxlen`` (default
-    ``max(x)``), in ``dtype`` (a name or a torch dtype)."""
+    ``max(x)``), exactly 0 or 1 in ``dtype`` (a name the JAX package
+    knows, or a torch dtype)."""
     x = torch.as_tensor(x)
     ml = int(x.max()) if maxlen is None else int(maxlen)
-    dt = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+    dt = _DTYPES[dtype.lower()] if isinstance(dtype, str) else dtype
     r = torch.arange(ml, device=x.device)
     return (r < x[..., None]).to(dt)

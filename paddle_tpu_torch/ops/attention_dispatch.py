@@ -46,14 +46,17 @@ def paged_multiquery_attention(q, k_pages, v_pages, page_table, seq_lens,
                                              scale=scale, scales=scales)
 
 
-def dense_segment_attention(q, k, v, nh, seg_q, seg_k, scale=None):
+def dense_segment_attention(q, k, v, nh, seg_q, seg_k, scale=None,
+                            dropout_p=0.0, rng=None, keep=None):
     """Plain PyTorch causal attention with distinct key-side ids over the
     packed ``(B, S, NH*D)`` layout (``xla_segment_attention``'s causal
     case), one dense fp32 softmax: query i attends key j only where
     ``seg_q[i] == seg_k[j]`` and, bottom-right aligned per sequence,
     ``jk <= iq + Lk - Lq`` (``iq`` and ``jk`` their local indices in a
     sequence of ``Lq`` queries and ``Lk`` keys). A row that sees no key
-    outputs 0. Taken on the CPU only: no kernel computes this case, and
+    outputs 0. ``dropout_p`` drops the masked probabilities by ``keep``
+    (the tests' bits) or the Philox bits of ``rng``. Taken on the CPU
+    only: no kernel computes this case, and
     :func:`segment_attention_packed` raises on CUDA."""
     logits, ok = _fp._scores(q, k, nh, False, _fp._scale_of(q, nh, scale),
                              seg_q, seg_k)             # ok (B, 1, Sq, Sk)
@@ -68,12 +71,14 @@ def dense_segment_attention(q, k, v, nh, seg_q, seg_k, scale=None):
     ok = ok & (pos_k[:, None, :] <= bound[:, :, None])[:, None]
     p = torch.softmax(logits.masked_fill(~ok, _fp._NEG_INF), dim=-1)
     p = p.masked_fill(~ok, 0.0)
+    p = _fp._dropped(p, _fp.keep_of(keep, dropout_p, rng, logits.shape,
+                                    q.device), dropout_p)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), _fp._unpack(v, nh))
     return o.reshape(q.shape)
 
 
 def segment_attention_packed(q, k, v, nh, seg_q, seg_k=None, causal=True,
-                             scale=None):
+                             scale=None, dropout_p=0.0, rng=None):
     """Differentiable segment-masked attention over the packed
     ``(B, S, NH*D)`` layout, causal or not: query i attends key j only
     where ``seg_q[i] == seg_k[j]`` (``seg_k`` None: the query ids). K-SEG
@@ -81,25 +86,36 @@ def segment_attention_packed(q, k, v, nh, seg_q, seg_k=None, causal=True,
     ``prefill_packed``, ``nn.functional``'s segmented and varlen
     attention, BERT's padded batches). Causal attention with distinct
     key-side ids has no kernel (its causality is aligned per sequence):
-    the CPU takes :func:`dense_segment_attention`, CUDA raises."""
+    the CPU takes :func:`dense_segment_attention`, CUDA raises.
+    ``dropout_p`` drops the probabilities with the Philox bits of ``rng``
+    (default: a key from ``framework.random.next_rng_key``), K-SEG,
+    K-SDQ and K-SDKV's DROP variants on CUDA."""
     if causal and seg_k is not None:
         if q.device.type != "cpu":
             raise NotImplementedError(
                 "segment_attention_packed: causal attention with distinct "
                 "key-side segment ids is not ported to the GPU "
                 "(ROADMAP.md B.2); the JAX package runs it dense")
+        if dropout_p and rng is None:
+            from ..framework.random import next_rng_key
+
+            rng = next_rng_key()
         return dense_segment_attention(q, k, v, nh, seg_q, seg_k,
-                                       scale=scale)
+                                       scale=scale, dropout_p=dropout_p,
+                                       rng=rng)
     return flash_attention_packed_seg(q, k, v, seg_q, nh, scale=scale,
-                                      segment_ids_k=seg_k, causal=causal)
+                                      segment_ids_k=seg_k, causal=causal,
+                                      dropout_p=dropout_p, rng=rng)
 
 
-def causal_attention(q, k, v, scale=None):
+def causal_attention(q, k, v, scale=None, dropout_p=0.0, rng=None):
     """Differentiable ``(B, S, H, D)`` causal attention (``prefill_batch``
     and the no-cache forward): K-BSHD forward, K-BDQ and K-BDKV backward
-    on CUDA. q, k, v may be the ``unbind`` views of the fused qkv. Ring
-    attention is not ported."""
-    return attention_bshd(q, k, v, causal=True, scale=scale)
+    on CUDA, their DROP variants with ``dropout_p`` (``rng`` default: a
+    key from ``framework.random.next_rng_key``). q, k, v may be the
+    ``unbind`` views of the fused qkv. Ring attention is not ported."""
+    return attention_bshd(q, k, v, causal=True, scale=scale,
+                          dropout_p=dropout_p, rng=rng)
 
 
 def ring_is_zigzag(ring) -> bool:

@@ -27,11 +27,18 @@ K-SDKV      ``flash_attention_packed``       ``flash_attention_packed.
 K-BDQ       ``flash_attention``              ``flash_attention._dq_kernel``
 K-BDKV      ``flash_attention``              ``flash_attention._dkv_kernel``
 ==========  ===============================  ==================================
+
+The flash kernels also run with attention dropout and an additive mask
+(``csrc/philox.cuh``; ``philox`` holds the keep bits in plain PyTorch):
+``variant_counts()`` gives those launches by variant, such as
+``"K-BSHD+bias"`` and ``"K-SEG+drop"``, each also counted under its
+kernel.
 """
-from . import flash_attention, flash_attention_packed, paged_attention
+from . import flash_attention, flash_attention_packed, paged_attention, philox
 
 __all__ = ["paged_attention", "flash_attention_packed", "flash_attention",
-           "KERNELS", "reset_launch_counts", "launch_counts"]
+           "philox", "KERNELS", "reset_launch_counts", "launch_counts",
+           "variant_counts"]
 
 # name -> module, serving's kernels first, then training's
 KERNELS = {
@@ -54,7 +61,14 @@ KERNELS = {
 def reset_launch_counts() -> None:
     for name, mod in KERNELS.items():
         mod.LAUNCHES[name] = 0
+    flash_attention_packed.VARIANTS.clear()
 
 
 def launch_counts() -> dict:
     return {name: mod.LAUNCHES[name] for name, mod in KERNELS.items()}
+
+
+def variant_counts() -> dict:
+    """Launches with dropout or a mask since the last reset, by
+    variant."""
+    return dict(flash_attention_packed.VARIANTS)

@@ -39,8 +39,8 @@ can save (``OUTPUT_NAMES``, the JAX package's ``attn_out_kernel`` and
 ``attn_lse``). Each backward computes
 ``delta = sum_d(dO * O)`` per head in fp32 and then launches its dQ and
 dK/dV kernels. The forward sources are ``paddle_tpu_torch/csrc/
-flash_attention_fwd.cu`` (K-SEG, K-PACK, shared with K-BSHD), the
-backward ``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` (shared with
+flash_fwd.cuh`` (K-SEG, K-PACK, shared with K-BSHD), the
+backward ``paddle_tpu_torch/csrc/flash_bwd.cuh`` (shared with
 K-BDQ and K-BDKV).
 
 Layouts are the JAX package's: q, k, v, o and the gradients are
@@ -66,6 +66,20 @@ shared-memory tiles (each thread a 4x4 block of scores). All of them
 never visit causal tiles above the diagonal, skip tiles where no pair
 shares a segment, and mask ragged S in the kernel.
 
+Attention dropout and additive masks (``csrc/philox.cuh``): the forward
+and backward kernels take ``dropout_p`` with ``rng = (seed, offset)``,
+whose Philox keep bits ``philox.keep_mask`` rebuilds bit for bit, and,
+without segment ids, ``bias`` (broadcast to ``(B, NH, Sq, Sk)``, fp32,
+read at its strides, never materialised), added to the scaled scores.
+The plain versions take the same arguments and, for the tests, an
+explicit ``keep`` mask in place of the Philox bits. A bias entry below
+``BIAS_FLOOR`` counts as it (a row masked everywhere stays uniform, as in
+the JAX package's dense softmax); the kernels give a mask no gradient,
+and one with ``requires_grad`` raises off the CPU (on the CPU autograd
+runs through the plain versions). ``VARIANTS`` counts the launches made with a
+feature (``"K-SEG+drop"``, ``"K-BSHD+bias+drop"``, ...) beside
+``LAUNCHES``.
+
 Each wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.
 """
@@ -73,7 +87,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, philox
 
 __all__ = ["flash_attention_packed_segmented", "segment_attention_ref",
            "cu_seqlens_to_segment_ids", "EMPTY_LSE",
@@ -82,16 +96,53 @@ __all__ = ["flash_attention_packed_segmented", "segment_attention_ref",
            "packed_dkv", "seg_fwd", "seg_dq", "seg_dkv",
            "FlashAttentionPacked", "flash_attention_packed",
            "FlashAttentionPackedSeg", "flash_attention_packed_seg",
-           "OUTPUT_NAMES", "FORWARD_OPS", "PLAIN_CALLS"]
+           "OUTPUT_NAMES", "FORWARD_OPS", "PLAIN_CALLS", "VARIANTS",
+           "BIAS_FLOOR"]
 
 # kernel launches since the last reset (each wrapper adds one to its
 # kernel's count per launch)
 LAUNCHES = {"K-SEG": 0, "K-PACK": 0, "K-DQ": 0, "K-DKV": 0, "K-SDQ": 0,
             "K-SDKV": 0}
+# launches made with dropout or a bias, by variant ("K-SEG+drop",
+# "K-BSHD+bias", "K-BDQ+bias+drop", ...), of this module's kernels and of
+# ``flash_attention``'s
+VARIANTS: dict = {}
 _NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # the lse of a row that sees no key: the kernels' (and the Pallas
 # kernel's) -1e30 sentinel in log2 units, over log2 e in fp32
 EMPTY_LSE = float(torch.tensor(-1e30) / torch.tensor(1.4426950408889634))
+# the least bias the kernels add: -1e29 in log2 units, over log2 e
+BIAS_FLOOR = float(torch.tensor(-1e29) / torch.tensor(1.4426950408889634))
+
+
+def _count(launches, name, bias, dropout_p) -> None:
+    """One launch of ``name``: its count, and its variant's with a
+    feature."""
+    launches[name] += 1
+    tag = name + ("+bias" if bias is not None else "") + (
+        "+drop" if dropout_p else "")
+    if tag != name:
+        VARIANTS[tag] = VARIANTS.get(tag, 0) + 1
+
+
+def keep_of(keep, dropout_p, rng, shape, device):
+    """The plain versions' keep mask: ``keep`` when given (the tests'
+    bits), else the kernels' Philox bits of ``rng``; None without
+    dropout."""
+    if not dropout_p:
+        return None
+    if keep is not None:
+        return keep
+    if rng is None:
+        raise ValueError("attention dropout needs rng=(seed, offset)")
+    return philox.keep_mask(rng, dropout_p, shape, device)
+
+
+def _dropped(p, keep, dropout_p):
+    """``keep * p / (1 - dropout_p)`` (the JAX package's
+    ``where(keep, p / (1 - dropout_p), 0)``); p without dropout."""
+    return p if keep is None else torch.where(keep, p / (1.0 - dropout_p),
+                                              torch.zeros_like(p))
 
 
 def cu_seqlens_to_segment_ids(cu_seqlens, total_len: int):
@@ -108,20 +159,24 @@ def cu_seqlens_to_segment_ids(cu_seqlens, total_len: int):
 
 
 def segment_attention_ref(q, k, v, segment_ids, nh, scale=None,
-                          segment_ids_k=None, causal=True):
+                          segment_ids_k=None, causal=True, dropout_p=0.0,
+                          rng=None, keep=None):
     """Plain PyTorch K-SEG (mirrors ``_fwd_call_seg``): one dense
     segment-masked fp32 softmax over the packed ``(B, S, NH*D)`` layout,
     query ids ``segment_ids`` ``(B, Sq)`` against key ids
     ``segment_ids_k`` ``(B, Sk)`` (default: the query ids). Returns
     ``(o, lse)``; ``lse`` is the natural-log row normaliser
     ``(B, Sq, NH)``, ``EMPTY_LSE`` on a row that sees no key (whose o is
-    0)."""
+    0). ``dropout_p`` drops the masked probabilities by ``keep`` or the
+    Philox bits of ``rng`` (``xla_segment_attention``'s dropout)."""
     scale = _scale_of(q, nh, scale)
     logits, ok = _scores(q, k, nh, causal, scale, segment_ids,
                          segment_ids_k)
     lse = torch.logsumexp(logits, dim=-1)                  # (B, nh, Sq)
     lse = lse.masked_fill(~ok.any(-1), EMPTY_LSE)
     p = torch.softmax(logits, dim=-1).masked_fill(~ok, 0.0)
+    keep = keep_of(keep, dropout_p, rng, logits.shape, q.device)
+    p = _dropped(p, keep, dropout_p)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), _unpack(v, nh))
     return o.reshape(q.shape), lse.transpose(1, 2).contiguous()
 
@@ -133,13 +188,16 @@ def _unpack(x, nh):
     return x.reshape(b, s, nh, hp // nh)
 
 
-def _scores(q, k, nh, causal, scale, seg=None, seg_k=None):
-    """fp32 ``scale * q.k`` as ``(B, NH, Sq, Sk)`` and the visibility
-    mask: top-left causal or all-true, and with ``seg`` ``(B, Sq)`` only
-    pairs whose query id equals the key's (``seg_k`` ``(B, Sk)``, default
-    ``seg``)."""
+def _scores(q, k, nh, causal, scale, seg=None, seg_k=None, bias=None):
+    """fp32 ``scale * q.k`` (plus ``bias``, broadcast to ``(B, NH, Sq,
+    Sk)`` and floored at ``BIAS_FLOOR``) as ``(B, NH, Sq, Sk)`` and the
+    visibility mask: top-left causal or all-true, and with ``seg``
+    ``(B, Sq)`` only pairs whose query id equals the key's (``seg_k``
+    ``(B, Sk)``, default ``seg``)."""
     logits = torch.einsum("bqhd,bkhd->bhqk", _unpack(q, nh).float() * scale,
                           _unpack(k, nh).float())
+    if bias is not None:
+        logits = logits + bias.float().clamp(min=BIAS_FLOOR)
     sq, sk = q.shape[1], k.shape[1]
     if causal:
         idx_q = torch.arange(sq, device=q.device)[:, None]
@@ -158,78 +216,99 @@ def _scale_of(q, nh, scale):
     return scale if scale is not None else 1.0 / ((q.shape[-1] // nh) ** 0.5)
 
 
-def packed_attention_ref(q, k, v, nh, causal=True, scale=None):
+def packed_attention_ref(q, k, v, nh, causal=True, scale=None, bias=None,
+                         dropout_p=0.0, rng=None, keep=None):
     """Plain PyTorch K-PACK (mirrors ``_fwd_call``): one dense fp32
-    softmax. Returns ``o`` ``(B, Sq, NH*D)`` in q's dtype and ``lse``
-    ``(B, Sq, NH)`` fp32."""
+    softmax, with ``bias`` added to the scores and ``dropout_p`` dropping
+    the probabilities by ``keep`` or the Philox bits of ``rng`` (lse is
+    the undropped one). Returns ``o`` ``(B, Sq, NH*D)`` in q's dtype and
+    ``lse`` ``(B, Sq, NH)`` fp32."""
     scale = _scale_of(q, nh, scale)
-    logits, _ = _scores(q, k, nh, causal, scale)
+    logits, _ = _scores(q, k, nh, causal, scale, bias=bias)
     lse = torch.logsumexp(logits, dim=-1)                  # (B, NH, Sq)
     p = torch.exp(logits - lse[..., None])
+    p = _dropped(p, keep_of(keep, dropout_p, rng, logits.shape, q.device),
+                 dropout_p)
     o = torch.einsum("bhqk,bkhd->bqhd", p, _unpack(v, nh).float())
     return (o.reshape(q.shape).to(q.dtype),
             lse.transpose(1, 2).contiguous())
 
 
 def _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg,
-                  seg_k=None):
-    logits, ok = _scores(q, k, nh, causal, scale, seg, seg_k)
+                  seg_k=None, bias=None, dropout_p=0.0, rng=None, keep=None):
+    """The kept probabilities (dV's) and dS: with dropout (FlashAttention-2's
+    backward) ``ds = p * (z * dp / (1 - dropout_p) - delta)``, z the keep
+    bits."""
+    logits, ok = _scores(q, k, nh, causal, scale, seg, seg_k, bias)
     p = torch.exp(logits - lse.float().transpose(1, 2)[..., None])
     p = p.masked_fill(~ok, 0.0)       # exactly 0 on masked entries
     dp = torch.einsum("bqhd,bkhd->bhqk", _unpack(do, nh).float(),
                       _unpack(v, nh).float())
-    ds = p * (dp - delta.float().transpose(1, 2)[..., None])
-    return p, ds
+    keep = keep_of(keep, dropout_p, rng, logits.shape, q.device)
+    ds = p * (_dropped(dp, keep, dropout_p)
+              - delta.float().transpose(1, 2)[..., None])
+    return _dropped(p, keep, dropout_p), ds
 
 
-def _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, seg, seg_k=None):
+def _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, seg, seg_k=None,
+            **ex):
     scale = _scale_of(q, nh, scale)
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg,
-                          seg_k)
+                          seg_k, **ex)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, _unpack(k, nh).float()) * scale
     return dq.reshape(q.shape).to(q.dtype)
 
 
-def _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, seg, seg_k=None):
+def _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, seg, seg_k=None,
+             **ex):
     scale = _scale_of(q, nh, scale)
     p, ds = _probs_and_ds(q, k, v, do, lse, delta, nh, causal, scale, seg,
-                          seg_k)
+                          seg_k, **ex)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, _unpack(q, nh).float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, _unpack(do, nh).float())
     return (dk.reshape(k.shape).to(q.dtype),
             dv.reshape(v.shape).to(q.dtype))
 
 
-def packed_dq_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None):
+def packed_dq_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None,
+                  bias=None, dropout_p=0.0, rng=None, keep=None):
     """Plain PyTorch K-DQ (mirrors ``_dq_call``): ``dq = scale * ds.k``
     with ``ds = p * (do.v - delta)``, ``p = exp(scale * q.k - lse)``.
-    ``lse``, ``delta``: ``(B, Sq, NH)``. Returns dq in q's dtype."""
-    return _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, None)
+    ``lse``, ``delta``: ``(B, Sq, NH)``. ``bias``, ``dropout_p``, ``rng``
+    and ``keep`` are the forward's (``packed_attention_ref``). Returns dq
+    in q's dtype."""
+    return _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, None,
+                   bias=bias, dropout_p=dropout_p, rng=rng, keep=keep)
 
 
-def packed_dkv_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None):
+def packed_dkv_ref(q, k, v, do, lse, delta, nh, causal=True, scale=None,
+                   bias=None, dropout_p=0.0, rng=None, keep=None):
     """Plain PyTorch K-DKV (mirrors ``_dkv_call``, with lse and delta
     untransposed ``(B, Sq, NH)``): ``dk = scale * ds^T.q``,
-    ``dv = p^T.do``. Returns ``(dk, dv)`` in q's dtype."""
-    return _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, None)
+    ``dv = p^T.do`` (p the kept probabilities with dropout). Returns
+    ``(dk, dv)`` in q's dtype."""
+    return _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, None,
+                    bias=bias, dropout_p=dropout_p, rng=rng, keep=keep)
 
 
 def segment_dq_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
-                   segment_ids_k=None, causal=True):
+                   segment_ids_k=None, causal=True, dropout_p=0.0, rng=None,
+                   keep=None):
     """Plain PyTorch K-SDQ (mirrors ``_dq_call_seg``): ``packed_dq_ref``
     where a pair is visible only where the query's id equals the key's
     (``segment_ids_k``, default the query ids), with p exactly 0 on every
     masked entry."""
     return _dq_ref(q, k, v, do, lse, delta, nh, causal, scale, segment_ids,
-                   segment_ids_k)
+                   segment_ids_k, dropout_p=dropout_p, rng=rng, keep=keep)
 
 
 def segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
-                    segment_ids_k=None, causal=True):
+                    segment_ids_k=None, causal=True, dropout_p=0.0,
+                    rng=None, keep=None):
     """Plain PyTorch K-SDKV (mirrors ``_dkv_call_seg``, with lse and
     delta untransposed ``(B, Sq, NH)``). Returns ``(dk, dv)``."""
     return _dkv_ref(q, k, v, do, lse, delta, nh, causal, scale, segment_ids,
-                    segment_ids_k)
+                    segment_ids_k, dropout_p=dropout_p, rng=rng, keep=keep)
 
 
 def _kernel_device(what, q):
@@ -290,16 +369,17 @@ def _key_ids(what, segment_ids, segment_ids_k, causal):
 
 
 def seg_fwd(q, k, v, segment_ids, nh, scale=None, segment_ids_k=None,
-            causal=True):
+            causal=True, dropout_p=0.0, rng=None):
     """Segment-masked forward over ``(B, S, NH*D)`` whose q, k, v may be
     column slices of the fused qkv: the plain version for CPU tensors,
-    K-SEG for CUDA tensors. Returns ``(o, lse)``, the outputs of the op
+    K-SEG for CUDA tensors (with ``dropout_p``, keyed by ``rng``, its
+    DROP variant). Returns ``(o, lse)``, the outputs of the op
     ``paddle_tpu_torch::seg_fwd``."""
     _kernel_device("seg_fwd", q)
     seg_k = _key_ids("seg_fwd", segment_ids, segment_ids_k, causal)
     return torch.ops.paddle_tpu_torch.seg_fwd(
         q, k, v, segment_ids, seg_k, nh, bool(causal),
-        float(_scale_of(q, nh, scale)))
+        float(_scale_of(q, nh, scale)), *_drop_args(dropout_p, rng))
 
 
 # the JAX package's name for the forward
@@ -307,32 +387,35 @@ flash_attention_packed_segmented = seg_fwd
 
 
 def seg_dq(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
-           segment_ids_k=None, causal=True):
+           segment_ids_k=None, causal=True, dropout_p=0.0, rng=None):
     """Segmented dQ: the plain version for CPU tensors, K-SDQ for CUDA
-    tensors."""
+    tensors; ``dropout_p`` and ``rng`` are the forward's."""
     seg_k = _key_ids("seg_dq", segment_ids, segment_ids_k, causal)
     if q.device.type == "cpu":
         return segment_dq_ref(q, k, v, do, lse, delta, segment_ids, nh,
                               scale=scale, segment_ids_k=seg_k,
-                              causal=causal)
+                              causal=causal, dropout_p=dropout_p, rng=rng)
     dq = _launch_bwd("seg_dq", "dq", q, k, v, do, lse, delta, nh, causal,
-                     scale, (segment_ids, seg_k))
-    LAUNCHES["K-SDQ"] += 1
+                     scale, (segment_ids, seg_k), dropout_p=dropout_p,
+                     rng=rng)
+    _count(LAUNCHES, "K-SDQ", None, dropout_p)
     return dq
 
 
 def seg_dkv(q, k, v, do, lse, delta, segment_ids, nh, scale=None,
-            segment_ids_k=None, causal=True):
+            segment_ids_k=None, causal=True, dropout_p=0.0, rng=None):
     """Segmented dK, dV: the plain version for CPU tensors, K-SDKV for
-    CUDA tensors. Returns ``(dk, dv)``."""
+    CUDA tensors; ``dropout_p`` and ``rng`` are the forward's. Returns
+    ``(dk, dv)``."""
     seg_k = _key_ids("seg_dkv", segment_ids, segment_ids_k, causal)
     if q.device.type == "cpu":
         return segment_dkv_ref(q, k, v, do, lse, delta, segment_ids, nh,
                                scale=scale, segment_ids_k=seg_k,
-                               causal=causal)
+                               causal=causal, dropout_p=dropout_p, rng=rng)
     dkv = _launch_bwd("seg_dkv", "dkv", q, k, v, do, lse, delta, nh, causal,
-                      scale, (segment_ids, seg_k))
-    LAUNCHES["K-SDKV"] += 1
+                      scale, (segment_ids, seg_k), dropout_p=dropout_p,
+                      rng=rng)
+    _count(LAUNCHES, "K-SDKV", None, dropout_p)
     return dkv
 
 
@@ -353,7 +436,8 @@ def _rows(t, what):
     return t, rs
 
 
-def _check(what, q, k, v, nh, causal, extra=(), seg=None):
+def _check(what, q, k, v, nh, causal, extra=(), seg=None, bias=None,
+           dropout_p=0.0, rng=None):
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -381,15 +465,66 @@ def _check(what, q, k, v, nh, causal, extra=(), seg=None):
                 raise ValueError(f"{what}: {side}-side segment ids must be "
                                  f"contiguous (B, S{side}) = {(b, n)} int32")
         extra = (*extra, *seg)
+    if bias is not None:
+        if seg is not None:
+            raise ValueError(f"{what}: segment ids take no bias")
+        extra = (*extra, bias)
+    if dropout_p and not (0.0 < dropout_p < 1.0 and rng is not None):
+        raise ValueError(f"{what}: dropout_p {dropout_p} must lie in "
+                         "(0, 1) and come with rng=(seed, offset)")
     if any(t.device != q.device for t in (k, v, *extra)):
         raise ValueError(f"{what}: tensors on different devices")
     return d
 
 
-def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None):
+def bias_view(bias, b, nh, sq, sk):
+    """An additive mask as the kernels read it: fp32 (a bool mask adds 1
+    where true, as the JAX package's ``mask.astype``), broadcast to
+    ``(B, NH, Sq, Sk)`` by ``expand`` (a broadcast dimension has stride
+    0: nothing is materialised). The kernels give a mask no gradient:
+    one off the CPU with ``requires_grad`` raises (on the CPU the plain
+    versions' autograd reaches it)."""
+    if bias.requires_grad and bias.device.type != "cpu":
+        raise ValueError("attention: the kernels give the attention mask "
+                         "no gradient; pass it detached")
+    if bias.dim() > 4:
+        raise ValueError(f"attention: a mask of {bias.dim()} dims does "
+                         "not broadcast to (B, H, Sq, Sk)")
+    return bias.to(torch.float32).expand(b, nh, sq, sk)
+
+
+def _ext_args(bias, dropout_p, rng):
+    """The DROP and BIAS entries' extra arguments: a ``bias_view``'s
+    pointer (null without one) and its four element strides, then
+    ``dropout_p``, seed and offset."""
+    ptr, strides = None, (0, 0, 0, 0)
+    if bias is not None:
+        ptr, strides = bias.data_ptr(), bias.stride()
+        if max(strides) >= 2 ** 31:
+            raise ValueError(f"mask stride {max(strides)} exceeds int32")
+    seed, offset = (int(x) % 2 ** 64 for x in (rng or (0, 0)))
+    return ptr, strides, float(dropout_p), seed, offset
+
+
+def _drop_args(dropout_p, rng):
+    """``(dropout_p, seed, offset)`` of a call (seed and offset as int64
+    for the ops' schemas; 0 without dropout)."""
+    if not dropout_p:
+        return 0.0, 0, 0
+    if rng is None:
+        raise ValueError("attention dropout needs rng=(seed, offset)")
+    seed, offset = (int(x) % 2 ** 64 for x in rng)
+    return (float(dropout_p), seed - 2 ** 64 * (seed >= 2 ** 63),
+            offset - 2 ** 64 * (offset >= 2 ** 63))
+
+
+def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None, bias=None,
+                dropout_p=0.0, rng=None):
     """One forward launch (K-PACK, or K-SEG with ``seg`` = the query- and
-    key-side ids); the caller counts it. Returns ``(o, lse)``."""
-    d = _check(what, q, k, v, nh, causal, seg=seg)
+    key-side ids; with a ``bias_view`` or ``dropout_p`` the entry of the
+    BIAS and DROP variants); the caller counts it. Returns ``(o, lse)``."""
+    d = _check(what, q, k, v, nh, causal, seg=seg, bias=bias,
+               dropout_p=dropout_p, rng=rng)
     b, sq, hp = q.shape
     sk = k.shape[1]
     (q, q_rs), (k, k_rs), (v, v_rs) = (_rows(t, what) for t in (q, k, v))
@@ -400,7 +535,17 @@ def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None):
     code = _build.dtype_code(q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if seg is None:
+        if bias is not None or dropout_p:
+            entry = "flash_attention_fwd_ext"
+            ids = (None, None) if seg is None else tuple(
+                t.data_ptr() for t in seg)
+            ptr, strides, p, seed, offset = _ext_args(bias, dropout_p, rng)
+            rc = lib.flash_attention_fwd_ext(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), *ids, ptr,
+                o.data_ptr(), lse.data_ptr(), b, sq, sk, nh, d, q_rs, k_rs,
+                v_rs, *strides, float(scale), int(bool(causal)), p, seed,
+                offset, code, stream)
+        elif seg is None:
             entry = "flash_attention_fwd_packed"
             rc = lib.flash_attention_fwd_packed(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -418,12 +563,14 @@ def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None):
 
 
 def _launch_bwd(what, kind, q, k, v, do, lse, delta, nh, causal, scale,
-                seg=None):
+                seg=None, bias=None, dropout_p=0.0, rng=None):
     """One backward launch; the caller counts it. ``kind`` ``"dq"``
     launches a dQ kernel and returns dq, ``"dkv"`` a dK/dV kernel and
     returns ``(dk, dv)``; ``seg`` (the query- and key-side ids) selects
-    the segmented entries."""
-    d = _check(what, q, k, v, nh, causal, extra=(do, lse, delta), seg=seg)
+    the segmented entries, a ``bias_view`` or ``dropout_p`` (with the
+    forward's ``rng``) the entries of the BIAS and DROP variants."""
+    d = _check(what, q, k, v, nh, causal, extra=(do, lse, delta), seg=seg,
+               bias=bias, dropout_p=dropout_p, rng=rng)
     b, sq, hp = q.shape
     sk = k.shape[1]
     if do.shape != q.shape or do.dtype != q.dtype:
@@ -445,11 +592,17 @@ def _launch_bwd(what, kind, q, k, v, do, lse, delta, nh, causal, scale,
     entry = "flash_attention_bwd_" + kind
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr()]
-    if seg is not None:
-        entry += "_seg"
-        ptrs += [ids.data_ptr() for ids in seg]
     dims = (b, sq, sk, nh, d, q_rs, k_rs, v_rs, do_rs, float(scale),
             int(bool(causal)))
+    if bias is not None or dropout_p:
+        entry += "_ext"
+        ptr, strides, p, seed, offset = _ext_args(bias, dropout_p, rng)
+        ptrs += ([None, None] if seg is None
+                 else [ids.data_ptr() for ids in seg]) + [ptr]
+        dims = (*dims[:9], *strides, *dims[9:], p, seed, offset)
+    elif seg is not None:
+        entry += "_seg"
+        ptrs += [ids.data_ptr() for ids in seg]
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -492,7 +645,8 @@ _LIB = torch.library.Library("paddle_tpu_torch", "DEF")
 _LIB.define("packed_fwd(Tensor q, Tensor k, Tensor v, int nh, bool causal, "
             "float scale) -> (Tensor, Tensor)")
 _LIB.define("seg_fwd(Tensor q, Tensor k, Tensor v, Tensor segment_ids, "
-            "Tensor segment_ids_k, int nh, bool causal, float scale) -> "
+            "Tensor segment_ids_k, int nh, bool causal, float scale, "
+            "float dropout_p=0.0, int seed=0, int offset=0) -> "
             "(Tensor, Tensor)")
 
 
@@ -507,16 +661,25 @@ def _packed_fwd_cuda(q, k, v, nh, causal, scale):
     return out
 
 
-def _seg_fwd_cpu(q, k, v, segment_ids, segment_ids_k, nh, causal, scale):
+def _rng_of(dropout_p, seed, offset):
+    return (seed % 2 ** 64, offset % 2 ** 64) if dropout_p else None
+
+
+def _seg_fwd_cpu(q, k, v, segment_ids, segment_ids_k, nh, causal, scale,
+                 dropout_p=0.0, seed=0, offset=0):
     PLAIN_CALLS["K-SEG"] += 1
     return segment_attention_ref(q, k, v, segment_ids, nh, scale=scale,
-                                 segment_ids_k=segment_ids_k, causal=causal)
+                                 segment_ids_k=segment_ids_k, causal=causal,
+                                 dropout_p=dropout_p,
+                                 rng=_rng_of(dropout_p, seed, offset))
 
 
-def _seg_fwd_cuda(q, k, v, segment_ids, segment_ids_k, nh, causal, scale):
+def _seg_fwd_cuda(q, k, v, segment_ids, segment_ids_k, nh, causal, scale,
+                  dropout_p=0.0, seed=0, offset=0):
     out = _launch_fwd("seg_fwd", q, k, v, nh, causal, scale,
-                      (segment_ids, segment_ids_k))
-    LAUNCHES["K-SEG"] += 1
+                      (segment_ids, segment_ids_k), dropout_p=dropout_p,
+                      rng=_rng_of(dropout_p, seed, offset))
+    _count(LAUNCHES, "K-SEG", None, dropout_p)
     return out
 
 
@@ -530,8 +693,8 @@ for _name, _cpu, _cuda, _meta in (
         ("packed_fwd", _packed_fwd_cpu, _packed_fwd_cuda,
          lambda q, k, v, nh, causal, scale: _fwd_meta(q, nh)),
         ("seg_fwd", _seg_fwd_cpu, _seg_fwd_cuda,
-         lambda q, k, v, segment_ids, segment_ids_k, nh, causal, scale:
-         _fwd_meta(q, nh))):
+         lambda q, k, v, segment_ids, segment_ids_k, nh, causal, scale,
+         dropout_p=0.0, seed=0, offset=0: _fwd_meta(q, nh))):
     _LIB.impl(_name, _cpu, "CPU")
     _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _meta, "Meta")
@@ -584,39 +747,47 @@ class FlashAttentionPackedSeg(torch.autograd.Function):
     """Segment-masked flash attention with its backward (mirrors the JAX
     package's ``_flash_packed_seg`` custom_vjp): the forward is the op
     ``paddle_tpu_torch::seg_fwd`` (K-SEG) and saves
-    ``(q, k, v, seg_q, seg_k, o, lse)``; the backward computes ``delta``
-    per head in fp32 and runs K-SDQ and K-SDKV. The ids take no gradient.
-    On CPU tensors each step is its plain version."""
+    ``(q, k, v, seg_q, seg_k, o, lse)`` and the dropout key; the backward
+    computes ``delta`` per head in fp32 (over the dropped output) and
+    runs K-SDQ and K-SDKV, which regenerate the forward's keep bits. The
+    ids take no gradient. On CPU tensors each step is its plain
+    version."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_k, nh, causal, scale):
-        o, lse = torch.ops.paddle_tpu_torch.seg_fwd(q, k, v, seg_q, seg_k,
-                                                    nh, causal, scale)
+    def forward(ctx, q, k, v, seg_q, seg_k, nh, causal, scale, dropout_p,
+                rng):
+        o, lse = torch.ops.paddle_tpu_torch.seg_fwd(
+            q, k, v, seg_q, seg_k, nh, causal, scale,
+            *_drop_args(dropout_p, rng))
         ctx.save_for_backward(q, k, v, seg_q, seg_k, o, lse)
-        ctx.attn = (nh, causal, scale)
+        ctx.attn = (nh, causal, scale, dropout_p, rng)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, seg_q, seg_k, o, lse = ctx.saved_tensors
-        nh, causal, scale = ctx.attn
+        nh, causal, scale, dropout_p, rng = ctx.attn
         delta = _delta(do, o, nh)
         # the ids the forward checked: seg_k is seg_q's own tensor when the
         # caller gave no key-side ids, so causal passes it as None
         kw = dict(scale=scale, causal=causal,
-                  segment_ids_k=None if causal else seg_k)
+                  segment_ids_k=None if causal else seg_k,
+                  dropout_p=dropout_p, rng=rng)
         dq = seg_dq(q, k, v, do, lse, delta, seg_q, nh, **kw)
         dk, dv = seg_dkv(q, k, v, do, lse, delta, seg_q, nh, **kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_attention_packed_seg(q, k, v, segment_ids, nh, scale=None,
-                               segment_ids_k=None, causal=True):
+                               segment_ids_k=None, causal=True,
+                               dropout_p=0.0, rng=None):
     """Differentiable segment-masked attention over ``(B, S, NH*D)`` (the
     JAX package's ``flash_attention_packed_segmented``): returns ``o``.
     q, k, v may be column slices of the fused qkv; ``segment_ids``
     ``(B, Sq)`` and ``segment_ids_k`` ``(B, Sk)`` (default: the query
-    ids; only with ``causal=False``) are taken as int32."""
+    ids; only with ``causal=False``) are taken as int32. ``dropout_p``
+    drops the probabilities with the Philox bits of ``rng`` (default: a
+    key from ``framework.random.next_rng_key``)."""
     if q.shape[-1] % nh:
         raise ValueError(f"hidden {q.shape[-1]} not divisible by num_heads "
                          f"{nh}")
@@ -634,5 +805,11 @@ def flash_attention_packed_seg(q, k, v, segment_ids, nh, scale=None,
                      None if segment_ids_k is None
                      else segment_ids_k.to(torch.int32).contiguous(), causal)
     scale = float(_scale_of(q, nh, scale))
+    dropout_p = float(dropout_p)
+    if dropout_p and rng is None:
+        from ...framework.random import next_rng_key
+
+        rng = next_rng_key()
     return FlashAttentionPackedSeg.apply(q, k, v, seg_q, seg_k, nh,
-                                         bool(causal), scale)
+                                         bool(causal), scale, dropout_p,
+                                         rng if dropout_p else None)

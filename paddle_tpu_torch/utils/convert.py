@@ -26,6 +26,16 @@ linear weights transposed; the MLM decoder is tied to
 
 Every leaf must be accounted for: an unknown or a missing name raises.
 
+``from_transformer_state`` and ``from_fused_transformer_state`` map the
+``state_dict()`` of the JAX package's transformer layers
+(``nn.layer.transformer``: ``MultiHeadAttention`` up to ``Transformer``;
+``incubate.nn``'s fused layers) onto the port's, key for key: the linear
+weights (``q_proj`` ... ``out_proj``, ``linear1``, ``linear2``; the fused
+``qkv_weight``, ``linear_weight``, ``linear1_weight``,
+``linear2_weight``) transposed from ``(in, out)``, everything else
+(biases, LayerNorm scales) as it is, checked name for name and shape
+for shape against the port's module's own ``state_dict()``.
+
 ``shard_params`` cuts those stacked params (GPT or LLaMA, numpy or
 tensors) into one rank's shards under a layout: a partition-spec tree
 (``transformer_core.gpt_param_specs`` / ``llama_core.llama_param_specs``
@@ -57,6 +67,7 @@ __all__ = ["from_paddle_tpu_state", "expected_leaves", "from_bert_state",
            "expected_bert_leaves", "from_gpt_params",
            "expected_gpt_params", "from_llama_state", "expected_llama_leaves",
            "from_llama_params", "expected_llama_params", "qkv_order",
+           "from_transformer_state", "from_fused_transformer_state",
            "head_aligned", "from_head_aligned", "shard_slices",
            "shard_params", "unshard_params", "shard_pieces",
            "qkv_col_order"]
@@ -169,6 +180,34 @@ def _map_state(state, want, linear, what) -> Dict[str, torch.Tensor]:
                              f"expected {shape}")
         out[name] = torch.from_numpy(np.array(arr, order="C"))  # own copy
     return out
+
+
+_TRANSFORMER_LINEAR = re.compile(
+    r"(.*\.)?(q_proj|k_proj|v_proj|out_proj|linear1|linear2)\.weight$")
+_FUSED_LINEAR = re.compile(
+    r"(.*\.)?(qkv_weight|linear_weight|linear1_weight|linear2_weight)$")
+
+
+def _map_layer_state(state, module, linear, what):
+    want = {name: tuple(t.shape) for name, t in module.state_dict().items()}
+    return _map_state(state, want, linear, what)
+
+
+def from_transformer_state(state: Dict[str, np.ndarray], module
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX transformer layers' ``state_dict()`` as numpy -> the state
+    of the port's ``module`` (its twin; CPU tensors, load with
+    ``load_state_dict``)."""
+    return _map_layer_state(state, module, _TRANSFORMER_LINEAR,
+                            "from_transformer_state")
+
+
+def from_fused_transformer_state(state: Dict[str, np.ndarray], module
+                                 ) -> Dict[str, torch.Tensor]:
+    """As :func:`from_transformer_state` for the fused layers of
+    ``incubate.nn``."""
+    return _map_layer_state(state, module, _FUSED_LINEAR,
+                            "from_fused_transformer_state")
 
 
 def expected_gpt_params(cfg) -> Dict[str, object]:

@@ -6,8 +6,12 @@ across by ``utils.convert.from_bert_state``, fed the same numpy batches:
 - MLM and NSP logits and the loss (atol 1e-5), and every parameter's
   grad after ``backward()`` (1e-4 of the leaf's largest), unpadded (the
   K-BSHD path), with a 2-D padding mask (the K-SEG path with key-side
-  ids) and with a 4-D additive mask (the plain dense path);
-- a padding-mask row with no real token raising;
+  ids) and with a 4-D additive mask (K-BSHD with the mask added inside
+  the kernels);
+- a padding-mask row with no real token: the JAX model's additive mask,
+  the row attending uniformly to every key;
+- attention dropout in training, the JAX model fed the port's Philox
+  bits, for each kind of mask;
 - 3 momentum-SGD steps (lr 0.01, momentum 0.9: ``torch.optim.SGD``
   against ``paddle.optimizer.Momentum``), losses and params.
 """
@@ -21,6 +25,7 @@ from paddle_tpu_torch.models import bert as TB
 from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 from paddle_tpu_torch.utils.convert import (expected_bert_leaves,
                                             from_bert_state)
+from test_torch_attention_dropout import jax_bits, port_bits
 
 # one intra-op thread: the suite runs several workers on the machine's
 # cores, and each worker's idle OpenMP team would spin against theirs
@@ -122,10 +127,11 @@ def test_bert_matches_jax_logits_loss_and_grads(models, mask_kind):
                                atol=ATOL)
     assert abs(float(loss.detach()) - float(jloss)) <= ATOL
     # the attention each mask takes: K-SEG's plain version once a layer
-    # for the padding mask, K-BSHD's without a mask, neither for 4-D
+    # for the padding mask, K-BSHD's without a mask and (its BIAS
+    # variant) with the 4-D one
     want_nodes = {None: {"FlashAttentionBSHDBackward"},
                   "padding": {"FlashAttentionPackedSegBackward"},
-                  "additive": set()}[mask_kind]
+                  "additive": {"FlashAttentionBSHDBackward"}}[mask_kind]
     assert _attention_nodes(loss) == want_nodes
     assert fp.PLAIN_CALLS["K-SEG"] - seg_calls == (
         KW["num_layers"] if mask_kind == "padding" else 0)
@@ -140,23 +146,63 @@ def test_bert_matches_jax_logits_loss_and_grads(models, mask_kind):
 
 
 def test_padding_row_with_no_token_raises(models):
-    _, _, port = models
+    """A padding mask whose row 1 has no real token: the port takes the
+    JAX model's additive ``(m - 1) * 1e9`` mask for that batch (K-BSHD's
+    BIAS variant), so the row attends uniformly to every key, as there;
+    MLM logits, NSP logits and loss within 1e-5 of the JAX model's."""
+    jm, _, port = models
+    ids, types, mlm_y, nsp_y, mask = _batch(2, "padding")
+    mask[1, :] = 0
+    batch = (ids, types, mlm_y, nsp_y, mask)
+    jmlm, jnsp, jloss = _jax_step(jm, batch)
     tm = port()
-    ids = torch.zeros(2, 8, dtype=torch.long)
-    mask = torch.ones(2, 8, dtype=torch.long)
-    mask[1] = 0
-    with pytest.raises(ValueError, match="no unmasked token"):
-        tm(ids, attention_mask=mask)
+    mlm, nsp, loss = _port_step(tm, batch)
+    np.testing.assert_allclose(mlm.detach().numpy(), jmlm.numpy(),
+                               atol=ATOL)
+    np.testing.assert_allclose(nsp.detach().numpy(), jnsp.numpy(),
+                               atol=ATOL)
+    assert abs(float(loss.detach()) - float(jloss)) <= ATOL
+    assert _attention_nodes(loss) == {"FlashAttentionBSHDBackward"}
+    jm.clear_gradients()
 
 
-def test_attention_dropout_in_training_raises(models):
-    cfg = TB.bert_base(**{**KW, "attention_dropout": 0.1})
+@pytest.mark.parametrize("mask_kind", [None, "padding", "additive"])
+def test_attention_dropout_in_training_raises(models, mask_kind):
+    """Attention dropout 0.1 in training: the port drops inside the
+    kernels' plain versions with its Philox bits (one key a layer), the
+    JAX model is fed those bits in place of its own; logits and loss
+    (1e-5) and every grad (1e-4 of its leaf's largest). Eval drops
+    nothing."""
+    _, state, _ = models
+    kw = {**KW, "attention_dropout": 0.1}
+    jm = JB.BertForPretraining(JB.bert_base(**kw))
+    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in state.items()})
+    cfg = TB.bert_base(**kw)
     tm = TB.BertForPretraining(cfg, device="cpu")
-    ids = torch.zeros(1, 8, dtype=torch.long)
-    for mask in (None, torch.ones(1, 8, dtype=torch.long)):
-        with pytest.raises(NotImplementedError, match="attention dropout"):
-            tm.train()(ids, attention_mask=mask)
-        tm.eval()(ids, attention_mask=mask)      # inactive: runs
+    tm.load_state_dict(from_bert_state(state, cfg), strict=True)
+    batch = _batch(3, mask_kind)
+    with port_bits() as seen:
+        mlm, nsp, loss = _port_step(tm.train(), batch)
+        loss.backward()
+    assert len(seen) == KW["num_layers"]
+    with jax_bits([m.numpy() for m in seen.values()]):
+        jmlm, jnsp, jloss = _jax_step(jm.train(), batch)
+    jloss.backward()
+    np.testing.assert_allclose(mlm.detach().numpy(), jmlm.numpy(),
+                               atol=ATOL)
+    assert abs(float(loss.detach()) - float(jloss)) <= ATOL
+    want = from_bert_state({k: np.asarray(v.grad.numpy())
+                            for k, v in jm.state_dict().items()}, cfg)
+    for name, p in tm.named_parameters():
+        top = max(float(want[name].abs().max()), 1e-30)
+        err = float((p.grad - want[name]).abs().max()) / top
+        assert err <= 1e-4, (name, err)
+    with port_bits() as seen:
+        emlm, _, _ = _port_step(tm.eval(), batch)
+    assert not seen
+    ejmlm, _, _ = _jax_step(jm.eval(), batch)
+    np.testing.assert_allclose(emlm.detach().numpy(), ejmlm.numpy(),
+                               atol=ATOL)
 
 
 def test_momentum_sgd_steps_match_jax(models):

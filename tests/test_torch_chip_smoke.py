@@ -5,8 +5,9 @@ training phases (7, 8, 10-12), speculative and int8 serving phases
 (14-16), LLaMA phases (19-22), remat policies (23), durability drills
 (24), run telemetry (25), the rest of serving (26), multi-rank
 training (27, four gloo rank processes), BERT with varlen attention
-(29) and launched, durable multi-rank training (30, through the port's
-launcher) run end to end at tiny widths."""
+(29), launched, durable multi-rank training (30, through the port's
+launcher) and the transformer layers with attention dropout and masks
+(32) run end to end at tiny widths."""
 import numpy as np
 import pytest
 import torch
@@ -977,3 +978,90 @@ def test_bert_rows_and_keyside_edges_rehearse_on_cpu(on_cpu):
     assert cs.visible_pairs_keys(*ids) == 2 * 3 + 1 * 1
     # queries 3, 3, 1 and keys 1, 3, 3, 3 take part; 7 and 9 do not
     assert cs.visible_tokens(*ids) == (3, 4)
+
+
+@pytest.fixture
+def tiny_transformer(on_cpu, monkeypatch):
+    """Phase 32 at tiny widths on the CPU (d_model 32, 2 heads of 16, 6 +
+    6 layers; GPT and BERT tiny): each BSHD plain version counts itself
+    and its variant as its kernel would."""
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+
+    monkeypatch.setattr(cs, "TRANSFORMER_BASE", {
+        **cs.TRANSFORMER_BASE, "d_model": 32, "nhead": 2,
+        "dim_feedforward": 64})
+    monkeypatch.setattr(cs, "TRANSFORMER_VOCAB", 512)
+    monkeypatch.setattr(cs, "gpt_345m", lambda: gpt_tiny())
+    monkeypatch.setattr(cs, "bert_config", lambda kind, **kw: BertConfig(
+        **{**dict(hidden_size=64, num_heads=4, vocab_size=512,
+                  max_position_embeddings=64, num_layers=2), **kw}))
+    for fn in ("reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    for name, ref in (("K-BSHD", "causal_attention_ref"),
+                      ("K-BDQ", "bshd_dq_ref"), ("K-BDKV", "bshd_dkv_ref")):
+        orig = getattr(fa, ref)
+
+        def counted(*a, _orig=orig, _name=name, **kw):
+            fp._count(fa.LAUNCHES, _name, kw.get("bias"),
+                      kw.get("dropout_p"))
+            return _orig(*a, **kw)
+
+        monkeypatch.setattr(fa, ref, counted)
+    return on_cpu
+
+
+def test_transformer_phase_rehearses_on_cpu(tiny_transformer):
+    """Phase 32 at tiny widths through the plain versions: (a) card and
+    CPU sides the same to the bit, every call with a mask and dropout, (b)
+    18 calls of each kernel a step at full depth, the loss falling, (c)
+    GPT at its default dropouts and BERT's empty row on the bias path."""
+    counts = {}
+    m = cs.phase_transformer(counts, acc_shape=(2, 12, 10),
+                             train_shape=(4, 16), steps=3,
+                             gpt_shape=(2, 16), bert_shape=(2, 16))
+    assert m["a"]["out_err"] == 0.0 and m["a"]["grad_worst_ratio"] == 0.0
+    assert m["a"]["variants"] == {f"{k}+bias+drop": 3 for k in cs.BSHD3}
+    assert m["b"]["launches"] == dict.fromkeys(cs.BSHD3, 18 * 3)
+    assert m["b"]["losses"][-1] < m["b"]["losses"][0]
+    assert m["b"]["real_tokens"] > 0
+    assert m["c"]["gpt"]["variants"] == {f"{k}+drop": 2 * 3
+                                         for k in cs.BSHD3}
+    assert m["c"]["bert"]["variants"] == {f"{k}+bias": 2 for k in cs.BSHD3}
+    assert m["c"]["bert"]["grad_worst_ratio"] == 0.0
+    for name in cs.BSHD3:
+        assert counts["phase32"][f"{name}+bias+drop"] > 0
+
+
+def test_worst_grad_holds_rounding_leaves_to_the_largest_grad():
+    """A leaf whose CPU grad is at rounding level (true grad 0) is held
+    to the largest grad of any leaf, with ``rounding``; the other
+    leaves, and every leaf without it, to their own largest."""
+    cpu = {"w": torch.tensor([1.0, -2.0]), "b": torch.tensor([1e-7, 0.0])}
+    card = {"w": torch.tensor([1.0, -2.0 + 2e-5]),
+            "b": torch.tensor([-1e-7, 1e-7])}
+    assert cs.worst_grad(card, cpu) == (2.0, "b")
+    ratio, leaf = cs.worst_grad(card, cpu, rounding=1e-5)
+    assert leaf == "w" and ratio == pytest.approx(1e-5, rel=1e-2)
+    card["b"] = torch.tensor([1e-3, 0.0])      # far above rounding: caught
+    assert cs.worst_grad(card, cpu, rounding=1e-5)[1] == "b"
+
+
+def test_feature_checks_rehearse_on_cpu(on_cpu):
+    """Phase 2's DROP and BIAS rows at tiny shapes (every key reported,
+    the kernels' causal flag with dropout among them), with the keep
+    bits' checks, and the causal mask's end-aligned -inf entries."""
+    rows = cs.feature_rows(on_cpu, {"bshd": (2, 40, 2, 64),
+                                    "gpt": (2, 36, 2, 64),
+                                    "seg": (2, 48, 2, 64)})
+    assert set(rows) == set(cs.VARIANTS)
+    for name, r in rows.items():
+        assert _KEYS <= set(r), name
+        assert r["bound_ms"] > 0 and r["max_abs_err"] <= 1e-2
+    mask = cs.feature_bias(np.random.RandomState(0), "causal", 1, 1, 3, 5,
+                           torch.device("cpu"))
+    assert torch.equal(torch.isinf(mask), torch.tensor(
+        [[0, 0, 0, 1, 1], [0, 0, 0, 0, 1], [0, 0, 0, 0, 0]], dtype=bool))

@@ -399,6 +399,9 @@ def test_launch_env_wiring_and_elastic_restart(tmp_path):
             f.write(f"{{e.rank}}/{{e.world_size}}/{{dist.get_backend()}}/"
                     f"{{dev}}/{{os.environ['MASTER_PORT']}}/"
                     f"{{os.environ['PADDLE_CURRENT_ENDPOINT']}}")
+        # every rank has written before rank 0 fails (the watcher then
+        # ends the pod, rank 1 with it)
+        dist.barrier()
         dist.destroy_process_group()
         if gen == "0" and e.rank == 0:
             sys.exit(1)

@@ -9,6 +9,8 @@ the same numpy inputs:
   every parameter's ``.grad`` against the JAX model's ``loss.backward()``
   on weights carried across by ``from_paddle_tpu_state`` (atol 1e-5),
   and the ``qkv_proj`` gradient flows through ``FlashAttentionBSHD``;
+- ``GPTForCausalLM`` in training at attention dropout 0.1: the JAX model
+  fed the port's Philox bits, loss and grads;
 - every new wrapper raises on a tensor off the CPU that has no kernel,
   rather than falling back to its plain version."""
 import jax
@@ -29,6 +31,7 @@ from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 from paddle_tpu_torch.utils.convert import from_paddle_tpu_state
+from test_torch_attention_dropout import jax_bits, port_bits
 
 # one intra-op thread: the suite runs several workers on the machine's
 # cores, and each worker's idle OpenMP team would spin against theirs
@@ -196,10 +199,33 @@ def test_nn_api_grads_match_jax_backward(masked):
 
 
 def test_attention_dropout_in_training_still_raises():
+    """Attention dropout 0.1 in training (the models' default): the port
+    drops inside K-BSHD's plain version with its Philox bits, one key a
+    layer; the JAX model, fed those bits in place of its own, gives the
+    same loss and grads (atol 1e-5)."""
+    paddle.seed(0)
+    jm = JM.GPTForCausalLM(JM.gpt_tiny(hidden_dropout=0.0,
+                                       attention_dropout=0.1))
+    state = {k: np.asarray(v.numpy()) for k, v in jm.state_dict().items()}
     cfg = TM.gpt_tiny(hidden_dropout=0.0, attention_dropout=0.1)
-    m = TM.GPTForCausalLM(cfg, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="attention dropout"):
-        m(torch.zeros(1, 8, dtype=torch.long))
+    port = TM.GPTForCausalLM(cfg, device="cpu")
+    port.load_state_dict(from_paddle_tpu_state(state, cfg), strict=True)
+    ids, lab, _ = _batch(5)
+    crit = TM.GPTPretrainingCriterion(cfg)
+    with port_bits() as seen:
+        loss = crit(port.train()(_t(ids).long()), _t(lab))
+        loss.backward()
+    assert len(seen) == cfg.num_layers
+    with jax_bits([m.numpy() for m in seen.values()]):
+        jloss = JM.GPTPretrainingCriterion(jm.cfg)(
+            jm.train()(paddle.to_tensor(ids)), paddle.to_tensor(lab))
+    jloss.backward()
+    assert abs(float(loss.detach()) - float(jloss)) <= ATOL
+    want = from_paddle_tpu_state({k: np.asarray(v.grad.numpy())
+                                  for k, v in jm.state_dict().items()}, cfg)
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=0, atol=ATOL, err_msg=name)
 
 
 # -- no fallback off the CPU --------------------------------------------------

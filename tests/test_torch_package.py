@@ -76,6 +76,10 @@ _MUST_IMPORT = {
     "paddle_tpu_torch.distributed.fleet.elastic",
     "paddle_tpu_torch.distributed.consistency",
     "paddle_tpu_torch.distributed.collective_runtime",
+    "paddle_tpu_torch.framework.random",
+    "paddle_tpu_torch.ops.kernels.philox",
+    "paddle_tpu_torch.nn.layer.transformer",
+    "paddle_tpu_torch.incubate.nn.layer.fused_transformer",
 }
 
 

@@ -16,6 +16,7 @@ CPU, on the same numpy inputs:
 - every C entry's parameters against its ctypes signature in
   ``ops/kernels/_build.py``.
 """
+import ctypes
 import re
 from pathlib import Path
 
@@ -37,6 +38,7 @@ from paddle_tpu_torch.ops import attention_dispatch as disp
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
+from test_torch_attention_dropout import jax_bits, port_bits
 
 # one intra-op thread: the suite runs several workers on the machine's
 # cores, and each worker's idle OpenMP team would spin against theirs
@@ -288,48 +290,102 @@ def test_sdpa_matches_jax(case):
 
 
 def test_unported_options_raise_on_every_device():
+    """Attention dropout in ``scaled_dot_product_attention``,
+    ``flash_attention`` (segment ids) and ``flash_attn_unpadded``: the
+    port drops with its Philox bits (the kernels' DROP variants, their
+    plain versions here), the JAX functions are fed those bits in place
+    of their own; outputs and grads (atol 1e-5). ``return_softmax=True``
+    still raises, as in the JAX package."""
+    rng = np.random.RandomState(12)
+    s, d = 40, 32
+    q = (rng.randn(1, s, NH, d) * 0.5).astype(np.float32)
+    k = (rng.randn(1, s, NH, d) * 0.5).astype(np.float32)
+    v, do = (rng.randn(1, s, NH, d).astype(np.float32) for _ in range(2))
+    seg = np.repeat(np.arange(4), 10)[None].astype(np.int32)
+    cu = np.asarray([0, 13, 27, 40], np.int32)
+    calls = {
+        "sdpa": (lambda f, x: f.scaled_dot_product_attention(
+            *x, dropout_p=0.1, is_causal=True)),
+        "flash_attention": (lambda f, x: f.flash_attention(
+            *x, dropout=0.1, causal=True,
+            segment_ids=(paddle.to_tensor(seg) if f is JF else _t(seg)))[0]),
+        "flash_attn_unpadded": (lambda f, x: f.flash_attn_unpadded(
+            *(t[0] for t in x), *((paddle.to_tensor(cu),) * 2 if f is JF
+                                  else (_t(cu),) * 2), s, s, 0.2,
+            dropout=0.1, causal=True)[0]),
+    }
+    for name, call in calls.items():
+        ts = [_t(a).requires_grad_() for a in (q, k, v)]
+        with port_bits() as seen:
+            out = call(TF, ts)
+            out.backward(_t(do[0] if name == "flash_attn_unpadded" else do))
+        assert len(seen) == 1, name
+        js = [paddle.to_tensor(a, stop_gradient=False) for a in (q, k, v)]
+        with jax_bits([m.numpy() for m in seen.values()]):
+            want = call(JF, js)
+        want.backward(paddle.to_tensor(
+            do[0] if name == "flash_attn_unpadded" else do))
+        np.testing.assert_allclose(out.detach().numpy(), want.numpy(),
+                                   atol=ATOL, err_msg=name)
+        for t, j in zip(ts, js):
+            np.testing.assert_allclose(t.grad.numpy(), j.grad.numpy(),
+                                       atol=ATOL, err_msg=name)
     x = torch.zeros(1, 8, NH, D)
-    cu = torch.tensor([0, 8])
-    for call in (
-            lambda: TF.scaled_dot_product_attention(x, x, x, dropout_p=0.1),
-            lambda: TF.flash_attention(x, x, x, dropout=0.1),
-            lambda: TF.flash_attn_unpadded(x[0], x[0], x[0], cu, cu, 8, 8,
-                                           0.1, dropout=0.1)):
-        with pytest.raises(NotImplementedError, match="attention dropout"):
-            call()
+    cu8 = torch.tensor([0, 8])
     for call in (lambda: TF.flash_attention(x, x, x, return_softmax=True),
-                 lambda: TF.flash_attn_unpadded(x[0], x[0], x[0], cu, cu, 8,
-                                                8, 0.1, return_softmax=True)):
+                 lambda: TF.flash_attn_unpadded(x[0], x[0], x[0], cu8, cu8,
+                                                8, 8, 0.1,
+                                                return_softmax=True)):
         with pytest.raises(NotImplementedError, match="return_softmax"):
             call()
-    # dropout that is not active (eval) passes
-    TF.scaled_dot_product_attention(x, x, x, dropout_p=0.1, training=False)
+    # dropout that is not active (eval) draws no key and drops nothing
+    with port_bits() as seen:
+        got = TF.scaled_dot_product_attention(
+            *(_t(a) for a in (q, k, v)), dropout_p=0.1, training=False)
+    assert not seen
+    np.testing.assert_allclose(got.numpy(), JF.scaled_dot_product_attention(
+        *(paddle.to_tensor(a) for a in (q, k, v)), dropout_p=0.1,
+        training=False).numpy(), atol=ATOL)
+    # a mask on a tensor with no kernel (meta) raises, never computed dense
     meta = torch.empty(1, 8, NH, D, device="meta")
-    with pytest.raises(NotImplementedError, match="attn_mask"):
+    with pytest.raises(ValueError, match="no kernel"):
         TF.scaled_dot_product_attention(meta, meta, meta,
                                         attn_mask=torch.zeros(1, 1, 1, 8))
 
 
 def test_sequence_mask_matches_jax():
+    """The JAX package's exact 0/1 mask in every dtype its
+    ``framework.dtype`` knows (the 16-bit floats and 8-bit ints
+    included)."""
+    from paddle_tpu.framework.dtype import _BY_NAME
+
     lens = np.asarray([[3, 0], [5, 1]], np.int64)
-    for maxlen, dtype in ((None, "int64"), (7, "float32"), (4, "bool")):
+    assert set(_BY_NAME) == set(TF.attention._DTYPES)
+    cases = [(None, "int64"), (7, "float32"), (4, "bool")] + [
+        (6, name) for name in sorted(_BY_NAME)]
+    for maxlen, dtype in cases:
         want = JF.sequence_mask(paddle.to_tensor(lens), maxlen=maxlen,
                                 dtype=dtype).numpy()
         got = TF.sequence_mask(_t(lens), maxlen=maxlen, dtype=dtype)
-        np.testing.assert_array_equal(got.numpy(), want)
-        assert str(got.dtype) == f"torch.{dtype}"
+        np.testing.assert_array_equal(
+            got.to(torch.complex128 if got.is_complex() else
+                   torch.float64).numpy(), want.astype(
+                np.complex128 if np.iscomplexobj(want) else np.float64))
+        assert got.dtype == TF.attention._DTYPES[dtype], dtype
 
 
 # -- the C entries and their ctypes signatures -------------------------------
 
-_CTYPE = {"const void*": "P", "void*": "P", "int": "I", "float": "F"}
+_CTYPE = {"const void*": "P", "void*": "P", "int": "I", "float": "F",
+          "unsigned long long": "U"}
 
 
 def test_c_entries_match_their_ctypes_signatures():
     """Each ``extern "C"`` entry of ``csrc/*.cu``, parameter by
     parameter, against ``_build._SIGNATURES``: a pointer passed where the
     C side takes an int (or the reverse) is cut or misread on the card."""
-    names = {"P": "c_void_p", "I": "c_int", "F": "c_float"}
+    names = {"P": "c_void_p", "I": "c_int", "F": "c_float",
+             "U": ctypes.c_uint64.__name__}
     entries = {}
     for src in _build.sources():
         text = Path(src).read_text()
