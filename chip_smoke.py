@@ -51,7 +51,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    of 0.9, the same output on the same key and another on the next; timed
    at ``FEATURE_ROWS`` (Transformer-base's 32 x 256, GPT-345M's causal 4
    x 1024, BERT-large's padded 16 x 512) beside SDPA with the same mask
-   and dropout;
+   and dropout; beside the checks, in a process of its own, each
+   kernel's SASS (``cuobjdump -sass``) against
+   ``paddle_tpu_torch/csrc/sass_reference.json``, the build before the
+   DROP path's redesign: the line says how many kernels without DROP it
+   reproduces (printed, not gated);
 3. serving accuracy, fp32: GPT-345M's width at ``ACC_LAYERS`` (2) of
    its layers (a depth cut for the run's time; random weights, seed 0)
    answers 3 requests through the continuous-batching scheduler, and
@@ -333,6 +337,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import re
@@ -341,6 +346,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 from unittest import mock
 
 if __name__ == "__main__":
@@ -1456,6 +1462,89 @@ VARIANTS = tuple(f"{n}{t}" for n in ("K-BSHD", "K-BDQ", "K-BDKV")
     f"{n}+drop" for n in ("K-SEG", "K-SDQ", "K-SDKV"))
 
 
+# the SASS of the kernels without DROP, recorded from the build of the
+# sources before the DROP path's redesign (``sass_digests``): phase 2
+# prints how many of them this build reproduces
+SASS_REFERENCE = (Path(__file__).resolve().parent / "paddle_tpu_torch" /
+                  "csrc" / "sass_reference.json")
+
+
+def sass_digests(lib) -> dict:
+    """``{kernel: sha256 of its SASS}`` of a built library: ``cuobjdump
+    -sass``, each function's instructions alone (no addresses or
+    encodings; nvcc's per-file anonymous-namespace tag cut out), keyed
+    by ``kernel_entry``'s name. A kernel that several sources instantiate
+    hashes its copies together."""
+    text = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    name = None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = kernel_entry(line.split("Function : ")[1].strip())
+            name = name.removeprefix("entry ")
+            funcs.setdefault(name, []).append([])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.+?)\s*;", line)
+        if name and m:
+            funcs[name][-1].append(re.sub(r"_GLOBAL__N__\w*", "ANON",
+                                          m.group(1)))
+    return {n: hashlib.sha256(json.dumps(sorted(
+        "\n".join(c) for c in copies)).encode()).hexdigest()
+        for n, copies in funcs.items()}
+
+
+def nvcc_version() -> str:
+    out = subprocess.run([_build.cuda_tool(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def sass_start() -> subprocess.Popen:
+    """``sass_digests`` of this build in a process of its own, beside
+    phase 2's kernel checks (cuobjdump and the parse take ~13 s)."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sass-digests",
+         _build.last_build["path"]], stdout=subprocess.PIPE, text=True)
+
+
+def sass_finish(proc) -> dict:
+    out, _ = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f"--sass-digests exited {proc.returncode}")
+    return json.loads(out)["kernels"]
+
+
+def check_sass(got) -> dict:
+    """This build's SASS digests ``got`` against ``SASS_REFERENCE``: the
+    kernels without DROP (the flash templates' third argument false, and
+    the paged kernels) that equal the reference, and the DROP
+    instantiations that differ from it. Printed, not gated: a later
+    change to a kernel changes its SASS on purpose."""
+    ref = json.loads(SASS_REFERENCE.read_text())
+
+    def drop(name):
+        args = name.partition("<")[2].rstrip(">").split(", ")
+        return name.startswith("flash_") and len(args) == 4 and (
+            args[2] == "true")
+
+    plain = sorted(n for n in got if not drop(n))
+    same = [n for n in plain if ref["kernels"].get(n) == got[n]]
+    drops = sorted(n for n in got if drop(n))
+    moved = [n for n in drops if ref["kernels"].get(n) != got[n]]
+    res = {"reference": ref["source"], "nvcc": nvcc_version(),
+           "reference_nvcc": ref["nvcc"], "plain": len(plain),
+           "plain_equal": len(same), "drop": len(drops),
+           "drop_changed": len(moved),
+           "plain_differ": sorted(set(plain) - set(same))}
+    differ = ("" if len(same) == len(plain) else
+              f", differ: {res['plain_differ']}")
+    log(f"  SASS against {ref['source']} ({ref['nvcc']}; this build "
+        f"{res['nvcc']}): {len(same)} of {len(plain)} kernels without DROP "
+        f"equal{differ}; {len(moved)} of {len(drops)} DROP instantiations "
+        f"changed")
+    return res
+
+
 def variant_tag(kind, dropout_p) -> str:
     return ("+bias" if kind else "") + ("+drop" if dropout_p else "")
 
@@ -1640,10 +1729,25 @@ def feature_rows(peaks, rows=None) -> dict:
 
 
 def phase_kernels(peaks) -> dict:
+    log("[2] kernels against their plain versions")
+    sass = sass_start()
+    try:
+        out = kernel_checks(peaks)
+        t2 = time.perf_counter()
+        check_sass(sass_finish(sass))
+        lap("SASS (after the checks)", t2)
+    finally:
+        if sass.poll() is None:
+            sass.kill()
+            sass.wait()
+    return out
+
+
+def kernel_checks(peaks) -> dict:
+    """Phase 2's checks and timed rows: ``{kernel or variant: row}``."""
     rng = np.random.RandomState(0)
     bf, f32 = torch.bfloat16, torch.float32
     out = {}
-    log("[2] kernels against their plain versions")
     t2 = time.perf_counter()
     out["K-DEC"] = check_dec(rng, bf, 16, 16, 64, peaks, timed=True)
     # the GQA case (nh 16, nh_kv 4) is timed as K-DEC's "also" row
@@ -6290,8 +6394,10 @@ def kernel_entry(line: str) -> str:
     mangled = line.split("'")[1] if "'" in line else line
     m = re.search(r"I((?:L[ib]-?\d+E)+)E", mangled)
     # the name is the length-prefixed identifier that ends where the
-    # template arguments begin
-    name = m and next((mangled[i:m.start()] for i in range(m.start())
+    # template arguments begin: the innermost such one (digits inside
+    # nvcc's anonymous-namespace tag can look like an outer length prefix)
+    name = m and next((mangled[i:m.start()]
+                       for i in reversed(range(m.start()))
                        for k in (1, 2, 3) if i >= k
                        and mangled[i - k:i].isdigit()
                        and i + int(mangled[i - k:i]) == m.start()), None)
@@ -6385,7 +6491,16 @@ def main() -> int:
     ap.add_argument("--launch-worker", metavar="SPEC",
                     help="run one launched rank of phase 30 (JSON spec; "
                     "the port's launcher starts it)")
+    ap.add_argument("--sass-digests", metavar="LIB",
+                    help="print a built kernel library's SASS digests as "
+                    "JSON (the form of SASS_REFERENCE) and exit")
     args = ap.parse_args()
+    if args.sass_digests:
+        print(json.dumps({"source": Path(args.sass_digests).name,
+                          "nvcc": nvcc_version(),
+                          "kernels": sass_digests(args.sass_digests)},
+                         indent=1, sort_keys=True))
+        return 0
     if args.drill_worker:
         return drill_worker(args.drill_worker)
     if args.rank_worker:

@@ -113,11 +113,27 @@
 //
 // DROP and BIAS (philox.cuh): the forward's bias is added to each
 // recomputed score and its Philox bits regenerated from the same logical
-// (b, h, i, j) counters, so p, dropped or kept, is the forward's. dQ draws
-// one call per key pair of a row, as the forward does; dK/dV, whose rows
-// are keys 8 apart, one per entry, which makes it the slowest variant
-// (PERF.md). The instantiations without DROP and BIAS keep their code (the
-// feature code sits in `if constexpr` branches), SASS for SASS.
+// (b, h, i, j) counters, so p, dropped or kept, is the forward's. One
+// Philox call gives four entries that a thread holds in either fragment
+// layout (philox.cuh). dQ makes 8 calls a thread per 64-key tile, after
+// the wait of S and dP, none for key blocks past the causal diagonal.
+// dK/dV, whose rows are keys, makes 8 per 64-query tile, every column
+// block, branch-free: it draws the next tile's bits after the commit of
+// the current tile's dV and dK products and before their wait, so the
+// integer pipe works while the tensor cores do (the first tile's, and a
+// tile's after one skipped for its segment ids, before its score products
+// are issued). Under the score products, whose accumulators hold 64 more
+// registers, the draw made the d = 64 kernel spill at two CTAs an SM. With
+// DROP, dK/dV tests the masks only on tiles that can hold a masked pair
+// and applies 1 / (1 - p_drop) to dK and dV in the epilogue. At d = 64
+// without BIAS it runs two CTAs an SM (`__launch_bounds__(160, 2)`, at
+// most 168 registers; left to 212 registers it ran one, 1.2-1.5x slower);
+// with BIAS the bias's reads spill at 168, so one (PERF.md). `-Xptxas -v`
+// with DROP (nvcc 12.9, sm_90a; d = 64 / 128): flash_dq_kernel_sm90
+// +drop 140 / 172 registers, +bias+drop 146 / 178, K-SDQ +drop 128 / 160;
+// flash_dkv_kernel_sm90 168 / 249, 202 / 255, 168 / 226; 0 bytes of spill
+// in all twelve. The instantiations without DROP and BIAS keep their code
+// (the feature code sits in `if constexpr` branches), SASS for SASS.
 //
 // fp32 (`flash_dq_kernel`, `flash_dkv_kernel`, the CUDA-core bodies): the
 // port's correctness mode, held to the CPU at 1e-4 on the card; TF32 wgmma
@@ -767,16 +783,20 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       // of a kept one scaled by 1 / (1 - p_drop); the instantiations
       // without them compile the loop after it as before.
       if constexpr (DROP || BIAS) {
-        const uint32_t bh = (uint32_t)b * H + h;   // counter word 2
+        // DROP: kept[i] is dp[i]'s keep bit (philox.cuh), drawn after the
+        // wait with no call for key blocks past the causal diagonal or Sk
+        // (drawn branch-free as in the forward and dK/dV, this kernel ran
+        // 1.2x slower at 182 registers against 140; PERF.md)
+        [[maybe_unused]] FragKeep<KT> kept;
+        if constexpr (DROP) {
+          const uint32_t bh = (uint32_t)b * H + h;
+          auto live = [&](int c) {
+            return row0 < Sq && c < Sk && (!causal || c <= row0 + 8);
+          };
+          kept = frag_keep<KT, false>(ex, bh, row0, k0, t, live);
+        }
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) {
-          bool z[2][2] = {{true, true}, {true, true}};   // [hr][e]: kept
-          if constexpr (DROP) {
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr)
-              keep2(ex, bh, row0 + 8 * hr, k0 + 8 * j + 2 * t, z[hr][0],
-                    z[hr][1]);
-          }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int col = 8 * j + 2 * t + e;
@@ -793,8 +813,9 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                                           bias2(ex, b, h, row, key))
                                    : s[i] * scale2;
               const float p = ok ? exp2f(x - lse2[hr]) : 0.f;
-              const float dpz = !DROP ? dp[i]
-                                      : z[hr][e] ? dp[i] * ex.rdrop : 0.f;
+              const float dpz = !DROP    ? dp[i]
+                                : kept[i] ? dp[i] * ex.rdrop
+                                          : 0.f;
               dp[i] = p * (dpz - dlt[hr]);
             }
           }
@@ -852,8 +873,46 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// dK/dV's DROP step on one tile's fragments (flash_dkv_kernel_sm90, keys
+// as rows): P^T the kept p and dS^T = p * (z dP^T - delta * (1 - p_drop)),
+// p from the scores plus the bias (BIAS). MASKED tests the causal, tail and
+// segment masks, for a tile that can hold a masked pair; the interior
+// runs without them (a loop that tests a uniform flag per entry kept the
+// 32 tests' results in a register, bit by bit).
+template <int QT, bool SEG, bool BIAS, bool MASKED>
+__device__ __forceinline__ void dkv_drop_tile(
+    float (&st)[QT / 2], float (&dpt)[QT / 2], const FragKeep<QT>& kept,
+    const float* lse_t, const float* dlt_t, const int* segq_t, int q0,
+    int key0, int t, int Sq, int Sk, int causal, const int (&sk_id)[2],
+    float scale2, float keep_p, const AttnExtra& ex, int b, int h) {
+#pragma unroll
+  for (int j = 0; j < QT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t + e;
+      const int q = q0 + col;
+      const float l2 = lse_t[col];
+      const float dl = dlt_t[col] * keep_p;
+      const int qid = SEG ? segq_t[col] : 0;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int key = key0 + 8 * hr;
+        const bool ok = !MASKED || (q < Sq && key < Sk &&
+                                    (!causal || key <= q) &&
+                                    (!SEG || qid == sk_id[hr]));
+        const int i = 4 * j + 2 * hr + e;
+        const float x = BIAS ? fmaf(st[i], scale2, bias2(ex, b, h, q, key))
+                             : st[i] * scale2;
+        const float p = ok ? exp2f(x - l2) : 0.f;
+        st[i] = kept[i] ? p : 0.f;
+        dpt[i] = p * ((kept[i] ? dpt[i] : 0.f) - dl);
+      }
+    }
+  }
+}
+
 template <int D, bool SEG, bool DROP, bool BIAS>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(NT, DROP && !BIAS && D == 64 ? 2 : 1)
 flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -982,6 +1041,10 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     const uint32_t k_base = base + L::k_off;
     const uint32_t v_base = base + L::v_off;
 
+    // DROP: the keep bits of query tile `kept_q0`, drawn while the
+    // previous tile's dV and dK products run (below)
+    [[maybe_unused]] FragKeep<QT> kept;
+    [[maybe_unused]] int kept_q0 = -1;
     mbar_wait(keys_full, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -992,6 +1055,12 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       const int q0 = qb * QT;
       const uint32_t q_base = base + L::q_off + stage * L::q_tile;
       const uint32_t do_base = base + L::do_off + stage * L::q_tile;
+      // the first tile's bits, or a tile's after one skipped for its
+      // segment ids: drawn before the score products hold their registers
+      if constexpr (DROP) {
+        if (q0 != kept_q0)
+          kept = frag_keep<QT, true>(ex, (uint32_t)b * H + h, key0, q0, t);
+      }
 
       // S^T = K . Q^T and dP^T = V . dO^T, fp32
       float st[NS], dpt[NS];
@@ -1005,13 +1074,26 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
       // P^T in place of S^T, dS^T = P^T * (dP^T - delta) in place of dP^T;
       // lse and delta belong to the columns (queries). With DROP or BIAS
-      // (never both BIAS and SEG), every tile: p from the scores plus the
-      // bias, dV's P^T the kept p scaled by 1 / (1 - p_drop), dS's dP^T
-      // the kept dP so scaled; the keys of a thread's two rows are 8
-      // apart, so each pair is a Philox call of its own. The
-      // instantiations without them compile the loop after it as before.
-      if constexpr (DROP || BIAS) {
-        const uint32_t bh = (uint32_t)b * H + h;   // counter word 2
+      // (never both BIAS and SEG): p from the scores plus the bias. DROP:
+      // dV's P^T the kept p and dS^T = p * (z dP^T - delta * (1 -
+      // p_drop)), so that 1 / (1 - p_drop) scales dK and dV once, in the
+      // epilogue; only tiles that can hold a masked pair test the masks,
+      // as below. BIAS alone: every tile. The instantiations without them
+      // compile the loop after it as before.
+      if constexpr (DROP) {
+        const float keep_p = 1.f / ex.rdrop;
+        const float* lse_t = lse_s + stage * QT;
+        const float* dlt_t = dlt_s + stage * QT;
+        const int* segq_t = segq + stage * QT;
+        if (SEG || q0 + QT > Sq || (causal && k0 + DKV_KEYS - 1 > q0))
+          dkv_drop_tile<QT, SEG, BIAS, true>(
+              st, dpt, kept, lse_t, dlt_t, segq_t, q0, key0, t, Sq, Sk,
+              causal, sk_id, scale2, keep_p, ex, b, h);
+        else
+          dkv_drop_tile<QT, SEG, BIAS, false>(
+              st, dpt, kept, lse_t, dlt_t, segq_t, q0, key0, t, Sq, Sk,
+              causal, sk_id, scale2, keep_p, ex, b, h);
+      } else if constexpr (BIAS) {
 #pragma unroll
         for (int j = 0; j < QT / 8; ++j) {
 #pragma unroll
@@ -1020,21 +1102,15 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
             const int q = q0 + col;
             const float l2 = lse_s[stage * QT + col];
             const float dl = dlt_s[stage * QT + col];
-            const int qid = SEG ? segq[stage * QT + col] : 0;
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
               const int key = key0 + 8 * hr;
-              const bool ok = q < Sq && key < Sk && (!causal || key <= q) &&
-                              (!SEG || qid == sk_id[hr]);
+              const bool ok = q < Sq && key < Sk && (!causal || key <= q);
               const int i = 4 * j + 2 * hr + e;
-              const float x = BIAS ? fmaf(st[i], scale2,
-                                          bias2(ex, b, h, q, key))
-                                   : st[i] * scale2;
+              const float x = fmaf(st[i], scale2, bias2(ex, b, h, q, key));
               const float p = ok ? exp2f(x - l2) : 0.f;
-              const bool z = !DROP || (ok && keep1(ex, bh, q, key));
-              const float r = DROP ? ex.rdrop : 1.f;
-              st[i] = z ? p * r : 0.f;
-              dpt[i] = p * ((z ? dpt[i] * r : 0.f) - dl);
+              st[i] = p;
+              dpt[i] = p * (dpt[i] - dl);
             }
           }
         }
@@ -1072,6 +1148,20 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       gemm_rs<D, QT>(adv, pa, do_base);
       gemm_rs<D, QT>(adk, da, q_base);
       wgmma_commit();
+      // DROP: the next query tile's keep bits while both products are in
+      // flight, on the integer pipe beside the tensor cores; every column
+      // block is drawn (skipping those before the causal diagonal cost
+      // more than it saved). Drawn here rather than under the score
+      // products, whose accumulators hold 64 more registers, the kernel
+      // fits two CTAs an SM at d = 64 without spilling (PERF.md).
+      if constexpr (DROP) {
+        kept_q0 = q0 + QT;
+        if (kept_q0 < Sq) {
+          kept = frag_keep<QT, true>(ex, (uint32_t)b * H + h, key0, kept_q0,
+                                     t);
+          fence_keep(kept);
+        }
+      }
       wgmma_wait0();
       fence_regs(adv);
       fence_regs(adk);
@@ -1082,6 +1172,13 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       }
     }
 
+    if constexpr (DROP) {   // the kept p and dS were not scaled
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        adk[i] *= ex.rdrop;
+        adv[i] *= ex.rdrop;
+      }
+    }
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int key = key0 + 8 * hr;

@@ -113,16 +113,25 @@
 // kernel does): in both bodies, BIAS adds each entry's bias to its scaled
 // score before the row max, so every tile takes the elementwise path;
 // DROP zeroes a dropped p after the row sums (lse stays the undropped
-// softmax's) and scales o by 1 / (1 - p) in the epilogue. The bf16 body
-// draws one Philox call per key pair of a row (a call gives 4 consecutive
-// keys' words), the fp32 body one per entry. What bounds them: the base
-// kernel's products, plus ~10 Philox rounds of integer multiplies per call
-// on the integer pipe (half the fp32 rate), which at d = 64 outweigh the
-// products: the DROP variants are bound by the Philox arithmetic, not by
-// the bytes or the tensor cores (PERF.md). The bias is read from device
-// memory entry by entry (a broadcast mask from L2). A right first version;
-// the instantiations without DROP and BIAS keep their code (the feature
-// code sits in `if constexpr` branches), SASS for SASS.
+// softmax's) and scales o by 1 / (1 - p) in the epilogue. What bounds the
+// DROP variants: beside the base kernel's work, 10 Philox rounds of two
+// 32-bit wide multiplies and two 3-input XORs per call, ~10 integer
+// instructions an entry against ~9 for the rest of the softmax, so the
+// bf16 body is bound by issue slots, not by the bytes or the tensor cores
+// (PERF.md). It makes one call per four entries (philox.cuh's counter
+// layout: the four are a thread's rows r, r + 8 at one column of two
+// adjacent 8-column blocks), 16 a thread per 128-key tile at d = 64. With
+// DROP alone it draws them after the commit of S = Q.K^T and before its
+// wait, every column block and branch-free, so the integer pipe works
+// while the tensor cores do, into 64 bits a thread that selects apply
+// after the softmax; with BIAS, after the softmax, a 16-key block at a
+// time. The fp32 body makes one call per entry. The bias is read from
+// device memory entry by entry (a broadcast mask from L2). The
+// instantiations without DROP and BIAS keep their code (the feature code
+// sits in `if constexpr` branches), SASS for SASS.
+// `-Xptxas -v` with DROP (nvcc 12.9, sm_90a; d = 64 / 128): +drop 166 /
+// 163 registers, +bias+drop 168 / 148, K-SEG +drop 166 / 166, 0 bytes of
+// spill in all six.
 
 #pragma once
 
@@ -511,6 +520,17 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
       gemm_ss<D, BK, BQ, BK>(s, q_base, base + L::k_off + stage * L::kv_tile);
       wgmma_commit();
+      // DROP: the tile's keep bits while S is in flight, on the integer
+      // pipe beside the tensor cores, every column block (skipping those
+      // past the causal diagonal cost more than it saved; PERF.md). With
+      // BIAS they are drawn after the softmax instead: there they fill the
+      // issue slots of the warps that wait on the bias's reads (drawn
+      // here, the +bias+drop row ran 1.3-1.5x slower; PERF.md).
+      [[maybe_unused]] FragKeep<BK> kept;
+      if constexpr (DROP && !BIAS) {
+        kept = frag_keep<BK, false>(ex, (uint32_t)b * H + h, row0, k0, t);
+        fence_keep(kept);
+      }
       wgmma_wait0();
       fence_regs(s);
 
@@ -586,20 +606,24 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < NO; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-      // DROP: P.V takes the kept p (the row sums above are undropped);
-      // one Philox call gives the bits of a key pair
-      if constexpr (DROP) {
-        const uint32_t bh = (uint32_t)b * H + h;   // counter word 2
+      // DROP: P.V takes the kept p (the row sums above are undropped).
+      // With BIAS the bits are drawn here, a 16-key block at a time and
+      // applied at once, each call in a branch of its own (drawn
+      // branch-free, or all of the tile's at once, the kernel spilled).
+      if constexpr (DROP && BIAS) {
 #pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
+        for (int u = 0; u < BK / 16; ++u) {
+          const FragKeep<16> k16 = frag_keep<16, false>(
+              ex, (uint32_t)b * H + h, row0, k0 + 16 * u, t,
+              [&](int c) { return c < Sk; });
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            bool ka, kb;
-            keep2(ex, bh, row0 + 8 * hr, k0 + 8 * j + 2 * t, ka, kb);
-            if (!ka) s[4 * j + 2 * hr] = 0.f;
-            if (!kb) s[4 * j + 2 * hr + 1] = 0.f;
-          }
+          for (int n = 0; n < 8; ++n)
+            if (!k16[n]) s[8 * u + n] = 0.f;
         }
+      } else if constexpr (DROP) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          if (!kept[i]) s[i] = 0.f;
       }
 
       // P as bf16 A fragments: chunk c of 16 keys is s[8c .. 8c + 7]

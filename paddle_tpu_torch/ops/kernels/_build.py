@@ -30,7 +30,7 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["load_library", "build_dir", "sources", "headers", "digest",
-           "last_build"]
+           "last_build", "cuda_tool"]
 
 _PKG = Path(__file__).resolve().parents[2]          # paddle_tpu_torch/
 _CSRC = _PKG / "csrc"
@@ -99,16 +99,18 @@ def build_dir() -> Path:
     return _PKG.parent / "build" / "paddle_tpu_torch"
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH, else
+    under ``$CUDA_HOME/bin`` or ``/usr/local/cuda/bin``."""
+    found = shutil.which(name)
     if found:
         return found
     home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
-    cand = home / "bin" / "nvcc"
+    cand = home / "bin" / name
     if cand.exists():
         return str(cand)
     raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        f"{name} not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
         "paddle_tpu_torch kernels are built from source on first use")
 
 
@@ -124,7 +126,7 @@ def digest() -> str:
 
 
 def _build(srcs, out: Path) -> str:
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     tmp = out.parent / f".tmp-{os.getpid()}-{out.stem}"
     tmp.mkdir(parents=True, exist_ok=True)
     try:

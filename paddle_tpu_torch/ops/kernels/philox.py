@@ -2,17 +2,22 @@
 attention dropout (``csrc/philox.cuh``), bit for bit.
 
 A dropout call is keyed by ``(seed, offset)``, two integers below
-``2**64``. Element ``(b, h, i, j)`` of the ``(B, H, Sq, Sk)``
-probabilities is kept when word ``j % 4`` of
+``2**64``. With ``x' = ((x >> 4) << 3) | (x & 7)`` (``x`` without its
+bit 3) and ``bit(x) = (x >> 3) & 1``, element ``(b, h, i, j)`` of the
+``(B, H, Sq, Sk)`` probabilities is kept when word
+``2 * bit(i) + bit(j)`` of
 
-    philox4x32_10(counter=(j // 4, i, b * H + h, offset % 2**32),
+    philox4x32_10(counter=(j', i', b * H + h, offset % 2**32),
                   key=(seed % 2**32, (seed >> 32) ^ (offset >> 32)))
 
 is below ``threshold(dropout_p) = floor((1 - dropout_p) * 2**32)``, with
-``dropout_p`` taken as float32 (the C entries' type). The counter is the
-element's logical index, so the bits do not depend on a kernel's tiling,
-and the backward kernels regenerate the forward's. The plain versions of
-the kernels (``flash_attention_packed``, ``flash_attention``) rebuild the
+``dropout_p`` taken as float32 (the C entries' type). One call gives the
+four elements ``{a, a + 8} x {c, c + 8}`` (``a``, ``c`` with bit 3
+clear), four entries that one thread of a wgmma accumulator fragment
+holds whether its rows are queries or keys. The counter is the element's
+logical index, so the bits do not depend on a kernel's tiling, and the
+backward kernels regenerate the forward's. The plain versions of the
+kernels (``flash_attention_packed``, ``flash_attention``) rebuild the
 mask here.
 
 uint32 words live in int64 tensors: the product of two words is below
@@ -67,14 +72,16 @@ def keep_mask(rng, dropout_p: float, shape, device=None):
     by ``rng = (seed, offset)``: bool, ``shape``."""
     b, h, sq, sk = shape
     k0, k1, off = key_words(rng)
-    groups = (sk + 3) // 4
+    gi, gj = -(-sq // 16), -(-sk // 16)     # 16-row and 16-column blocks
     bh = torch.arange(b * h, dtype=torch.int64, device=device)[:, None, None]
-    i = torch.arange(sq, dtype=torch.int64, device=device)[None, :, None]
-    g = torch.arange(groups, dtype=torch.int64, device=device)[None, None]
-    words = philox4x32_10((g, i, bh, off), (k0, k1))
+    i = torch.arange(8 * gi, dtype=torch.int64, device=device)[None, :, None]
+    j = torch.arange(8 * gj, dtype=torch.int64, device=device)[None, None]
+    words = philox4x32_10((j, i, bh, off), (k0, k1))      # at (j', i')
     words = torch.stack(torch.broadcast_tensors(*words), dim=-1)
-    keep = words < threshold(dropout_p)              # (B*H, Sq, G, 4)
-    return keep.reshape(b, h, sq, 4 * groups)[..., :sk]
+    keep = words < threshold(dropout_p)     # (B*H, 8 gi, 8 gj, 4)
+    # i' = 8 g + r and word 2 bit(i) + bit(j): i = 16 g + 8 bit(i) + r
+    keep = keep.reshape(b * h, gi, 8, gj, 8, 2, 2).permute(0, 1, 5, 2, 3, 6, 4)
+    return keep.reshape(b, h, 16 * gi, 16 * gj)[..., :sq, :sk]
 
 
 def fold_in(rng, data: int) -> tuple:

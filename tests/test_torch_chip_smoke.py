@@ -220,6 +220,20 @@ def test_build_log_names_each_kernel():
     assert cs.kernel_entry(typed).startswith("entry _ZN12")
 
 
+def test_kernel_entry_takes_the_innermost_name():
+    """Digits in nvcc's anonymous-namespace tag that read as a length
+    prefix reaching the template arguments do not name the kernel: the
+    innermost length-prefixed identifier does (a tag of this form named
+    a dK/dV kernel after its tag in a build, and phase 2's SASS check
+    counted it as changed)."""
+    junk = ("7bdd_29_flash_attention_bwd_dq_ext_cu_f6da1fb14sm9021"
+            "flash_dkv_kernel_sm90")
+    mangled = (f"_ZN55_GLOBAL__N__9e1c{len(junk)}{junk}ILi64ELb0ELb1ELb0EEEv"
+               "14CUtensorMap_stS2_S2_S2_PKfS4_PKiS6_P13__nv_bfloat16")
+    assert cs.kernel_entry(mangled) == (
+        "entry flash_dkv_kernel_sm90<64, false, true, false>")
+
+
 @pytest.mark.parametrize("kernel,seg,kind", [
     ("flash_dq_kernel_sm90", False, "K-DQ"),
     ("flash_dq_kernel_sm90", True, "K-SDQ"),
@@ -1065,3 +1079,53 @@ def test_feature_checks_rehearse_on_cpu(on_cpu):
                            torch.device("cpu"))
     assert torch.equal(torch.isinf(mask), torch.tensor(
         [[0, 0, 0, 1, 1], [0, 0, 0, 0, 1], [0, 0, 0, 0, 0]], dtype=bool))
+
+
+def _sass_listing(tag, drop_body):
+    """A ``cuobjdump -sass`` listing of three flash kernels and a paged
+    one, each under nvcc's per-file anonymous namespace ``tag``."""
+    def fn(name, args, body):
+        ns = f"_GLOBAL__N__{tag}_13_flash_fwd_cu"
+        mangled = f"_ZN{len(ns)}{ns}{len(name)}{name}I{args}EEvv"
+        lines = [f"\t\tFunction : {mangled}",
+                 "\t.headerflags\t@\"EF_CUDA_SM90\""]
+        for n, ins in enumerate(body):
+            lines += [f"        /*{16 * n:04x}*/    {ins} ;"
+                      f"    /* 0x{n:016x} */",
+                      f"                          /* 0x{tag}00000000 */"]
+        return lines
+    out = ["Fatbin elf code:", "arch = sm_90a", "\tcode for sm_90a"]
+    out += fn("flash_fwd_kernel_sm90", "Li64ELb0ELb0ELb0E",
+              ["LDC R1, c[0x0][0x28]", "EXIT"])
+    out += fn("flash_fwd_kernel_sm90", "Li64ELb0ELb1ELb0E",
+              ["LDC R1, c[0x0][0x28]", *drop_body, "EXIT"])
+    out += fn("flash_dkv_kernel_sm90", "Li64ELb1ELb0ELb1E",
+              ["HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ", "EXIT"])
+    out += fn("paged_split_kernel", "Li1ELi64ELi16E", ["BRA 0x40", "EXIT"])
+    return "\n".join(out)
+
+
+def test_sass_check_counts_kernels_by_drop(monkeypatch, tmp_path):
+    """``sass_digests`` keys each kernel by its template arguments and
+    hashes its instructions alone (addresses, encodings and the
+    anonymous-namespace tag cut out); ``check_sass`` counts the kernels
+    without DROP that equal the reference and the DROP ones that moved."""
+    listings = {"ref": _sass_listing("1a2b3c4d", ["IMAD.HI.U32 R2, R3"]),
+                "new": _sass_listing("99887766", ["IMAD.HI.U32 R2, R4"])}
+    monkeypatch.setattr(cs._build, "cuda_tool", lambda name="nvcc": name)
+    monkeypatch.setattr(cs.subprocess, "run", lambda cmd, **kw: type(
+        "R", (), {"stdout": listings[cmd[-1]]})())
+    ref = cs.sass_digests("ref")
+    assert sorted(ref) == [
+        "flash_dkv_kernel_sm90<64, true, false, true>",
+        "flash_fwd_kernel_sm90<64, false, false, false>",
+        "flash_fwd_kernel_sm90<64, false, true, false>",
+        "paged_split_kernel<1, 64, 16>"]
+    path = tmp_path / "sass_reference.json"
+    path.write_text(cs.json.dumps({"source": "ref", "nvcc": "v",
+                                   "kernels": ref}))
+    monkeypatch.setattr(cs, "SASS_REFERENCE", path)
+    monkeypatch.setattr(cs, "nvcc_version", lambda: "v")
+    res = cs.check_sass(cs.sass_digests("new"))
+    assert (res["plain"], res["plain_equal"], res["drop"],
+            res["drop_changed"], res["plain_differ"]) == (3, 3, 1, 1, [])
