@@ -43,7 +43,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    kernels' DROP and BIAS variants (attention dropout, an additive mask):
    K-BSHD, K-BDQ and K-BDKV with a causal (S, S) -inf mask, a (B, 1, 1,
    S) -1e9 padding mask, a random (B, H, Sq, Sk) bias, dropout 0.1, and
-   a mask with dropout, dropout under the kernels' causal flag, K-SEG,
+   a mask with dropout, dropout under the kernels' causal flag, a
+   transposed (Sq, Sk) bias and a (Sq, 1) one, K-SEG,
    K-SDQ and K-SDKV with dropout, in fp32 and
    bf16 at ``FEATURE_EDGES`` (S 1 to 1000, Sq != Sk, ``unbind`` views, d
    128; ``check_feature_edges``) against the plain versions, which rebuild
@@ -54,8 +55,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and dropout; beside the checks, in a process of its own, each
    kernel's SASS (``cuobjdump -sass``) against
    ``paddle_tpu_torch/csrc/sass_reference.json``, the build before the
-   DROP path's redesign: the line says how many kernels without DROP it
-   reproduces (printed, not gated);
+   DROP path's redesign: the line says how many kernels with neither DROP
+   nor BIAS it reproduces (printed, not gated); an earlier line gives the
+   registers and spill of the bf16 DROP and BIAS kernels (ptxas);
 3. serving accuracy, fp32: GPT-345M's width at ``ACC_LAYERS`` (2) of
    its layers (a depth cut for the run's time; random weights, seed 0)
    answers 3 requests through the continuous-batching scheduler, and
@@ -1435,11 +1437,17 @@ FEATURE_EDGES = [(2, 1, 1, 16, 64), (2, 129, 129, 16, 64),
                  (2, 129, 129, 8, 128)]
 # (mask kind, dropout_p, kernel causal): a causal (Sq, Sk) -inf mask
 # (end-aligned), a padding mask (B, 1, 1, Sk) of -1e9, a random full (B,
-# H, Sq, Sk) bias, dropout alone, both together, and dropout under the
-# kernels' own causal flag (GPT's no-cache training; Sq == Sk rows only)
+# H, Sq, Sk) bias, dropout alone, both together, dropout under the
+# kernels' own causal flag (GPT's no-cache training; Sq == Sk rows only),
+# a random (Sq, Sk) bias read through a transposed view (the ``.mT`` of an
+# (Sk, Sq) tensor: key stride Sq, query stride 1) and a random (Sq, 1) one
+# broadcast over the keys (key stride 0). The bf16 kernels stage the first
+# three by TMA where their rows are 16-byte multiples and by cp.async
+# otherwise (S 129), the last two always by cp.async (``bias_route``).
 FEATURES = (("causal", 0.0, False), ("padding", 0.0, False),
             ("full", 0.0, False), (None, 0.1, False), ("causal", 0.1, False),
-            ("padding", 0.1, False), (None, 0.1, True))
+            ("padding", 0.1, False), (None, 0.1, True),
+            ("transposed", 0.0, False), ("column", 0.0, False))
 # the timed rows: K-BSHD, K-BDQ, K-BDKV at Transformer-base's phase 32 (b)
 # shape (B, S, H, D), +bias with its encoder's padding mask and
 # +bias+drop with its decoder's causal mask; +drop causal at GPT-345M's
@@ -1514,35 +1522,76 @@ def sass_finish(proc) -> dict:
     return json.loads(out)["kernels"]
 
 
+def featured(name) -> bool:
+    """Whether a kernel name (``kernel_entry``'s form) is a flash
+    template's DROP or BIAS instantiation (third or fourth argument
+    true)."""
+    args = name.partition("<")[2].rstrip(">").split(", ")
+    return name.startswith("flash_") and len(args) == 4 and (
+        "true" in args[2:])
+
+
 def check_sass(got) -> dict:
     """This build's SASS digests ``got`` against ``SASS_REFERENCE``: the
-    kernels without DROP (the flash templates' third argument false, and
-    the paged kernels) that equal the reference, and the DROP
-    instantiations that differ from it. Printed, not gated: a later
-    change to a kernel changes its SASS on purpose."""
+    kernels with neither DROP nor BIAS (the flash templates' third and
+    fourth arguments false, and the paged kernels) that equal the
+    reference, and the DROP or BIAS instantiations that differ from it,
+    changed on purpose. Printed, not gated: a later change to a kernel
+    changes its SASS on purpose."""
     ref = json.loads(SASS_REFERENCE.read_text())
-
-    def drop(name):
-        args = name.partition("<")[2].rstrip(">").split(", ")
-        return name.startswith("flash_") and len(args) == 4 and (
-            args[2] == "true")
-
-    plain = sorted(n for n in got if not drop(n))
+    plain = sorted(n for n in got if not featured(n))
     same = [n for n in plain if ref["kernels"].get(n) == got[n]]
-    drops = sorted(n for n in got if drop(n))
-    moved = [n for n in drops if ref["kernels"].get(n) != got[n]]
+    feats = sorted(n for n in got if featured(n))
+    moved = [n for n in feats if ref["kernels"].get(n) != got[n]]
     res = {"reference": ref["source"], "nvcc": nvcc_version(),
            "reference_nvcc": ref["nvcc"], "plain": len(plain),
-           "plain_equal": len(same), "drop": len(drops),
-           "drop_changed": len(moved),
-           "plain_differ": sorted(set(plain) - set(same))}
+           "plain_equal": len(same), "feature": len(feats),
+           "feature_changed": len(moved),
+           "plain_differ": sorted(set(plain) - set(same)),
+           "feature_same": sorted(set(feats) - set(moved))}
     differ = ("" if len(same) == len(plain) else
               f", differ: {res['plain_differ']}")
     log(f"  SASS against {ref['source']} ({ref['nvcc']}; this build "
-        f"{res['nvcc']}): {len(same)} of {len(plain)} kernels without DROP "
-        f"equal{differ}; {len(moved)} of {len(drops)} DROP instantiations "
-        f"changed")
+        f"{res['nvcc']}): {len(same)} of {len(plain)} kernels with "
+        f"neither DROP nor BIAS equal{differ}; {len(moved)} of "
+        f"{len(feats)} DROP or BIAS instantiations changed on purpose "
+        f"(unchanged: {res['feature_same']})")
     return res
+
+
+def ptxas_usage(text) -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from a
+    build's ``-Xptxas -v`` log, keyed by ``kernel_entry``'s name; a kernel
+    that several sources instantiate keeps its largest figures."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_entry(line).removeprefix("entry ")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        r = re.search(r"Used (\d+) registers", line)
+        if name and (m or r):
+            cur = out.setdefault(name, {"registers": 0, "spill_stores": 0,
+                                        "spill_loads": 0})
+            if m:
+                cur["spill_stores"] = max(cur["spill_stores"], int(m[1]))
+                cur["spill_loads"] = max(cur["spill_loads"], int(m[2]))
+            if r:
+                cur["registers"] = max(cur["registers"], int(r[1]))
+    return out
+
+
+def log_feature_registers(text, label="") -> dict:
+    """Logs the registers and spill of the flash templates' bf16 DROP and
+    BIAS instantiations (the Hopper bodies, ``*_sm90``) from a build's
+    ptxas log, on one line after ``label``; returns them."""
+    usage = {n: u for n, u in ptxas_usage(text).items()
+             if featured(n) and "_sm90<" in n}
+    log(f"  {label}registers / spill stores of the bf16 DROP and BIAS "
+        "kernels: " + "; ".join(f"{n} {u['registers']} / {u['spill_stores']}"
+                                for n, u in sorted(usage.items())))
+    return usage
 
 
 def variant_tag(kind, dropout_p) -> str:
@@ -1561,6 +1610,10 @@ def feature_bias(rng, kind, b, h, sq, sk, dev=None):
         lens = rng.randint(1, sk + 1, b)
         m = (np.arange(sk)[None] < lens[:, None]).astype(np.float32)
         return torch.from_numpy((m - 1.0) * 1e9).to(dev)[:, None, None, :]
+    if kind == "transposed":     # (Sq, Sk) at strides (1, Sq)
+        return normal(rng, sk, sq, dev=dev).mT
+    if kind == "column":         # (Sq, 1): one value a query
+        return normal(rng, sq, 1, dev=dev)
     return normal(rng, b, h, sq, sk, dev=dev)
 
 
@@ -1728,8 +1781,63 @@ def feature_rows(peaks, rows=None) -> dict:
     return out
 
 
+# one run of ``feature_rows`` in a tree (its own chip_smoke.py and
+# kernels), the rows' times as one JSON line
+AB_RUN = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+rows = cs.feature_rows(cs.peaks_for(torch.cuda.get_device_name(0)))
+print("ROWS " + json.dumps({k: {f: r.get(f) for f in (
+    "device_ms", "ms", "bound_ms", "library_ms", "max_abs_err")}
+    for k, r in rows.items()}))
+"""
+
+
+def ab_feature_rows(trees, order) -> dict:
+    """An A/B of the DROP and BIAS variants across source trees on one
+    card: ``trees`` maps a name to a directory holding a ``chip_smoke.py``
+    and its ``paddle_tpu_torch`` (the parent from ``git archive``, edited
+    copies), each building its kernels into its own ``build/``, all at
+    once first; then ``feature_rows`` runs in each tree in ``order``, one
+    process a run, in turns. Prints each run's device and event ms and
+    each tree's ptxas registers / spill stores of its bf16 DROP and BIAS
+    kernels; returns ``{variant: {tree: [device ms of each run]}}``."""
+    env = dict(os.environ, PYTHONDONTWRITEBYTECODE="1")
+    build = ("import sys; sys.path.insert(0, '.'); from paddle_tpu_torch."
+             "ops.kernels import _build; _build.load_library(); "
+             "print(_build.last_build['path'])")
+    procs = {n: subprocess.Popen([sys.executable, "-c", build], cwd=d,
+                                 env=env, stdout=subprocess.PIPE, text=True)
+             for n, d in trees.items()}
+    for n, proc in procs.items():
+        lib = proc.communicate()[0].strip().splitlines()
+        require(proc.returncode == 0 and lib, f"ab: {n} did not build")
+        log_feature_registers(Path(lib[-1]).with_suffix(".log").read_text(),
+                              f"ab [{n}] ")
+    got = {}
+    for n in order:
+        out = subprocess.run([sys.executable, "-c", AB_RUN], cwd=trees[n],
+                             env=env, capture_output=True, text=True)
+        line = [x for x in out.stdout.splitlines() if x.startswith("ROWS ")]
+        require(out.returncode == 0 and line,
+                f"ab: {n} failed\n{out.stdout[-2000:]}{out.stderr[-2000:]}")
+        rows = json.loads(line[0][5:])
+        log(f"  ab [{n}] device / event ms: " + json.dumps(
+            {k: [r["device_ms"], r["ms"]] for k, r in rows.items()}))
+        for k, r in rows.items():
+            got.setdefault(k, {}).setdefault(n, []).append(r["device_ms"])
+    for k, by in sorted(got.items()):
+        log(f"  ab {k}: " + "; ".join(
+            f"{n} {float(np.median(v)):.4f} ("
+            + ", ".join(f"{x:.4f}" for x in v) + ")"
+            for n, v in by.items()))
+    return got
+
+
 def phase_kernels(peaks) -> dict:
     log("[2] kernels against their plain versions")
+    log_feature_registers(_build.last_build.get("log", ""))
     sass = sass_start()
     try:
         out = kernel_checks(peaks)
@@ -3782,6 +3890,13 @@ def telemetry_serve(counts, obs_dir, n_req=64, trials=2, ratio_req=16,
                             "phase 25 (b): the profiler did not start")
                     time.sleep(0.001)
                 state["profile"]["wait_s"] = time.perf_counter() - t_wait
+                # and starts past the window's 1 ms margin: seen within a
+                # millisecond of the opening, it fell outside the count
+                # below, which then rested on the later ticks alone (on a
+                # loaded host they can all end after the window)
+                opened = sched.http.profile_window["open"]
+                while time.time() < opened + 2e-3:
+                    time.sleep(5e-4)
             t = time.time()
             out = decode(*a)
             state["decodes"].append((t, time.time()))
@@ -6494,6 +6609,12 @@ def main() -> int:
     ap.add_argument("--sass-digests", metavar="LIB",
                     help="print a built kernel library's SASS digests as "
                     "JSON (the form of SASS_REFERENCE) and exit")
+    ap.add_argument("--ab", metavar="NAME=DIR,...",
+                    help="time the DROP and BIAS variants in each source "
+                    "tree in turns (ab_feature_rows) and exit")
+    ap.add_argument("--ab-order", metavar="NAME,...",
+                    help="--ab's runs, by tree name (default: each tree "
+                    "three times, in turns)")
     args = ap.parse_args()
     if args.sass_digests:
         print(json.dumps({"source": Path(args.sass_digests).name,
@@ -6512,6 +6633,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.ab:
+        trees = dict(t.split("=", 1) for t in args.ab.split(","))
+        order = (args.ab_order.split(",") if args.ab_order
+                 else list(trees) * 3)
+        ab_feature_rows(trees, order)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)

@@ -7,16 +7,17 @@
 
 // The segmented entry's arguments (seg_q, seg_k null: no segment ids),
 // plus bias (B, H, sq, sk) fp32 at element strides bias_sb .. bias_sk
-// (null: no bias), dropout_p in [0, 1) and the forward's Philox (seed,
-// offset). At least one of dropout_p > 0 and a bias; segment ids take no
-// bias.
+// (0 where it broadcasts; null: no bias) and bias_tma (its bf16 tile by
+// TMA, else by cp.async: the caller's `bias_route`), dropout_p in [0, 1)
+// and the forward's Philox (seed, offset). At least one of dropout_p > 0
+// and a bias; segment ids take no bias.
 extern "C" int flash_attention_bwd_dkv_ext(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* seg_k,
     const void* bias, void* dk, void* dv, int batch, int sq, int sk,
     int heads, int head_dim, int q_rs, int k_rs, int v_rs, int do_rs,
-    int bias_sb, int bias_sh, int bias_sq, int bias_sk, float scale,
-    int causal, float dropout_p, unsigned long long seed,
+    int bias_sb, int bias_sh, int bias_sq, int bias_sk, int bias_tma,
+    float scale, int causal, float dropout_p, unsigned long long seed,
     unsigned long long offset, int dtype, void* stream) {
   if (dv == nullptr) return (int)cudaErrorInvalidValue;
   const bool seg = seg_q != nullptr, drop = dropout_p > 0.f;
@@ -24,7 +25,7 @@ extern "C" int flash_attention_bwd_dkv_ext(
       (!drop && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   const AttnExtra ex = make_extra(bias, bias_sb, bias_sh, bias_sq, bias_sk,
-                                  dropout_p, seed, offset);
+                                  bias_tma, dropout_p, seed, offset);
 #define PTT_DISPATCH(S, DR, BI)                                       \
   return dispatch<S, DR, BI>(q, k, v, dout, lse, delta, seg_q, seg_k, \
                              dk, dv, batch, sq, sk, heads, head_dim,  \

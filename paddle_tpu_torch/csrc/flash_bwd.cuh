@@ -115,25 +115,40 @@
 // recomputed score and its Philox bits regenerated from the same logical
 // (b, h, i, j) counters, so p, dropped or kept, is the forward's. One
 // Philox call gives four entries that a thread holds in either fragment
-// layout (philox.cuh). dQ makes 8 calls a thread per 64-key tile, after
-// the wait of S and dP, none for key blocks past the causal diagonal.
-// dK/dV, whose rows are keys, makes 8 per 64-query tile, every column
-// block, branch-free: it draws the next tile's bits after the commit of
-// the current tile's dV and dK products and before their wait, so the
-// integer pipe works while the tensor cores do (the first tile's, and a
-// tile's after one skipped for its segment ids, before its score products
-// are issued). Under the score products, whose accumulators hold 64 more
-// registers, the draw made the d = 64 kernel spill at two CTAs an SM. With
-// DROP, dK/dV tests the masks only on tiles that can hold a masked pair
-// and applies 1 / (1 - p_drop) to dK and dV in the epilogue. At d = 64
-// without BIAS it runs two CTAs an SM (`__launch_bounds__(160, 2)`, at
-// most 168 registers; left to 212 registers it ran one, 1.2-1.5x slower);
-// with BIAS the bias's reads spill at 168, so one (PERF.md). `-Xptxas -v`
-// with DROP (nvcc 12.9, sm_90a; d = 64 / 128): flash_dq_kernel_sm90
-// +drop 140 / 172 registers, +bias+drop 146 / 178, K-SDQ +drop 128 / 160;
-// flash_dkv_kernel_sm90 168 / 249, 202 / 255, 168 / 226; 0 bytes of spill
-// in all twelve. The instantiations without DROP and BIAS keep their code
-// (the feature code sits in `if constexpr` branches), SASS for SASS.
+// layout (philox.cuh). Both kernels make 8 calls a thread per 64-wide
+// tile, every column block, branch-free, and draw the next tile's bits
+// after the commit of the tile's last products and before their wait, so
+// the integer pipe works while the tensor cores do: dQ under dQ += dS.K
+// (S and dP are dead there), dK/dV under its dV and dK products (the first
+// tile's bits, and a tile's after one skipped for its segment ids, before
+// its score products are issued). Skipping blocks past the causal
+// diagonal, each call in a branch of its own, cost dQ more under its
+// product than the calls it saved (PERF.md). Under the score products, whose accumulators hold 64 more registers, the
+// draw made the d = 64 dK/dV kernel spill at two CTAs an SM. With DROP,
+// dK/dV tests the masks only on tiles that can hold a masked pair and
+// applies 1 / (1 - p_drop) to dK and dV in the epilogue; at d = 64 it runs
+// two CTAs an SM (`__launch_bounds__(160, 2)`, at most 168 registers; left
+// to 212 registers it ran one, 1.2-1.5x slower), with BIAS too since the
+// bias's reads went to shared memory (at 168 registers it spills 4 bytes;
+// at one CTA an SM with reads of device memory it took 1.5x as long;
+// PERF.md).
+// BIAS: the producer warp stages each ring stage's bias tile beside the
+// K/V (dQ) or Q/dO (dK/dV) tile, fp32, query-major (philox.cuh
+// `BiasTile`, `stage_bias`; by TMA or by cp.async on the stage's full
+// barrier), and the consumers read their entries from it: dQ a float2 per
+// two adjacent keys, rows 72 floats apart; dK/dV a float per entry, rows
+// (queries) 68 floats apart, so that a warp's reads meet 32 distinct banks
+// in both layouts. 18 and 17 KB a stage; at a row pitch of 0 (a mask
+// broadcast over queries) one 1 KB row, so dQ with a padding mask keeps
+// three CTAs an SM at d = 64. dK/dV with BIAS alone reads a padding
+// mask's two values a thread before its score products are issued.
+// `-Xptxas -v` with DROP or BIAS (nvcc 12.9, sm_90a; d = 64 / 128):
+// flash_dq_kernel_sm90 +drop 126 / 158 registers, +bias 126 / 158,
+// +bias+drop 128 / 160, K-SDQ +drop 128 / 160; flash_dkv_kernel_sm90 +drop
+// 168 / 249, +bias 164 / 230, +bias+drop 168 / 255, K-SDKV +drop 168 /
+// 226; 0 bytes of spill but dK/dV +bias+drop's 4 at d = 64. The
+// instantiations without DROP and BIAS keep their code (the feature code
+// sits in `if constexpr` branches), SASS for SASS.
 //
 // fp32 (`flash_dq_kernel`, `flash_dkv_kernel`, the CUDA-core bodies): the
 // port's correctness mode, held to the CPU at 1e-4 on the card; TF32 wgmma
@@ -618,6 +633,11 @@ template <int D> struct DqSmem {
   static constexpr int segk_off = idx_off + 4 * STAGES;
   static constexpr int bloom_off = segk_off + 4 * STAGES * DQ_KT;
   static constexpr int bytes = bloom_off + 4 * BLOOM + 1024;  // + alignment
+  // BIAS: a stage's bias tile, 64 queries by 64 keys (philox.cuh), 18 KB
+  using Bias = BiasTile<DQ_ROWS, DQ_KT, DQ_KT + 8>;
+  static constexpr int stages = STAGES;
+  static constexpr int bias_off = (bloom_off + 4 * BLOOM + 1023) / 1024 * 1024;
+  static constexpr int bias_bytes = bias_off + STAGES * Bias::bytes + 1024;
 };
 
 template <int D> struct DkvSmem {
@@ -636,6 +656,12 @@ template <int D> struct DkvSmem {
   static constexpr int segq_off = dlt_off + 4 * STAGES * DKV_QT;
   static constexpr int bloom_off = segq_off + 4 * STAGES * DKV_QT;
   static constexpr int bytes = bloom_off + 4 * BLOOM + 1024;
+  // BIAS: a stage's bias tile, 64 queries by the CTA's 64 keys
+  // (philox.cuh), 17 KB
+  using Bias = BiasTile<DKV_QT, DKV_KEYS, DKV_KEYS + 4>;
+  static constexpr int stages = STAGES;
+  static constexpr int bias_off = (bloom_off + 4 * BLOOM + 1023) / 1024 * 1024;
+  static constexpr int bias_bytes = bias_off + STAGES * Bias::bytes + 1024;
 };
 
 template <int D, bool SEG, bool DROP, bool BIAS>
@@ -649,8 +675,10 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                      const int* __restrict__ seg_q,
                      const int* __restrict__ seg_k,
                      __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H,
-                     float scale, int causal, const AttnExtra ex) {
+                     float scale, int causal, const AttnExtra ex,
+                     const __grid_constant__ CUtensorMap tb) {
   using L = DqSmem<D>;
+  using BT = typename L::Bias;
   constexpr int KT = DQ_KT;
   constexpr int NS = KT / 2;         // S and dP accumulator floats a thread
   constexpr int NO = D / 2;          // dQ accumulator floats a thread
@@ -676,7 +704,7 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_init(rows_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 32);          // the producer warp's lanes
+      mbar_init(full(s), full_count<BIAS>(ex));  // the producer warp's lanes
       mbar_init(empty(s), NCONS);      // every consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -715,7 +743,9 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       }
       if (lane == 0) {
         tile_idx[stage] = kb;
-        mbar_arrive_tx(full(stage), KV_BYTES);
+        mbar_arrive_tx(full(stage),
+                       KV_BYTES + (BIAS && ex.bias_tma ? bias_tx_bytes<BT>(ex)
+                                                       : 0u));
 #pragma unroll
         for (int hf = 0; hf < D / 64; ++hf) {
           const int c0 = h * D + 64 * hf;
@@ -726,6 +756,10 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       } else {
         mbar_arrive(full(stage));
       }
+      // BIAS: the tile's bias beside its K and V, on the same barrier
+      if constexpr (BIAS)
+        stage_bias<BT>(base + L::bias_off + stage * bias_stage_bytes<BT>(ex),
+                       &tb, full(stage), ex, b, h, q0, k0, Sq, Sk, lane);
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
@@ -733,7 +767,7 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     }
     mbar_wait(empty(stage), phase ^ 1);   // the end marker
     if (lane == 0) tile_idx[stage] = -1;
-    mbar_arrive(full(stage));
+    end_arrive<BIAS>(full(stage), ex);
   } else {
     // -- the consumer warpgroup: 64 query rows --
     const int t = lane & 3;
@@ -755,6 +789,10 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     const uint32_t q_base = base + L::q_off;
     const uint32_t do_base = base + L::do_off;
 
+    // DROP: the keep bits of key tile `kept_k0` (kept[i] is dp[i]'s bit,
+    // philox.cuh), drawn while the previous tile's dQ product runs (below)
+    [[maybe_unused]] FragKeep<KT> kept;
+    [[maybe_unused]] int kept_k0 = -1;
     mbar_wait(rows_full, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -765,6 +803,12 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       const int k0 = kb * KT;
       const uint32_t k_base = base + L::k_off + stage * L::kv_tile;
       const uint32_t v_base = base + L::v_off + stage * L::kv_tile;
+      // the first tile's bits, or a tile's after one skipped for its
+      // segment ids: drawn before the score products hold their registers
+      if constexpr (DROP) {
+        if (k0 != kept_k0)
+          kept = frag_keep<KT, false>(ex, (uint32_t)b * H + h, row0, k0, t);
+      }
 
       // S = Q . K^T and dP = dO . V^T, fp32
       float s[NS], dp[NS];
@@ -779,39 +823,36 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       // dS = p * (dP - delta) in place of dP, masked only where the tile
       // can hold a masked pair (the causal diagonal, the ragged tail,
       // segment ids). With DROP or BIAS (never both BIAS and SEG), every
-      // tile: p from the scores plus the bias, dP of a dropped pair 0 and
-      // of a kept one scaled by 1 / (1 - p_drop); the instantiations
-      // without them compile the loop after it as before.
+      // tile: p from the scores plus the bias (from the stage's tile, a
+      // float2 per two adjacent keys), dP of a dropped pair 0 and of a
+      // kept one scaled by 1 / (1 - p_drop); the instantiations without
+      // them compile the loop after it as before.
       if constexpr (DROP || BIAS) {
-        // DROP: kept[i] is dp[i]'s keep bit (philox.cuh), drawn after the
-        // wait with no call for key blocks past the causal diagonal or Sk
-        // (drawn branch-free as in the forward and dK/dV, this kernel ran
-        // 1.2x slower at 182 registers against 140; PERF.md)
-        [[maybe_unused]] FragKeep<KT> kept;
-        if constexpr (DROP) {
-          const uint32_t bh = (uint32_t)b * H + h;
-          auto live = [&](int c) {
-            return row0 < Sq && c < Sk && (!causal || c <= row0 + 8);
-          };
-          kept = frag_keep<KT, false>(ex, bh, row0, k0, t, live);
-        }
+        [[maybe_unused]] const int bp = ex.sq ? BT::pitch : 0;
+        [[maybe_unused]] const float* brow =
+            bias_tile<BT>(smem + L::bias_off, stage, ex) + (row0 - q0) * bp +
+            2 * t;
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * j + 2 * t + e;
-            const int key = k0 + col;
-            const int kid = SEG ? segk[stage * KT + col] : 0;
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = row0 + 8 * hr;
+            [[maybe_unused]] float2 bv;
+            if constexpr (BIAS)
+              bv = *reinterpret_cast<const float2*>(brow + 8 * hr * bp +
+                                                    8 * j);
 #pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              const int row = row0 + 8 * hr;
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t + e;
+              const int key = k0 + col;
+              const int kid = SEG ? segk[stage * KT + col] : 0;
               const bool ok = key < Sk && row < Sq &&
                               (!causal || key <= row) &&
                               (!SEG || kid == sq_id[hr]);
               const int i = 4 * j + 2 * hr + e;
-              const float x = BIAS ? fmaf(s[i], scale2,
-                                          bias2(ex, b, h, row, key))
-                                   : s[i] * scale2;
+              float x = s[i] * scale2;
+              if constexpr (BIAS)
+                x = fmaf(s[i], scale2, bias_log2(e ? bv.y : bv.x));
               const float p = ok ? exp2f(x - lse2[hr]) : 0.f;
               const float dpz = !DROP    ? dp[i]
                                 : kept[i] ? dp[i] * ex.rdrop
@@ -849,6 +890,21 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
       gemm_rs<D, KT>(acc, da, k_base);
       wgmma_commit();
+      // DROP: the next key tile's keep bits while the product is in
+      // flight, on the integer pipe beside the tensor cores (S and dP are
+      // dead, so the draw holds no accumulator registers), every column
+      // block and branch-free (with a skip of blocks past the causal
+      // diagonal or Sk, each call in a branch of its own, +drop ran 1.1x
+      // and K-SDQ +drop 1.35x slower; PERF.md); a tile that follows a
+      // skipped one is drawn at its turn, above
+      if constexpr (DROP) {
+        kept_k0 = k0 + KT;
+        if (kept_k0 < (causal ? min(Sk, q0 + DQ_ROWS) : Sk)) {
+          kept = frag_keep<KT, false>(ex, (uint32_t)b * H + h, row0, kept_k0,
+                                      t);
+          fence_keep(kept);
+        }
+      }
       wgmma_wait0();
       fence_regs(acc);
       mbar_arrive(empty(stage));
@@ -875,16 +931,17 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
 // dK/dV's DROP step on one tile's fragments (flash_dkv_kernel_sm90, keys
 // as rows): P^T the kept p and dS^T = p * (z dP^T - delta * (1 - p_drop)),
-// p from the scores plus the bias (BIAS). MASKED tests the causal, tail and
-// segment masks, for a tile that can hold a masked pair; the interior
-// runs without them (a loop that tests a uniform flag per entry kept the
-// 32 tests' results in a register, bit by bit).
+// p from the scores plus the bias (BIAS: the stage's tile, `bias_t` at the
+// thread's first key, `bp` floats between queries). MASKED tests the
+// causal, tail and segment masks, for a tile that can hold a masked pair;
+// the interior runs without them (a loop that tests a uniform flag per
+// entry kept the 32 tests' results in a register, bit by bit).
 template <int QT, bool SEG, bool BIAS, bool MASKED>
 __device__ __forceinline__ void dkv_drop_tile(
     float (&st)[QT / 2], float (&dpt)[QT / 2], const FragKeep<QT>& kept,
     const float* lse_t, const float* dlt_t, const int* segq_t, int q0,
     int key0, int t, int Sq, int Sk, int causal, const int (&sk_id)[2],
-    float scale2, float keep_p, const AttnExtra& ex, int b, int h) {
+    float scale2, float keep_p, const float* bias_t, int bp) {
 #pragma unroll
   for (int j = 0; j < QT / 8; ++j) {
 #pragma unroll
@@ -901,8 +958,9 @@ __device__ __forceinline__ void dkv_drop_tile(
                                     (!causal || key <= q) &&
                                     (!SEG || qid == sk_id[hr]));
         const int i = 4 * j + 2 * hr + e;
-        const float x = BIAS ? fmaf(st[i], scale2, bias2(ex, b, h, q, key))
-                             : st[i] * scale2;
+        const float x =
+            BIAS ? fmaf(st[i], scale2, bias_log2(bias_t[col * bp + 8 * hr]))
+                 : st[i] * scale2;
         const float p = ok ? exp2f(x - l2) : 0.f;
         st[i] = kept[i] ? p : 0.f;
         dpt[i] = p * ((kept[i] ? dpt[i] : 0.f) - dl);
@@ -912,7 +970,7 @@ __device__ __forceinline__ void dkv_drop_tile(
 }
 
 template <int D, bool SEG, bool DROP, bool BIAS>
-__global__ void __launch_bounds__(NT, DROP && !BIAS && D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(NT, DROP && D == 64 ? 2 : 1)
 flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -923,8 +981,10 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const int* __restrict__ seg_k,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
-                      float scale, int causal, const AttnExtra ex) {
+                      float scale, int causal, const AttnExtra ex,
+                      const __grid_constant__ CUtensorMap tb) {
   using L = DkvSmem<D>;
+  using BT = typename L::Bias;
   constexpr int QT = DKV_QT;
   constexpr int NS = QT / 2;         // S^T and dP^T floats a thread
   constexpr int NO = D / 2;          // dK and dV floats a thread, each
@@ -951,7 +1011,7 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_init(keys_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 32);
+      mbar_init(full(s), full_count<BIAS>(ex));
       mbar_init(empty(s), NCONS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -1003,7 +1063,10 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       }
       if (lane == 0) {
         tile_idx[stage] = qb;
-        mbar_arrive_tx(full(stage), QDO_BYTES);
+        mbar_arrive_tx(full(stage),
+                       QDO_BYTES + (BIAS && ex.bias_tma
+                                        ? bias_tx_bytes<BT>(ex)
+                                        : 0u));
 #pragma unroll
         for (int hf = 0; hf < D / 64; ++hf) {
           const int c0 = h * D + 64 * hf;
@@ -1014,6 +1077,11 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       } else {
         mbar_arrive(full(stage));
       }
+      // BIAS: the tile's bias (its queries by the CTA's keys) beside its Q
+      // and dO, on the same barrier
+      if constexpr (BIAS)
+        stage_bias<BT>(base + L::bias_off + stage * bias_stage_bytes<BT>(ex),
+                       &tb, full(stage), ex, b, h, q0, k0, Sq, Sk, lane);
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
@@ -1021,7 +1089,7 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     }
     mbar_wait(empty(stage), phase ^ 1);   // the end marker
     if (lane == 0) tile_idx[stage] = -1;
-    mbar_arrive(full(stage));
+    end_arrive<BIAS>(full(stage), ex);
   } else {
     // -- the consumer warpgroup: 64 keys, rows of S^T --
     const int t = lane & 3;
@@ -1061,6 +1129,22 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         if (q0 != kept_q0)
           kept = frag_keep<QT, true>(ex, (uint32_t)b * H + h, key0, q0, t);
       }
+      // BIAS: the stage's tile at (query q0, key key0), `bp` floats from
+      // one query to the next. BIAS alone, a bias broadcast over queries
+      // (a padding mask): the thread's two keys' values, read before the
+      // score products are issued (read after their wait, the 32 reads
+      // of the same two words made the tile 1.2x slower than reads of
+      // device memory, which stay in flight across the wait; PERF.md)
+      [[maybe_unused]] const int bp = ex.sq ? BT::pitch : 0;
+      [[maybe_unused]] const float* bias_t =
+          bias_tile<BT>(smem + L::bias_off, stage, ex) + (key0 - k0);
+      [[maybe_unused]] float bkey[2];
+      if constexpr (BIAS && !DROP) {
+        if (bp == 0) {
+          bkey[0] = bias_log2(bias_t[0]);
+          bkey[1] = bias_log2(bias_t[8]);
+        }
+      }
 
       // S^T = K . Q^T and dP^T = V . dO^T, fp32
       float st[NS], dpt[NS];
@@ -1088,32 +1172,42 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         if (SEG || q0 + QT > Sq || (causal && k0 + DKV_KEYS - 1 > q0))
           dkv_drop_tile<QT, SEG, BIAS, true>(
               st, dpt, kept, lse_t, dlt_t, segq_t, q0, key0, t, Sq, Sk,
-              causal, sk_id, scale2, keep_p, ex, b, h);
+              causal, sk_id, scale2, keep_p, bias_t, bp);
         else
           dkv_drop_tile<QT, SEG, BIAS, false>(
               st, dpt, kept, lse_t, dlt_t, segq_t, q0, key0, t, Sq, Sk,
-              causal, sk_id, scale2, keep_p, ex, b, h);
+              causal, sk_id, scale2, keep_p, bias_t, bp);
       } else if constexpr (BIAS) {
+        // the loop over the tile, with the bias of (column, row) from
+        // `bias_of`
+        auto tile = [&](auto bias_of) {
 #pragma unroll
-        for (int j = 0; j < QT / 8; ++j) {
+          for (int j = 0; j < QT / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * j + 2 * t + e;
-            const int q = q0 + col;
-            const float l2 = lse_s[stage * QT + col];
-            const float dl = dlt_s[stage * QT + col];
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * j + 2 * t + e;
+              const int q = q0 + col;
+              const float l2 = lse_s[stage * QT + col];
+              const float dl = dlt_s[stage * QT + col];
 #pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              const int key = key0 + 8 * hr;
-              const bool ok = q < Sq && key < Sk && (!causal || key <= q);
-              const int i = 4 * j + 2 * hr + e;
-              const float x = fmaf(st[i], scale2, bias2(ex, b, h, q, key));
-              const float p = ok ? exp2f(x - l2) : 0.f;
-              st[i] = p;
-              dpt[i] = p * (dpt[i] - dl);
+              for (int hr = 0; hr < 2; ++hr) {
+                const int key = key0 + 8 * hr;
+                const bool ok = q < Sq && key < Sk && (!causal || key <= q);
+                const int i = 4 * j + 2 * hr + e;
+                const float x = fmaf(st[i], scale2, bias_of(col, hr));
+                const float p = ok ? exp2f(x - l2) : 0.f;
+                st[i] = p;
+                dpt[i] = p * (dpt[i] - dl);
+              }
             }
           }
-        }
+        };
+        if (bp == 0)
+          tile([&](int, int hr) { return bkey[hr]; });
+        else
+          tile([&](int col, int hr) {
+            return bias_log2(bias_t[col * bp + 8 * hr]);
+          });
       } else {
       const bool edge =
           SEG || q0 + QT > Sq || (causal && k0 + DKV_KEYS - 1 > q0);
@@ -1219,38 +1313,47 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const int qrows = dv == nullptr ? DQ_ROWS : DKV_QT;
   const int krows = dv == nullptr ? DQ_KT : DKV_KEYS;
-  CUtensorMap mq, mk, mv, mdo;
+  CUtensorMap mq, mk, mv, mdo, mb;
   cudaError_t err = make_map(&mq, q, H * D, Sq, batch, qs, qrows);
   if (err == cudaSuccess) err = make_map(&mdo, dout, H * D, Sq, batch, dos,
                                          qrows);
   if (err == cudaSuccess) err = make_map(&mk, k, H * D, Sk, batch, ks, krows);
   if (err == cudaSuccess) err = make_map(&mv, v, H * D, Sk, batch, vs, krows);
+  if (err == cudaSuccess)
+    err = dv == nullptr
+              ? bias_map<BIAS, typename DqSmem<D>::Bias>(&mb, ex, batch, H,
+                                                         Sq, Sk)
+              : bias_map<BIAS, typename DkvSmem<D>::Bias>(&mb, ex, batch, H,
+                                                          Sq, Sk);
   if (err != cudaSuccess) return err;
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(delta);
   const int* sq = static_cast<const int*>(seg_q);
   const int* sk = static_cast<const int*>(seg_k);
   if (dv == nullptr) {
-    constexpr int smem = DqSmem<D>::bytes;
+    using L = DqSmem<D>;
+    const int smem = launch_smem<L, BIAS>(ex);
     err = cudaFuncSetAttribute(flash_dq_kernel_sm90<D, SEG, DROP, BIAS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               BIAS ? L::bias_bytes : L::bytes);
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + DQ_ROWS - 1) / DQ_ROWS, H, batch);
     flash_dq_kernel_sm90<D, SEG, DROP, BIAS><<<grid, NT, smem, stream>>>(
         mq, mk, mv, mdo, lp, dp, sq, sk,
-        static_cast<__nv_bfloat16*>(dq_or_dk), Sq, Sk, H, scale, causal, ex);
+        static_cast<__nv_bfloat16*>(dq_or_dk), Sq, Sk, H, scale, causal, ex,
+        mb);
   } else {
-    constexpr int smem = DkvSmem<D>::bytes;
+    using L = DkvSmem<D>;
+    const int smem = launch_smem<L, BIAS>(ex);
     err = cudaFuncSetAttribute(flash_dkv_kernel_sm90<D, SEG, DROP, BIAS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               BIAS ? L::bias_bytes : L::bytes);
     if (err != cudaSuccess) return err;
     const dim3 grid((Sk + DKV_KEYS - 1) / DKV_KEYS, H, batch);
     flash_dkv_kernel_sm90<D, SEG, DROP, BIAS><<<grid, NT, smem, stream>>>(
         mq, mk, mv, mdo, lp, dp, sq, sk,
         static_cast<__nv_bfloat16*>(dq_or_dk),
-        static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, scale, causal, ex);
+        static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, scale, causal, ex, mb);
   }
   return cudaGetLastError();
 }

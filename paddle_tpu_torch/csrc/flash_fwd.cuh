@@ -120,18 +120,31 @@
 // bf16 body is bound by issue slots, not by the bytes or the tensor cores
 // (PERF.md). It makes one call per four entries (philox.cuh's counter
 // layout: the four are a thread's rows r, r + 8 at one column of two
-// adjacent 8-column blocks), 16 a thread per 128-key tile at d = 64. With
-// DROP alone it draws them after the commit of S = Q.K^T and before its
-// wait, every column block and branch-free, so the integer pipe works
-// while the tensor cores do, into 64 bits a thread that selects apply
-// after the softmax; with BIAS, after the softmax, a 16-key block at a
-// time. The fp32 body makes one call per entry. The bias is read from
-// device memory entry by entry (a broadcast mask from L2). The
+// adjacent 8-column blocks), 16 a thread per 128-key tile at d = 64,
+// drawn after the commit of S = Q.K^T and before its wait, every column
+// block and branch-free, so the integer pipe works while the tensor cores
+// do, into 64 bits a thread that selects apply after the softmax. The
+// fp32 body makes one call per entry and reads the bias from device
+// memory entry by entry. The bf16 body reads it from shared memory: the
+// producer warp stages each K/V tile's bias tile (128 queries by BK keys,
+// fp32, rows BK + 8 floats apart so that the consumers' float2 reads of
+// their fragment hit 32 distinct banks; one row at a row pitch of 0 when
+// the mask broadcasts over queries) by TMA or cp.async on the tile's own
+// full barrier (philox.cuh `BiasTile`), 68 KB a stage at d = 64 and 36 KB
+// at d = 128. Before, each entry's read went to device memory after the
+// wait of S and stalled every warp; the +bias+drop bits were then drawn
+// after the softmax to fill those stalls (PERF.md). The
 // instantiations without DROP and BIAS keep their code (the feature code
 // sits in `if constexpr` branches), SASS for SASS.
-// `-Xptxas -v` with DROP (nvcc 12.9, sm_90a; d = 64 / 128): +drop 166 /
-// 163 registers, +bias+drop 168 / 148, K-SEG +drop 166 / 166, 0 bytes of
-// spill in all six.
+// `-Xptxas -v` with DROP or BIAS (nvcc 12.9, sm_90a; d = 64 / 128): +drop
+// 166 / 163 registers, +bias 155 / 140, +bias+drop 168 / 168, K-SEG +drop
+// 166 / 166; +bias+drop at d = 64 spills 32 bytes (its bits under S hold
+// 64 bits and the Philox chains beside S's 64 accumulators; drawn after
+// the softmax it spilled none and ran 1.04x slower; PERF.md), 0 in the
+// other seven.
+// Dynamic shared memory with BIAS: 224,256 bytes at d = 64 and 174,080 at
+// d = 128 (at a row pitch of 0, one 1 KB row a stage: 87,040 and
+// 102,400).
 
 #pragma once
 
@@ -395,6 +408,12 @@ template <int D> struct Smem {
   static constexpr int segk_off = idx_off + 4 * STAGES;
   static constexpr int bloom_off = segk_off + 4 * STAGES * BK;
   static constexpr int bytes = bloom_off + 4 * BLOOM + 1024;  // + alignment
+  // BIAS: a stage's bias tile, 128 queries by BK keys (philox.cuh), after
+  // the rest on 1024 bytes: 68 KB a stage at d = 64, 36 KB at d = 128
+  using Bias = BiasTile<BQ, BK, BK + 8>;
+  static constexpr int stages = STAGES;
+  static constexpr int bias_off = (bloom_off + 4 * BLOOM + 1023) / 1024 * 1024;
+  static constexpr int bias_bytes = bias_off + STAGES * Bias::bytes + 1024;
 };
 
 template <int D, bool SEG, bool DROP, bool BIAS>
@@ -406,8 +425,10 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const int* __restrict__ seg_k,
                       __nv_bfloat16* __restrict__ o,
                       float* __restrict__ lse, int Sq, int Sk, int H,
-                      float scale2, int causal, const AttnExtra ex) {
+                      float scale2, int causal, const AttnExtra ex,
+                      const __grid_constant__ CUtensorMap tb) {
   using L = Smem<D>;
+  using BT = typename L::Bias;
   constexpr int BK = L::BK;
   constexpr int NO = D / 2;          // output accumulator floats per thread
   constexpr int NS = BK / 2;         // score accumulator floats per thread
@@ -434,7 +455,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 32);          // the producer warp's lanes
+      mbar_init(full(s), full_count<BIAS>(ex));  // the producer warp's lanes
       mbar_init(empty(s), NCONS);      // every consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -468,7 +489,9 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       }
       if (lane == 0) {
         tile_idx[stage] = kb;
-        mbar_arrive_tx(full(stage), KV_BYTES);
+        mbar_arrive_tx(full(stage),
+                       KV_BYTES + (BIAS && ex.bias_tma ? bias_tx_bytes<BT>(ex)
+                                                       : 0u));
 #pragma unroll
         for (int hf = 0; hf < D / 64; ++hf) {
           const int c0 = h * D + 64 * hf;
@@ -479,6 +502,10 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       } else {
         mbar_arrive(full(stage));
       }
+      // BIAS: the tile's bias beside its K and V, on the same barrier
+      if constexpr (BIAS)
+        stage_bias<BT>(base + L::bias_off + stage * bias_stage_bytes<BT>(ex),
+                       &tb, full(stage), ex, b, h, q0, k0, Sq, Sk, lane);
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
@@ -486,7 +513,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     }
     mbar_wait(empty(stage), phase ^ 1);   // the end marker
     if (lane == 0) tile_idx[stage] = -1;
-    mbar_arrive(full(stage));
+    end_arrive<BIAS>(full(stage), ex);
   } else {
     // -- consumer warpgroups: 64 query rows each --
     const int t = lane & 3;
@@ -522,12 +549,11 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
       // DROP: the tile's keep bits while S is in flight, on the integer
       // pipe beside the tensor cores, every column block (skipping those
-      // past the causal diagonal cost more than it saved; PERF.md). With
-      // BIAS they are drawn after the softmax instead: there they fill the
-      // issue slots of the warps that wait on the bias's reads (drawn
-      // here, the +bias+drop row ran 1.3-1.5x slower; PERF.md).
+      // past the causal diagonal cost more than it saved; PERF.md), with
+      // BIAS too: its tile waits in shared memory, so no warp stalls on
+      // device memory after the wait.
       [[maybe_unused]] FragKeep<BK> kept;
-      if constexpr (DROP && !BIAS) {
+      if constexpr (DROP) {
         kept = frag_keep<BK, false>(ex, (uint32_t)b * H + h, row0, k0, t);
         fence_keep(kept);
       }
@@ -536,20 +562,26 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
       // scale to log2 units; mask only where the tile can hold a masked
       // pair (the causal diagonal, the ragged tail, segment ids). BIAS
-      // (never with SEG): every tile, each entry plus its bias. The
-      // instantiations without it compile the branches below as before.
+      // (never with SEG): every tile, each entry plus its bias from the
+      // stage's tile (a float2 per two adjacent keys). The instantiations
+      // without it compile the branches below as before.
       if constexpr (BIAS) {
+        const int bp = ex.sq ? BT::pitch : 0;
+        const float* brow = bias_tile<BT>(smem + L::bias_off, stage, ex) +
+                            (row0 - q0) * bp + 2 * t;
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int key = k0 + 8 * j + 2 * t + e;
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = row0 + 8 * hr;
+            const float2 bv =
+                *reinterpret_cast<const float2*>(brow + 8 * hr * bp + 8 * j);
 #pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              const int row = row0 + 8 * hr;
+            for (int e = 0; e < 2; ++e) {
+              const int key = k0 + 8 * j + 2 * t + e;
               const bool ok = key < Sk && row < Sq && (!causal || key <= row);
               float& x = s[4 * j + 2 * hr + e];
-              x = ok ? fmaf(x, scale2, bias2(ex, b, h, row, key)) : kNegInf;
+              x = ok ? fmaf(x, scale2, bias_log2(e ? bv.y : bv.x)) : kNegInf;
             }
           }
         }
@@ -606,21 +638,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < NO; ++i) acc[i] *= corr[(i >> 1) & 1];
 
-      // DROP: P.V takes the kept p (the row sums above are undropped).
-      // With BIAS the bits are drawn here, a 16-key block at a time and
-      // applied at once, each call in a branch of its own (drawn
-      // branch-free, or all of the tile's at once, the kernel spilled).
-      if constexpr (DROP && BIAS) {
-#pragma unroll
-        for (int u = 0; u < BK / 16; ++u) {
-          const FragKeep<16> k16 = frag_keep<16, false>(
-              ex, (uint32_t)b * H + h, row0, k0 + 16 * u, t,
-              [&](int c) { return c < Sk; });
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-            if (!k16[n]) s[8 * u + n] = 0.f;
-        }
-      } else if constexpr (DROP) {
+      // DROP: P.V takes the kept p (the row sums above are undropped)
+      if constexpr (DROP) {
 #pragma unroll
         for (int i = 0; i < NS; ++i)
           if (!kept[i]) s[i] = 0.f;
@@ -681,21 +700,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int batch, int Sq,
                    int Sk, int H, int qs, int ks, int vs, float scale,
                    int causal, const AttnExtra& ex, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
+  CUtensorMap mq, mk, mv, mb;
   cudaError_t err = make_map(&mq, q, H * D, Sq, batch, qs, BQ);
   if (err == cudaSuccess) err = make_map(&mk, k, H * D, Sk, batch, ks, bk<D>());
   if (err == cudaSuccess) err = make_map(&mv, v, H * D, Sk, batch, vs, bk<D>());
+  if (err == cudaSuccess)
+    err = bias_map<BIAS, typename Smem<D>::Bias>(&mb, ex, batch, H, Sq, Sk);
   if (err != cudaSuccess) return err;
-  constexpr int smem = Smem<D>::bytes;
+  using L = Smem<D>;
+  const int smem = launch_smem<L, BIAS>(ex);
   err = cudaFuncSetAttribute(flash_fwd_kernel_sm90<D, SEG, DROP, BIAS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             BIAS ? L::bias_bytes : L::bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, batch);
   flash_fwd_kernel_sm90<D, SEG, DROP, BIAS><<<grid, NT, smem, stream>>>(
       mq, mk, mv, static_cast<const int*>(seg_q),
       static_cast<const int*>(seg_k), static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Sq, Sk, H,
-      scale * kLog2e, causal, ex);
+      scale * kLog2e, causal, ex, mb);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (flash_fwd.cuh, flash_bwd.cuh): mbarriers, TMA tile
+// (flash_fwd.cuh, flash_bwd.cuh): mbarriers, TMA tile and cp.async
 // copies and their tensor maps, and warpgroup matrix products (wgmma) with
-// bf16 operands and fp32 accumulators.
+// bf16 operands and fp32 accumulators. The BIAS tile's staging is
+// philox.cuh's.
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes) by some
 // rows, 128-byte swizzled, each starting on 1024 bytes (the swizzle's
@@ -86,6 +87,33 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one 4-byte asynchronous copy from device to shared memory
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// an arrival on `bar` once this thread's earlier cp.async copies have
+// landed, counted against the barrier's expected arrivals (noinc)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading

@@ -71,17 +71,17 @@ _SIGNATURES = {
     # q, k, v, do, lse, delta, seg_q, seg_k, dk, dv, then as dq_seg
     "flash_attention_bwd_dkv_seg": [_P] * 10 + [_I] * 9 + [_F, _I, _I, _P],
     # dropout or a bias: q, k, v, seg_q, seg_k, bias, o, lse, batch, sq,
-    # sk, heads, head_dim, q_rs, k_rs, v_rs, the bias's four strides,
-    # scale, causal, dropout_p, seed, offset, dtype, stream
-    "flash_attention_fwd_ext": ([_P] * 8 + [_I] * 12
+    # sk, heads, head_dim, q_rs, k_rs, v_rs, the bias's four strides and
+    # its route, scale, causal, dropout_p, seed, offset, dtype, stream
+    "flash_attention_fwd_ext": ([_P] * 8 + [_I] * 13
                                 + [_F, _I, _F, _U, _U, _I, _P]),
     # q, k, v, do, lse, delta, seg_q, seg_k, bias, dq, batch, sq, sk,
-    # heads, head_dim, q_rs, k_rs, v_rs, do_rs, the bias's four strides,
-    # then as the forward
-    "flash_attention_bwd_dq_ext": ([_P] * 10 + [_I] * 13
+    # heads, head_dim, q_rs, k_rs, v_rs, do_rs, the bias's four strides and
+    # its route, then as the forward
+    "flash_attention_bwd_dq_ext": ([_P] * 10 + [_I] * 14
                                    + [_F, _I, _F, _U, _U, _I, _P]),
     # as dq_ext with dk, dv in place of dq
-    "flash_attention_bwd_dkv_ext": ([_P] * 11 + [_I] * 13
+    "flash_attention_bwd_dkv_ext": ([_P] * 11 + [_I] * 14
                                     + [_F, _I, _F, _U, _U, _I, _P]),
 }
 

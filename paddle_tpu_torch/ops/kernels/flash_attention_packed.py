@@ -493,17 +493,36 @@ def bias_view(bias, b, nh, sq, sk):
     return bias.to(torch.float32).expand(b, nh, sq, sk)
 
 
+def bias_route(bias):
+    """How the bf16 kernels stage a ``bias_view``'s tiles in shared
+    memory: ``(strides, tma)``. ``strides`` are its four element strides
+    with 0 on every dimension of size 1 as well as on a broadcast one
+    (the kernels read coordinate 0 there; a query stride of 0 stages one
+    row of keys, read at a row pitch of 0). ``tma`` is whether a TMA box
+    can copy the tiles: a key stride of 1, a 16-byte-aligned base and the
+    other strides multiples of 16 bytes. Any other layout (a transposed or
+    column-broadcast mask, rows not a multiple of 16 bytes) takes the
+    producer warp's cp.async route; neither copies the mask on the
+    host."""
+    strides = tuple(0 if n == 1 else st
+                    for n, st in zip(bias.shape, bias.stride()))
+    tma = (strides[3] == 1 and bias.data_ptr() % 16 == 0
+           and all(st % 4 == 0 for st in strides[:3]))
+    return strides, tma
+
+
 def _ext_args(bias, dropout_p, rng):
     """The DROP and BIAS entries' extra arguments: a ``bias_view``'s
-    pointer (null without one) and its four element strides, then
-    ``dropout_p``, seed and offset."""
-    ptr, strides = None, (0, 0, 0, 0)
+    pointer (null without one), its layout (four element strides and the
+    copy route, ``bias_route``), then ``dropout_p``, seed and offset."""
+    ptr, strides, tma = None, (0, 0, 0, 0), False
     if bias is not None:
-        ptr, strides = bias.data_ptr(), bias.stride()
+        ptr = bias.data_ptr()
+        strides, tma = bias_route(bias)
         if max(strides) >= 2 ** 31:
             raise ValueError(f"mask stride {max(strides)} exceeds int32")
     seed, offset = (int(x) % 2 ** 64 for x in (rng or (0, 0)))
-    return ptr, strides, float(dropout_p), seed, offset
+    return ptr, (*strides, int(tma)), float(dropout_p), seed, offset
 
 
 def _drop_args(dropout_p, rng):
@@ -539,11 +558,11 @@ def _launch_fwd(what, q, k, v, nh, causal, scale, seg=None, bias=None,
             entry = "flash_attention_fwd_ext"
             ids = (None, None) if seg is None else tuple(
                 t.data_ptr() for t in seg)
-            ptr, strides, p, seed, offset = _ext_args(bias, dropout_p, rng)
+            ptr, layout, p, seed, offset = _ext_args(bias, dropout_p, rng)
             rc = lib.flash_attention_fwd_ext(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), *ids, ptr,
                 o.data_ptr(), lse.data_ptr(), b, sq, sk, nh, d, q_rs, k_rs,
-                v_rs, *strides, float(scale), int(bool(causal)), p, seed,
+                v_rs, *layout, float(scale), int(bool(causal)), p, seed,
                 offset, code, stream)
         elif seg is None:
             entry = "flash_attention_fwd_packed"
@@ -596,10 +615,10 @@ def _launch_bwd(what, kind, q, k, v, do, lse, delta, nh, causal, scale,
             int(bool(causal)))
     if bias is not None or dropout_p:
         entry += "_ext"
-        ptr, strides, p, seed, offset = _ext_args(bias, dropout_p, rng)
+        ptr, layout, p, seed, offset = _ext_args(bias, dropout_p, rng)
         ptrs += ([None, None] if seg is None
                  else [ids.data_ptr() for ids in seg]) + [ptr]
-        dims = (*dims[:9], *strides, *dims[9:], p, seed, offset)
+        dims = (*dims[:9], *layout, *dims[9:], p, seed, offset)
     elif seg is not None:
         entry += "_seg"
         ptrs += [ids.data_ptr() for ids in seg]

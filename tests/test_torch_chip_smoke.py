@@ -220,6 +220,45 @@ def test_build_log_names_each_kernel():
     assert cs.kernel_entry(typed).startswith("entry _ZN12")
 
 
+def test_ab_runs_feature_rows_in_each_tree_in_turns(monkeypatch, tmp_path):
+    """``--ab``: every tree is built first, then ``feature_rows`` runs in
+    each tree in the order given; each run's device ms lands under its
+    tree, and each tree's ptxas log is read for its registers."""
+    ns, name = "_GLOBAL__N__1a2b3c4d_13_flash_bwd_cu", "flash_dq_kernel_sm90"
+    log = tmp_path / "lib.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN"
+        f"{len(ns)}{ns}4sm90{len(name)}{name}ILi64ELb0ELb1ELb1EEEvv' for "
+        "'sm_90a'\n    0 bytes stack frame, 4 bytes spill stores, 4 bytes "
+        "spill loads\nptxas info    : Used 128 registers, used 1 barriers\n")
+    built, runs = [], []
+
+    class Build:
+        def __init__(self, cmd, cwd, **kw):
+            built.append(cwd)
+            self.returncode = 0
+
+        def communicate(self):
+            return str(tmp_path / "lib.so") + "\n", None
+
+    def run(cmd, cwd, **kw):
+        runs.append(cwd)
+        rows = {"K-BDQ+bias": {"device_ms": 0.01 * len(runs), "ms": 0.1}}
+        return type("R", (), {"returncode": 0, "stderr": "",
+                              "stdout": "ROWS " + cs.json.dumps(rows)})()
+
+    monkeypatch.setattr(cs.subprocess, "Popen", Build)
+    monkeypatch.setattr(cs.subprocess, "run", run)
+    got = cs.ab_feature_rows({"parent": "p", "change": "c"},
+                             ["parent", "change", "change", "parent"])
+    assert built == ["p", "c"] and runs == ["p", "c", "c", "p"]
+    assert got == {"K-BDQ+bias": {"parent": [0.01, 0.04],
+                                  "change": [0.02, 0.03]}}
+    usage = cs.ptxas_usage(log.read_text())
+    assert usage == {"flash_dq_kernel_sm90<64, false, true, true>": {
+        "registers": 128, "spill_stores": 4, "spill_loads": 4}}
+
+
 def test_kernel_entry_takes_the_innermost_name():
     """Digits in nvcc's anonymous-namespace tag that read as a length
     prefix reaching the template arguments do not name the kernel: the
@@ -1109,7 +1148,9 @@ def test_sass_check_counts_kernels_by_drop(monkeypatch, tmp_path):
     """``sass_digests`` keys each kernel by its template arguments and
     hashes its instructions alone (addresses, encodings and the
     anonymous-namespace tag cut out); ``check_sass`` counts the kernels
-    without DROP that equal the reference and the DROP ones that moved."""
+    with neither DROP nor BIAS that equal the reference and the DROP or
+    BIAS ones that moved (here the DROP forward; the BIAS dK/dV kept its
+    body)."""
     listings = {"ref": _sass_listing("1a2b3c4d", ["IMAD.HI.U32 R2, R3"]),
                 "new": _sass_listing("99887766", ["IMAD.HI.U32 R2, R4"])}
     monkeypatch.setattr(cs._build, "cuda_tool", lambda name="nvcc": name)
@@ -1127,5 +1168,7 @@ def test_sass_check_counts_kernels_by_drop(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "SASS_REFERENCE", path)
     monkeypatch.setattr(cs, "nvcc_version", lambda: "v")
     res = cs.check_sass(cs.sass_digests("new"))
-    assert (res["plain"], res["plain_equal"], res["drop"],
-            res["drop_changed"], res["plain_differ"]) == (3, 3, 1, 1, [])
+    assert (res["plain"], res["plain_equal"], res["feature"],
+            res["feature_changed"], res["plain_differ"]) == (2, 2, 2, 1, [])
+    assert res["feature_same"] == [
+        "flash_dkv_kernel_sm90<64, true, false, true>"]

@@ -12,7 +12,10 @@ thread holds in an m64nNk16 accumulator fragment. Here:
   queries as rows (the forward, dQ) and with keys as rows (dK/dV), at
   the kernels' tiles;
 - ``frag_keep``'s placement of the four words, walked over every tile of
-  a ragged problem with its skip rule, against ``keep_mask``.
+  a ragged problem, against ``keep_mask``; for dQ
+  along its schedule (the next tile's bits drawn under the current
+  tile's dQ product, the first tile's and one's after a tile skipped for
+  its segment ids at their turn).
 """
 import pytest
 import torch
@@ -111,40 +114,33 @@ def test_fragment_entries_group_by_four_per_counter(what, n, r0, c0,
             assert n0 % 8 in (0, 1), (what, tid, g)
 
 
-def _kernel_mask(rng, p, b, h, sq, sk, causal, keys_by_row, rows_blk, n):
-    """The keep bits a kernel draws, walked tile by tile as ``frag_keep``
-    places them (and skips them: ``live``), scattered back to (B, H, Sq,
-    Sk); -1 where no call was made."""
+def _tile_calls(bh, rb, rows_blk, cb, n, keys_by_row):
+    """``frag_keep``'s calls for one tile (rows ``rb ..``, columns ``cb
+    ..``), every column block: ``[(bh, [(i, j) of words x, y, z, w])]``;
+    entries past Sq or Sk are drawn and dropped by ``_scatter``."""
+    calls = []
+    for wgr in range(0, rows_blk, 64):
+        for tid in range(128):
+            w, lane = tid // 32, tid % 32
+            t = lane % 4
+            r0 = rb + wgr + 16 * w + lane // 4
+            for u in range(n // 16):
+                for e in range(2):
+                    c = cb + 16 * u + 2 * t + e
+                    if keys_by_row:       # r0 a key, c a query
+                        ij = [(c, r0), (c, r0 + 8),
+                              (c + 8, r0), (c + 8, r0 + 8)]
+                    else:
+                        ij = [(r0, c), (r0, c + 8),
+                              (r0 + 8, c), (r0 + 8, c + 8)]
+                    calls.append((bh, ij))
+    return calls
+
+
+def _scatter(rng, p, b, h, sq, sk, calls):
+    """The calls' bits scattered to (B, H, Sq, Sk); -1 where no call was
+    made."""
     k0, k1, off = philox.key_words(rng)
-    nr, nc = (sk, sq) if keys_by_row else (sq, sk)
-    calls = []          # (bh, [(i, j) of words x, y, z, w])
-    for bh in range(b * h):
-        for rb in range(0, nr, rows_blk):
-            for cb in range(0, nc, n):
-                if causal and not keys_by_row and cb > rb + rows_blk - 1:
-                    continue            # tiles the kernels never visit
-                if causal and keys_by_row and cb + n - 1 < rb:
-                    continue
-                for wgr in range(0, rows_blk, 64):
-                    for tid in range(128):
-                        w, lane = tid // 32, tid % 32
-                        t = lane % 4
-                        r0 = rb + wgr + 16 * w + lane // 4
-                        for u in range(n // 16):
-                            for e in range(2):
-                                c = cb + 16 * u + 2 * t + e
-                                if keys_by_row:       # r0 a key, c a query
-                                    live = r0 < sk and c < sq and (
-                                        not causal or c + 8 >= r0)
-                                    ij = [(c, r0), (c, r0 + 8),
-                                          (c + 8, r0), (c + 8, r0 + 8)]
-                                else:
-                                    live = r0 < sq and c < sk and (
-                                        not causal or c <= r0 + 8)
-                                    ij = [(r0, c), (r0, c + 8),
-                                          (r0 + 8, c), (r0 + 8, c + 8)]
-                                if live:
-                                    calls.append((bh, ij))
     bh = torch.tensor([c[0] for c in calls])
     i = torch.tensor([c[1][0][0] for c in calls])
     j = torch.tensor([c[1][0][1] for c in calls])
@@ -159,23 +155,87 @@ def _kernel_mask(rng, p, b, h, sq, sk, causal, keys_by_row, rows_blk, n):
     return out.reshape(b, h, sq, sk)
 
 
+def _kernel_mask(rng, p, b, h, sq, sk, causal, keys_by_row, rows_blk, n):
+    """The keep bits a kernel draws, walked tile by tile as ``frag_keep``
+    places them, scattered back to (B, H, Sq, Sk); -1 where no call was
+    made."""
+    nr, nc = (sk, sq) if keys_by_row else (sq, sk)
+    calls = []          # (bh, [(i, j) of words x, y, z, w])
+    for bh in range(b * h):
+        for rb in range(0, nr, rows_blk):
+            for cb in range(0, nc, n):
+                if causal and not keys_by_row and cb > rb + rows_blk - 1:
+                    continue            # tiles the kernels never visit
+                if causal and keys_by_row and cb + n - 1 < rb:
+                    continue
+                calls += _tile_calls(bh, rb, rows_blk, cb, n, keys_by_row)
+    return _scatter(rng, p, b, h, sq, sk, calls)
+
+
+def _dq_mask(rng, p, b, h, sq, sk, causal, skipped):
+    """dQ's schedule (``flash_dq_kernel_sm90``): per 64-row q-block, the
+    64-key tiles up to ``kend`` that the producer does not skip (``(q0,
+    k0)`` in ``skipped`` stand for tiles its segment-id test drops). A
+    tile uses the bits drawn at its turn when they were not drawn for it
+    under the previous tile's dQ product (the first tile, a tile after a
+    skipped one), else those; after each tile's product is issued the
+    next tile's bits are drawn when it lies below ``kend``. Returns the
+    bits the visited tiles used, scattered, and how each tile got them."""
+    calls, how = [], []
+    for bh in range(b * h):
+        for q0 in range(0, sq, 64):
+            kend = min(sk, q0 + 64) if causal else sk
+            kept_k0, pending = -1, None
+            for k0 in range(0, kend, 64):
+                if (q0, k0) in skipped:
+                    continue
+                if k0 != kept_k0:
+                    how.append("at its turn")
+                    used = (k0, _tile_calls(bh, q0, 64, k0, 64, False))
+                else:
+                    how.append("under the last product")
+                    used = pending
+                assert used[0] == k0            # the bits are this tile's
+                calls += used[1]
+                kept_k0 = k0 + 64
+                if kept_k0 < kend:
+                    pending = (kept_k0, _tile_calls(bh, q0, 64, kept_k0, 64,
+                                                    False))
+    return _scatter(rng, p, b, h, sq, sk, calls), how
+
+
 @pytest.mark.parametrize("kernel,causal", [("fwd", True), ("dkv", True),
-                                           ("dkv", False)])
+                                           ("dkv", False), ("dq", True),
+                                           ("dq", False)])
 def test_frag_keep_walk_matches_keep_mask(kernel, causal):
     """Every visible entry of a ragged causal problem gets the bit
-    ``keep_mask`` gives it, from the tile that holds it; no entry is
-    drawn twice, and a skipped call covers only masked entries."""
+    ``keep_mask`` gives it, from the tile that holds it, and no entry is
+    drawn twice (every column block of a visited tile is drawn). dQ walks
+    its schedule with one key tile of the last q-block skipped (as its
+    segment-id test would skip it): a first tile's bits drawn at its
+    turn, a next tile's under the previous product, the tile after the
+    skip at its turn again."""
     b, h, s = 1, 2, 150
     sq, sk = (s, s) if causal else (90, 150)
     rng = (11, 13)
+    skipped = ()
     if kernel == "fwd":     # d 64: 128-row q-blocks, BK 128
         got = _kernel_mask(rng, P, b, h, sq, sk, causal, False, 128, 128)
-    else:                   # 64-key blocks, QT 64
+    elif kernel == "dkv":   # 64-key blocks, QT 64
         got = _kernel_mask(rng, P, b, h, sq, sk, causal, True, 64, 64)
+    else:                   # 64-row q-blocks, 64-key tiles
+        skipped = ((128 if causal else 64, 64),)
+        got, how = _dq_mask(rng, P, b, h, sq, sk, causal, skipped)
+        assert how[:1] == ["at its turn"]
+        assert "under the last product" in how
+        # the tile at 128 follows the skipped one in the last q-block
+        assert how[-1] == "at its turn"
     want = philox.keep_mask(rng, P, (b, h, sq, sk))
     vis = torch.ones(sq, sk, dtype=torch.bool)
     if causal:
         vis = vis.tril()
+    for q0, k0 in skipped:  # entries the segment ids mask
+        vis[q0:q0 + 64, k0:k0 + 64] = False
     vis = vis.expand(b, h, sq, sk)
     assert (got[vis] >= 0).all()
     assert torch.equal(got[vis].bool(), want[vis])
