@@ -33,7 +33,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    chunks' edges over poisoned page tables (``check_paged_edges``),
    K-PACK, K-DQ and K-DKV at the shapes of phases 27 and 28's ring blocks
    (``ring_block_shapes``: full attention L x 2L and 2L x L among
-   them, in the sub-phases' dtypes); timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
+   them, in the sub-phases' dtypes), K-SEG,
+   K-SDQ and K-SDKV at the shapes of phase 27's packed rows over a mesh
+   (``mesh_seg_shapes``); timed rows at the shapes the LLaMA phases launch (``LLAMA_ROWS``, d
    128, 32 heads); and, for phase 29's full attention, K-SEG, K-SDQ and
    K-SDKV with key-side ids at their tiles' edges (``check_keyside_edges``:
    Sq != Sk, ids on one side only, rows that see no key) and timed at
@@ -249,7 +251,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
     not a multi-card rate). Every rank's K-PACK, K-DQ and K-DKV launches
     equal ``ring_launches`` (derived from the rings' loops, printed
     first), the zigzag ring runs its L x 2L and 2L x L full blocks, and
-    every rank's live state bytes equal ``plan_state_memory``'s.
+    every rank's live state bytes equal ``plan_state_memory``'s;
+    (e) GPT-345M's width at 2 layers, ``dp=2, mp=2``,
+    ``packed_sequences=True``, 4 x 1024 rows packed by ``io.packing`` from
+    documents of 32-1024 tokens (each dp half holding a different number
+    of real labels), K-SEG, K-SDQ and K-SDKV over each rank's 8 heads;
+    (f) (a) with ``ring_attention=False`` (contiguous shards, the naive
+    ring), also held to (a)'s zigzag ring losses at 1e-5; (g) (c) with
+    ``ring_attention=False``, held to (c)'s losses at 1e-5; each 2 fp32
+    steps at (a)'s gates; (h) (e) in bf16 for 5 steps: the loss falls,
+    step ms and real tokens/s (4 ranks on one card). Each rank's
+    launches equal ``world_launches`` at its rank of ``"sep"`` ((e), (h)
+    ``mesh_launches``; (f), (g) the naive ring's 1 + r blocks a layer on
+    rank r of ``"sep"``).
 
 28. pipeline parallelism: phase 27's world of 4 ranks on the card, over
     the ``"pipe"`` axis: (a) GPT-345M's width at 4 of 24 layers,
@@ -1948,6 +1962,13 @@ def kernel_checks(peaks) -> dict:
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
                                            r["max_abs_err"])
     lap("ring blocks", t2)
+    # phase 27's packed rows over a mesh: a rank's rows and heads
+    for dt, b, s, nh, d in mesh_seg_shapes():
+        for name, r in check_seg_train(ring_rng, getattr(torch, dt), b, s,
+                                       nh, d, None, timed=False).items():
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                           r["max_abs_err"])
+    lap("mesh packed rows", t2)
     for name, err in check_paged_edges().items():
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
     lap("paged edges", t2)
@@ -3964,6 +3985,7 @@ def telemetry_serve(counts, obs_dir, n_req=64, trials=2, ratio_req=16,
         "profile": {"code": code, "s": state["profile"]["s"],
                     "wait_s": state["profile"].get("wait_s"),
                     "device_kernels": prof.get("device_kernels"),
+                    "markers": prof.get("markers"),
                     "decode_ticks_inside": ticks_inside,
                     "k_dec_events": k_dec_events},
         "scrapes": {r: len(c) for r, c in scraper.codes.items()}})
@@ -4739,7 +4761,19 @@ MULTIRANK = {
     "c": ("llama", 1, dict(sep=2, sharding=2, zero_stage=3), (2, 2048),
           "float32", 2),
     "d": ("gpt", 1, dict(mp=2, sep=2), (2, 1024), "bfloat16", 5),
+    "e": ("gpt", 2, dict(dp=2, mp=2, packed_sequences=True), (4, 1024),
+          "float32", 2),
+    "f": ("gpt", 1, dict(mp=2, sep=2, ring_attention=False), (2, 1024),
+          "float32", 2),
+    "g": ("llama", 1, dict(sep=2, sharding=2, zero_stage=3,
+                           ring_attention=False), (2, 2048), "float32", 2),
+    "h": ("gpt", 2, dict(dp=2, mp=2, packed_sequences=True), (4, 1024),
+          "bfloat16", 5),
 }
+# the sub-phases held to another's losses (the ring's) at 1e-5
+SAME_LOSSES = {"f": "a", "g": "c"}
+# phase 27's packed rows: documents of 32..1024 tokens (numpy seed 27)
+PACKED_DOCS = (32, 1024)
 
 
 # phase 28's sub-phases, in the same form: the pipelined layouts
@@ -4806,16 +4840,45 @@ def pipe_launches(layers, pp, vpp, micro_batches, sep, remat, steps,
     return {"K-PACK": passes * fwd, "K-DQ": passes, "K-DKV": passes}
 
 
-def world_launches(layers, layout, steps) -> dict:
-    """:func:`pipe_launches` for a pipelined layout, else
-    :func:`ring_launches`."""
+def _naive_ring(layout) -> bool:
+    """``sep > 1`` with ``ring_attention=False``: contiguous shards, the
+    naive ring (``parallel/hybrid.py``'s ``_ring_for``)."""
+    return layout.get("sep", 1) > 1 and not layout.get("ring_attention",
+                                                       True)
+
+
+def world_launches(layers, layout, steps, sep_rank=0) -> dict:
+    """The launches rank ``sep_rank`` of ``"sep"`` makes: :func:`mesh_
+    launches` for packed rows, :func:`ring_launches` on the zigzag ring,
+    :func:`pipe_launches` for a pipelined layout; on the naive ring
+    (``ring_attention=False``) rank r runs the causal diagonal block and
+    one full block for each earlier shard, 1 + r blocks a layer where a
+    layer without a ring runs 1."""
     pp = layout.get("pp", 1)
+    if pp == 1 and layout.get("packed_sequences"):
+        return mesh_launches(layers, layout, steps)
+    naive = _naive_ring(layout)
+    sep = 1 if naive else layout.get("sep", 1)
     if pp == 1:
-        return ring_launches(layers, layout.get("sep", 1), steps)
-    return pipe_launches(layers, pp, layout.get("vpp", 1),
-                         layout.get("micro_batches") or 2 * pp,
-                         layout.get("sep", 1), layout.get("remat", True),
-                         steps, layout.get("pp_schedule", "1f1b"))
+        per = ring_launches(layers, sep, steps)
+    else:
+        per = pipe_launches(layers, pp, layout.get("vpp", 1),
+                            layout.get("micro_batches") or 2 * pp, sep,
+                            layout.get("remat", True), steps,
+                            layout.get("pp_schedule", "1f1b"))
+    blocks = 1 + sep_rank if naive else 1
+    return {k: v * blocks for k, v in per.items()}
+
+
+def mesh_launches(layers, layout, steps) -> dict:
+    """The launches a rank makes in ``steps`` steps on packed rows,
+    derived from the code (``parallel/hybrid.py``): each layer runs one
+    K-SEG, K-SDQ and K-SDKV over the rank's heads. The per-layer
+    ``remat`` policy runs each forward twice, once without recompute or
+    where it saves the kernel's outputs (:func:`_remat_forwards`)."""
+    n = steps * layers
+    return {"K-SEG": n * _remat_forwards(layout.get("remat", True)),
+            "K-SDQ": n, "K-SDKV": n}
 
 
 def ring_launches(layers, sep, steps, remat=True) -> dict:
@@ -4836,8 +4899,9 @@ def ring_block_shapes(runs=None) -> list:
     phases 27 and 28's), as ``(dtype, B, Sq, Sk, NH, d, causal)`` at a
     rank's batch (a microbatch's rows in a pipeline) and heads and the
     zigzag chunk L = S / (2 sep): the diagonal L x L causal, the L x L
-    full block of t = 0, step_hi's L x 2L and step_lo's 2L x L (phase 2
-    holds each to its plain version)."""
+    full block of t = 0, step_hi's L x 2L and step_lo's 2L x L; on the
+    naive ring, at the shard c = S / sep, the c x c causal diagonal and
+    the c x c full block (phase 2 holds each to its plain version)."""
     shapes = set()
     specs = (runs.values() if runs else
              [*MULTIRANK.values(), *PIPELINE.values()])
@@ -4851,10 +4915,31 @@ def ring_block_shapes(runs=None) -> list:
         if pp > 1:
             lb //= layout.get("micro_batches") or 2 * pp
         nh = mcfg.num_heads // layout.get("mp", 1)
-        L = s // sep // 2
-        for sq, sk, causal in ((L, L, True), (L, L, False),
-                               (L, 2 * L, False), (2 * L, L, False)):
+        if _naive_ring(layout):
+            c = s // sep
+            blocks = ((c, c, True), (c, c, False))
+        else:
+            L = s // sep // 2
+            blocks = ((L, L, True), (L, L, False), (L, 2 * L, False),
+                      (2 * L, L, False))
+        for sq, sk, causal in blocks:
             shapes.add((dtype, lb, sq, sk, nh, mcfg.head_dim, causal))
+    return sorted(shapes)
+
+
+def mesh_seg_shapes(runs=None) -> list:
+    """The packed sub-phases' K-SEG, K-SDQ and K-SDKV shapes (``runs``,
+    else phase 27's), as ``(dtype, B, S, NH, d)`` at a rank's rows and
+    heads (phase 2 holds each to its plain version on rows packed like
+    the sub-phases')."""
+    shapes = set()
+    for family, _, layout, (b, s), dtype, _ in (runs or MULTIRANK).values():
+        if not layout.get("packed_sequences"):
+            continue
+        mcfg = _model_of(family, 1)
+        lb = b // (layout.get("dp", 1) * layout.get("sharding", 1))
+        shapes.add((dtype, lb, s, mcfg.num_heads // layout.get("mp", 1),
+                    mcfg.head_dim))
     return sorted(shapes)
 
 
@@ -4867,6 +4952,26 @@ def _init_path(work, family, layers) -> str:
     return os.path.join(work, f"init-{family}-{layers}.pt")
 
 
+def multirank_batch(layout, seed, b, s, vocab) -> tuple:
+    """A sub-phase's global batch, the arguments of ``step``: random
+    tokens with their shifted labels (:func:`train_batch`, numpy
+    ``seed``) or, for packed rows, ``b`` rows packed by ``io.packing``
+    from documents of ``PACKED_DOCS`` tokens (:func:`packed_rows`, the
+    same seed): tokens, labels, segment ids and positions."""
+    if layout.get("packed_sequences"):
+        return packed_rows(seed, b, s, *PACKED_DOCS, vocab)[0]
+    return train_batch(np.random.RandomState(seed), b, s, vocab)
+
+
+def _reference_key(spec) -> tuple:
+    """What a sub-phase's single-rank reference depends on: sub-phases
+    that differ only in their mesh share one."""
+    family, layers, layout, batch, dtype, steps = spec
+    return (family, layers, tuple(batch), dtype, steps,
+            layout.get("zero_stage", 1), layout.get("remat", True),
+            bool(layout.get("packed_sequences")))
+
+
 def multirank_trainer(spec, work):
     """A sub-phase's single-device trainer on the card, its weights
     written to ``work/init-<family>-<layers>.pt`` (once a model) for the
@@ -4875,7 +4980,9 @@ def multirank_trainer(spec, work):
     t = hybrid.HybridParallelTrainer(
         _model_of(family, layers),
         multirank_config(dtype, zero_stage=layout.get("zero_stage", 1),
-                         remat=layout.get("remat", True)),
+                         remat=layout.get("remat", True),
+                         packed_sequences=layout.get("packed_sequences",
+                                                     False)),
         device=DEV)
     init = _init_path(work, family, layers)
     if not os.path.exists(init):
@@ -4891,11 +4998,10 @@ def multirank_reference(spec, work, seed=27) -> dict:
     family, layers, layout, (b, s), dtype, steps = spec
     t0 = time.perf_counter()
     t = multirank_trainer(spec, work)
-    tokens, labels = train_batch(np.random.RandomState(seed), b, s,
-                                 t.model_cfg.vocab_size)
+    batch = multirank_batch(layout, seed, b, s, t.model_cfg.vocab_size)
     losses, gnorms = [], []
     for _ in range(steps):
-        losses.append(float(t.step(tokens, labels)))
+        losses.append(float(t.step(*batch)))
         gnorms.append(float(t.last_grad_norm))
     params = dict(flatten(t.full_params()))
     del t
@@ -4910,7 +5016,10 @@ def _count_plain_versions():
     from paddle_tpu_torch.ops.kernels import flash_attention_packed as fp
 
     for name, ref in (("K-PACK", "packed_attention_ref"),
-                      ("K-DQ", "packed_dq_ref"), ("K-DKV", "packed_dkv_ref")):
+                      ("K-DQ", "packed_dq_ref"), ("K-DKV", "packed_dkv_ref"),
+                      ("K-SEG", "segment_attention_ref"),
+                      ("K-SDQ", "segment_dq_ref"),
+                      ("K-SDKV", "segment_dkv_ref")):
         orig = getattr(fp, ref)
 
         def counted(*a, _orig=orig, _name=name, **kw):
@@ -4994,8 +5103,7 @@ def multirank_worker(spec_json: str) -> int:
         build_s = time.perf_counter() - t0
         live = sum(x.numel() * x.element_size()
                    for _, x in flatten({"p": t.params, "o": t.opt}))
-        tokens, labels = train_batch(np.random.RandomState(spec["seed"]), b,
-                                     s, mcfg.vocab_size)
+        batch = multirank_batch(layout, spec["seed"], b, s, mcfg.vocab_size)
         K.reset_launch_counts()
         ra.BLOCKS.clear()
         pipeline.reset_counters()
@@ -5004,7 +5112,7 @@ def multirank_worker(spec_json: str) -> int:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
-            loss = t.step(tokens, labels)
+            loss = t.step(*batch)
             losses.append(float(loss))
             gnorms.append(float(t.last_grad_norm))
             if dev.type == "cuda":
@@ -5016,6 +5124,7 @@ def multirank_worker(spec_json: str) -> int:
                "blocks": [[*k, v] for k, v in sorted(ra.BLOCKS.items())],
                "live_state_bytes": live,
                "stage": t.mesh.coords["pipe"],
+               "sep_rank": t.mesh.coords["sep"],
                "in_flight": pipeline.COUNTERS["in_flight_max"],
                "chunk_bytes_sent": pipeline.COUNTERS["chunk_bytes_sent"],
                "planned_bytes": plan_state_memory(mcfg, tcfg)[
@@ -5152,9 +5261,11 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
     t0 = time.perf_counter()
     derived = {}
     for name, (family, layers, layout, _, _, steps) in runs.items():
-        derived[name] = world_launches(layers, layout, steps)
+        # per rank of "sep" (the naive ring's blocks differ along it)
+        derived[name] = [world_launches(layers, layout, steps, r)
+                         for r in range(layout.get("sep", 1))]
         log(f"  ({name}) {family} {layers} layers {layout}: launches a rank "
-            f"derived from the schedules' loops: {derived[name]}")
+            f"derived from the code, by rank of \"sep\": {derived[name]}")
     compare = [k for k, r in runs.items() if r[4] == "float32"]
     work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
     spec = {"device": str(DEV), "threads": threads, "dir": work,
@@ -5171,8 +5282,12 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
         torch.cuda.empty_cache()
         started = start_world(spec, world)
         K.reset_launch_counts()
-        refs = {k: multirank_reference(runs[k], work, seed=phase)
-                for k in compare}
+        by_key = {}
+        for k in compare:       # sub-phases that share a reference run it once
+            key = _reference_key(runs[k])
+            if key not in by_key:
+                by_key[key] = multirank_reference(runs[k], work, seed=phase)
+        refs = {k: by_key[_reference_key(runs[k])] for k in compare}
         ref_launches = K.launch_counts()
         ranks, world_s = wait_world(started)
         got = {k: torch.load(os.path.join(work, f"params-{k}.pt"))
@@ -5183,7 +5298,8 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
         shutil.rmtree(work, ignore_errors=True)
     log(f"  {ranks[0]['mesh']}")
     log(f"  collectives: {ranks[0]['collectives']}")
-    ref_s = ", ".join(f"({k}) {r['s']:.1f}" for k, r in refs.items())
+    ref_s = ", ".join(f"({k}) {r['s']:.1f}" for k, r in refs.items()
+                      if k not in SAME_LOSSES)
     log(f"  references {ref_s} s; the world {world_s:.1f} s")
     # the single-rank references' launches stay out of ``counts`` (the
     # main path's): they are the comparison, not the ranks' run
@@ -5202,7 +5318,7 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
              "losses": per_rank[0]["losses"],
              "gnorms": per_rank[0]["gnorms"],
              "launches_per_rank": [r["launches"] for r in per_rank],
-             "derived_launches": derived[name],
+             "derived_launches": derived[name][0],
              "live_state_bytes": [r["live_state_bytes"] for r in per_rank],
              "planned_bytes": per_rank[0]["planned_bytes"],
              "build_s": max(r["build_s"] for r in per_rank),
@@ -5212,17 +5328,22 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
              "gather_save_s": max(r.get("gather_save_s", 0.0)
                                   for r in per_rank),
              "max_memory_allocated_gb": max(r["max_memory_allocated_gb"]
-                                            for r in per_rank)}
+                                            for r in per_rank),
+             "s": max(r["build_s"] + sum(r["step_s"])
+                      + r.get("gather_save_s", 0.0) for r in per_rank)}
+        if len(derived[name]) > 1 and derived[name][1] != derived[name][0]:
+            m["derived_launches_by_sep_rank"] = derived[name]
         counts[f"phase{phase}_{name}"] = {
             k: sum(r["launches"].get(k, 0) for r in per_rank)
             for k in K.KERNELS}
         for r, pr in enumerate(per_rank):
             if pr["losses"] != m["losses"]:
                 fails.append(f"({name}): rank {r}'s losses differ")
-            got_l = {k: pr["launches"][k] for k in derived[name]}
-            if got_l != derived[name]:
+            want_l = derived[name][pr["sep_rank"]]
+            got_l = {k: pr["launches"][k] for k in want_l}
+            if got_l != want_l:
                 fails.append(f"({name}) rank {r}: launches {got_l}, "
-                             f"derived {derived[name]}")
+                             f"derived {want_l}")
             if pr["live_state_bytes"] != pr["planned_bytes"]:
                 fails.append(f"({name}) rank {r}: live state "
                              f"{pr['live_state_bytes']} B, planned "
@@ -5231,14 +5352,26 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
         if pp > 1:
             fails += _pipeline_gates(name, layout, per_rank, m)
         if layout.get("sep", 1) > 1:
-            L = s // layout["sep"] // 2
             shapes = {tuple(x[:4]) for r in per_rank for x in r["blocks"]}
             m["ring_blocks"] = sorted([list(x) for x in shapes])
-            for want in (("K-PACK", L, 2 * L, False),
+            if _naive_ring(layout):
+                c = s // layout["sep"]
+                wants = [("K-PACK", c, c, True), ("K-PACK", c, c, False)]
+            else:
+                L = s // layout["sep"] // 2
+                wants = [("K-PACK", L, 2 * L, False),
                          ("K-PACK", 2 * L, L, False),
-                         ("K-PACK", L, L, False), ("K-PACK", L, L, True)):
+                         ("K-PACK", L, L, False), ("K-PACK", L, L, True)]
+            for want in wants:
                 if want not in shapes:
                     fails.append(f"({name}): no {want} block in the ring")
+        if layout.get("packed_sequences"):
+            m.update(_packed_split(layout, phase, b, s,
+                                   _model_of(family, 1).vocab_size))
+            if len(set(m["real_labels_per_batch_shard"])) < 2:
+                fails.append(f"({name}): every batch shard holds "
+                             f"{m['real_labels_per_batch_shard'][0]} real "
+                             "labels; the global mean is not tested")
         if name in refs:
             ref = refs[name]
             lg = max(abs(a - w) / abs(w) for a, w in
@@ -5252,6 +5385,13 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
             if lg > loss_tol:
                 fails.append(f"({name}) losses {m['losses']} vs one rank "
                              f"{ref['losses']}")
+            if name in SAME_LOSSES and SAME_LOSSES[name] in out:
+                ring = out[SAME_LOSSES[name]]["losses"]
+                m["ring_loss_gap"] = max(abs(a - w) / abs(w) for a, w in
+                                         zip(m["losses"], ring))
+                if m["ring_loss_gap"] > 1e-5:
+                    fails.append(f"({name}) losses {m['losses']} vs the "
+                                 f"ring's ({SAME_LOSSES[name]}) {ring}")
             # the grad norm checks the cross-rank grad sums directly,
             # whatever Adam's eps does to the params
             if gg > 1e-4:
@@ -5265,12 +5405,17 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
                                    for i in range(1, steps)])) * 1e3
             m["step_ms"] = med
             m["tokens_per_s"] = b * s / (med / 1e3)
+            real = ""
+            if layout.get("packed_sequences"):
+                m["real_tokens_per_s"] = (m["tokens_per_s"]
+                                          * m["packing_efficiency"])
+                real = f", {m['real_tokens_per_s']:.0f} real tokens/s"
             if not (m["losses"][-1] < m["losses"][0]
                     and all(np.isfinite(m["losses"]))):
                 fails.append(f"({name}): losses {m['losses']}")
             log(f"  ({name}) step {med:.1f} ms median of steps 2-{steps}, "
-                f"{m['tokens_per_s']:.0f} tokens/s ({world} ranks on one "
-                f"card: not a multi-card rate)")
+                f"{m['tokens_per_s']:.0f} tokens/s{real} ({world} ranks on "
+                f"one card: not a multi-card rate)")
         log(f"  ({name}) " + json.dumps(
             {k: v for k, v in m.items() if k != "launches_per_rank"}))
         out[name] = m
@@ -5284,10 +5429,26 @@ def phase_multirank(counts, runs=None, world=RANKS, threads=2,
         if DEV.type == "cuda" and not gpipe > ours:
             fails.append(f"(e) GPipe's stage-0 peak {gpipe:.3f} GB is not "
                          f"above 1F1B's {ours:.3f} GB")
+    log("  sub-phase seconds (the slowest rank's build, steps and gather): "
+        + json.dumps({k: round(out[k]["s"], 1) for k in runs}))
     require(not fails, f"{label}: " + "; ".join(fails))
     out["s"] = time.perf_counter() - t0
     log(f"  {out['s']:.1f} s")
     return out
+
+
+def _packed_split(layout, seed, b, s, vocab) -> dict:
+    """A packed sub-phase's batch as the mesh cuts it: the real labels
+    (``packed_loss_mask``) each batch shard holds, and the rows' packing
+    efficiency (real tokens over slots)."""
+    from paddle_tpu_torch.parallel.transformer_core import packed_loss_mask
+
+    (_, _, seg, _), eff = packed_rows(seed, b, s, *PACKED_DOCS, vocab)
+    per_row = packed_loss_mask(torch.from_numpy(seg)).sum(1)
+    nb = layout.get("dp", 1) * layout.get("sharding", 1)
+    return {"real_labels_per_batch_shard":
+            [int(x) for x in per_row.reshape(nb, -1).sum(1)],
+            "packing_efficiency": eff}
 
 
 def _pipeline_gates(name, layout, per_rank, m) -> list:

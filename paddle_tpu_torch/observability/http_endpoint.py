@@ -32,7 +32,13 @@ tailing files:
   serving loop keeps running on its own), writes a Chrome trace under
   the obs dir and returns its path, the count of device kernels it
   holds and its recording ``window`` (``time.time()`` when the profiler
-  began and stopped recording). CUPTI records every thread's device activity; the CPU side
+  began and stopped recording). A capture's first launches can lack
+  their kernel records, most in a process that has profiled before. So
+  on CUDA the window opens only once ``_MARKERS`` marker
+  kernels launched inside the recording have run on the card (they take
+  that loss, not the caller's work), and no earlier than the first
+  launch whose kernel record the trace holds; the reply's ``markers``
+  says how many markers the trace holds beside how many were launched. CUPTI records every thread's device activity; the CPU side
   asks for all threads where the installed PyTorch offers it. At most
   ONE capture in flight process-wide (409 while busy), ``secs`` clamped
   to ``_PROFILE_SECS_MAX``, a bad ``secs`` 400.
@@ -63,6 +69,8 @@ ROUTES = ("/metrics", "/healthz", "/debug/compiles", "/debug/requests",
           "/slo", "/dashboard", "/debug/profile")
 
 _PROFILE_SECS_MAX = 60.0   # an unbounded capture would wedge the thread
+_MARKERS = 64              # marker kernels a CUDA capture runs before it opens
+_MARKER_KERNEL = "spin_kernel"   # ``torch.cuda._sleep``'s kernel
 
 
 class ObsHTTPEndpoint:
@@ -92,8 +100,11 @@ class ObsHTTPEndpoint:
         # non-blockingly: the busy reply is 409, never a queued wait
         self._profile_lock = threading.Lock()
         # the newest capture's recording window: ``open`` once the
-        # profiler records, ``close`` once it stops (``time.time()``), so
-        # a caller can wait until a capture it asked for has begun
+        # profiler records (on CUDA: once its marker kernels have run
+        # inside the recording; moved, when the capture ends, to the first
+        # launch whose kernel record the trace holds if that came later),
+        # ``close`` once it stops (``time.time()``), so a caller can wait
+        # until a capture it asked for has begun
         self.profile_window: Dict[str, float] = {}
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -241,9 +252,9 @@ class ObsHTTPEndpoint:
             path = os.path.join(
                 out, f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json")
             window = self.profile_window = {}
-            kernels = _capture(secs, path, window)
+            kernels, markers = _capture(secs, path, window)
             return 200, {"status": "ok", "secs": secs, "path": path,
-                         "device_kernels": kernels,
+                         "device_kernels": kernels, "markers": markers,
                          "window": [window["open"], window["close"]]}
         finally:
             self._profile_lock.release()
@@ -279,13 +290,16 @@ def _heartbeat(path: str, now: float) -> Dict[str, Any]:
     return out
 
 
-def _capture(secs: float, path: str, window: Dict[str, float]) -> int:
+def _capture(secs: float, path: str, window: Dict[str, float]) -> tuple:
     """``torch.profiler`` over ``secs`` seconds of whatever the process
     runs (CPU and, where CUDA is there, CUDA activity); writes the Chrome
-    trace to ``path`` and returns the device kernels it holds. ``window``
-    gets the wall times the recording began (``open``; a first capture
-    in a process starts CUPTI, which takes seconds) and ended
-    (``close``). Where the
+    trace to ``path`` and returns the device kernels it holds and
+    ``[recorded, launched]`` of its marker kernels. ``window`` gets the
+    wall times the recording began (``open``; a first capture in a
+    process starts CUPTI, which takes seconds; on CUDA, once the
+    ``_MARKERS`` marker kernels launched after the profiler started have
+    finished on the card, and no earlier than the first launch the trace
+    holds a kernel record for) and ended (``close``). Where the
     installed PyTorch offers them, every thread's CPU ops are recorded
     and the exit skips building Python events (the trace file is all
     that is read), so the capture holds the GIL as little as it can."""
@@ -293,7 +307,8 @@ def _capture(secs: float, path: str, window: Dict[str, float]) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     kw = {}
     try:
@@ -307,14 +322,42 @@ def _capture(secs: float, path: str, window: Dict[str, float]) -> int:
                 continue
     except ImportError:
         pass    # an older PyTorch: the CPU side sees this thread only
+    launched = _MARKERS if cuda else 0
     with profile(activities=acts, **kw) as prof:
+        if launched:
+            # on a stream of this thread's own, so the wait is for the
+            # markers alone and not for the work the process queued
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for _ in range(launched):
+                    torch.cuda._sleep(1000)
+            stream.synchronize()
         window["open"] = time.time()
         time.sleep(secs)
         window["close"] = time.time()
     prof.export_chrome_trace(path)
+    kernels, markers = _read_trace(path, window)
+    return kernels, [markers, launched]
+
+
+def _read_trace(path: str, window: Dict[str, float]) -> tuple:
+    """A Chrome trace's device kernels and the marker kernels among them;
+    moves ``window["open"]`` to the first launch whose kernel record the
+    trace holds where that came later (the trace's times are
+    microseconds past ``baseTimeNanoseconds``, a wall time)."""
     with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    return sum(1 for e in events if e.get("cat") == "kernel")
+        doc = json.load(f)
+    events = doc.get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    recorded = {e.get("args", {}).get("correlation") for e in kernels}
+    first = min((e["ts"] for e in events if e.get("cat") == "cuda_runtime"
+                 and e.get("args", {}).get("correlation") in recorded),
+                default=None)
+    if first is not None:
+        window["open"] = max(window["open"], doc.get(
+            "baseTimeNanoseconds", 0) / 1e9 + first / 1e6)
+    return len(kernels), sum(1 for e in kernels
+                             if _MARKER_KERNEL in e.get("name", ""))
 
 
 def _dumps(obj: Any) -> bytes:

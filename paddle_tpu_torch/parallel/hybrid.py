@@ -75,10 +75,16 @@ dividing dim). A step:
 
 - :meth:`shard_batch` cuts the global host batch: rows over ``("data",
   "sharding")``, the sequence over ``"sep"``, in zigzag order when it
-  divides by ``2 * sep`` (then the ring is the zigzag ring end to end);
+  divides by ``2 * sep`` and ``ring_attention`` is on (then the ring is
+  the zigzag ring end to end), else in contiguous shards;
+- packed batches (``packed_sequences=True``, with dp, mp and ZeRO 1-3)
+  take this rank's rows of the segment ids and of the positions, which
+  are derived from the global ids before the cut (:meth:`shard_packed`);
 - the family's loss over the rank's shards (tensor parallelism over
-  ``"model"``, ring attention over ``"sep"``, ZeRO-3's per-layer gathers)
-  is the global batch's mean on every rank;
+  ``"model"``, ring attention over ``"sep"``: the zigzag ring, or with
+  ``ring_attention=False`` the naive ring on contiguous shards; ZeRO-3's
+  per-layer gathers) is the global batch's mean on every rank (the
+  packed mean over the global batch's real labels);
 - the grads are summed over ``("data", "sharding", "sep")``: all-reduced
   (ZeRO 1), reduce-scattered over ``"sharding"`` onto the moment's shard
   (ZeRO 2, and ZeRO 3's replicated leaves), or already reduce-scattered
@@ -86,8 +92,11 @@ dividing dim). A step:
 - with ``pp > 1`` the step is a pipeline schedule over ``"pipe"``
   (``parallel.pipeline``; ``micro_batches`` 0 means ``2 * pp``): GPipe
   for ``pp_schedule="gpipe"``, 1F1B, or interleaved 1F1B for ``vpp >
-  1``, each returning the loss and this stage's grads; the sequence ring
-  runs inside each stage. The leaves held by every stage (the
+  1``, each returning the loss and this stage's grads; the sequence
+  ring runs inside each stage. The JAX package's pipeline leaves
+  ``"sep"`` to GSPMD whatever ``ring_attention`` says; the port's ring
+  computes the same function by another mechanism. The leaves held by
+  every stage (the
   embeddings, the final norm, LLaMA's head) get grads on stage 0 and the
   last only, and are summed over ``"pipe"`` as well. ``vpp > 1`` with
   ``pp == 1`` trains as ``pp == 1``, as in the JAX package;
@@ -98,15 +107,14 @@ dividing dim). A step:
   ``"sharding"`` back to the param layout.
 
 The telemetry counts the global batch's tokens and the global params,
-with ``n_devices`` the world, as the JAX package does; with ``http_port``
-every rank serves its own endpoint. Loss scaling and packed sequences
-with ``pp > 1`` raise ``ValueError``, as in the JAX package. Not ported,
-and raising ``NotImplementedError`` naming the slice that brings them:
-``sep > 1`` without ring attention (the JAX package's GSPMD sequence
-sharding), and packed sequences over a mesh. ``TrainerConfig`` keeps
-every field and default of the JAX
-package's; ``compile_ledger`` is accepted and records nothing (PyTorch
-runs eagerly, there is no compile to ledger).
+with ``n_devices`` the world, as the JAX package does (packed batches
+too: every token slot of the global batch); with ``http_port`` every
+rank serves its own endpoint. Loss scaling with ``pp > 1`` and packed
+sequences with ``pp > 1``, with ``sep > 1`` or for LLaMA raise
+``ValueError``, as in the JAX package. ``TrainerConfig`` keeps every
+field and default of the JAX package's; ``compile_ledger`` is accepted
+and records nothing (PyTorch runs eagerly, there is no compile to
+ledger).
 """
 from __future__ import annotations
 
@@ -151,9 +159,6 @@ __all__ = ["DIVERGENCE_EXIT_CODE", "NumericalDivergenceError",
            "DESYNC_EXIT_CODE", "DesyncError",
            "TrainerConfig", "HybridParallelTrainer", "global_norm",
            "adamw_init", "adamw_update", "sanitize_specs"]
-
-# what the next multi-device slice brings (ROADMAP A.6)
-_NEXT_A6 = "a later multi-device slice (ROADMAP A.6)"
 
 # exit code for a script that lets NumericalDivergenceError end it (the
 # JAX package's elastic watcher classifies it as "divergence")
@@ -413,11 +418,6 @@ def _keystr(path) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
-def _not_ported(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet; it comes with {slice_name}")
-
-
 class HybridParallelTrainer:
     """GPT or LLaMA trainer on ``device`` (CUDA unless ``"cpu"`` is asked
     for), over a mesh of ranks when the config asks for one.
@@ -506,8 +506,6 @@ class HybridParallelTrainer:
         if mesh.shape != {a: want[a] for a in mesh.shape}:
             raise ValueError(f"mesh {mesh.shape} does not match the "
                              f"config's axes {want}")
-        if cfg.packed_sequences and mesh.world > 1:
-            _not_ported("packed_sequences over a mesh", _NEXT_A6)
         mp = cfg.mp
         heads = {"num_heads": mcfg.num_heads}
         if self.arch == "llama":
@@ -552,9 +550,6 @@ class HybridParallelTrainer:
                 f"packed_sequences supports the GPT family only (got arch "
                 f"{self.arch!r}): per-segment RoPE reset is not wired "
                 "through the LLaMA core yet")
-        if cfg.sep > 1 and not cfg.ring_attention:
-            _not_ported("sep > 1 without ring attention (the JAX package's "
-                        "GSPMD sequence sharding)", _NEXT_A6)
         core._remat_wrap(None, cfg.remat)   # an unknown policy raises now
 
     # -- the step -----------------------------------------------------------
@@ -605,13 +600,15 @@ class HybridParallelTrainer:
 
     def _ring_for(self, tokens):
         """The ring spec of a local batch: None at sep 1; the end-to-end
-        zigzag ring when the global length divides by ``2 * sep`` (the
-        local one is then even: :meth:`shard_batch` permuted it), else
-        the naive ring."""
+        zigzag ring when ``ring_attention`` is on and the global length
+        divides by ``2 * sep`` (the local one is then even:
+        :meth:`shard_batch` permuted it), else the naive ring on
+        contiguous shards (the JAX package's GSPMD sequence sharding
+        without ``ring_attention`` computes the same function)."""
         n = self.mesh.shape["sep"]
         if n == 1:
             return None
-        if tokens.shape[-1] % 2 == 0:
+        if self.cfg.ring_attention and tokens.shape[-1] % 2 == 0:
             return (self.mesh, "sep", "zigzag")
         return (self.mesh, "sep")
 
@@ -802,14 +799,27 @@ class HybridParallelTrainer:
         mesh, this rank's rows (over ``("data", "sharding")``) and
         sequence shard (over ``"sep"``) of the global batch, the
         sequence first permuted into the zigzag order where its length
-        divides by ``2 * sep`` (the end-to-end zigzag ring)."""
-        def put(x):
-            x = np.asarray(x)
-            if self.mesh is not None:
-                x = self._local_slice(x)
-            return torch.as_tensor(x, dtype=torch.long).to(self.device)
+        divides by ``2 * sep`` and ``ring_attention`` is on (the
+        end-to-end zigzag ring)."""
+        return self._put(tokens, torch.long), self._put(labels, torch.long)
 
-        return put(tokens), put(labels)
+    def shard_packed(self, segment_ids, positions=None):
+        """Packed-mode host ids -> int32 tensors on the trainer's device,
+        cut as :meth:`shard_batch` cuts tokens: ``(segment_ids,
+        positions)``, the positions derived from the GLOBAL ids when
+        missing (before the cut, as the JAX package derives them)."""
+        seg = np.asarray(segment_ids, np.int32)
+        if positions is None:
+            positions = positions_from_segment_ids(seg)
+        return self._put(seg, torch.int32), self._put(positions, torch.int32)
+
+    def _put(self, x, dtype):
+        """A host array as ``dtype`` on the device: over a mesh, this
+        rank's slice of it (:meth:`_local_slice`)."""
+        x = np.asarray(x)
+        if self.mesh is not None:
+            x = self._local_slice(x)
+        return torch.as_tensor(x, dtype=dtype).to(self.device)
 
     def _local_slice(self, x):
         mesh = self.mesh
@@ -818,7 +828,7 @@ class HybridParallelTrainer:
         if b % nb or s % n:
             raise ValueError(f"batch {x.shape} does not divide over the "
                              f"mesh: {nb} batch shards, {n} sequence shards")
-        if n > 1 and s % (2 * n) == 0:
+        if n > 1 and self.cfg.ring_attention and s % (2 * n) == 0:
             x = to_zigzag(x, n, axis=1)
         bi, si = mesh.coord(core.BATCH), mesh.coords["sep"]
         return np.ascontiguousarray(
@@ -827,10 +837,11 @@ class HybridParallelTrainer:
 
     def _packed_extras(self, segment_ids, positions):
         """Validate the packed-mode extras and put them on the device as
-        int32: ``()`` in plain mode, ``(segment_ids, positions)`` in
-        packed mode, with positions derived from the ids when missing.
-        Raises where the call disagrees with ``cfg.packed_sequences``
-        (silently ignoring ids would train across documents)."""
+        int32 (:meth:`shard_packed`): ``()`` in plain mode,
+        ``(segment_ids, positions)`` in packed mode, with positions
+        derived from the ids when missing. Raises where the call
+        disagrees with ``cfg.packed_sequences`` (silently ignoring ids
+        would train across documents)."""
         if not self.cfg.packed_sequences:
             self._no_packed_extras("step()", segment_ids, positions)
             return ()
@@ -838,14 +849,7 @@ class HybridParallelTrainer:
             raise ValueError(
                 "packed_sequences=True: step() needs segment_ids (and "
                 "positions) -- produce batches with io.packing")
-        seg = np.asarray(segment_ids, np.int32)
-        if positions is None:
-            positions = positions_from_segment_ids(seg)
-
-        def put(x):
-            return torch.as_tensor(np.asarray(x, np.int32)).to(self.device)
-
-        return put(seg), put(positions)
+        return self.shard_packed(segment_ids, positions)
 
     def step(self, tokens, labels, segment_ids=None, positions=None):
         t0 = self._step_begin()
@@ -859,8 +863,10 @@ class HybridParallelTrainer:
     def step_presharded(self, tokens_dev, labels_dev, segment_ids_dev=None,
                         positions_dev=None):
         """One train step over batches already on the device (the tight
-        loop of a benchmark); returns the loss as a device tensor. Packed
-        mode takes the device-resident segment ids and positions too."""
+        loop of a benchmark), this rank's shards as :meth:`shard_batch`
+        gives them; returns the loss as a device tensor. Packed mode
+        takes this rank's device-resident segment ids and positions too,
+        as :meth:`shard_packed` gives them."""
         t0 = self._step_begin()
         if self.cfg.packed_sequences:
             if segment_ids_dev is None or positions_dev is None:
@@ -868,6 +874,13 @@ class HybridParallelTrainer:
                     "packed_sequences=True: step_presharded() needs "
                     "device-resident segment_ids and positions")
             extras = (segment_ids_dev, positions_dev)
+            for name, x in zip(("segment_ids", "positions"), extras):
+                if tuple(x.shape) != tuple(tokens_dev.shape):
+                    raise ValueError(
+                        f"step_presharded(): {name} of shape "
+                        f"{tuple(x.shape)} against tokens of shape "
+                        f"{tuple(tokens_dev.shape)}: pass this rank's "
+                        "shards (shard_packed)")
         else:
             self._no_packed_extras("step_presharded()", segment_ids_dev,
                                    positions_dev)

@@ -52,7 +52,11 @@ explicit (Megatron's layout, which GSPMD derives in the JAX package):
 - sequence parallelism over ``"sep"`` with ``ring=(mesh, "sep")`` or,
   for shards in the end-to-end zigzag order, ``(mesh, "sep",
   "zigzag")``: the ring attention of ``ops.ring_attention``, positions
-  taken at this rank's global (zigzag) positions;
+  taken at this rank's global (zigzag or contiguous) positions;
+- packed rows over ``"data"``, ``"sharding"`` and ``"model"``: each
+  rank's rows of the segment ids and positions, K-SEG, K-SDQ and K-SDKV
+  over its ``NH / mp`` heads, and the loss mask's count all-reduced with
+  the sum, so the mean runs over the global batch's real labels;
 - the loss is the mean over every token of the global batch: each
   rank's sum is all-reduced over ``("data", "sharding", "sep")``
   (identity backward), so the trainer sums the ranks' gradients.
@@ -344,8 +348,11 @@ def gpt_embed(cfg, params: Params, tokens, compute_dtype=torch.bfloat16,
               mesh=None, ring=None, positions=None, specs=None):
     """Tokens ``(B, S)`` -> ``(B, S, H)``: the token embedding plus the
     learned positional embedding at positions ``0..S-1``, at this rank's
-    global (zigzag) positions on a ring, or at ``positions`` ``(B, S)``
-    (the packed path resets them at each document start)."""
+    global (zigzag) positions on a sequence-sharded mesh, or at
+    ``positions`` ``(B, S)`` (the packed path resets them at each
+    document start; over a mesh, this rank's rows of the positions
+    derived from the global ids). ``wpe`` is replicated at every ZeRO
+    stage, so each rank's positions index the whole table."""
     wte = _zgather(params["wte"], specs and specs["wte"], mesh)
     x = embed_lookup(cfg, wte, tokens, mesh, compute_dtype)
     if positions is not None:

@@ -41,6 +41,12 @@ per-tick serving and handoff specs take an optional ``"name@"`` prefix
 that restricts them to one replica (the scheduler's ``fi_scope``); an
 unscoped spec fires everywhere. :func:`armed` says whether a point is
 armed at all, so hot loops resolve it once.
+
+Two helpers act directly, for the checkpoint and batch drills:
+:func:`corrupt_checkpoint` damages a committed checkpoint's files (a
+flipped byte, a truncated shard, a lost ``meta.json``) so its integrity
+checks must catch it, and :func:`poison_nan` plants a NaN in a copy of a
+floating-point array.
 """
 from __future__ import annotations
 
@@ -54,7 +60,7 @@ __all__ = ["armed", "nan_at_step", "preempt_at_step", "at_step",
            "rendezvous", "serve_nan_at_tick",
            "serve_slow_tick", "serve_pool_pressure", "router_kill_replica",
            "router_wedge_replica", "handoff_drop", "handoff_partial",
-           "handoff_stall"]
+           "handoff_stall", "poison_nan", "corrupt_checkpoint"]
 
 _ENV = {
     "nan_at_step": "PADDLE_FI_NAN_AT_STEP",
@@ -98,6 +104,54 @@ def _fire_once(marker: str) -> bool:
         return False
     os.close(fd)
     return True
+
+
+def poison_nan(arr, index: int = 0):
+    """Batch-poisoning helper for drills whose inputs are floating
+    point: returns a numpy copy with one NaN planted at flat ``index``.
+    (Token models poison through the trainer's loss multiplier instead:
+    int batches cannot carry a NaN.)"""
+    import numpy as np
+
+    out = np.array(arr, copy=True)
+    if not np.issubdtype(out.dtype, np.floating):
+        raise TypeError(
+            f"cannot plant NaN in dtype {out.dtype}: poison the loss/grads "
+            "via PADDLE_FI_NAN_AT_STEP instead")
+    out.flat[index] = np.nan
+    return out
+
+
+def corrupt_checkpoint(path: str, mode: str = "flip",
+                       target: str | None = None) -> str:
+    """Damage a committed checkpoint so integrity verification must catch
+    it. Modes: ``flip`` (xor the middle byte of a file: a CRC mismatch),
+    ``truncate`` (drop the second half: a size mismatch), ``drop_meta``
+    (delete ``meta.json``). ``target`` names the file (default: the first
+    ``shard-*`` file). Returns the damaged file's path."""
+    if mode == "drop_meta":
+        victim = os.path.join(path, "meta.json")
+        os.remove(victim)
+        return victim
+    if target is None:
+        shards = sorted(n for n in os.listdir(path) if n.startswith("shard-"))
+        if not shards:
+            raise FileNotFoundError(f"no shard files under {path!r}")
+        target = shards[0]
+    victim = os.path.join(path, target)
+    size = os.path.getsize(victim)
+    if mode == "flip":
+        with open(victim, "r+b") as f:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+    elif mode == "truncate":
+        with open(victim, "r+b") as f:
+            f.truncate(max(1, size // 2))
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}")
+    return victim
 
 
 def armed(point: str) -> bool:

@@ -9,8 +9,10 @@ packages: the same state saved by either writes the same files, each
 loads the other's, a JAX trainer's checkpoint resumes in the port
 trainer (step-3 loss within 1e-5 of the JAX trainer's), and the port
 trainer's passes the JAX package's ``verify_checkpoint`` and loads
-through its ``load_state_dict``. The damage is done by the JAX
-package's ``corrupt_checkpoint``, which works on the files alone."""
+through its ``load_state_dict``. The damage is done by the port's
+``utils.fault_injection.corrupt_checkpoint``, which works on the files
+alone and damages them byte for byte as the JAX package's does (held
+here, with ``poison_nan``)."""
 import json
 import os
 import pickle
@@ -26,7 +28,7 @@ import torch
 from paddle_tpu.distributed import checkpoint as jckpt
 from paddle_tpu.models import gpt as JM
 from paddle_tpu.parallel import hybrid as jhybrid
-from paddle_tpu.utils.fault_injection import corrupt_checkpoint
+from paddle_tpu.utils import fault_injection as jfi
 from paddle_tpu_torch.distributed.checkpoint import (CheckpointError,
                                                      CheckpointManager,
                                                      load_state_dict,
@@ -34,6 +36,8 @@ from paddle_tpu_torch.distributed.checkpoint import (CheckpointError,
                                                      verify_checkpoint)
 from paddle_tpu_torch.models import gpt as TM
 from paddle_tpu_torch.parallel import hybrid as thybrid
+from paddle_tpu_torch.utils.fault_injection import (corrupt_checkpoint,
+                                                    poison_nan)
 from paddle_tpu_torch.utils.convert import from_gpt_params
 from paddle_tpu_torch.utils.tree import flatten
 
@@ -438,3 +442,39 @@ def test_from_gpt_params_and_checkpoint_keys_agree():
     assert {k for k in tt._flat_state() if not k.startswith("[")} == {
         "guard/loss_scale", "guard/good_steps", "guard/skip_count",
         "guard/skips_total", "meta/global_step"}
+
+
+@pytest.mark.parametrize("mode", ["flip", "truncate", "drop_meta"])
+def test_corrupt_checkpoint_damages_as_the_jax_one_does(tmp_path, mode):
+    """The port's ``corrupt_checkpoint`` and the JAX package's, each on
+    its own copy of one committed checkpoint, leave the same files
+    holding the same bytes, and name the same file."""
+    roots = {}
+    for side, fn in (("port", corrupt_checkpoint),
+                     ("jax", jfi.corrupt_checkpoint)):
+        mgr = CheckpointManager(str(tmp_path / side))
+        path = mgr.save(_state(seed=3), 1)
+        victim = fn(path, mode=mode)
+        roots[side] = (path, os.path.relpath(victim, path))
+    (pp, pv), (jp, jv) = roots["port"], roots["jax"]
+    assert pv == jv
+    names = sorted(os.listdir(pp))
+    assert names == sorted(os.listdir(jp))
+    for name in names:
+        if os.path.isfile(os.path.join(pp, name)):
+            with open(os.path.join(pp, name), "rb") as a, \
+                    open(os.path.join(jp, name), "rb") as b:
+                assert a.read() == b.read(), name
+    with pytest.raises(ValueError, match="unknown corruption mode"):
+        corrupt_checkpoint(pp, mode="shred")
+
+
+def test_poison_nan_matches_jax():
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    for index in (0, 7):
+        got, want = poison_nan(x, index), jfi.poison_nan(x, index)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert not np.isnan(x).any()
+    for fn in (poison_nan, jfi.poison_nan):
+        with pytest.raises(TypeError, match="PADDLE_FI_NAN_AT_STEP"):
+            fn(np.arange(4))

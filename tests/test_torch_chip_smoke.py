@@ -813,6 +813,14 @@ _TINY_RANKS = {
     "c": ("llama", 2, dict(sep=2, sharding=2, zero_stage=3), (2, 64),
           "float32", 3),
     "d": ("gpt", 2, dict(mp=2, sep=2), (2, 64), "bfloat16", 4),
+    "e": ("gpt", 2, dict(dp=2, mp=2, packed_sequences=True), (4, 64),
+          "float32", 3),
+    "f": ("gpt", 2, dict(mp=2, sep=2, ring_attention=False), (2, 64),
+          "float32", 3),
+    "g": ("llama", 2, dict(sep=2, sharding=2, zero_stage=3,
+                           ring_attention=False), (2, 64), "float32", 3),
+    "h": ("gpt", 2, dict(dp=2, mp=2, packed_sequences=True), (4, 64),
+          "bfloat16", 4),
 }
 
 
@@ -822,11 +830,16 @@ def test_multirank_phase_rehearses_on_cpu(tiny_llama):
     losses and gathered params against the single-rank trainer, the
     launches every rank makes equal to ``ring_launches`` (the plain
     versions counted as the kernels they stand for), the zigzag ring's
-    step_lo and step_hi blocks, live state bytes equal to the plan."""
+    step_lo and step_hi blocks, live state bytes equal to the plan; (e)
+    packed rows over ``dp=2, mp=2`` whose batch shards hold different
+    numbers of real labels, (f) and (g) with ``ring_attention=False``
+    (the naive ring on contiguous shards), held to (a)'s and (c)'s zigzag
+    ring losses too, each rank's launches equal to ``world_launches`` at
+    its rank of ``"sep"``, (h) (e) in bf16."""
     counts = {}
     m = cs.phase_multirank(counts, runs=_TINY_RANKS, threads=1)
     assert m["world"] == 4 and all(m["collectives"].values())
-    for name in ("a", "b", "c"):
+    for name in ("a", "b", "c", "e", "f", "g"):
         assert m[name]["loss_gap"] <= 1e-6, name
         assert m[name]["param_gap"] <= 1e-4, name
     assert m["a"]["derived_launches"] == {"K-PACK": 48, "K-DQ": 24,
@@ -840,6 +853,19 @@ def test_multirank_phase_rehearses_on_cpu(tiny_llama):
     assert m["d"]["losses"][-1] < m["d"]["losses"][0]
     assert m["d"]["step_ms"] > 0
     assert len(set(m["c"]["live_state_bytes"])) == 1
+    assert m["f"]["ring_loss_gap"] <= 1e-5 and m["g"]["ring_loss_gap"] <= 1e-5
+    assert m["e"]["derived_launches"] == {"K-SEG": 12, "K-SDQ": 6,
+                                          "K-SDKV": 6}
+    # (f): rank 0 of "sep" one causal block a layer, rank 1 two
+    assert m["f"]["derived_launches_by_sep_rank"] == [
+        {"K-PACK": 12, "K-DQ": 6, "K-DKV": 6},
+        {"K-PACK": 24, "K-DQ": 12, "K-DKV": 12}]
+    assert counts["phase27_f"]["K-PACK"] == 2 * 12 + 2 * 24
+    assert counts["phase27_e"]["K-SEG"] == 4 * 12
+    assert ["K-PACK", 32, 32, False] in m["g"]["ring_blocks"]
+    assert len(set(m["e"]["real_labels_per_batch_shard"])) == 2
+    assert m["h"]["losses"][-1] < m["h"]["losses"][0]
+    assert m["h"]["real_tokens_per_s"] < m["h"]["tokens_per_s"]
 
 
 # phase 30 at tiny widths: LAUNCH and DESYNC sized for the CPU
@@ -909,6 +935,27 @@ def test_pipe_launches_follow_the_schedules():
                             3, "gpipe")["K-PACK"] == 48
     assert cs.world_launches(4, dict(mp=2, sep=2), 3) == cs.ring_launches(
         4, 2, 3)
+
+
+def test_mesh_launches_follow_the_code():
+    """Packed rows: one K-SEG, K-SDQ and K-SDKV a layer, the forward
+    twice under remat and once where ``names:`` saves it; the naive ring
+    (``ring_attention=False``): 1 + r blocks a layer on rank r of
+    ``"sep"``, in a pipeline too."""
+    packed = dict(dp=2, mp=2, packed_sequences=True)
+    assert cs.mesh_launches(2, packed, 3) == {"K-SEG": 12, "K-SDQ": 6,
+                                              "K-SDKV": 6}
+    assert cs.mesh_launches(
+        2, dict(packed, remat="names:attn_out_kernel,attn_lse"), 3) == {
+        "K-SEG": 6, "K-SDQ": 6, "K-SDKV": 6}
+    naive = dict(sep=4, ring_attention=False)
+    assert [cs.world_launches(2, naive, 3, r)["K-DQ"]
+            for r in range(4)] == [6, 12, 18, 24]
+    assert cs.world_launches(4, dict(naive, sep=2, pp=2), 3, 1) == {
+        k: 2 * v for k, v in cs.pipe_launches(4, 2, 1, 4, 1, True,
+                                              3).items()}
+    assert cs.world_launches(2, dict(sep=2), 3, 1) == cs.ring_launches(
+        2, 2, 3)
 
 
 def test_pipeline_phase_rehearses_on_cpu(tiny_llama):

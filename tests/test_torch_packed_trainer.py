@@ -300,3 +300,26 @@ def test_packed_trainer_rejects_what_jax_rejects(kw, match):
                 mod.HybridParallelTrainer(jax_gpt_tiny(), cfg)
             else:
                 mod.HybridParallelTrainer(gpt_tiny(), cfg, device="cpu")
+
+
+def test_packed_trainer_builds_over_dp_where_jax_builds():
+    """``dp=2`` packed builds in both packages (the port on rank 1 of a
+    dp=2 mesh that needs no world to build), and the port's rank takes
+    its rows of the ids and of the positions derived from the global
+    ids."""
+    from paddle_tpu_torch.distributed.mesh import AXES, Mesh
+
+    jhybrid.HybridParallelTrainer(jax_gpt_tiny(), jhybrid.TrainerConfig(
+        dp=2, packed_sequences=True))
+    sizes = dict.fromkeys(AXES, 1)
+    sizes["data"] = 2
+    mesh = Mesh(sizes, 1, "gloo", torch.device("cpu"), {})
+    t = thybrid.HybridParallelTrainer(
+        gpt_tiny(), thybrid.TrainerConfig(dp=2, packed_sequences=True),
+        device="cpu", mesh=mesh)
+    _, _, seg, pos = _packed(21)
+    got_seg, got_pos = t.shard_packed(seg)
+    half = seg.shape[0] // 2
+    assert np.array_equal(got_seg.numpy(), seg[half:])
+    assert np.array_equal(got_pos.numpy(), pos[half:])
+    assert got_seg.dtype == got_pos.dtype == torch.int32

@@ -328,12 +328,52 @@ def test_scheduler_endpoint_and_wedged_readiness(served):
         assert doc["window"] == [s.http.profile_window["open"],
                                  s.http.profile_window["close"]]
         assert doc["window"][1] - doc["window"][0] >= 0.05
+        # no card: no marker kernels to run before the window opens
+        assert doc["markers"] == [0, 0]
         s.run()
         assert _get(url + "/healthz")[0] == 200
     finally:
         s.stop_http()
     s.stop_http()          # idempotent
     assert s.http is None
+
+
+def test_profile_window_opens_at_the_first_recorded_launch(tmp_path):
+    """The profile capture's trace reader: the device kernels and the
+    marker kernels among them; launches without a kernel record (a
+    capture's first ones can lack it) move the window's opening to the
+    first launch the trace holds a kernel for, never earlier than it
+    was."""
+    from paddle_tpu_torch.observability import http_endpoint as he
+
+    def launch(ts, corr):
+        return {"cat": "cuda_runtime", "ts": ts, "name": "cudaLaunchKernel",
+                "args": {"correlation": corr}}
+
+    def kernel(ts, corr, name):
+        return {"cat": "kernel", "ts": ts, "name": name,
+                "args": {"correlation": corr}}
+
+    events = [launch(100.0, 1), launch(200.0, 2), launch(300.0, 3),
+              kernel(310.0, 3, "spin_kernel(long)"), launch(400.0, 4),
+              kernel(410.0, 4, "paged_split_kernel<1, 64, 1>"),
+              {"cat": "cuda_runtime", "ts": 50.0, "name": "cudaMemcpyAsync",
+               "args": {"correlation": 9}},
+              {"cat": "gpu_memcpy", "ts": 60.0, "name": "Memcpy HtoD",
+               "args": {"correlation": 9}}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"baseTimeNanoseconds": 1_000_000_000_000,
+                                "traceEvents": events}))
+    window = {"open": 1000.0001}
+    assert he._read_trace(str(path), window) == (2, 1)
+    assert window["open"] == pytest.approx(1000.0003, abs=1e-9)
+    window = {"open": 1000.0005}            # records already flowed
+    he._read_trace(str(path), window)
+    assert window["open"] == 1000.0005
+    path.write_text(json.dumps({"traceEvents": events[:3]}))
+    window = {"open": 5.0}                  # no record at all: kept
+    assert he._read_trace(str(path), window) == (0, 0)
+    assert window["open"] == 5.0
 
 
 @pytest.mark.parametrize("keyed", [False, True],

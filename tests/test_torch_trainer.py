@@ -283,13 +283,33 @@ def test_from_gpt_params_rejects_unknown_missing_and_misshapen(jax_params):
     {"mp": 2, "sep": 2, "ring_attention": False}])
 def test_trainer_rejects_what_is_not_ported(kw):
     """sep > 1 without the ring (in a pipeline stage, beside tensor
-    parallelism) raises, naming the slice that brings it (dp, pp,
-    sharding, mp and sep with the ring are ported:
-    ``tests/test_torch_hybrid.py``, ``tests/test_torch_pipeline.py``; the
-    consistency check too: ``tests/test_torch_consistency.py``)."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        thybrid.HybridParallelTrainer(gpt_tiny(), thybrid.TrainerConfig(**kw),
-                                      device="cpu")
+    parallelism), which raised ``NotImplementedError`` until the naive
+    ring took it, now builds (on the last rank of a mesh that needs no
+    world to build): its batches cut in contiguous shards, not in the
+    zigzag order the zigzag ring takes, and its attention the naive ring
+    (dp, pp, sharding, mp and sep with and without the ring
+    train against the JAX trainer in ``tests/test_torch_hybrid.py``,
+    ``tests/test_torch_pipeline.py`` and
+    ``tests/test_torch_mesh_packed.py``)."""
+    from paddle_tpu_torch.distributed.mesh import AXES, Mesh
+
+    sizes = dict.fromkeys(AXES, 1)
+    sizes.update(pipe=kw.get("pp", 1), sep=2, model=kw.get("mp", 1))
+    world = sizes["pipe"] * 2 * sizes["model"]
+    tok = np.arange(64)[None]
+    for ring in (False, True):
+        mesh = Mesh(sizes, world - 1, "gloo", torch.device("cpu"), {})
+        t = thybrid.HybridParallelTrainer(
+            gpt_tiny(), thybrid.TrainerConfig(**{**kw, "ring_attention":
+                                                 ring}),
+            device="cpu", mesh=mesh)
+        got, _ = t.shard_batch(tok, tok)
+        if ring:
+            assert t._ring_for(got) == (mesh, "sep", "zigzag")
+            assert got.tolist() == [list(range(16, 48))]
+        else:
+            assert t._ring_for(got) == (mesh, "sep")
+            assert got.tolist() == [list(range(32, 64))]
 
 
 @pytest.mark.parametrize("family", ["gpt", "llama"])
